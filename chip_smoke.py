@@ -15,7 +15,12 @@ Phases, each printing one JSON line:
    [-3, bins+3) so that drops happen; count and bool-mask results bit-equal,
    float32-weighted within 1e-5 of each bin's sum of |w| (atomics add in no fixed
    order), against a float64 run of the plain version.
-4. main_path: per-pixel Cityscapes evaluation (19 train classes, 1024x2048 images,
+4. segscan_kernel_vs_plain: the segmented multi-scan kernel against its plain
+   version on the card, bit-equal, over k in {1, 2, 3, 4} lanes of mixed ops, int32
+   and int64, flags None / random p=0.01 / every 1000th row / every row, forward and
+   reverse, N in {1, 1000, 1024, 1025, 2^24+17, 89,137,319}; min/max lanes hold the
+   type's extremes.
+5. main_path: per-pixel Cityscapes evaluation (19 train classes, 1024x2048 images,
    ignore label 255, batch 8: N = 2^24 predictions per update) through
    MulticlassAccuracy / MulticlassF1Score (macro), MulticlassJaccardIndex and
    MulticlassConfusionMatrix, three updates of logits drawn on the card from a
@@ -25,9 +30,26 @@ Phases, each printing one JSON line:
    called directly on the card; the float metrics must lie within 1e-6 of a CPU
    run of the port on the same tensors; the kernel's launch count must have grown
    by one per confusion-path update (4 per Cityscapes update).
-5. timing: CUDA-event medians of each metric's update, and of the kernel, its plain
-   version and ``torch.bincount`` (the yardstick, never called by the port) on the
-   Cityscapes mask-path inputs, beside the kernel's bound.
+6. curve_path: exact AUROC / average precision as MLPerf Training's DLRM benchmark
+   evaluates a click model: the Criteo 1TB day-23 evaluation split, 89,137,319
+   samples, in 1,361 updates of 65,536 rows (the last of 8,359), 3% positives,
+   scores sigmoid(N(0,1)) for negatives and sigmoid(N(1.5,1)) for positives rounded
+   through bfloat16, drawn on the card from a seeded generator, into BinaryAUROC(),
+   BinaryAUROC(max_fpr=0.1) and BinaryAveragePrecision(): one scan-kernel launch
+   per compute, 3 in all. Then ImageNet-1k validation: 50,000 x 1,000 softmax
+   scores into MulticlassAUROC / MulticlassAveragePrecision(num_classes=1000): one
+   launch per class, 2,000 in all. Checks: exact launch counts; on the same sorted
+   inputs the kernel's (fps, tps) equal the plain version's bit for bit, and the
+   sort and rank tiers agree bit for bit; AUROC within 1e-5 of a float64
+   Mann-Whitney statistic with tie-averaged ranks, AP and the partial AUC within
+   1e-5 of float64 sums over the run-end counts, all on the card; a CPU run of the
+   port on the first 2^22 rows, and on the ImageNet scores, within 1e-6.
+7. timing: CUDA-event medians of each metric's update (and the curve metrics'
+   compute), and of each kernel, its plain version and a PyTorch yardstick never
+   called by the port (``torch.bincount``; ``torch.cummin`` on each pre-flipped
+   lane) on the main paths' own inputs, beside each kernel's bound; the scan kernel
+   is timed in turns (kernel, plain, library, kernel) and reported from its second
+   turn.
 
 The last three lines are the ``nvidia-smi`` name and power limit, the kernels JSON
 line and ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
@@ -43,6 +65,12 @@ import time
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 CITYSCAPES = {"classes": 19, "batch": 8, "height": 1024, "width": 2048, "ignore_index": 255}
 UPDATES = 3
+# MLPerf Training DLRM: exact ROC AUC over the Criteo 1TB day-23 evaluation split
+DLRM = {"samples": 89_137_319, "batch": 65_536, "positive_rate": 0.03, "positive_shift": 1.5}
+IMAGENET = {"samples": 50_000, "classes": 1_000, "batch": 1_000}
+CPU_CHECK_ROWS = 1 << 22
+SCAN_SIZES = (1, 1000, 1024, 1025, (1 << 24) + 17, DLRM["samples"])
+SCAN_OPS = {1: ("min",), 2: ("min", "min"), 3: ("sum", "min", "max"), 4: ("max", "sum", "min", "sum")}
 
 
 def emit(obj) -> None:
@@ -242,6 +270,297 @@ def phase_main_path(torch, seed: int):
     return gpu, batches[-1], launches
 
 
+def scan_flags(torch, kind: str, n: int, g):
+    if kind == "none":
+        return None
+    if kind == "p01":
+        return torch.rand(n, generator=g, device="cuda") < 0.01
+    if kind == "every1000":
+        return torch.arange(n, device="cuda") % 1000 == 0
+    return torch.ones(n, dtype=torch.bool, device="cuda")
+
+
+def scan_lanes(torch, n: int, dtype, ops, g):
+    """Random lanes; min/max lanes carry the type's extremes (their identities) at 5% each."""
+    info = torch.iinfo(dtype)
+    lanes = []
+    for op in ops:
+        v = torch.randint(-1000, 1000, (n,), generator=g, device="cuda", dtype=dtype)
+        if op != "sum":
+            pick = torch.rand(n, generator=g, device="cuda")
+            v = torch.where(pick < 0.05, info.max, torch.where(pick > 0.95, info.min, v)).to(dtype)
+        lanes.append(v)
+    return lanes
+
+
+def phase_segscan_kernel_vs_plain(torch, seed: int) -> None:
+    from metrics_tpu_torch.ops.segment import _plain_multi_scan, segment_scan_cuda
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 2)
+    checked = 0
+    for n in SCAN_SIZES:
+        for dtype in (torch.int32, torch.int64):
+            for k, ops in SCAN_OPS.items():
+                lanes = scan_lanes(torch, n, dtype, ops, g)
+                for kind in ("none", "p01", "every1000", "all"):
+                    flags = scan_flags(torch, kind, n, g)
+                    for reverse in (False, True):
+                        got = segment_scan_cuda(lanes, flags, ops, reverse)
+                        want = _plain_multi_scan(lanes, flags, ops, reverse)
+                        for lane, (a, b) in enumerate(zip(got, want)):
+                            if a.dtype != dtype or not torch.equal(a, b):
+                                raise AssertionError(
+                                    f"segment scan kernel != plain at n={n} {dtype} k={k} lane={lane} ops={ops}"
+                                    f" flags={kind} reverse={reverse}: {int((a != b).sum())} rows differ"
+                                )
+                        checked += 1
+                del lanes
+    torch.cuda.synchronize()
+    emit({"phase": "segscan_kernel_vs_plain", "comparisons": checked, "sizes": list(SCAN_SIZES)})
+
+
+def dlrm_data(torch, seed: int):
+    """Scores and labels of the Criteo day-23 evaluation split, drawn on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    n = DLRM["samples"]
+    target = (torch.rand(n, generator=g, device="cuda") < DLRM["positive_rate"]).long()
+    z = torch.randn(n, generator=g, device="cuda") + DLRM["positive_shift"] * target
+    # a model served in bf16 emits bf16 scores: long tie runs
+    scores = torch.sigmoid(z).to(torch.bfloat16).to(torch.float32)
+    return scores, target
+
+
+def dlrm_batches(scores, target, rows: int):
+    b = DLRM["batch"]
+    return [(scores[s:min(s + b, rows)], target[s:min(s + b, rows)]) for s in range(0, rows, b)]
+
+
+def curve_metrics(device):
+    from metrics_tpu_torch.classification import BinaryAUROC, BinaryAveragePrecision
+
+    return {
+        "BinaryAUROC": BinaryAUROC(device=device),
+        "BinaryAUROC(max_fpr=0.1)": BinaryAUROC(max_fpr=0.1, device=device),
+        "BinaryAveragePrecision": BinaryAveragePrecision(device=device),
+    }
+
+
+def imagenet_metrics(device):
+    from metrics_tpu_torch.classification import MulticlassAUROC, MulticlassAveragePrecision
+
+    c = IMAGENET["classes"]
+    return {
+        "MulticlassAUROC": MulticlassAUROC(num_classes=c, device=device),
+        "MulticlassAveragePrecision": MulticlassAveragePrecision(num_classes=c, device=device),
+    }
+
+
+def sorted_run_lanes(torch, scores, target):
+    """The sort tier's two scan lanes for all-valid rows, and the sorted positives."""
+    from metrics_tpu_torch.ops.clf_curve import _canonical_zero, _run_end_lanes
+
+    sk, order = torch.sort(_canonical_zero(scores.to(torch.float32)), descending=True)
+    is_pos = target[order] == 1
+    lanes, boundary = _run_end_lanes(sk, is_pos)
+    return lanes, boundary
+
+
+def mann_whitney_auc(torch, scores, target) -> float:
+    """float64 AUROC as the Mann-Whitney U statistic with tie-averaged ranks."""
+    s, order = torch.sort(scores.to(torch.float64))
+    pos = (target[order] == 1).to(torch.float64)
+    _, counts = torch.unique_consecutive(s, return_counts=True)
+    ends = torch.cumsum(counts, 0).to(torch.float64)
+    avg_rank = ends - (counts.to(torch.float64) - 1) / 2
+    run = torch.repeat_interleave(torch.arange(counts.numel(), device=s.device), counts)
+    pos_per_run = torch.zeros(counts.numel(), dtype=torch.float64, device=s.device).index_add_(0, run, pos)
+    p = pos.sum()
+    q = s.numel() - p
+    return float(((pos_per_run * avg_rank).sum() - p * (p + 1) / 2) / (p * q))
+
+
+def run_end_references(torch, fps, tps, boundary, max_fpr: float):
+    """float64 AP and McClish partial AUC from the run-end counts."""
+    t = tps[boundary].to(torch.float64)
+    f = fps[boundary].to(torch.float64)
+    p, q = t[-1], f[-1]
+    prev_t = torch.cat([torch.zeros(1, dtype=torch.float64, device=t.device), t[:-1]])
+    ap = float(((t - prev_t) / p * t / (t + f)).sum())
+    zero = torch.zeros(1, dtype=torch.float64, device=t.device)
+    fpr, tpr = torch.cat([zero, f / q]), torch.cat([zero, t / p])
+    stop = int(torch.searchsorted(fpr, torch.tensor([max_fpr], dtype=torch.float64, device=t.device), right=True))
+    lo, hi = max(stop - 1, 0), min(stop, fpr.numel() - 1)
+    step = float(fpr[hi] - fpr[lo])
+    w = (max_fpr - float(fpr[lo])) / step if step > 0 else 0.0
+    interp = tpr[lo] + w * (tpr[hi] - tpr[lo])
+    x = torch.clamp(fpr, max=max_fpr)
+    y = torch.where(fpr > max_fpr, interp, tpr)
+    partial = float((torch.diff(x) * (y[1:] + y[:-1]) / 2).sum())
+    min_area = 0.5 * max_fpr**2
+    return ap, 0.5 * (1 + (partial - min_area) / (max_fpr - min_area))
+
+
+def phase_curve_path(torch, seed: int):
+    from metrics_tpu_torch.ops.clf_curve import _fps_tps_from_scan, _run_end_counts
+    from metrics_tpu_torch.ops.segment import _plain_multi_scan, segment_scan_cuda
+
+    scores, target = dlrm_data(torch, seed)
+    n = scores.numel()
+    batches = dlrm_batches(scores, target, n)
+    gpu = curve_metrics("cuda")
+    torch.cuda.synchronize()
+
+    segment_scan_cuda.launches = 0  # ---- DLRM path starts
+    t0 = time.perf_counter()
+    for preds, labels in batches:
+        for metric in gpu.values():
+            metric.update(preds, labels)
+    values = {name: metric.compute() for name, metric in gpu.items()}
+    torch.cuda.synchronize()
+    dlrm_s = time.perf_counter() - t0
+    dlrm_launches = segment_scan_cuda.launches  # ---- DLRM path ends
+    if len(batches) != 1361 or batches[-1][0].numel() != 8359:
+        raise AssertionError(f"expected 1361 updates, the last of 8359 rows; got {len(batches)}")
+    if dlrm_launches != len(gpu):
+        raise AssertionError(f"DLRM path launched the scan kernel {dlrm_launches} times, not {len(gpu)}")
+
+    gi = torch.Generator(device="cuda").manual_seed(seed + 3)
+    c, m = IMAGENET["classes"], IMAGENET["samples"]
+    probs = torch.softmax(2.0 * torch.randn((m, c), generator=gi, device="cuda"), dim=1)
+    labels_in = torch.randint(0, c, (m,), generator=gi, device="cuda")
+    imagenet = imagenet_metrics("cuda")
+    torch.cuda.synchronize()
+    segment_scan_cuda.launches = 0  # ---- ImageNet path starts
+    for s in range(0, m, IMAGENET["batch"]):
+        for metric in imagenet.values():
+            metric.update(probs[s:s + IMAGENET["batch"]], labels_in[s:s + IMAGENET["batch"]])
+    imagenet_values = {name: metric.compute() for name, metric in imagenet.items()}
+    torch.cuda.synchronize()
+    imagenet_launches = segment_scan_cuda.launches  # ---- ImageNet path ends
+    if imagenet_launches != len(imagenet) * c:
+        raise AssertionError(f"ImageNet path launched the scan kernel {imagenet_launches} times, not {2 * c}")
+
+    for name, value in {**values, **imagenet_values}.items():
+        if value.shape != () or not bool(torch.isfinite(value)) or not 0.0 <= value.item() <= 1.0:
+            raise AssertionError(f"{name}: expected a finite scalar in [0, 1], got {value}")
+
+    # the same sorted inputs through the kernel and the plain version
+    lanes, boundary = sorted_run_lanes(torch, scores, target)
+    n_valid = torch.tensor(n, dtype=torch.int32, device="cuda")
+    kernel_counts = _fps_tps_from_scan(*segment_scan_cuda(lanes, None, ("min", "min"), True), n_valid)
+    plain_counts = _fps_tps_from_scan(*_plain_multi_scan(lanes, None, ("min", "min"), True), n_valid)
+    if not all(torch.equal(a, b) for a, b in zip(kernel_counts, plain_counts)):
+        raise AssertionError("(fps, tps) through the scan kernel differ from the plain version's")
+    valid = torch.ones(n, dtype=torch.bool, device="cuda")
+    sort_tier = _run_end_counts(scores, target, valid, "sort")
+    rank_tier = _run_end_counts(scores, target, valid, "rank")
+    if not all(torch.equal(a, b) for a, b in zip(sort_tier, rank_tier)):
+        raise AssertionError("the sort and rank tiers differ on the card")
+    if not torch.equal(sort_tier[3], boundary) or not all(torch.equal(a, b) for a, b in zip(sort_tier, kernel_counts)):
+        raise AssertionError("the metric path's run-end counts differ from the sorted inputs' kernel run")
+
+    # float64 references on the card
+    fps, tps = plain_counts
+    auc64 = mann_whitney_auc(torch, scores, target)
+    ap64, pauc64 = run_end_references(torch, fps, tps, boundary, 0.1)
+    refs = {"BinaryAUROC": auc64, "BinaryAUROC(max_fpr=0.1)": pauc64, "BinaryAveragePrecision": ap64}
+    ref_err = {name: abs(values[name].item() - ref) for name, ref in refs.items()}
+    for name, err in ref_err.items():
+        if err > 1e-5:
+            raise AssertionError(f"{name}: {values[name].item()} on the card vs float64 {refs[name]}")
+    del lanes, boundary, kernel_counts, plain_counts, sort_tier, rank_tier, fps, tps
+
+    # a CPU run of the port on the first 2^22 rows, against the card on the same rows
+    cpu_diff = {}
+    small_gpu, small_cpu = curve_metrics("cuda"), curve_metrics("cpu")
+    for preds, labels in dlrm_batches(scores, target, CPU_CHECK_ROWS):
+        preds_cpu, labels_cpu = preds.cpu(), labels.cpu()
+        for name in small_gpu:
+            small_gpu[name].update(preds, labels)
+            small_cpu[name].update(preds_cpu, labels_cpu)
+    imagenet_cpu = imagenet_metrics("cpu")
+    probs_cpu, labels_in_cpu = probs.cpu(), labels_in.cpu()
+    for s in range(0, m, IMAGENET["batch"]):
+        for metric in imagenet_cpu.values():
+            metric.update(probs_cpu[s:s + IMAGENET["batch"]], labels_in_cpu[s:s + IMAGENET["batch"]])
+    pairs = [(f"{k}[:2^22]", small_gpu[k].compute(), small_cpu[k].compute()) for k in small_gpu]
+    pairs += [(k, imagenet_values[k], imagenet_cpu[k].compute()) for k in imagenet]
+    for name, got, want in pairs:
+        cpu_diff[name] = abs(got.item() - want.item())
+        if cpu_diff[name] > 1e-6:
+            raise AssertionError(f"{name}: {got.item()} on the card vs {want.item()} on the CPU")
+
+    emit({
+        "phase": "curve_path",
+        "dlrm": {"samples": n, "updates": len(batches), "positives": int(target.sum()),
+                 "values": {k: v.item() for k, v in values.items()}, "float64_reference": refs,
+                 "abs_err_vs_float64": ref_err, "scan_launches": dlrm_launches, "seconds_incl_validation": dlrm_s},
+        "imagenet": {"samples": m, "classes": c, "values": {k: v.item() for k, v in imagenet_values.items()},
+                     "scan_launches": imagenet_launches},
+        "abs_diff_vs_cpu": cpu_diff,
+    })
+    return gpu, batches[0], imagenet, (probs[:IMAGENET["batch"]], labels_in[:IMAGENET["batch"]]), scores, target, (
+        dlrm_launches + imagenet_launches
+    )
+
+
+def phase_curve_timing(torch, gpu, batch, imagenet, imagenet_batch, scores, target, launches: int, smi: str):
+    from metrics_tpu_torch.ops.segment import _plain_multi_scan, segment_scan_cuda
+
+    def compute_ms(metric, reps):
+        def run():
+            metric._computed = None  # time the computation, not the cached value
+            metric.compute()
+        return event_ms(torch, run, reps=reps, warmup=1)
+
+    timing = {}
+    for name, metric in gpu.items():
+        kwargs = {"max_fpr": metric.max_fpr} if hasattr(metric, "max_fpr") else {}
+        fresh = type(metric)(device="cuda", **kwargs)
+        timing[name] = {"update_ms": event_ms(torch, lambda: fresh.update(*batch), reps=10),
+                        "compute_ms": compute_ms(metric, 5)}
+    for name, metric in imagenet.items():
+        fresh = type(metric)(num_classes=IMAGENET["classes"], device="cuda")
+        timing[name] = {"update_ms": event_ms(torch, lambda: fresh.update(*imagenet_batch), reps=10),
+                        "compute_ms": compute_ms(metric, 3)}
+
+    # the kernel on the DLRM compute's own inputs: 2 int32 min lanes, one segment, reverse;
+    # timed in turns (kernel, plain, library, kernel): the plain version and torch.cummin
+    # scan a 1-D tensor in ~0.5 s each, so they take fewer repetitions
+    lanes, _ = sorted_run_lanes(torch, scores, target)
+    ops = ("min", "min")
+    flipped = [lane.flip(0).contiguous() for lane in lanes]
+    kernel_first_ms = event_ms(torch, lambda: segment_scan_cuda(lanes, None, ops, True), warmup=10)
+    plain_ms = event_ms(torch, lambda: _plain_multi_scan(lanes, None, ops, True), reps=5, warmup=1)
+    library_ms = event_ms(torch, lambda: [torch.cummin(f, 0) for f in flipped], reps=5, warmup=1)
+    kernel_ms = event_ms(torch, lambda: segment_scan_cuda(lanes, None, ops, True), warmup=10)
+    got = segment_scan_cuda(lanes, None, ops, True)
+    want = _plain_multi_scan(lanes, None, ops, True)
+    lib = [torch.cummin(f, 0).values.flip(0) for f in flipped]
+    max_abs_err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(got, want))
+    if max_abs_err != 0 or not all(torch.equal(a, c) for a, c in zip(want, lib)):
+        raise AssertionError("scan kernel, plain version and torch.cummin disagree on the curve-path inputs")
+    n, k = lanes[0].numel(), len(lanes)
+    bound_ms = n * k * 2 * lanes[0].element_size() / HBM_BYTES_PER_S * 1e3
+    emit({"phase": "curve_timing", "card": smi, "metrics": timing,
+          "segment_scan": {"n": n, "lanes": k, "kernel_ms": kernel_ms, "kernel_ms_first_turn": kernel_first_ms,
+                           "plain_ms": plain_ms, "torch_cummin_ms": library_ms, "bound_ms": bound_ms,
+                           "kernel_share_of_bound": bound_ms / kernel_ms}})
+    return {
+        "name": "segment_scan",
+        "route": "cuda",
+        "source": "metrics_tpu_torch/csrc/segment_scan.cu",
+        "replaces": "metrics_tpu/ops/segment.py:304",
+        "launches": launches,
+        "max_abs_err": max_abs_err,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes",
+        "library_ms": library_ms,
+    }
+
+
 def phase_timing(torch, gpu, batch, launches: int, smi: str):
     from metrics_tpu_torch.ops.histogram import _plain_bincount, histogram_cuda
 
@@ -305,8 +624,12 @@ def main() -> int:
     smi = phase_device(torch)
     phase_build()
     phase_kernel_vs_plain(torch, args.seed)
+    phase_segscan_kernel_vs_plain(torch, args.seed)
     gpu, batch, launches = phase_main_path(torch, args.seed)
+    curve = phase_curve_path(torch, args.seed)
     kernels = phase_timing(torch, gpu, batch, launches, smi)
+    del gpu, batch
+    kernels.append(phase_curve_timing(torch, *curve, smi))
 
     print(smi)
     emit({"kernels": kernels})

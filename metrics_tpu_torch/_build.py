@@ -21,7 +21,10 @@ PACKAGE_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 # one entry per kernel source; later kernels add theirs here
-KERNEL_SOURCES = {"histogram": CSRC_DIR / "histogram.cu"}
+KERNEL_SOURCES = {
+    "histogram": CSRC_DIR / "histogram.cu",
+    "segment_scan": CSRC_DIR / "segment_scan.cu",
+}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 _LOCK = threading.Lock()

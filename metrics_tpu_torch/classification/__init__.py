@@ -4,6 +4,13 @@ from metrics_tpu_torch.classification.accuracy import (
     MulticlassAccuracy,
     MultilabelAccuracy,
 )
+from metrics_tpu_torch.classification.auroc import AUROC, BinaryAUROC, MulticlassAUROC, MultilabelAUROC
+from metrics_tpu_torch.classification.average_precision import (
+    AveragePrecision,
+    BinaryAveragePrecision,
+    MulticlassAveragePrecision,
+    MultilabelAveragePrecision,
+)
 from metrics_tpu_torch.classification.confusion_matrix import (
     BinaryConfusionMatrix,
     ConfusionMatrix,
@@ -36,6 +43,13 @@ from metrics_tpu_torch.classification.precision_recall import (
     Precision,
     Recall,
 )
+from metrics_tpu_torch.classification.precision_recall_curve import (
+    BinaryPrecisionRecallCurve,
+    MulticlassPrecisionRecallCurve,
+    MultilabelPrecisionRecallCurve,
+    PrecisionRecallCurve,
+)
+from metrics_tpu_torch.classification.roc import ROC, BinaryROC, MulticlassROC, MultilabelROC
 from metrics_tpu_torch.classification.stat_scores import (
     BinaryStatScores,
     MulticlassStatScores,
@@ -45,11 +59,16 @@ from metrics_tpu_torch.classification.stat_scores import (
 
 __all__ = [
     "Accuracy", "BinaryAccuracy", "MulticlassAccuracy", "MultilabelAccuracy",
+    "AUROC", "BinaryAUROC", "MulticlassAUROC", "MultilabelAUROC",
+    "AveragePrecision", "BinaryAveragePrecision", "MulticlassAveragePrecision", "MultilabelAveragePrecision",
     "BinaryConfusionMatrix", "ConfusionMatrix", "MulticlassConfusionMatrix", "MultilabelConfusionMatrix",
     "BinaryF1Score", "BinaryFBetaScore", "F1Score", "FBetaScore", "MulticlassF1Score", "MulticlassFBetaScore",
     "MultilabelF1Score", "MultilabelFBetaScore",
     "BinaryJaccardIndex", "JaccardIndex", "MulticlassJaccardIndex", "MultilabelJaccardIndex",
     "BinaryPrecision", "BinaryRecall", "MulticlassPrecision", "MulticlassRecall", "MultilabelPrecision",
     "MultilabelRecall", "Precision", "Recall",
+    "BinaryPrecisionRecallCurve", "MulticlassPrecisionRecallCurve", "MultilabelPrecisionRecallCurve",
+    "PrecisionRecallCurve",
+    "BinaryROC", "MulticlassROC", "MultilabelROC", "ROC",
     "BinaryStatScores", "MulticlassStatScores", "MultilabelStatScores", "StatScores",
 ]

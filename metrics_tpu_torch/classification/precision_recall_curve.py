@@ -1,0 +1,229 @@
+"""Precision-recall curve metric classes (counterpart of
+``metrics_tpu/classification/precision_recall_curve.py``).
+
+State: ``preds``/``target`` cat lists of the formatted scores and targets
+(``thresholds=None``, exact mode), or one summed ``(T, ..., 2, 2)`` int64
+``confmat`` (binned mode). The JAX package's third mode, per-class bucket
+histograms behind ``tolerance > 0`` (its sketch tier), is not ported: the knobs
+keep their defaults and validation, and a scalar AUROC/AP class asked for
+``tolerance > 0`` raises ``NotImplementedError``.
+"""
+from typing import Any, List, Optional, Tuple, Union
+
+import torch
+from torch import Tensor
+
+from metrics_tpu_torch.core.metric import Metric
+from metrics_tpu_torch.functional.classification.precision_recall_curve import (
+    Thresholds,
+    _adjust_threshold_arg,
+    _binary_precision_recall_curve_arg_validation,
+    _binary_precision_recall_curve_compute,
+    _binary_precision_recall_curve_format,
+    _binary_precision_recall_curve_tensor_validation,
+    _binary_precision_recall_curve_update,
+    _multiclass_precision_recall_curve_arg_validation,
+    _multiclass_precision_recall_curve_compute,
+    _multiclass_precision_recall_curve_format,
+    _multiclass_precision_recall_curve_tensor_validation,
+    _multiclass_precision_recall_curve_update,
+    _multilabel_precision_recall_curve_arg_validation,
+    _multilabel_precision_recall_curve_compute,
+    _multilabel_precision_recall_curve_format,
+    _multilabel_precision_recall_curve_tensor_validation,
+    _multilabel_precision_recall_curve_update,
+)
+from metrics_tpu_torch.utils.data import _count_dtype, dim_zero_cat
+from metrics_tpu_torch.utils.enums import ClassificationTask
+
+
+class _PrecisionRecallCurveBase(Metric):
+    """Shared state handling of the curve family: exact cat lists or a binned confmat."""
+
+    # the scalar AUROC/AP subclasses are the ones the JAX package's sketch tier serves
+    _sketch_computable: bool = False
+
+    def _init_curve_state(
+        self, thresholds: Thresholds, tolerance: float, tolerance_bits: int, confmat_shape: Tuple[int, ...]
+    ) -> None:
+        """Validate the tolerance knobs as the JAX package does, then register the states.
+
+        ``confmat_shape`` is the per-threshold shape of the binned confusion tensor.
+        """
+        self.tolerance = float(tolerance)
+        self.tolerance_bits = int(tolerance_bits)
+        if self.tolerance < 0:
+            raise ValueError(f"Expected argument `tolerance` to be non-negative, but got {tolerance}")
+        if not 4 <= self.tolerance_bits <= 14:
+            raise ValueError(f"Expected argument `tolerance_bits` to be an int in [4, 14], but got {tolerance_bits}")
+        if self.tolerance > 0:
+            if not self._sketch_computable:
+                raise ValueError(
+                    "`tolerance > 0` requires a scalar sketch-computable metric (AUROC / AveragePrecision); "
+                    f"{self.__class__.__name__} emits curve-shaped outputs that need the exact state."
+                )
+            if thresholds is not None:
+                raise ValueError(
+                    "`tolerance > 0` applies to exact mode only — binned mode (`thresholds` set) "
+                    "is already constant-memory."
+                )
+            raise NotImplementedError("tolerance > 0 routes to the sketch tier, which is not ported yet")
+        thresholds = _adjust_threshold_arg(thresholds, self.device)
+        self.register_buffer("thresholds", thresholds, persistent=False)
+        if thresholds is None:
+            self.add_state("preds", [], dist_reduce_fx="cat")
+            self.add_state("target", [], dist_reduce_fx="cat")
+        else:
+            self.add_state(
+                "confmat", torch.zeros((len(thresholds), *confmat_shape), dtype=_count_dtype()), dist_reduce_fx="sum"
+            )
+
+    def _accumulate(self, state: Union[Tensor, Tuple[Tensor, Tensor]]) -> None:
+        if isinstance(state, tuple):
+            self.preds.append(state[0])
+            self.target.append(state[1])
+        else:
+            self.confmat = self.confmat + state
+
+    def _curve_state(self) -> Union[Tensor, Tuple[Tensor, Tensor]]:
+        """The binned confusion tensor, or the concatenated exact (preds, target)."""
+        if self.thresholds is None:
+            return dim_zero_cat(self.preds), dim_zero_cat(self.target)
+        return self.confmat
+
+
+class BinaryPrecisionRecallCurve(_PrecisionRecallCurveBase):
+    """Binary precision-recall curve: ``(precision, recall, thresholds)``."""
+
+    is_differentiable: bool = False
+    higher_is_better: Optional[bool] = None
+    full_state_update: bool = False
+
+    def __init__(
+        self,
+        thresholds: Thresholds = None,
+        ignore_index: Optional[int] = None,
+        validate_args: bool = True,
+        tolerance: float = 0.0,
+        tolerance_bits: int = 12,
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(**kwargs)
+        if validate_args:
+            _binary_precision_recall_curve_arg_validation(thresholds, ignore_index)
+        self.ignore_index = ignore_index
+        self.validate_args = validate_args
+        self._init_curve_state(thresholds, tolerance, tolerance_bits, (2, 2))
+
+    def update(self, preds: Tensor, target: Tensor) -> None:
+        if self.validate_args:
+            _binary_precision_recall_curve_tensor_validation(preds, target, self.ignore_index)
+        preds, target, _ = _binary_precision_recall_curve_format(preds, target, None, self.ignore_index)
+        self._accumulate(_binary_precision_recall_curve_update(preds, target, self.thresholds))
+
+    def compute(self) -> Tuple[Tensor, Tensor, Tensor]:
+        return _binary_precision_recall_curve_compute(self._curve_state(), self.thresholds)
+
+
+class MulticlassPrecisionRecallCurve(_PrecisionRecallCurveBase):
+    """Multiclass precision-recall curves, one-vs-rest per class."""
+
+    is_differentiable: bool = False
+    higher_is_better: Optional[bool] = None
+    full_state_update: bool = False
+
+    def __init__(
+        self,
+        num_classes: int,
+        thresholds: Thresholds = None,
+        ignore_index: Optional[int] = None,
+        validate_args: bool = True,
+        tolerance: float = 0.0,
+        tolerance_bits: int = 12,
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(**kwargs)
+        if validate_args:
+            _multiclass_precision_recall_curve_arg_validation(num_classes, thresholds, ignore_index)
+        self.num_classes = num_classes
+        self.ignore_index = ignore_index
+        self.validate_args = validate_args
+        self._init_curve_state(thresholds, tolerance, tolerance_bits, (num_classes, 2, 2))
+
+    def update(self, preds: Tensor, target: Tensor) -> None:
+        if self.validate_args:
+            _multiclass_precision_recall_curve_tensor_validation(preds, target, self.num_classes, self.ignore_index)
+        preds, target, _ = _multiclass_precision_recall_curve_format(
+            preds, target, self.num_classes, None, self.ignore_index
+        )
+        self._accumulate(_multiclass_precision_recall_curve_update(preds, target, self.num_classes, self.thresholds))
+
+    def compute(self) -> Union[Tuple[Tensor, Tensor, Tensor], Tuple[List[Tensor], List[Tensor], List[Tensor]]]:
+        return _multiclass_precision_recall_curve_compute(self._curve_state(), self.num_classes, self.thresholds)
+
+
+class MultilabelPrecisionRecallCurve(_PrecisionRecallCurveBase):
+    """Multilabel precision-recall curves, one per label."""
+
+    is_differentiable: bool = False
+    higher_is_better: Optional[bool] = None
+    full_state_update: bool = False
+
+    def __init__(
+        self,
+        num_labels: int,
+        thresholds: Thresholds = None,
+        ignore_index: Optional[int] = None,
+        validate_args: bool = True,
+        tolerance: float = 0.0,
+        tolerance_bits: int = 12,
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(**kwargs)
+        if validate_args:
+            _multilabel_precision_recall_curve_arg_validation(num_labels, thresholds, ignore_index)
+        self.num_labels = num_labels
+        self.ignore_index = ignore_index
+        self.validate_args = validate_args
+        self._init_curve_state(thresholds, tolerance, tolerance_bits, (num_labels, 2, 2))
+
+    def update(self, preds: Tensor, target: Tensor) -> None:
+        if self.validate_args:
+            _multilabel_precision_recall_curve_tensor_validation(preds, target, self.num_labels, self.ignore_index)
+        preds, target, _ = _multilabel_precision_recall_curve_format(
+            preds, target, self.num_labels, None, self.ignore_index
+        )
+        self._accumulate(_multilabel_precision_recall_curve_update(preds, target, self.num_labels, self.thresholds))
+
+    def compute(self) -> Union[Tuple[Tensor, Tensor, Tensor], Tuple[List[Tensor], List[Tensor], List[Tensor]]]:
+        return _multilabel_precision_recall_curve_compute(
+            self._curve_state(), self.num_labels, self.thresholds, self.ignore_index
+        )
+
+
+class PrecisionRecallCurve:
+    """Task dispatcher."""
+
+    def __new__(  # type: ignore[misc]
+        cls,
+        task: str,
+        thresholds: Thresholds = None,
+        num_classes: Optional[int] = None,
+        num_labels: Optional[int] = None,
+        ignore_index: Optional[int] = None,
+        validate_args: bool = True,
+        **kwargs: Any,
+    ) -> Metric:
+        task = ClassificationTask.from_str(task)
+        kwargs.update({"thresholds": thresholds, "ignore_index": ignore_index, "validate_args": validate_args})
+        if task == ClassificationTask.BINARY:
+            return BinaryPrecisionRecallCurve(**kwargs)
+        if task == ClassificationTask.MULTICLASS:
+            if not isinstance(num_classes, int):
+                raise ValueError(f"`num_classes` is expected to be `int` but `{type(num_classes)} was passed.`")
+            return MulticlassPrecisionRecallCurve(num_classes, **kwargs)
+        if task == ClassificationTask.MULTILABEL:
+            if not isinstance(num_labels, int):
+                raise ValueError(f"`num_labels` is expected to be `int` but `{type(num_labels)} was passed.`")
+            return MultilabelPrecisionRecallCurve(num_labels, **kwargs)
+        raise ValueError(f"Not handled value: {task}")

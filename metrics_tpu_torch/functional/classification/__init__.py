@@ -4,6 +4,13 @@ from metrics_tpu_torch.functional.classification.accuracy import (
     multiclass_accuracy,
     multilabel_accuracy,
 )
+from metrics_tpu_torch.functional.classification.auroc import auroc, binary_auroc, multiclass_auroc, multilabel_auroc
+from metrics_tpu_torch.functional.classification.average_precision import (
+    average_precision,
+    binary_average_precision,
+    multiclass_average_precision,
+    multilabel_average_precision,
+)
 from metrics_tpu_torch.functional.classification.confusion_matrix import (
     binary_confusion_matrix,
     confusion_matrix,
@@ -36,6 +43,13 @@ from metrics_tpu_torch.functional.classification.precision_recall import (
     precision,
     recall,
 )
+from metrics_tpu_torch.functional.classification.precision_recall_curve import (
+    binary_precision_recall_curve,
+    multiclass_precision_recall_curve,
+    multilabel_precision_recall_curve,
+    precision_recall_curve,
+)
+from metrics_tpu_torch.functional.classification.roc import binary_roc, multiclass_roc, multilabel_roc, roc
 from metrics_tpu_torch.functional.classification.stat_scores import (
     binary_stat_scores,
     multiclass_stat_scores,
@@ -45,11 +59,16 @@ from metrics_tpu_torch.functional.classification.stat_scores import (
 
 __all__ = [
     "accuracy", "binary_accuracy", "multiclass_accuracy", "multilabel_accuracy",
+    "auroc", "binary_auroc", "multiclass_auroc", "multilabel_auroc",
+    "average_precision", "binary_average_precision", "multiclass_average_precision", "multilabel_average_precision",
     "binary_confusion_matrix", "confusion_matrix", "multiclass_confusion_matrix", "multilabel_confusion_matrix",
     "binary_f1_score", "binary_fbeta_score", "f1_score", "fbeta_score", "multiclass_f1_score",
     "multiclass_fbeta_score", "multilabel_f1_score", "multilabel_fbeta_score",
     "binary_jaccard_index", "jaccard_index", "multiclass_jaccard_index", "multilabel_jaccard_index",
     "binary_precision", "binary_recall", "multiclass_precision", "multiclass_recall", "multilabel_precision",
     "multilabel_recall", "precision", "recall",
+    "binary_precision_recall_curve", "multiclass_precision_recall_curve", "multilabel_precision_recall_curve",
+    "precision_recall_curve",
+    "binary_roc", "multiclass_roc", "multilabel_roc", "roc",
     "binary_stat_scores", "multiclass_stat_scores", "multilabel_stat_scores", "stat_scores",
 ]

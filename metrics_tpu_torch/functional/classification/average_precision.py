@@ -1,0 +1,218 @@
+"""Average precision functionals (counterpart of
+``metrics_tpu/functional/classification/average_precision.py``).
+
+Exact mode runs the device kernels of :mod:`metrics_tpu_torch.ops.clf_curve`;
+binned mode takes the Riemann sum over the precision-recall curve of the confusion
+tensor. ``tolerance > 0`` raises ``NotImplementedError`` (sketch tier not ported).
+"""
+from typing import List, Optional, Tuple, Union
+
+import torch
+from torch import Tensor
+
+from metrics_tpu_torch.functional.classification.auroc import _reduce_scores
+from metrics_tpu_torch.functional.classification.precision_recall_curve import (
+    Thresholds,
+    _binary_precision_recall_curve_arg_validation,
+    _binary_precision_recall_curve_compute,
+    _binary_precision_recall_curve_format,
+    _binary_precision_recall_curve_tensor_validation,
+    _binary_precision_recall_curve_update,
+    _is_confmat_state,
+    _multiclass_precision_recall_curve_arg_validation,
+    _multiclass_precision_recall_curve_compute,
+    _multiclass_precision_recall_curve_format,
+    _multiclass_precision_recall_curve_tensor_validation,
+    _multiclass_precision_recall_curve_update,
+    _multilabel_precision_recall_curve_arg_validation,
+    _multilabel_precision_recall_curve_compute,
+    _multilabel_precision_recall_curve_format,
+    _multilabel_precision_recall_curve_tensor_validation,
+    _multilabel_precision_recall_curve_update,
+)
+from metrics_tpu_torch.functional.classification.stat_scores import _as_inputs
+from metrics_tpu_torch.ops.clf_curve import (
+    binary_average_precision_exact,
+    multiclass_average_precision_exact,
+    multilabel_average_precision_exact,
+)
+from metrics_tpu_torch.utils.enums import ClassificationTask
+
+
+def _reduce_average_precision(
+    precision: Union[Tensor, List[Tensor]],
+    recall: Union[Tensor, List[Tensor]],
+    average: Optional[str] = "macro",
+    weights: Optional[Tensor] = None,
+) -> Tensor:
+    """Per-class AP from the curves, reduced like AUROC."""
+    if isinstance(precision, Tensor):
+        res = -torch.sum((recall[:, 1:] - recall[:, :-1]) * precision[:, :-1], dim=1)
+    else:
+        res = torch.stack([-torch.sum((r[1:] - r[:-1]) * p[:-1]) for p, r in zip(precision, recall)])
+    return _reduce_scores(res, average, weights)
+
+
+def _binary_average_precision_compute(
+    state: Union[Tensor, Tuple[Tensor, Tensor]],
+    thresholds: Optional[Tensor],
+    tolerance: float = 0.0,
+    tolerance_bits: int = 12,
+) -> Tensor:
+    if not _is_confmat_state(state):
+        return binary_average_precision_exact(state[0], state[1], tolerance=tolerance, tolerance_bits=tolerance_bits)
+    precision, recall, _ = _binary_precision_recall_curve_compute(state, thresholds)
+    return -torch.sum((recall[1:] - recall[:-1]) * precision[:-1])
+
+
+def binary_average_precision(
+    preds,
+    target,
+    thresholds: Thresholds = None,
+    ignore_index: Optional[int] = None,
+    validate_args: bool = True,
+    tolerance: float = 0.0,
+    tolerance_bits: int = 12,
+    device=None,
+) -> Tensor:
+    """Binary average precision; NaN when there is no positive."""
+    preds, target = _as_inputs(preds, target, device)
+    if validate_args:
+        _binary_precision_recall_curve_arg_validation(thresholds, ignore_index)
+        _binary_precision_recall_curve_tensor_validation(preds, target, ignore_index)
+    preds, target, thresholds = _binary_precision_recall_curve_format(preds, target, thresholds, ignore_index)
+    state = _binary_precision_recall_curve_update(preds, target, thresholds)
+    return _binary_average_precision_compute(state, thresholds, tolerance=tolerance, tolerance_bits=tolerance_bits)
+
+
+def _multiclass_average_precision_arg_validation(
+    num_classes: int,
+    average: Optional[str] = "macro",
+    thresholds: Thresholds = None,
+    ignore_index: Optional[int] = None,
+) -> None:
+    _multiclass_precision_recall_curve_arg_validation(num_classes, thresholds, ignore_index)
+    if average not in ("macro", "weighted", "none", None):
+        raise ValueError(
+            f"Expected argument `average` to be one of ('macro', 'weighted', 'none', None), but got {average}"
+        )
+
+
+def _multiclass_average_precision_compute(
+    state: Union[Tensor, Tuple[Tensor, Tensor]],
+    num_classes: int,
+    average: Optional[str] = "macro",
+    thresholds: Optional[Tensor] = None,
+) -> Tensor:
+    if thresholds is None:
+        res, pos = multiclass_average_precision_exact(state[0], state[1])
+        return _reduce_scores(res, average, weights=pos)
+    precision, recall, _ = _multiclass_precision_recall_curve_compute(state, num_classes, thresholds)
+    return _reduce_average_precision(precision, recall, average, weights=state[0][:, 1, :].sum(-1).to(torch.float32))
+
+
+def multiclass_average_precision(
+    preds,
+    target,
+    num_classes: int,
+    average: Optional[str] = "macro",
+    thresholds: Thresholds = None,
+    ignore_index: Optional[int] = None,
+    validate_args: bool = True,
+    device=None,
+) -> Tensor:
+    """Multiclass average precision, one-vs-rest per class, then ``average``."""
+    preds, target = _as_inputs(preds, target, device)
+    if validate_args:
+        _multiclass_average_precision_arg_validation(num_classes, average, thresholds, ignore_index)
+        _multiclass_precision_recall_curve_tensor_validation(preds, target, num_classes, ignore_index)
+    preds, target, thresholds = _multiclass_precision_recall_curve_format(
+        preds, target, num_classes, thresholds, ignore_index
+    )
+    state = _multiclass_precision_recall_curve_update(preds, target, num_classes, thresholds)
+    return _multiclass_average_precision_compute(state, num_classes, average, thresholds)
+
+
+def _multilabel_average_precision_arg_validation(
+    num_labels: int,
+    average: Optional[str],
+    thresholds: Thresholds = None,
+    ignore_index: Optional[int] = None,
+) -> None:
+    _multilabel_precision_recall_curve_arg_validation(num_labels, thresholds, ignore_index)
+    if average not in ("micro", "macro", "weighted", "none", None):
+        raise ValueError(
+            f"Expected argument `average` to be one of ('micro', 'macro', 'weighted', 'none', None), but got {average}"
+        )
+
+
+def _multilabel_average_precision_compute(
+    state: Union[Tensor, Tuple[Tensor, Tensor]],
+    num_labels: int,
+    average: Optional[str],
+    thresholds: Optional[Tensor],
+    ignore_index: Optional[int] = None,
+) -> Tensor:
+    if average == "micro":
+        if _is_confmat_state(state) and thresholds is not None:
+            return _binary_average_precision_compute(state.sum(1), thresholds)
+        return _binary_average_precision_compute((state[0].reshape(-1), state[1].reshape(-1)), thresholds)
+
+    if thresholds is None:
+        res, pos = multilabel_average_precision_exact(state[0], state[1])
+        return _reduce_scores(res, average, weights=pos)
+    precision, recall, _ = _multilabel_precision_recall_curve_compute(state, num_labels, thresholds, ignore_index)
+    return _reduce_average_precision(precision, recall, average, weights=state[0][:, 1, :].sum(-1).to(torch.float32))
+
+
+def multilabel_average_precision(
+    preds,
+    target,
+    num_labels: int,
+    average: Optional[str] = "macro",
+    thresholds: Thresholds = None,
+    ignore_index: Optional[int] = None,
+    validate_args: bool = True,
+    device=None,
+) -> Tensor:
+    """Multilabel average precision, one per label, then ``average``."""
+    preds, target = _as_inputs(preds, target, device)
+    if validate_args:
+        _multilabel_average_precision_arg_validation(num_labels, average, thresholds, ignore_index)
+        _multilabel_precision_recall_curve_tensor_validation(preds, target, num_labels, ignore_index)
+    preds, target, thresholds = _multilabel_precision_recall_curve_format(
+        preds, target, num_labels, thresholds, ignore_index
+    )
+    state = _multilabel_precision_recall_curve_update(preds, target, num_labels, thresholds)
+    return _multilabel_average_precision_compute(state, num_labels, average, thresholds, ignore_index)
+
+
+def average_precision(
+    preds,
+    target,
+    task: str,
+    thresholds: Thresholds = None,
+    num_classes: Optional[int] = None,
+    num_labels: Optional[int] = None,
+    average: Optional[str] = "macro",
+    ignore_index: Optional[int] = None,
+    validate_args: bool = True,
+    device=None,
+) -> Tensor:
+    """Task dispatcher."""
+    task = ClassificationTask.from_str(task)
+    if task == ClassificationTask.BINARY:
+        return binary_average_precision(preds, target, thresholds, ignore_index, validate_args, device=device)
+    if task == ClassificationTask.MULTICLASS:
+        if not isinstance(num_classes, int):
+            raise ValueError(f"`num_classes` is expected to be `int` but `{type(num_classes)} was passed.`")
+        return multiclass_average_precision(
+            preds, target, num_classes, average, thresholds, ignore_index, validate_args, device
+        )
+    if task == ClassificationTask.MULTILABEL:
+        if not isinstance(num_labels, int):
+            raise ValueError(f"`num_labels` is expected to be `int` but `{type(num_labels)} was passed.`")
+        return multilabel_average_precision(
+            preds, target, num_labels, average, thresholds, ignore_index, validate_args, device
+        )
+    raise ValueError(f"Not handled value: {task}")

@@ -35,6 +35,12 @@ def _sigmoid_if_logits(preds: Tensor) -> Tensor:
     return torch.where(is_prob, preds, torch.sigmoid(preds))
 
 
+def _softmax_if_logits(preds: Tensor, dim: int = 1) -> Tensor:
+    """Apply softmax along ``dim`` iff any value is outside [0, 1], without a host round trip."""
+    is_prob = torch.all((preds >= 0) & (preds <= 1))
+    return torch.where(is_prob, preds, torch.softmax(preds, dim=dim))
+
+
 def _as_inputs(preds, target, device) -> Tuple[Tensor, Tensor]:
     preds = to_tensor(preds, device)
     return preds, to_tensor(target, preds.device)

@@ -1,0 +1,243 @@
+"""Exact-mode (``thresholds=None``) AUROC and average precision on the device.
+
+Counterpart of ``metrics_tpu/ops/clf_curve.py``. The scalar summaries of the curve
+never need its data-dependent length:
+
+- sort descending by score (the f32 sort tier here, or the rank tier of
+  :mod:`metrics_tpu_torch.ops.rank`, which gives bit-identical counts);
+- cumulative positives at every position (``cumsum``);
+- tie runs collapsed by giving every row its run-end counts: ONE reverse fused
+  multi-scan (:func:`metrics_tpu_torch.ops.segment.segment_multi_scan`, the
+  hand-written CUDA kernel on the card) propagates both run-end streams (positives
+  and run position) as two ``min`` lanes over one global segment.
+
+Rows with ``valid`` False (ignore_index masks) take the -inf key and form a
+terminal run that adds only duplicated end points.
+
+The sort tier canonicalizes the zero-exponent class (±0.0 and every denormal) to
++0.0 in integer space before it sorts: the JAX package's XLA sort and compare flush
+denormals, so its oracle treats that class as one tie run, and PyTorch does not
+flush. The eager curve-shaped functions (``_binary_clf_curve``) do not do this, as
+the JAX package runs them with numpy on the host.
+
+The JAX package pads each input to a power of two (``_pad_binary``, ``_pad_rows``)
+only to bound its recompiles; padded rows are invalid and change no result, so the
+port does not pad. One-vs-rest and per-label variants run the binary kernel once
+per column. Not ported: the ``*_padded`` curve kernels (reached only under a JAX
+trace) and the ``tolerance > 0`` sketch tier, which raises ``NotImplementedError``.
+"""
+from typing import Optional, Tuple
+
+import torch
+from torch import Tensor
+
+from metrics_tpu_torch.ops import rank as _rank
+from metrics_tpu_torch.ops.segment import segment_multi_scan
+
+_INT32_MAX = (1 << 31) - 1
+
+
+def _run_end_lanes(sorted_keys: Tensor, is_pos: Tensor) -> Tuple[Tuple[Tensor, Tensor], Tensor]:
+    """The two int32 scan lanes of the run-end propagation, and the run-end mask.
+
+    ``boundary`` marks the last row of each tie run of the sorted keys. Lane 0 holds
+    the cumulative positive count at run ends (``INT32_MAX`` elsewhere), lane 1 the
+    row position at run ends (``n - 1`` elsewhere): a reverse running ``min`` of each
+    gives every row the value at the end of its run.
+    """
+    n = sorted_keys.shape[0]
+    tps_all = torch.cumsum(is_pos, 0, dtype=torch.int32)
+    boundary = torch.ones(n, dtype=torch.bool, device=sorted_keys.device)
+    boundary[:-1] = sorted_keys[1:] != sorted_keys[:-1]
+    pos = torch.arange(n, dtype=torch.int32, device=sorted_keys.device)
+    return (torch.where(boundary, tps_all, _INT32_MAX), torch.where(boundary, pos, n - 1)), boundary
+
+
+def _fps_tps_from_scan(tps: Tensor, run_end: Tensor, n_valid: Tensor) -> Tuple[Tensor, Tensor]:
+    """(fps, tps) from the scanned lanes: valid rows sort first, so the valid count up
+    to ``run_end`` is ``min(run_end + 1, n_valid)``."""
+    return torch.minimum(run_end + 1, n_valid) - tps, tps
+
+
+def _fps_tps_from_sorted(sorted_keys: Tensor, is_pos: Tensor, n_valid: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """(fps, tps, boundary) of the descending-sorted keys: the shared post-sort tail."""
+    lanes, boundary = _run_end_lanes(sorted_keys, is_pos)
+    tps, run_end = segment_multi_scan(lanes, None, ops=("min", "min"), reverse=True)
+    fps, tps = _fps_tps_from_scan(tps, run_end, n_valid)
+    return fps, tps, boundary
+
+
+def _canonical_zero(key: Tensor) -> Tensor:
+    """f32 keys with the zero-exponent class (±0.0, ±denormals) mapped to +0.0,
+    tested on the raw bits so that no float compare can flush or split it."""
+    bits = key.contiguous().view(torch.int32)
+    return torch.where((bits & _rank._EXP_FIELD) == 0, torch.zeros((), dtype=key.dtype, device=key.device), key)
+
+
+def _run_end_counts(
+    preds: Tensor, target: Tensor, valid: Tensor, tier: str = "sort"
+) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """(fps, tps) at every position of the descending-score sort, tie runs collapsed.
+
+    Returns int32 ``fps``/``tps`` of shape (N,) plus the descending sort keys and the
+    tie-run-end mask. ``tps[-1]``/``fps[-1]`` are the valid positive/negative totals.
+    ``tier="rank"`` takes :func:`metrics_tpu_torch.ops.rank.rank_run_end_counts`.
+    """
+    if tier == "rank":
+        return _rank.rank_run_end_counts(preds, target, valid)
+    key = torch.where(valid, preds.to(torch.float32), float("-inf"))
+    sk, order = torch.sort(_canonical_zero(key), descending=True)
+    st = torch.where(valid, target.to(torch.int32), -1)[order]
+    fps, tps, boundary = _fps_tps_from_sorted(sk, st == 1, (st >= 0).sum(dtype=torch.int32))
+    return fps, tps, sk, boundary
+
+
+def _roc_points(
+    preds: Tensor, target: Tensor, valid: Tensor, tier: str = "sort"
+) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """(fpr0, tpr0) with a prepended origin, plus the positive and negative totals."""
+    fps, tps, _, _ = _run_end_counts(preds, target, valid, tier)
+    pos, neg = tps[-1], fps[-1]
+    tpr = tps.to(torch.float32) / torch.clamp(pos, min=1)
+    fpr = fps.to(torch.float32) / torch.clamp(neg, min=1)
+    zero = torch.zeros(1, dtype=torch.float32, device=fps.device)
+    return torch.cat([zero, fpr]), torch.cat([zero, tpr]), pos, neg
+
+
+def _trapz(y: Tensor, x: Tensor) -> Tensor:
+    return torch.sum(torch.diff(x) * (y[1:] + y[:-1]) * 0.5)
+
+
+def mcclish_partial_auc(fpr: Tensor, tpr: Tensor, max_fpr: Tensor) -> Tensor:
+    """McClish-standardized partial AUC of an ascending-``fpr`` ROC curve.
+
+    Clips the curve at ``fpr == max_fpr``, interpolating ``tpr`` on the crossing
+    segment (points past the clip collapse to zero-width segments), then applies the
+    McClish correction. ``max_fpr`` is a float32 scalar tensor.
+    """
+    m = fpr.shape[0] - 1
+    stop = torch.searchsorted(fpr.contiguous(), max_fpr.reshape(1), right=True)[0]
+    lo = torch.clamp(stop - 1, 0, m)
+    hi = torch.clamp(stop, 0, m)
+    denom = fpr[hi] - fpr[lo]
+    w = torch.where(denom > 0, (max_fpr - fpr[lo]) / torch.where(denom > 0, denom, 1.0), 0.0)
+    interp = tpr[lo] + w * (tpr[hi] - tpr[lo])
+    xc = torch.minimum(fpr, max_fpr)
+    yc = torch.where(fpr > max_fpr, interp, tpr)
+    partial_auc = _trapz(yc, xc)
+    min_area = 0.5 * max_fpr**2
+    return 0.5 * (1 + (partial_auc - min_area) / (max_fpr - min_area))
+
+
+def _binary_auroc_kernel(
+    preds: Tensor, target: Tensor, valid: Tensor, max_fpr: Optional[Tensor], tier: str = "sort"
+) -> Tensor:
+    """Exact binary AUROC; 0.0 when a class is absent (NaN for a partial AUC)."""
+    fpr0, tpr0, pos, neg = _roc_points(preds, target, valid, tier)
+    if max_fpr is None:
+        return _trapz(tpr0, fpr0)
+    area = mcclish_partial_auc(fpr0, tpr0, max_fpr)
+    return torch.where((pos > 0) & (neg > 0), area, float("nan"))
+
+
+def _binary_ap_kernel(preds: Tensor, target: Tensor, valid: Tensor, tier: str = "sort") -> Tuple[Tensor, Tensor]:
+    """Exact binary average precision and the positive count; NaN when no positives."""
+    fps, tps, _, _ = _run_end_counts(preds, target, valid, tier)
+    pos = tps[-1]
+    tot = (tps + fps).to(torch.float32)
+    precision = torch.where(tot > 0, tps.to(torch.float32) / torch.where(tot > 0, tot, 1.0), 0.0)
+    recall = tps.to(torch.float32) / torch.clamp(pos, min=1)
+    ap = torch.sum(torch.diff(recall, prepend=torch.zeros(1, device=recall.device)) * precision)
+    return torch.where(pos > 0, ap, float("nan")), pos
+
+
+def _pad_binary(preds: Tensor, target: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """Flattened preds, int32 targets and the valid mask (no padding: see the module note)."""
+    target = target.reshape(-1).to(torch.int32)  # signed: -1 marks ignored rows
+    return preds.reshape(-1), target, target >= 0
+
+
+def _check_tolerance(tolerance: float) -> None:
+    if tolerance and tolerance > 0:
+        raise NotImplementedError("tolerance > 0 routes to the sketch tier, which is not ported yet")
+
+
+def binary_auroc_exact(
+    preds: Tensor,
+    target: Tensor,
+    max_fpr: Optional[float] = None,
+    tolerance: float = 0.0,
+    tolerance_bits: int = 12,
+) -> Tensor:
+    """Exact binary AUROC on the inputs' device; ``target`` entries < 0 are excluded.
+
+    ``max_fpr`` in (0, 1) gives the McClish-standardized partial AUC; None or 1 the
+    full area (0.0 on single-class data, as the reference's safe division gives).
+    """
+    _check_tolerance(tolerance)
+    preds, target, valid = _pad_binary(preds, target)
+    tier = _rank.select_tier(preds)
+    if max_fpr is None or max_fpr == 1:
+        return _binary_auroc_kernel(preds, target, valid, None, tier)
+    bound = torch.tensor(max_fpr, dtype=torch.float32, device=preds.device)
+    return _binary_auroc_kernel(preds, target, valid, bound, tier)
+
+
+def binary_average_precision_exact(
+    preds: Tensor, target: Tensor, tolerance: float = 0.0, tolerance_bits: int = 12
+) -> Tensor:
+    """Exact binary average precision on the inputs' device; NaN with no positives."""
+    _check_tolerance(tolerance)
+    preds, target, valid = _pad_binary(preds, target)
+    return _binary_ap_kernel(preds, target, valid, _rank.select_tier(preds))[0]
+
+
+# ------------------------------------------------------------- one-vs-rest tiers
+
+
+def _binary_auroc_with_pos(preds: Tensor, target: Tensor, valid: Tensor, tier: str = "sort") -> Tuple[Tensor, Tensor]:
+    """(AUROC, positive count) of one column; absent classes score 0.0."""
+    fpr0, tpr0, pos, _ = _roc_points(preds, target, valid, tier)
+    return _trapz(tpr0, fpr0), pos
+
+
+def _per_column(kernel, preds2d: Tensor, targets) -> Tuple[Tensor, Tensor]:
+    """Run ``kernel(column, target, valid, tier)`` over the columns and stack."""
+    tier = _rank.select_tier(preds2d[:, 0])
+    cols = preds2d.t().contiguous()
+    scores, pos = [], []
+    for c in range(cols.shape[0]):
+        t = targets(c)
+        s, p = kernel(cols[c], t, t >= 0, tier)
+        scores.append(s)
+        pos.append(p)
+    return torch.stack(scores), torch.stack(pos)
+
+
+def _ovr(kernel, preds2d: Tensor, target: Tensor) -> Tuple[Tensor, Tensor]:
+    """Multiclass: binarize a shared label vector one-vs-rest per class."""
+    target = target.reshape(-1).to(torch.int32)
+    return _per_column(kernel, preds2d, lambda c: torch.where(target >= 0, (target == c).to(torch.int32), -1))
+
+
+def _perlabel(kernel, preds2d: Tensor, target2d: Tensor) -> Tuple[Tensor, Tensor]:
+    """Multilabel: an independent target column (and ignore mask) per label."""
+    cols = target2d.to(torch.int32).t().contiguous()
+    return _per_column(kernel, preds2d, lambda c: cols[c])
+
+
+def multiclass_auroc_exact(preds2d: Tensor, target: Tensor) -> Tuple[Tensor, Tensor]:
+    """Per-class exact AUROC and positive counts; rows with target < 0 excluded."""
+    return _ovr(_binary_auroc_with_pos, preds2d, target)
+
+
+def multiclass_average_precision_exact(preds2d: Tensor, target: Tensor) -> Tuple[Tensor, Tensor]:
+    return _ovr(_binary_ap_kernel, preds2d, target)
+
+
+def multilabel_auroc_exact(preds2d: Tensor, target2d: Tensor) -> Tuple[Tensor, Tensor]:
+    return _perlabel(_binary_auroc_with_pos, preds2d, target2d)
+
+
+def multilabel_average_precision_exact(preds2d: Tensor, target2d: Tensor) -> Tuple[Tensor, Tensor]:
+    return _perlabel(_binary_ap_kernel, preds2d, target2d)

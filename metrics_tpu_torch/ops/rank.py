@@ -1,0 +1,123 @@
+"""Rank tier of the exact curve kernels: the order-preserving key bijection and the
+reduced-payload sort.
+
+Counterpart of ``metrics_tpu/ops/rank.py`` up to :231 (the key bijection, the tier
+dispatch and ``rank_run_end_counts``). Scores map to integer keys whose ascending
+order is descending score order, a total order over ±inf in which the zero-exponent
+class (±0.0 and every denormal) is one key, +0.0's, as the JAX oracle's flushing
+sort and compare make it one tie run. Invalid rows take the -inf key.
+
+The JAX package keeps the keys as uint32. ``torch.sort`` does not take uint32 on
+every device, so the rank tier sorts the same keys XOR 0x80000000 as int32, which
+orders them alike; :func:`monotone_key_descending` returns the uint32 values
+themselves, held in int64.
+
+Dispatch: a CUDA tensor of at least ``RANK_MIN_SIZE`` rows takes the rank tier (in
+place of the JAX package's TPU and unsharded gate); everything else keeps the f32
+sort of ``ops/clf_curve.py``, the correctness reference. ``force_tier`` pins one.
+
+Not in this slice: the bucket-histogram machinery and the sketch tier (:235-451),
+``record_dispatch`` and ``rank_scope``.
+"""
+from contextlib import contextmanager
+from typing import Iterator, Optional, Tuple
+
+import torch
+from torch import Tensor
+
+#: Below this row count the f32 sort tier serves.
+RANK_MIN_SIZE = 1 << 20
+
+_EXP_FIELD = 0x7F800000
+_INT32_MIN = -(1 << 31)
+#: Sortable int32 key of -inf, also pinned for invalid rows (uint32 0xFF800000).
+_NEG_INF_KEY_I32 = 0x7F800000
+#: The uint32 key of -inf, as in the JAX package.
+NEG_INF_KEY = 0xFF800000
+
+_FORCED_TIER: Optional[str] = None
+
+
+def _sortable_key(preds: Tensor, valid: Optional[Tensor] = None) -> Tensor:
+    """int32 keys whose ascending order is descending score order (uint32 key XOR 2^31)."""
+    bits = preds.to(torch.float32).contiguous().view(torch.int32)
+    # zero exponent field == zero or denormal: one tie class, keyed as +0.0
+    bits = torch.where((bits & _EXP_FIELD) == 0, 0, bits)
+    # sign clear: ~bits (bigger floats -> more negative keys); sign set: the magnitude bits
+    key = torch.where(bits < 0, bits & 0x7FFFFFFF, ~bits)
+    if valid is not None:
+        key = torch.where(valid, key, _NEG_INF_KEY_I32)
+    return key
+
+
+def _sortable_key_to_f32(key: Tensor) -> Tensor:
+    """Exact inverse of :func:`_sortable_key` (modulo the zero-class canonicalization)."""
+    bits = torch.where(key < 0, ~key, key | _INT32_MIN)
+    return bits.to(torch.int32).view(torch.float32)
+
+
+def monotone_key_descending(preds: Tensor, valid: Optional[Tensor] = None) -> Tensor:
+    """uint32 keys (held in int64) whose ascending order is descending score order.
+
+    +inf -> 0x007FFFFF, ..., +0 -> 0x7FFFFFFF, ..., -inf -> 0xFF800000; ±0.0 and
+    ±denormals share +0.0's key; rows with ``valid`` False take ``NEG_INF_KEY``.
+    Inputs are NaN-free, as the JAX package requires.
+    """
+    return _sortable_key(preds, valid).to(torch.int64) + (1 << 31)
+
+
+def key_to_f32_descending(keys: Tensor) -> Tensor:
+    """Exact inverse of :func:`monotone_key_descending` (modulo -0 canonicalization)."""
+    return _sortable_key_to_f32((keys - (1 << 31)).to(torch.int32))
+
+
+@contextmanager
+def force_tier(tier: Optional[str]) -> Iterator[None]:
+    """Pin the exact-curve tier to ``"rank"`` or ``"sort"`` (None restores auto).
+
+    The JAX package's ``"sketch"`` tier is not ported: pinning it raises.
+    """
+    global _FORCED_TIER
+    if tier == "sketch":
+        raise NotImplementedError("the sketch tier of the exact curve kernels is not ported yet")
+    if tier not in (None, "rank", "sort"):
+        raise ValueError(f"unknown rank tier: {tier!r}")
+    prev = _FORCED_TIER
+    _FORCED_TIER = tier
+    try:
+        yield
+    finally:
+        _FORCED_TIER = prev
+
+
+def forced_tier() -> Optional[str]:
+    """The tier pinned by :func:`force_tier`, or None under auto dispatch."""
+    return _FORCED_TIER
+
+
+def select_tier(x: Tensor) -> str:
+    """A CUDA tensor of at least ``RANK_MIN_SIZE`` elements -> "rank", else "sort"."""
+    if _FORCED_TIER is not None:
+        return _FORCED_TIER
+    if x.numel() >= RANK_MIN_SIZE and x.device.type == "cuda":
+        return "rank"
+    return "sort"
+
+
+def rank_run_end_counts(preds: Tensor, target: Tensor, valid: Tensor) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Rank-tier ``(fps, tps, sk, boundary)``, bit-identical to the f32 sort tier
+    (``ops/clf_curve.py:_run_end_counts``).
+
+    Sorts the int32 keys and gathers a uint8 label (0 negative, 1 positive, 2
+    invalid) by the sort's indices. Run boundaries depend on the key multiset alone
+    and ``tps``/``fps`` read only run-end counts, so within-run order does not
+    matter; ``sk`` comes back through the exact inverse of the key map.
+    """
+    from metrics_tpu_torch.ops.clf_curve import _fps_tps_from_sorted
+
+    key = _sortable_key(preds, valid)
+    lab = torch.where(valid, (target == 1).to(torch.uint8), 2)
+    skey, order = torch.sort(key)
+    slab = lab[order]
+    fps, tps, boundary = _fps_tps_from_sorted(skey, slab == 1, (slab != 2).sum(dtype=torch.int32))
+    return fps, tps, _sortable_key_to_f32(skey), boundary

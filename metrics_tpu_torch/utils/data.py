@@ -12,6 +12,14 @@ import torch
 from torch import Tensor
 
 
+def _next_pow2(n: int, floor: int = 1) -> int:
+    """Next power of two >= max(n, floor)."""
+    p = floor
+    while p < n:
+        p *= 2
+    return p
+
+
 def _count_dtype() -> torch.dtype:
     """dtype of unbounded count accumulators (stat-score and confusion-matrix states).
 

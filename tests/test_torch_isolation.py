@@ -2,11 +2,12 @@
 
 - importing the package (and every module of it) in a fresh interpreter loads
   neither ``jax`` nor any ``metrics_tpu`` module;
-- no file of the package, nor ``chip_smoke.py``, imports them (AST scan);
+- no file of the package, nor ``chip_smoke.py`` and the ``scripts/torch_*.py``
+  profilers, imports them (AST scan);
 - a ``Metric`` built without ``device=`` raises where CUDA is absent, and so does a
   functional entry point given a numpy input;
-- the kernel module imports, and a CPU run goes by the plain version, without
-  ``nvcc``: the launch count stays 0.
+- the kernel modules import, and a CPU run goes by the plain versions, without
+  ``nvcc``: the launch counts stay 0.
 """
 import ast
 import os
@@ -20,7 +21,7 @@ import torch
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "metrics_tpu_torch"
-SOURCES = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
+SOURCES = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"] + sorted((REPO / "scripts").glob("torch_*.py"))
 
 
 def _module_names():
@@ -73,24 +74,38 @@ def test_metric_without_device_raises_when_cuda_is_absent(monkeypatch):
 
 
 def test_functional_numpy_input_goes_to_cuda_by_default(monkeypatch):
-    from metrics_tpu_torch.functional.classification import multiclass_accuracy
+    from metrics_tpu_torch.functional.classification import binary_auroc, multiclass_accuracy
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         multiclass_accuracy(np.array([0, 1]), np.array([0, 1]), num_classes=3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        binary_auroc(np.array([0.2, 0.7], np.float32), np.array([0, 1]))
+
+
+def test_curve_metric_without_device_raises_when_cuda_is_absent(monkeypatch):
+    from metrics_tpu_torch.classification import BinaryAUROC, MulticlassAveragePrecision
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (BinaryAUROC, lambda: MulticlassAveragePrecision(num_classes=3)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
 
 
 def test_cpu_run_imports_the_kernel_module_without_nvcc():
     code = (
         "import numpy as np\n"
-        "from metrics_tpu_torch.ops import histogram\n"
-        "from metrics_tpu_torch.classification import MulticlassJaccardIndex\n"
+        "from metrics_tpu_torch.ops import histogram, segment\n"
+        "from metrics_tpu_torch.classification import BinaryAUROC, MulticlassJaccardIndex\n"
         "m = MulticlassJaccardIndex(num_classes=19, ignore_index=255, device='cpu')\n"
         "rng = np.random.RandomState(0)\n"
         "t = rng.randint(0, 19, (2, 8, 8)); t[0, 0] = 255\n"
         "m.update(rng.randn(2, 19, 8, 8).astype(np.float32), t)\n"
         "m.compute()\n"
-        "assert histogram.histogram_cuda.launches == 0\n"
+        "a = BinaryAUROC(device='cpu')\n"
+        "a.update(rng.rand(64).astype(np.float32), rng.randint(0, 2, 64))\n"
+        "assert 0.0 <= float(a.compute()) <= 1.0\n"
+        "assert histogram.histogram_cuda.launches == 0 and segment.segment_scan_cuda.launches == 0\n"
         "print('ok')\n"
     )
     env = {"PATH": "/usr/bin:/bin", "PYTHONPATH": str(REPO), "HOME": os.environ.get("HOME", "/tmp")}

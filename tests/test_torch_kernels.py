@@ -9,13 +9,13 @@ so that it runs on a machine with the card alone:
 import pytest
 import torch
 
-from metrics_tpu_torch.ops import histogram
+from metrics_tpu_torch.ops import histogram, segment
 
 
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the histogram kernel has no CPU mode")
+        pytest.skip("needs a CUDA card: the hand-written kernels have no CPU mode")
     return torch.device("cuda")
 
 
@@ -47,3 +47,53 @@ def test_kernel_wrapper_checks_and_counts(cuda):
         histogram.histogram_cuda(ids, torch.ones(10, device=cuda, dtype=torch.float64), 16)
     with pytest.raises(ValueError):
         histogram.histogram_cuda(ids, None, histogram.KERNEL_MAX_BINS + 1)
+
+
+def _scan_lanes(cuda, g, n, dtype, ops):
+    info = torch.iinfo(dtype)
+    lanes = []
+    for op in ops:
+        v = torch.randint(-1000, 1000, (n,), generator=g, device=cuda, dtype=dtype)
+        if op != "sum":  # the type's extremes, which are the min/max identities
+            pick = torch.rand(n, generator=g, device=cuda)
+            v = torch.where(pick < 0.05, info.max, torch.where(pick > 0.95, info.min, v)).to(dtype)
+        lanes.append(v)
+    return lanes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("flags", ["none", "p01", "every1000", "all"])
+@pytest.mark.parametrize("n", [1, 1000, 2048, 2049, (1 << 20) + 17])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_segment_scan_kernel_matches_plain_on_card(cuda, dtype, n, flags, reverse):
+    g = torch.Generator(device=cuda).manual_seed(n + len(flags))
+    if flags == "none":
+        f = None
+    elif flags == "p01":
+        f = torch.rand(n, generator=g, device=cuda) < 0.01
+    elif flags == "every1000":
+        f = torch.arange(n, device=cuda) % 1000 == 0
+    else:
+        f = torch.ones(n, dtype=torch.bool, device=cuda)
+    for ops in (("min",), ("min", "min"), ("sum", "min", "max"), ("max", "sum", "min", "sum")):
+        lanes = _scan_lanes(cuda, g, n, dtype, ops)
+        got = segment.segment_scan_cuda(lanes, f, ops, reverse)
+        want = segment._plain_multi_scan(lanes, f, ops, reverse)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), (ops, flags, reverse)
+
+
+@pytest.mark.cuda
+def test_segment_scan_dispatch_checks_and_counts(cuda):
+    v = torch.arange(10, device=cuda, dtype=torch.int16)
+    before = segment.segment_scan_cuda.launches
+    (out,) = segment.segment_multi_scan([v], None)
+    assert segment.segment_scan_cuda.launches == before + 1 and out.dtype == torch.int16
+    assert torch.equal(out, torch.cumsum(v, 0, dtype=torch.int16))
+    with pytest.raises(TypeError):
+        segment.segment_scan_cuda([v], None, ("sum",))
+    with pytest.raises(ValueError):
+        segment.segment_scan_cuda([v.int()] * 5, None, ("sum",) * 5)
+    with pytest.raises(ValueError):
+        segment.segment_scan_cuda([v.int()[::2]], None, ("sum",))
+    assert segment.segment_scan_cuda.launches == before + 1
