@@ -12,14 +12,20 @@ Phases, each printing one JSON line:
    ``build/kernels/`` (one ``nvcc`` per source, started together).
 3. kernel_vs_plain: the histogram kernel against its plain PyTorch version on the
    card, bins {1, 25, 361, 2048, 16384} x N {1, 1000, 2^24+17}, ids in
-   [-3, bins+3) so that drops happen; count and bool-mask results bit-equal,
-   float32-weighted within 1e-5 of each bin's sum of |w| (atomics add in no fixed
-   order), against a float64 run of the plain version.
+   [-3, bins+3) so that drops happen; coherent runs of 1 to 4,096 equal ids (drops
+   and masked rows inside runs); 13000 and then 16384 bins again after 16384 (both
+   above 48 KB of shared memory); one hot bin at N = 2^24+17 (exact count); ids,
+   masks and weights as views 1 to 3 elements in (not 16-byte aligned). Count and
+   bool-mask results bit-equal, float32-weighted within 1e-5 of each bin's sum of
+   |w| (atomics add in no fixed order), against a float64 run of the plain version.
 4. segscan_kernel_vs_plain: the segmented multi-scan kernel against its plain
    version on the card, bit-equal, over k in {1, 2, 3, 4} lanes of mixed ops, int32
    and int64, flags None / random p=0.01 / every 1000th row / every row, forward and
    reverse, N in {1, 1000, 1024, 1025, 2^24+17, 89,137,319}; min/max lanes hold the
-   type's extremes.
+   type's extremes. Then the single-pass kernel's edges: N = T-1, T, T+1, 2T+1,
+   3T+2, 3T+3 for each tile size T (ragged reverse tails with N % 4 of 1, 2, 3),
+   lanes and flags as views 4 or 8 and 1 or 4 bytes in, and 20 launches in a row at
+   N = 2^26+3 with four int64 lanes, flags none and every 1000th row.
 5. main_path: per-pixel Cityscapes evaluation (19 train classes, 1024x2048 images,
    ignore label 255, batch 8: N = 2^24 predictions per update) through
    MulticlassAccuracy / MulticlassF1Score (macro), MulticlassJaccardIndex and
@@ -46,10 +52,18 @@ Phases, each printing one JSON line:
    port on the first 2^22 rows, and on the ImageNet scores, within 1e-6.
 7. timing: CUDA-event medians of each metric's update (and the curve metrics'
    compute), and of each kernel, its plain version and a PyTorch yardstick never
-   called by the port (``torch.bincount``; ``torch.cummin`` on each pre-flipped
-   lane) on the main paths' own inputs, beside each kernel's bound; the scan kernel
-   is timed in turns (kernel, plain, library, kernel) and reported from its second
-   turn.
+   called by the port on the main paths' own inputs, beside each kernel's bound:
+   the histogram on the Cityscapes update's ids and mask (``torch.bincount``), and
+   on a spatially coherent input of the same shape (32x32-pixel patches of one
+   class, predictions agreeing on 90% of pixels); the scan on the DLRM compute's
+   two lanes, timed in turns (kernel, plain, ``torch.cummin`` on each pre-flipped
+   lane, kernel) and reported from its second turn; the scan on one int32 sum lane
+   of the same length in turns with ``torch.cumsum`` (CUB's single-pass scan: the
+   library yardstick of the kernels line); the scan per call at the ImageNet
+   shape (one class, 50,000 rows). Each kernel and yardstick is timed once per
+   call with the device idle between calls (the host's time before the launch
+   counts) and, where marked ``back_to_back``, per call over 20 calls queued
+   together (the host's time overlaps the device's work).
 
 The last three lines are the ``nvidia-smi`` name and power limit, the kernels JSON
 line and ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
@@ -93,6 +107,25 @@ def event_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def back_to_back_ms(torch, fn, calls: int = 20, reps: int = 5, warmup: int = 3) -> float:
+    """Median device time per call of ``fn`` over runs of ``calls`` back-to-back calls,
+    from CUDA events around each run: the host's time per call overlaps the device's
+    work, as it does for a caller that queues work ahead."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
 def phase_device(torch) -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -111,34 +144,64 @@ def phase_build() -> None:
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "libraries": [p.name for p in paths]})
 
 
-def phase_kernel_vs_plain(torch, seed: int) -> None:
+def check_histogram(torch, ids, mask, w, bins: int, label: str) -> float:
+    """Count and mask modes bit-equal to the plain version, f32 weights within 1e-5 of
+    each bin's sum of |w|; returns the worst f32 error over that sum."""
     from metrics_tpu_torch.ops.histogram import _plain_bincount, histogram_cuda
+
+    for name, weights in (("count", None), ("mask", mask)):
+        got = histogram_cuda(ids, weights, bins)
+        want = _plain_bincount(ids, weights, bins)
+        if got.dtype != torch.int32 or not torch.equal(got, want):
+            diff = (got.long() - want.long()).abs().max().item()
+            raise AssertionError(f"{name} kernel != plain at {label} (max |diff| {diff})")
+    got = histogram_cuda(ids, w, bins).double()
+    want = _plain_bincount(ids, w.double(), bins)
+    scale = _plain_bincount(ids, w.abs().double(), bins)
+    err = (got - want).abs()
+    if not bool(torch.all(err <= 1e-5 * scale)):
+        raise AssertionError(f"f32 kernel off at {label}: max err {err.max().item()}")
+    nz = scale > 0
+    return (err[nz] / scale[nz]).max().item() if bool(nz.any()) else 0.0
+
+
+def phase_kernel_vs_plain(torch, seed: int) -> None:
+    from metrics_tpu_torch.ops.histogram import histogram_cuda
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     worst_rel = 0.0
     checked = 0
+    cases = []
     for bins in (1, 25, 361, 2048, 16384):
         for n in (1, 1000, (1 << 24) + 17):
             ids = torch.randint(-3, bins + 3, (n,), generator=g, device="cuda", dtype=torch.int32)
-            mask = torch.rand(n, generator=g, device="cuda") < 0.7
-            w = torch.randn(n, generator=g, device="cuda", dtype=torch.float32)
-            for name, weights in (("count", None), ("mask", mask)):
-                got = histogram_cuda(ids, weights, bins)
-                want = _plain_bincount(ids, weights, bins)
-                if got.dtype != torch.int32 or not torch.equal(got, want):
-                    diff = (got.long() - want.long()).abs().max().item()
-                    raise AssertionError(f"{name} kernel != plain at bins={bins} n={n} (max |diff| {diff})")
-                checked += 1
-            got = histogram_cuda(ids, w, bins).double()
-            want = _plain_bincount(ids, w.double(), bins)
-            scale = _plain_bincount(ids, w.abs().double(), bins)
-            err = (got - want).abs()
-            if not bool(torch.all(err <= 1e-5 * scale)):
-                raise AssertionError(f"f32 kernel off at bins={bins} n={n}: max err {err.max().item()}")
-            nz = scale > 0
-            if bool(nz.any()):
-                worst_rel = max(worst_rel, (err[nz] / scale[nz]).max().item())
-            checked += 1
+            cases.append((f"bins={bins} n={n}", ids, bins, 0))
+    # coherent runs of 1 to 4,096 equal ids, with drops and masked rows inside runs
+    for bins in (1, 25, 361, 16384):
+        lengths = torch.randint(1, 4097, (4000,), generator=g, device="cuda")
+        values = torch.randint(-3, bins + 3, (4000,), generator=g, device="cuda", dtype=torch.int32)
+        cases.append((f"coherent runs bins={bins}", torch.repeat_interleave(values, lengths), bins, 0))
+    # after 16384 bins, a smaller count that still needs more than 48 KB, then 16384 again
+    for bins in (13000, 16384):
+        ids = torch.randint(-3, bins + 3, ((1 << 20) + 3,), generator=g, device="cuda", dtype=torch.int32)
+        cases.append((f"bins={bins} in turn", ids, bins, 0))
+    # one hot bin, where the exact count must come out
+    hot = torch.full(((1 << 24) + 17,), 5, dtype=torch.int32, device="cuda")
+    cases.append(("one hot bin", hot, 25, 0))
+    # ids, masks and weights as views 1 to 3 elements in: not 16-byte aligned
+    for offset in (1, 2, 3):
+        ids = torch.randint(-3, 364, ((1 << 20) + 5 + offset,), generator=g, device="cuda", dtype=torch.int32)
+        cases.append((f"views at offset {offset}", ids, 361, offset))
+    for label, ids, bins, offset in cases:
+        n = ids.numel()
+        mask = torch.rand(n, generator=g, device="cuda") < (0.9 if "coherent" in label else 0.7)
+        w = torch.randn(n, generator=g, device="cuda", dtype=torch.float32)
+        if offset:
+            ids, mask, w = ids[offset:], mask[offset:], w[offset:]
+        worst_rel = max(worst_rel, check_histogram(torch, ids, mask, w, bins, label))
+        checked += 3
+    if int(histogram_cuda(hot, None, 25)[5]) != hot.numel():
+        raise AssertionError("the hot bin's count is not exact")
     torch.cuda.synchronize()
     emit({"phase": "kernel_vs_plain", "comparisons": checked, "f32_worst_err_over_abs_sum": worst_rel,
           "f32_rtol": 1e-5})
@@ -150,6 +213,27 @@ def cityscapes_batch(torch, g):
     target = torch.randint(0, c["classes"], (c["batch"], c["height"], c["width"]), generator=g, device="cuda")
     ignore = torch.rand(target.shape, generator=g, device="cuda") < 0.05
     return logits, target.masked_fill(ignore, c["ignore_index"])
+
+
+def histogram_inputs(torch, target, pred):
+    """The confusion path's kernel inputs: int32 ids t * C + p in [0, C^2) and the valid mask."""
+    c = CITYSCAPES["classes"]
+    ids = (target.clamp(0, c - 1) * c + pred.clamp(0, c - 1)).to(torch.int32).reshape(-1).contiguous()
+    return ids, (target != CITYSCAPES["ignore_index"]).reshape(-1).contiguous()
+
+
+def coherent_histogram_inputs(torch, g):
+    """Spatially coherent Cityscapes-shaped kernel inputs: targets in 32x32-pixel patches
+    of one class (5% of patches at the ignore label), predictions equal to the target
+    on 90% of the pixels and uniform on the rest."""
+    c, p = CITYSCAPES, 32
+    patches = torch.randint(0, c["classes"], (c["batch"], c["height"] // p, c["width"] // p), generator=g,
+                            device="cuda")
+    ignore = torch.rand(patches.shape, generator=g, device="cuda") < 0.05
+    target = patches.masked_fill(ignore, c["ignore_index"]).repeat_interleave(p, 1).repeat_interleave(p, 2)
+    other = torch.randint(0, c["classes"], target.shape, generator=g, device="cuda")
+    agree = torch.rand(target.shape, generator=g, device="cuda") < 0.9
+    return histogram_inputs(torch, target, torch.where(agree, target, other))
 
 
 def cityscapes_metrics(device):
@@ -293,6 +377,17 @@ def scan_lanes(torch, n: int, dtype, ops, g):
     return lanes
 
 
+def compare_scan(torch, lanes, flags, ops, reverse: bool, label: str) -> None:
+    from metrics_tpu_torch.ops.segment import _plain_multi_scan, segment_scan_cuda
+
+    got = segment_scan_cuda(lanes, flags, ops, reverse)
+    want = _plain_multi_scan(lanes, flags, ops, reverse)
+    for lane, (a, b) in enumerate(zip(got, want)):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError(f"segment scan kernel != plain at {label} lane={lane} ops={ops} reverse={reverse}:"
+                                 f" {int((a != b).sum())} rows differ")
+
+
 def phase_segscan_kernel_vs_plain(torch, seed: int) -> None:
     from metrics_tpu_torch.ops.segment import _plain_multi_scan, segment_scan_cuda
 
@@ -305,18 +400,48 @@ def phase_segscan_kernel_vs_plain(torch, seed: int) -> None:
                 for kind in ("none", "p01", "every1000", "all"):
                     flags = scan_flags(torch, kind, n, g)
                     for reverse in (False, True):
-                        got = segment_scan_cuda(lanes, flags, ops, reverse)
-                        want = _plain_multi_scan(lanes, flags, ops, reverse)
-                        for lane, (a, b) in enumerate(zip(got, want)):
-                            if a.dtype != dtype or not torch.equal(a, b):
-                                raise AssertionError(
-                                    f"segment scan kernel != plain at n={n} {dtype} k={k} lane={lane} ops={ops}"
-                                    f" flags={kind} reverse={reverse}: {int((a != b).sum())} rows differ"
-                                )
+                        compare_scan(torch, lanes, flags, ops, reverse, f"n={n} {dtype} k={k} flags={kind}")
                         checked += 1
                 del lanes
+    # the single-pass kernel's edges: N = T-1, T, T+1, 2T+1 for each tile size T, and
+    # ragged reverse tails with n % 4 of 1, 2 and 3
+    edges = 0
+    for dtype in (torch.int32, torch.int64):
+        for k, ops in SCAN_OPS.items():
+            tile = segment_scan_cuda.tile_rows(k, dtype)
+            for n in (tile - 1, tile, tile + 1, 2 * tile + 1, 3 * tile + 2, 3 * tile + 3):
+                lanes = scan_lanes(torch, n, dtype, ops, g)
+                for kind in ("none", "p01"):
+                    flags = scan_flags(torch, kind, n, g)
+                    for reverse in (False, True):
+                        compare_scan(torch, lanes, flags, ops, reverse, f"n={n} (tile {tile}) {dtype} k={k} {kind}")
+                        edges += 1
+            # lanes one element in (4 or 8 bytes) and flags 4 and 1 bytes in: not 16-byte aligned
+            n = 5 * tile + 7
+            lanes = [v[1:] for v in scan_lanes(torch, n + 1, dtype, ops, g)]
+            flag_buf = torch.rand(n + 4, generator=g, device="cuda") < 0.01
+            for flags in (None, flag_buf[4:], flag_buf[1:n + 1]):
+                for reverse in (False, True):
+                    compare_scan(torch, lanes, flags, ops, reverse, f"views {dtype} k={k}")
+                    edges += 1
+    # races: 20 launches in a row at N = 2^26 + 3, four int64 lanes, each bit-equal
+    n, ops = (1 << 26) + 3, SCAN_OPS[4]
+    lanes = scan_lanes(torch, n, torch.int64, ops, g)
+    for kind in ("none", "every1000"):
+        flags = scan_flags(torch, kind, n, g)
+        want = _plain_multi_scan(lanes, flags, ops, True)
+        bad = torch.zeros((), dtype=torch.bool, device="cuda")
+        for _ in range(20):
+            for a, b in zip(segment_scan_cuda(lanes, flags, ops, True), want):
+                bad |= (a != b).any()
+        if bool(bad):
+            raise AssertionError(f"a back-to-back launch at n={n} flags={kind} differs from the plain version")
+        edges += 20
+        del want
+    del lanes
     torch.cuda.synchronize()
-    emit({"phase": "segscan_kernel_vs_plain", "comparisons": checked, "sizes": list(SCAN_SIZES)})
+    emit({"phase": "segscan_kernel_vs_plain", "comparisons": checked + edges, "sizes": list(SCAN_SIZES),
+          "edge_comparisons": edges})
 
 
 def dlrm_data(torch, seed: int):
@@ -499,12 +624,14 @@ def phase_curve_path(torch, seed: int):
                      "scan_launches": imagenet_launches},
         "abs_diff_vs_cpu": cpu_diff,
     })
-    return gpu, batches[0], imagenet, (probs[:IMAGENET["batch"]], labels_in[:IMAGENET["batch"]]), scores, target, (
-        dlrm_launches + imagenet_launches
+    # one class's scores and labels: the ImageNet path's scan shape (50,000 rows)
+    imagenet_class = (probs[:, 0].contiguous(), (labels_in == 0).long())
+    return gpu, batches[0], imagenet, (probs[:IMAGENET["batch"]], labels_in[:IMAGENET["batch"]]), imagenet_class, (
+        scores, target, dlrm_launches + imagenet_launches
     )
 
 
-def phase_curve_timing(torch, gpu, batch, imagenet, imagenet_batch, scores, target, launches: int, smi: str):
+def phase_curve_timing(torch, gpu, batch, imagenet, imagenet_batch, imagenet_class, dlrm, smi: str):
     from metrics_tpu_torch.ops.segment import _plain_multi_scan, segment_scan_cuda
 
     def compute_ms(metric, reps):
@@ -524,6 +651,7 @@ def phase_curve_timing(torch, gpu, batch, imagenet, imagenet_batch, scores, targ
         timing[name] = {"update_ms": event_ms(torch, lambda: fresh.update(*imagenet_batch), reps=10),
                         "compute_ms": compute_ms(metric, 3)}
 
+    scores, target, launches = dlrm
     # the kernel on the DLRM compute's own inputs: 2 int32 min lanes, one segment, reverse;
     # timed in turns (kernel, plain, library, kernel): the plain version and torch.cummin
     # scan a 1-D tensor in ~0.5 s each, so they take fewer repetitions
@@ -534,6 +662,7 @@ def phase_curve_timing(torch, gpu, batch, imagenet, imagenet_batch, scores, targ
     plain_ms = event_ms(torch, lambda: _plain_multi_scan(lanes, None, ops, True), reps=5, warmup=1)
     library_ms = event_ms(torch, lambda: [torch.cummin(f, 0) for f in flipped], reps=5, warmup=1)
     kernel_ms = event_ms(torch, lambda: segment_scan_cuda(lanes, None, ops, True), warmup=10)
+    kernel_b2b_ms = back_to_back_ms(torch, lambda: segment_scan_cuda(lanes, None, ops, True))
     got = segment_scan_cuda(lanes, None, ops, True)
     want = _plain_multi_scan(lanes, None, ops, True)
     lib = [torch.cummin(f, 0).values.flip(0) for f in flipped]
@@ -542,10 +671,41 @@ def phase_curve_timing(torch, gpu, batch, imagenet, imagenet_batch, scores, targ
         raise AssertionError("scan kernel, plain version and torch.cummin disagree on the curve-path inputs")
     n, k = lanes[0].numel(), len(lanes)
     bound_ms = n * k * 2 * lanes[0].element_size() / HBM_BYTES_PER_S * 1e3
+
+    # the library yardstick: one int32 sum lane of the same length, no flags, forward,
+    # through the kernel and through torch.cumsum (CUB's single-pass scan), in turns
+    sum_lane = lanes[0]
+    sum_kernel = lambda: segment_scan_cuda([sum_lane], None, ("sum",), False)  # noqa: E731
+    cumsum = lambda: torch.cumsum(sum_lane, 0, dtype=torch.int32)  # noqa: E731
+    if not torch.equal(sum_kernel()[0], cumsum()):
+        raise AssertionError("scan kernel and torch.cumsum disagree on the sum lane")
+    cumsum_ms = [event_ms(torch, cumsum, warmup=10)]
+    sum_kernel_ms = [event_ms(torch, sum_kernel, warmup=10) for _ in range(2)]
+    cumsum_ms.append(event_ms(torch, cumsum, warmup=10))
+    back_to_back = {"kernel_ms": [], "torch_cumsum_ms": []}
+    for key, fn in (("torch_cumsum_ms", cumsum), ("kernel_ms", sum_kernel), ("kernel_ms", sum_kernel),
+                    ("torch_cumsum_ms", cumsum)):
+        back_to_back[key].append(back_to_back_ms(torch, fn))
+    sum_bound_ms = n * 2 * sum_lane.element_size() / HBM_BYTES_PER_S * 1e3
+
+    # the ImageNet path's shape: one class, 50,000 rows, the same two lanes, reverse
+    small, _ = sorted_run_lanes(torch, *imagenet_class)
+    small_want = _plain_multi_scan(small, None, ops, True)
+    if not all(torch.equal(a, b) for a, b in zip(segment_scan_cuda(small, None, ops, True), small_want)):
+        raise AssertionError("scan kernel and plain version disagree at the ImageNet shape")
+    small_ms = event_ms(torch, lambda: segment_scan_cuda(small, None, ops, True), reps=100, warmup=10)
+    small_plain_ms = event_ms(torch, lambda: _plain_multi_scan(small, None, ops, True), reps=100, warmup=10)
+    m = small[0].numel()
+    small_bound_ms = m * k * 2 * small[0].element_size() / HBM_BYTES_PER_S * 1e3
     emit({"phase": "curve_timing", "card": smi, "metrics": timing,
           "segment_scan": {"n": n, "lanes": k, "kernel_ms": kernel_ms, "kernel_ms_first_turn": kernel_first_ms,
+                           "kernel_ms_back_to_back": kernel_b2b_ms,
                            "plain_ms": plain_ms, "torch_cummin_ms": library_ms, "bound_ms": bound_ms,
-                           "kernel_share_of_bound": bound_ms / kernel_ms}})
+                           "kernel_share_of_bound": bound_ms / kernel_ms},
+          "segment_scan_sum_lane": {"n": n, "kernel_ms": sum_kernel_ms, "torch_cumsum_ms": cumsum_ms,
+                                    "back_to_back": back_to_back, "bound_ms": sum_bound_ms},
+          "segment_scan_imagenet_shape": {"n": m, "lanes": k, "kernel_ms": small_ms, "plain_ms": small_plain_ms,
+                                          "bound_ms": small_bound_ms}})
     return {
         "name": "segment_scan",
         "route": "cuda",
@@ -557,11 +717,11 @@ def phase_curve_timing(torch, gpu, batch, imagenet, imagenet_batch, scores, targ
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": "bytes",
-        "library_ms": library_ms,
+        "library_ms": statistics.median(cumsum_ms),
     }
 
 
-def phase_timing(torch, gpu, batch, launches: int, smi: str):
+def phase_timing(torch, gpu, batch, launches: int, smi: str, seed: int):
     from metrics_tpu_torch.ops.histogram import _plain_bincount, histogram_cuda
 
     logits, target = batch
@@ -571,8 +731,7 @@ def phase_timing(torch, gpu, batch, launches: int, smi: str):
         update_ms[name] = event_ms(torch, lambda: metric.update(logits, target), reps=10)
 
     # the kernel's inputs on the main path: int32 ids in [0, 361) and the valid mask
-    ids = (target.clamp(0, c - 1) * c + logits.argmax(1).clamp(0, c - 1)).to(torch.int32).reshape(-1).contiguous()
-    mask = (target != CITYSCAPES["ignore_index"]).reshape(-1).contiguous()
+    ids, mask = histogram_inputs(torch, target, logits.argmax(1))
     mask_f = mask.float()
     n, bins = ids.numel(), c * c
     got = histogram_cuda(ids, mask, bins)
@@ -584,12 +743,22 @@ def phase_timing(torch, gpu, batch, launches: int, smi: str):
     kernel_ms = event_ms(torch, lambda: histogram_cuda(ids, mask, bins))
     plain_ms = event_ms(torch, lambda: _plain_bincount(ids, mask, bins))
     library_ms = event_ms(torch, lambda: torch.bincount(ids, weights=mask_f, minlength=bins))
+    # the same shape with neighbouring pixels sharing their (target, prediction) pair
+    coherent_ids, coherent_mask = coherent_histogram_inputs(torch, torch.Generator(device="cuda").manual_seed(seed + 4))
+    if not torch.equal(histogram_cuda(coherent_ids, coherent_mask, bins),
+                       _plain_bincount(coherent_ids, coherent_mask, bins)):
+        raise AssertionError("kernel and plain version disagree on the coherent input")
+    coherent_ms = event_ms(torch, lambda: histogram_cuda(coherent_ids, coherent_mask, bins))
+    b2b_ms = {"kernel_ms": back_to_back_ms(torch, lambda: histogram_cuda(ids, mask, bins)),
+              "coherent_kernel_ms": back_to_back_ms(torch, lambda: histogram_cuda(coherent_ids, coherent_mask, bins)),
+              "torch_bincount_ms": back_to_back_ms(torch, lambda: torch.bincount(ids, weights=mask_f, minlength=bins))}
     bytes_moved = n * ids.element_size() + n * mask.element_size() + bins * 4
     bound_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     emit({"phase": "timing", "card": smi, "update_ms_median": update_ms,
           "histogram": {"n": n, "bins": bins, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
                         "torch_bincount_ms": library_ms, "bound_ms": bound_ms,
-                        "kernel_share_of_bound": bound_ms / kernel_ms}})
+                        "kernel_share_of_bound": bound_ms / kernel_ms, "coherent_kernel_ms": coherent_ms,
+                        "coherent_over_uniform": coherent_ms / kernel_ms, "back_to_back": b2b_ms}})
     return [{
         "name": "histogram",
         "route": "cuda",
@@ -627,7 +796,7 @@ def main() -> int:
     phase_segscan_kernel_vs_plain(torch, args.seed)
     gpu, batch, launches = phase_main_path(torch, args.seed)
     curve = phase_curve_path(torch, args.seed)
-    kernels = phase_timing(torch, gpu, batch, launches, smi)
+    kernels = phase_timing(torch, gpu, batch, launches, smi, args.seed)
     del gpu, batch
     kernels.append(phase_curve_timing(torch, *curve, smi))
 

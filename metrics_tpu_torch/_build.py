@@ -26,6 +26,21 @@ KERNEL_SOURCES = {
     "segment_scan": CSRC_DIR / "segment_scan.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
+_PTR, _INT, _LONG = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# the C interface of each kernel's library: function -> (argument types, result type)
+SIGNATURES = {
+    "histogram": {
+        "tm_histogram": ([_PTR, _PTR, _INT, _LONG, _INT, _PTR, _PTR], _INT),
+    },
+    "segment_scan": {
+        "tm_segment_scan": (
+            [_INT, ctypes.POINTER(_PTR), ctypes.POINTER(_PTR), ctypes.POINTER(_INT), _INT, _PTR, _LONG, _INT, _PTR, _PTR],
+            _INT,
+        ),
+        "tm_segment_scan_scratch_bytes": ([_INT, _INT, _LONG], _LONG),
+        "tm_segment_scan_tile_rows": ([_INT, _INT], _LONG),
+    },
+}
 
 _LOCK = threading.Lock()
 _LOADED: Dict[str, ctypes.CDLL] = {}
@@ -78,12 +93,43 @@ def build(names: List[str] = None) -> List[Path]:
     return [library_path(n) for n in names]
 
 
+def call_on_device(device, call):
+    """``call(stream)`` with ``device`` current and ``stream`` the raw handle of its
+    current CUDA stream, for a C launch; returns what ``call`` returns.
+
+    Host time per launch matters at small sizes: the device switch is skipped when
+    ``device`` is already current, and the handle comes from
+    ``torch._C._cuda_getCurrentRawStream`` (present in the CUDA builds of torch 2.x,
+    and what torch's own generated kernels launch on), which builds no
+    ``torch.cuda.Stream``.
+    """
+    import torch
+
+    index = torch.cuda.current_device() if device.index is None else device.index
+    if index == torch.cuda.current_device():
+        return call(torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return call(torch._C._cuda_getCurrentRawStream(index))
+
+
+def bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
+    """Declares on ``lib``, a library built from kernel ``name``'s source (of this
+    tree or an older one), the argument and result types of its C functions; a
+    function the library lacks is left out. Returns ``lib``."""
+    for fn, (argtypes, restype) in SIGNATURES[name].items():
+        if hasattr(lib, fn):
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
+    return lib
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
+    """The loaded library of kernel ``name``, built first if needed, its C interface
+    declared."""
     with _LOCK:
         lib = _LOADED.get(name)
         if lib is None:
             (path,) = build([name])
-            lib = ctypes.CDLL(str(path))
+            lib = bind(ctypes.CDLL(str(path)), name)
             _LOADED[name] = lib
         return lib

@@ -8,60 +8,113 @@
 // Function: out[b] = sum over i with ids[i] == b of w[i], where w is 1 (count
 // mode), a 0/1 byte mask (mask mode) or a float32 weight (weight mode). Ids
 // outside [0, num_bins) drop. Count and mask modes write int32, weight mode
-// float32. The output is zeroed by the caller.
+// float32. tm_histogram zeroes the output itself, on the same stream.
 //
 // Bound: the function reads each id once (4 B) and each mask byte once (1 B),
 // 5 B per element in the mask mode of the confusion path; at N = 2^24 that is
 // 84 MB, about 25 us at the H100 SXM's 3.35 TB/s. The work per element is one
 // compare and one add, far below the card's issue rate, so bytes bound it.
 //
-// Design, and what it does about atomic contention: the TPU kernel compares
-// every input block against a 64-bin tile (O(bins * N) work), because the TPU has
-// no fast scattered add. Hopper has shared-memory atomics, so this kernel does
-// O(N) work instead. Each block keeps a private histogram in dynamic shared
-// memory (num_bins * 4 B, 64 KB at the 2^14-bin maximum), walks the ids in a
-// grid-stride loop with one shared-memory atomicAdd per kept id, and at the end
-// adds each non-zero bin once into the global output with one global atomicAdd.
-// Contention on a hot bin is thus confined to one SM's shared memory, and the
-// global traffic is at most grid * num_bins atomics, independent of N. The grid
-// is sized to the blocks that fit on the card at once, so the flush costs at most
-// one global atomic per bin per resident block. Warp aggregation of equal ids
-// and vectorised loads are left for later work.
+// Design: the TPU kernel compares every input block against a 64-bin tile
+// (O(bins * N) work), because the TPU has no fast scattered add. Hopper has
+// shared-memory atomics, so this kernel does O(N) work:
+//   - each block keeps a private histogram in dynamic shared memory (num_bins *
+//     4 B, 64 KB at the 2^14-bin maximum) and at the end adds each non-zero bin
+//     once into the output with one global atomic;
+//   - each thread takes runs of kRun = 16 consecutive ids in a grid-stride loop and
+//     starts all of a run's loads before any atomic: four 16-byte id loads, and one
+//     16-byte load of the 16 mask bytes (four of the 16 weights), so many bytes are
+//     in flight per thread;
+//   - equal neighbouring ids are merged in registers, and each run of equal ids
+//     costs one shared-memory atomic (its length, its masked count or its summed
+//     weight). Segmentation maps, where neighbouring pixels share their (target,
+//     prediction) pair, then take a few atomics per 16 ids instead of 16 that
+//     would all hit one address;
+//   - the grid (the blocks that fit on the card at once) is computed once per
+//     device, mode and bin count and cached, so a launch asks the runtime for
+//     nothing but the current device;
+//   - the last, ragged run, and ids, masks or weights whose base is not 16-byte
+//     aligned (a view such as buf[1:]), take scalar loads inside the same kernel.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libtm_histogram.so histogram.cu
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
 #include <type_traits>
+#include <unordered_map>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kRun = 16;          // consecutive ids per thread and turn
+constexpr int kMaxBins = 1 << 14;  // 64 KB of shared memory per block
 
 enum Mode { kCount = 0, kMask = 1, kWeight = 2 };
 
 template <int MODE>
 __global__ void __launch_bounds__(kThreads)
-histogram_kernel(const int32_t* __restrict__ ids, const void* __restrict__ weights,
-                 long long n, int num_bins, void* __restrict__ out) {
-  extern __shared__ unsigned char smem_raw[];
+histogram_kernel(const int32_t* __restrict__ ids, const void* __restrict__ weights, long long n, int num_bins,
+                 bool aligned, void* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   using Acc = typename std::conditional<MODE == kWeight, float, int>::type;
   Acc* hist = reinterpret_cast<Acc*>(smem_raw);
   for (int b = threadIdx.x; b < num_bins; b += blockDim.x) hist[b] = Acc(0);
   __syncthreads();
 
+  const uint8_t* mask = reinterpret_cast<const uint8_t*>(weights);
+  const float* wf = reinterpret_cast<const float*>(weights);
+  const long long runs = (n + kRun - 1) / kRun;
   const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-    const int id = __ldg(ids + i);
-    if ((unsigned)id < (unsigned)num_bins) {  // drops negative and >= num_bins ids
-      if (MODE == kCount) {
-        atomicAdd(reinterpret_cast<int*>(hist) + id, 1);
-      } else if (MODE == kMask) {
-        if (__ldg(reinterpret_cast<const unsigned char*>(weights) + i))
-          atomicAdd(reinterpret_cast<int*>(hist) + id, 1);
-      } else {
-        atomicAdd(reinterpret_cast<float*>(hist) + id, __ldg(reinterpret_cast<const float*>(weights) + i));
+  for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x; r < runs; r += stride) {
+    const long long i0 = r * kRun;
+    int id[kRun];
+    Acc w[kRun];
+    if (aligned && i0 + kRun <= n) {
+      const int4* p = reinterpret_cast<const int4*>(ids + i0);
+      int4 q[kRun / 4];
+#pragma unroll
+      for (int k = 0; k < kRun / 4; ++k) q[k] = __ldg(p + k);
+      if (MODE == kMask) {
+        const uint4 m = __ldg(reinterpret_cast<const uint4*>(mask + i0));
+        const unsigned mw[4] = {m.x, m.y, m.z, m.w};
+#pragma unroll
+        for (int k = 0; k < kRun; ++k) w[k] = Acc(((mw[k / 4] >> (8 * (k % 4))) & 0xffu) != 0);
+      } else if (MODE == kWeight) {
+#pragma unroll
+        for (int k = 0; k < kRun / 4; ++k) {
+          const float4 x = __ldg(reinterpret_cast<const float4*>(wf + i0) + k);
+          w[4 * k] = x.x;
+          w[4 * k + 1] = x.y;
+          w[4 * k + 2] = x.z;
+          w[4 * k + 3] = x.w;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kRun / 4; ++k) {
+        id[4 * k] = q[k].x;
+        id[4 * k + 1] = q[k].y;
+        id[4 * k + 2] = q[k].z;
+        id[4 * k + 3] = q[k].w;
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < kRun; ++k) {
+        const bool in = i0 + k < n;
+        id[k] = in ? __ldg(ids + i0 + k) : -1;  // past the end: an id that drops
+        if (MODE == kMask) w[k] = Acc(in && __ldg(mask + i0 + k) != 0);
+        if (MODE == kWeight) w[k] = in ? __ldg(wf + i0 + k) : 0.0f;
+      }
+    }
+    // one atomic per run of equal ids
+    Acc run = Acc(0);
+#pragma unroll
+    for (int k = 0; k < kRun; ++k) {
+      run += MODE == kCount ? Acc(1) : w[k];
+      if (k == kRun - 1 || id[k + 1] != id[k]) {
+        if ((unsigned)id[k] < (unsigned)num_bins && run != Acc(0)) atomicAdd(hist + id[k], run);
+        run = Acc(0);
       }
     }
   }
@@ -74,37 +127,68 @@ histogram_kernel(const int32_t* __restrict__ ids, const void* __restrict__ weigh
   }
 }
 
+std::mutex g_grid_mutex;
+std::unordered_map<long long, int> g_grid;  // (device, mode, bins) -> resident blocks
+
+// The blocks of histogram_kernel<MODE> that fit on the device at once with
+// num_bins bins of shared memory; asks the runtime only the first time.
 template <int MODE>
-cudaError_t launch(const int32_t* ids, const void* weights, long long n, int num_bins, void* out,
-                   cudaStream_t stream) {
+cudaError_t resident_blocks(int device, int num_bins, int* blocks) {
+  const long long key = ((long long)device << 32) | ((long long)MODE << 20) | num_bins;
+  std::lock_guard<std::mutex> lock(g_grid_mutex);
+  auto it = g_grid.find(key);
+  if (it != g_grid.end()) {
+    *blocks = it->second;
+    return cudaSuccess;
+  }
   const size_t smem = (size_t)num_bins * 4;
   cudaError_t err;
   if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(histogram_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    // The limit belongs to the kernel, not to this bin count: raise it to what the
+    // largest histogram needs, so that no later bin count lowers it under an earlier
+    // one whose grid is already cached.
+    err = cudaFuncSetAttribute(histogram_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxBins * 4);
     if (err != cudaSuccess) return err;
   }
-  int device = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
+  int sms = 0, per_sm = 0;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, histogram_kernel<MODE>, kThreads, smem);
   if (err != cudaSuccess) return err;
-  if (per_sm < 1) per_sm = 1;
-  const long long needed = (n + kThreads - 1) / kThreads;
-  const long long resident = (long long)sms * per_sm;
+  *blocks = sms * (per_sm < 1 ? 1 : per_sm);
+  g_grid.emplace(key, *blocks);
+  return cudaSuccess;
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
+
+template <int MODE>
+cudaError_t launch(const int32_t* ids, const void* weights, long long n, int num_bins, void* out,
+                   cudaStream_t stream) {
+  int device = 0, resident = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if ((err = resident_blocks<MODE>(device, num_bins, &resident)) != cudaSuccess) return err;
+  if ((err = cudaMemsetAsync(out, 0, (size_t)num_bins * 4, stream)) != cudaSuccess) return err;
+  const long long runs = (n + kRun - 1) / kRun;
+  const long long needed = (runs + kThreads - 1) / kThreads;
   const int grid = (int)(needed < resident ? needed : resident);
-  histogram_kernel<MODE><<<grid, kThreads, smem, stream>>>(ids, weights, n, num_bins, out);
+  const bool aligned = aligned16(ids) && (MODE == kCount || aligned16(weights));
+  histogram_kernel<MODE><<<grid, kThreads, (size_t)num_bins * 4, stream>>>(ids, weights, n, num_bins, aligned, out);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // mode: 0 count (weights unused, int32 out), 1 byte mask (int32 out), 2 float32
-// weights (float32 out). Returns the CUDA error code of the launch (0 on success).
+// weights (float32 out). Zeroes `out` (num_bins values, at most 2^14) and adds into
+// it, on `stream`. Returns the CUDA error code of the memset and launch (0 on success).
 extern "C" int tm_histogram(const void* ids, const void* weights, int mode, long long n, int num_bins,
                             void* out, void* stream) {
-  if (n <= 0 || num_bins <= 0) return (int)cudaSuccess;
-  const int32_t* x = reinterpret_cast<const int32_t*>(ids);
+  if (num_bins <= 0) return (int)cudaSuccess;
+  if (num_bins > kMaxBins) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (n <= 0) return (int)cudaMemsetAsync(out, 0, (size_t)num_bins * 4, s);
+  const int32_t* x = reinterpret_cast<const int32_t*>(ids);
   cudaError_t err;
   switch (mode) {
     case kCount: err = launch<kCount>(x, weights, n, num_bins, out, s); break;

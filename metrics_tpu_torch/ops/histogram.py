@@ -21,11 +21,12 @@ does not take raises.
 Every path drops ids outside ``[0, num_bins)``. Counts and bool/uint8-masked counts
 are int32; float32 weights sum in float32.
 """
-import ctypes
 from typing import Optional
 
 import torch
 from torch import Tensor
+
+from metrics_tpu_torch import _build
 
 KERNEL_MAX_BINS = 1 << 14
 _MODE_COUNT, _MODE_MASK, _MODE_WEIGHT = 0, 1, 2
@@ -68,20 +69,7 @@ class HistogramKernel:
 
     def _function(self):
         if self._fn is None:
-            from metrics_tpu_torch import _build
-
-            fn = _build.load("histogram").tm_histogram
-            fn.argtypes = [
-                ctypes.c_void_p,
-                ctypes.c_void_p,
-                ctypes.c_int,
-                ctypes.c_longlong,
-                ctypes.c_int,
-                ctypes.c_void_p,
-                ctypes.c_void_p,
-            ]
-            fn.restype = ctypes.c_int
-            self._fn = fn
+            self._fn = _build.load("histogram").tm_histogram
         return self._fn
 
     def __call__(self, ids: Tensor, weights: Optional[Tensor], num_bins: int) -> Tensor:
@@ -114,21 +102,15 @@ class HistogramKernel:
                 mode = _MODE_WEIGHT
             else:
                 raise TypeError(f"histogram kernel: weights must be bool, uint8 or float32, got {weights.dtype}")
-        out = torch.zeros(num_bins, dtype=_out_dtype(weights), device=ids.device)
         if ids.numel() == 0:
-            return out
+            return torch.zeros(num_bins, dtype=_out_dtype(weights), device=ids.device)
+        out = torch.empty(num_bins, dtype=_out_dtype(weights), device=ids.device)  # the kernel zeroes it
         fn = self._function()
-        with torch.cuda.device(ids.device):
-            stream = torch.cuda.current_stream(ids.device).cuda_stream
-            err = fn(
-                ids.data_ptr(),
-                None if weights is None else weights.data_ptr(),
-                mode,
-                ids.numel(),
-                num_bins,
-                out.data_ptr(),
-                stream,
-            )
+        weight_ptr = None if weights is None else weights.data_ptr()
+        err = _build.call_on_device(
+            ids.device,
+            lambda stream: fn(ids.data_ptr(), weight_ptr, mode, ids.numel(), num_bins, out.data_ptr(), stream),
+        )
         if err != 0:
             raise RuntimeError(f"histogram kernel launch failed with CUDA error {err}")
         self.launches += 1

@@ -25,6 +25,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import Tensor
 
+from metrics_tpu_torch import _build
+
 _OP_CODES = {"sum": 0, "min": 1, "max": 2}  # the kernel's op codes
 _SCAN_OPS = tuple(_OP_CODES)
 #: integer lane dtypes the entry point takes; the kernel itself runs int32 or int64
@@ -95,28 +97,13 @@ class SegmentScanKernel:
 
     def _functions(self):
         if self._fns is None:
-            from metrics_tpu_torch import _build
-
             lib = _build.load("segment_scan")
-            scratch = lib.tm_segment_scan_scratch_bytes
-            scratch.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong]
-            scratch.restype = ctypes.c_longlong
-            fn = lib.tm_segment_scan
-            fn.argtypes = [
-                ctypes.c_int,
-                ctypes.POINTER(ctypes.c_void_p),
-                ctypes.POINTER(ctypes.c_void_p),
-                ctypes.POINTER(ctypes.c_int),
-                ctypes.c_int,
-                ctypes.c_void_p,
-                ctypes.c_longlong,
-                ctypes.c_int,
-                ctypes.c_void_p,
-                ctypes.c_void_p,
-            ]
-            fn.restype = ctypes.c_int
-            self._fns = (fn, scratch)
+            self._fns = (lib.tm_segment_scan, lib.tm_segment_scan_scratch_bytes, lib.tm_segment_scan_tile_rows)
         return self._fns
+
+    def tile_rows(self, k: int, dtype: torch.dtype) -> int:
+        """Rows of one kernel tile for ``k`` lanes of ``dtype`` (builds the kernel if needed)."""
+        return self._functions()[2](k, int(dtype == torch.int64))
 
     def __call__(
         self, values: Sequence[Tensor], flags: Optional[Tensor], ops: Sequence[str], reverse: bool = False
@@ -152,26 +139,20 @@ class SegmentScanKernel:
         outs = tuple(torch.empty_like(v) for v in values)
         if n == 0:
             return outs
-        fn, scratch_bytes = self._functions()
+        fn, scratch_bytes, _ = self._functions()
         k, is64 = len(values), int(first.dtype == torch.int64)
+        # tile counter, status words and tile values; the call zeroes what must start at 0
         scratch = torch.empty(scratch_bytes(k, is64, n), dtype=torch.uint8, device=first.device)
         in_ptrs = (ctypes.c_void_p * k)(*[v.data_ptr() for v in values])
         out_ptrs = (ctypes.c_void_p * k)(*[o.data_ptr() for o in outs])
         op_codes = (ctypes.c_int * k)(*[_OP_CODES[op] for op in ops])
-        with torch.cuda.device(first.device):
-            stream = torch.cuda.current_stream(first.device).cuda_stream
-            err = fn(
-                k,
-                in_ptrs,
-                out_ptrs,
-                op_codes,
-                is64,
-                None if flags is None else flags.data_ptr(),
-                n,
-                int(bool(reverse)),
-                scratch.data_ptr() if scratch.numel() else None,
-                stream,
-            )
+        flag_ptr = None if flags is None else flags.data_ptr()
+        err = _build.call_on_device(
+            first.device,
+            lambda stream: fn(
+                k, in_ptrs, out_ptrs, op_codes, is64, flag_ptr, n, int(bool(reverse)), scratch.data_ptr(), stream
+            ),
+        )
         if err != 0:
             raise RuntimeError(f"segment scan kernel launch failed with CUDA error {err}")
         self.launches += 1

@@ -13,14 +13,17 @@ size) and the sort tier, prints one JSON line:
 - ``device_busy_ms``: device time of one compute, summed over its kernels and copies
   from a ``torch.profiler`` trace, and ``idle_share`` = 1 - busy / compute;
 - ``groups``: device ms per compute by kind: the state concatenation, the sort, the
-  gathers, the segmented-scan kernel (``csrc/segment_scan.cu``), and the rest;
+  gathers, the segmented-scan kernel (``csrc/segment_scan.cu``), memsets (the
+  scan's scratch zeroing among them), and the rest;
 - ``top``: the kernels that take the most device time;
 - ``host_top``: the host operations and runtime calls that take the most CPU time
   of one compute, under the profiler (which adds its own cost).
 
 Then one line per scan direction with the scan kernel alone on the compute's own
 lanes (two int32 ``min`` lanes, one global segment): its CUDA-event median and the
-device time of each of its phase kernels. A last line names the card and its power limit. Fails where there is no CUDA card.
+device time per call of each kernel and memset it enqueues (one kernel and one
+memset). A last line names the card and its power limit. Fails where there is no
+CUDA card.
 """
 import argparse
 import json
@@ -32,7 +35,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # substrings of kernel names, by group; the first group that matches takes the kernel
 GROUPS = (
-    ("segment_scan_kernel", ("tile_scan", "tile_reduce", "carry_scan")),
+    ("segment_scan_kernel", ("segment_scan_kernel",)),
+    ("memset", ("Memset",)),  # the scan's scratch zeroing, and any other memset of the compute
     ("sort", ("RadixSort", "radix_sort", "sort_kernel", "SortKernel", "segmented_sort", "bitonic")),
     ("state_concat", ("CatArrayBatchedCopy",)),
     ("gather", ("index_elementwise", "indexSelect", "gather", "index_select", "vectorized_gather")),
@@ -109,7 +113,7 @@ def main() -> int:
             "host_top": [{"name": k[:80], "self_cpu_ms": v} for k, v in host],
         }), flush=True)
 
-    # the scan kernel alone on the compute's own lanes, by phase, in both directions
+    # the scan kernel alone on the compute's own lanes, by kernel and memset, in both directions
     lanes, _ = chip_smoke.sorted_run_lanes(torch, scores, target)
     for reverse in (True, False):
         ms = chip_smoke.event_ms(torch, lambda: segment_scan_cuda(lanes, None, ("min", "min"), reverse))
@@ -118,9 +122,9 @@ def main() -> int:
             for _ in range(args.reps):
                 segment_scan_cuda(lanes, None, ("min", "min"), reverse)
             torch.cuda.synchronize()
-        phases = {k[:60]: v / args.reps / 1e3 for k, v in _device_events(prof).items()}
+        by_kernel = {k[:60]: v / args.reps / 1e3 for k, v in _device_events(prof).items()}
         print(json.dumps({"scan_kernel": {"n": lanes[0].numel(), "lanes": 2, "reverse": reverse,
-                                          "event_ms": ms, "device_ms_by_kernel": phases}}), flush=True)
+                                          "event_ms": ms, "device_ms_by_kernel": by_kernel}}), flush=True)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,

@@ -97,3 +97,125 @@ def test_segment_scan_dispatch_checks_and_counts(cuda):
     with pytest.raises(ValueError):
         segment.segment_scan_cuda([v.int()[::2]], None, ("sum",))
     assert segment.segment_scan_cuda.launches == before + 1
+
+
+# ---- the single-pass scan's edges: tile sizes, ragged reverse tiles, views, races
+
+_SCAN_OPS = (("min",), ("min", "min"), ("sum", "min", "max"), ("max", "sum", "min", "sum"))
+
+
+def _scan_flags(cuda, g, kind, n):
+    if kind == "none":
+        return None
+    if kind == "p01":
+        return torch.rand(n, generator=g, device=cuda) < 0.01
+    return torch.arange(n, device=cuda) % 1000 == 0
+
+
+def _assert_scan_matches(lanes, f, ops, reverse):
+    got = segment.segment_scan_cuda(lanes, f, ops, reverse)
+    want = segment._plain_multi_scan(lanes, f, ops, reverse)
+    for lane, (a, b) in enumerate(zip(got, want)):
+        assert a.dtype == b.dtype and torch.equal(a, b), (lane, ops, reverse, int((a != b).sum()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("flags", ["none", "p01"])
+@pytest.mark.parametrize("ops", _SCAN_OPS, ids=len)
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_segment_scan_tile_edges_on_card(cuda, dtype, ops, flags, reverse):
+    tile = segment.segment_scan_cuda.tile_rows(len(ops), dtype)
+    # T-1, T, T+1, 2T+1, and ragged tails with n % 4 of 1, 2 and 3
+    for n in (tile - 1, tile, tile + 1, 2 * tile + 1, 3 * tile + 2, 3 * tile + 3):
+        g = torch.Generator(device=cuda).manual_seed(n)
+        lanes = _scan_lanes(cuda, g, n, dtype, ops)
+        _assert_scan_matches(lanes, _scan_flags(cuda, g, flags, n), ops, reverse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_segment_scan_misaligned_views_on_card(cuda, dtype, reverse):
+    ops = ("sum", "min", "max")
+    n = 5 * segment.segment_scan_cuda.tile_rows(len(ops), dtype) + 7
+    g = torch.Generator(device=cuda).manual_seed(7)
+    # views one element in (4 or 8 bytes): contiguous, not 16-byte aligned
+    lanes = [buf[1:] for buf in _scan_lanes(cuda, g, n + 1, dtype, ops)]
+    flag_buf = torch.rand(n + 4, generator=g, device=cuda) < 0.01
+    for f in (None, flag_buf[4:], flag_buf[1:n + 1]):
+        _assert_scan_matches(lanes, f, ops, reverse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", ["none", "every1000"])
+def test_segment_scan_back_to_back_launches_on_card(cuda, flags):
+    """20 launches in a row at N = 2^26 + 3, four int64 lanes: each bit-equal."""
+    n, ops = (1 << 26) + 3, ("max", "sum", "min", "sum")
+    g = torch.Generator(device=cuda).manual_seed(26)
+    lanes = _scan_lanes(cuda, g, n, torch.int64, ops)
+    f = _scan_flags(cuda, g, flags, n)
+    want = segment._plain_multi_scan(lanes, f, ops, True)
+    bad = torch.zeros((), dtype=torch.bool, device=cuda)
+    for _ in range(20):
+        for a, b in zip(segment.segment_scan_cuda(lanes, f, ops, True), want):
+            bad |= (a != b).any()
+    assert not bool(bad)
+
+
+# ---- the run-merging histogram: coherent runs, one hot bin, views
+
+
+def _assert_histogram_matches(ids, mask, w, bins):
+    for weights in (None, mask):
+        assert torch.equal(histogram.histogram_cuda(ids, weights, bins), histogram._plain_bincount(ids, weights, bins))
+    got = histogram.histogram_cuda(ids, w, bins).double()
+    want = histogram._plain_bincount(ids, w.double(), bins)
+    scale = histogram._plain_bincount(ids, w.abs().double(), bins)
+    assert bool(torch.all((got - want).abs() <= 1e-5 * scale))  # atomics add in no fixed order
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bins", [1, 25, 361, 16384])
+def test_kernel_coherent_runs_on_card(cuda, bins):
+    """Runs of 1 to 4,096 equal ids, with dropped ids and masked rows inside runs."""
+    g = torch.Generator(device=cuda).manual_seed(bins)
+    lengths = torch.randint(1, 4097, (2000,), generator=g, device=cuda)
+    values = torch.randint(-3, bins + 3, (2000,), generator=g, device=cuda, dtype=torch.int32)
+    ids = torch.repeat_interleave(values, lengths)
+    n = ids.numel()
+    mask = torch.rand(n, generator=g, device=cuda) < 0.9
+    _assert_histogram_matches(ids, mask, torch.randn(n, generator=g, device=cuda), bins)
+
+
+@pytest.mark.cuda
+def test_kernel_one_hot_bin_on_card(cuda):
+    n = (1 << 24) + 17
+    ids = torch.full((n,), 5, dtype=torch.int32, device=cuda)
+    mask = torch.ones(n, dtype=torch.bool, device=cuda)
+    mask[::3] = False
+    got = histogram.histogram_cuda(ids, None, 25)
+    assert int(got[5]) == n and int(got.sum()) == n
+    assert int(histogram.histogram_cuda(ids, mask, 25)[5]) == n - (n + 2) // 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_kernel_misaligned_views_on_card(cuda, offset):
+    bins, n = 361, (1 << 20) + 5
+    g = torch.Generator(device=cuda).manual_seed(offset)
+    ids = torch.randint(-3, bins + 3, (n + offset,), generator=g, device=cuda, dtype=torch.int32)[offset:]
+    mask = (torch.rand(n + offset, generator=g, device=cuda) < 0.7)[offset:]
+    w = torch.randn(n + offset, generator=g, device=cuda)[offset:]
+    _assert_histogram_matches(ids, mask, w, bins)
+
+
+@pytest.mark.cuda
+def test_kernel_bin_counts_above_48kb_in_turn_on_card(cuda):
+    """Bin counts that need more than 48 KB of shared memory, alternating: a smaller
+    one after a larger one must not leave the larger one's launch above the limit."""
+    g = torch.Generator(device=cuda).manual_seed(48)
+    for bins in (16384, 13000, 16384, 13000):
+        ids = torch.randint(-3, bins + 3, ((1 << 20) + 3,), generator=g, device=cuda, dtype=torch.int32)
+        mask = torch.rand(ids.numel(), generator=g, device=cuda) < 0.7
+        _assert_histogram_matches(ids, mask, torch.randn(ids.numel(), generator=g, device=cuda), bins)
