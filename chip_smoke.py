@@ -65,6 +65,21 @@ Phases, each printing one JSON line:
    counts) and, where marked ``back_to_back``, per call over 20 calls queued
    together (the host's time overlaps the device's work).
 
+8. retrieval_path: the MS MARCO passage-ranking dev evaluation, 6,980 queries x 1,000
+   candidates = 6,980,000 rows drawn on the card (15% of queries without a relevant
+   candidate, the rest with 1, 2 or 3; scores N(1.5, 1) for relevant rows, N(0, 1)
+   for the others, rounded through bfloat16), in 70 updates of 100 queries (rows
+   shuffled inside each update, query ids across updates) into RetrievalMRR(),
+   RetrievalMAP(), RetrievalNormalizedDCG(top_k=10), RetrievalPrecision(top_k=10)
+   and RetrievalRPrecision(), once with list states and once with
+   ``cat_capacity=2**23``. Checks: the two runs bit-equal; each value within 1e-5
+   of a float64 reference on the dense (6980, 1000) layout (a stable per-query sort,
+   then closed forms); 8 scan launches per evaluation (1 MRR + 1 MAP + 1 NDCG + 2
+   P@10 + 3 R-precision); every launch of one more evaluation bit-equal to the plain
+   scan on the same lanes and flags. Timings: update and compute per metric, the
+   kernel's event and device time on MRR's three lanes, pass A's two and a one-lane
+   pass at this shape, the plain version, and ``torch.cumsum`` on one int32 lane.
+
 The last three lines are the ``nvidia-smi`` name and power limit, the kernels JSON
 line and ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
 """
@@ -82,6 +97,12 @@ UPDATES = 3
 # MLPerf Training DLRM: exact ROC AUC over the Criteo 1TB day-23 evaluation split
 DLRM = {"samples": 89_137_319, "batch": 65_536, "positive_rate": 0.03, "positive_shift": 1.5}
 IMAGENET = {"samples": 50_000, "classes": 1_000, "batch": 1_000}
+# MS MARCO passage ranking, dev evaluation: 6,980 queries x their top-1000 re-ranked
+# candidates; about 15% of queries without a relevant candidate (BM25 recall@1000 is
+# about 0.85), the rest with 1 (most), 2 or 3
+MSMARCO = {"queries": 6_980, "depth": 1_000, "batch_queries": 100, "relevant_shift": 1.5,
+           "relevant_count_cdf": (0.15, 0.83, 0.9575)}
+CAT_CAPACITY = 1 << 23
 CPU_CHECK_ROWS = 1 << 22
 SCAN_SIZES = (1, 1000, 1024, 1025, (1 << 24) + 17, DLRM["samples"])
 SCAN_OPS = {1: ("min",), 2: ("min", "min"), 3: ("sum", "min", "max"), 4: ("max", "sum", "min", "sum")}
@@ -525,6 +546,31 @@ def run_end_references(torch, fps, tps, boundary, max_fpr: float):
     return ap, 0.5 * (1 + (partial - min_area) / (max_fpr - min_area))
 
 
+def device_events(prof) -> dict:
+    """(name, device microseconds) of each kernel or copy in a profiler trace, summed by name."""
+    totals = {}
+    for evt in prof.key_averages():
+        if not str(evt.device_type).endswith("CUDA"):
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        if us > 0:
+            totals[evt.key] = totals.get(evt.key, 0.0) + us
+    return totals
+
+
+def device_ms(torch, fn, reps: int = 10) -> dict:
+    """Device ms per ``fn()`` call of each kernel and memset, by name, from a profiler trace."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {k[:70]: v / reps / 1e3 for k, v in device_events(prof).items()}
+
+
 def phase_curve_path(torch, seed: int):
     from metrics_tpu_torch.ops.clf_curve import _fps_tps_from_scan, _run_end_counts
     from metrics_tpu_torch.ops.segment import _plain_multi_scan, segment_scan_cuda
@@ -695,6 +741,7 @@ def phase_curve_timing(torch, gpu, batch, imagenet, imagenet_batch, imagenet_cla
         raise AssertionError("scan kernel and plain version disagree at the ImageNet shape")
     small_ms = event_ms(torch, lambda: segment_scan_cuda(small, None, ops, True), reps=100, warmup=10)
     small_plain_ms = event_ms(torch, lambda: _plain_multi_scan(small, None, ops, True), reps=100, warmup=10)
+    small_cumsum_ms = event_ms(torch, lambda: torch.cumsum(small[0], 0, dtype=torch.int32), reps=100, warmup=10)
     m = small[0].numel()
     small_bound_ms = m * k * 2 * small[0].element_size() / HBM_BYTES_PER_S * 1e3
     emit({"phase": "curve_timing", "card": smi, "metrics": timing,
@@ -705,7 +752,7 @@ def phase_curve_timing(torch, gpu, batch, imagenet, imagenet_batch, imagenet_cla
           "segment_scan_sum_lane": {"n": n, "kernel_ms": sum_kernel_ms, "torch_cumsum_ms": cumsum_ms,
                                     "back_to_back": back_to_back, "bound_ms": sum_bound_ms},
           "segment_scan_imagenet_shape": {"n": m, "lanes": k, "kernel_ms": small_ms, "plain_ms": small_plain_ms,
-                                          "bound_ms": small_bound_ms}})
+                                          "torch_cumsum_ms": small_cumsum_ms, "bound_ms": small_bound_ms}})
     return {
         "name": "segment_scan",
         "route": "cuda",
@@ -774,6 +821,195 @@ def phase_timing(torch, gpu, batch, launches: int, smi: str, seed: int):
     }]
 
 
+def msmarco_batches(torch, seed: int):
+    """The MS MARCO dev evaluation drawn on the card: 70 updates of 100 queries, each
+    ``(preds, target, indexes)`` with its rows shuffled; query ids in random order."""
+    c = MSMARCO
+    g = torch.Generator(device="cuda").manual_seed(seed + 5)
+    q, d = c["queries"], c["depth"]
+    u = torch.rand(q, generator=g, device="cuda")
+    n_rel = sum((u >= edge).to(torch.int64) for edge in c["relevant_count_cdf"])  # 0, 1, 2 or 3
+    target = (torch.arange(d, device="cuda")[None, :] < n_rel[:, None]).to(torch.int64)
+    scores = (torch.randn((q, d), generator=g, device="cuda") + c["relevant_shift"] * target)
+    scores = scores.to(torch.bfloat16).to(torch.float32)  # a model served in bf16: real ties
+    order = torch.randperm(q, generator=g, device="cuda")
+    batches = []
+    for start in range(0, q, c["batch_queries"]):
+        ids = order[start:start + c["batch_queries"]]
+        perm = torch.randperm(ids.numel() * d, generator=g, device="cuda")
+        batches.append((scores[ids].reshape(-1)[perm], target[ids].reshape(-1)[perm],
+                        ids.repeat_interleave(d)[perm]))
+    return batches
+
+
+def retrieval_metrics(cat_capacity=None):
+    from metrics_tpu_torch.retrieval import (
+        RetrievalMAP,
+        RetrievalMRR,
+        RetrievalNormalizedDCG,
+        RetrievalPrecision,
+        RetrievalRPrecision,
+    )
+
+    kw = {} if cat_capacity is None else {"cat_capacity": cat_capacity}
+    return {
+        "RetrievalMRR": RetrievalMRR(**kw),
+        "RetrievalMAP": RetrievalMAP(**kw),
+        "RetrievalNormalizedDCG(top_k=10)": RetrievalNormalizedDCG(top_k=10, **kw),
+        "RetrievalPrecision(top_k=10)": RetrievalPrecision(top_k=10, **kw),
+        "RetrievalRPrecision": RetrievalRPrecision(**kw),
+    }
+
+
+def msmarco_reference(torch, batches) -> dict:
+    """float64 values of the five metrics on the dense (queries, depth) layout: each
+    query's candidates in the order they were fed, a stable sort by descending score,
+    then closed forms; queries without a relevant candidate score 0."""
+    q, d = MSMARCO["queries"], MSMARCO["depth"]
+    preds, target, indexes = (torch.cat(col) for col in zip(*batches))
+    order = torch.sort(indexes, stable=True).indices
+    preds, target = preds[order].reshape(q, d).double(), target[order].reshape(q, d)
+    ranked = torch.gather(target, 1, torch.sort(-preds, dim=1, stable=True).indices).double()
+    n_rel = ranked.sum(1)
+    has = n_rel > 0
+    k = torch.arange(1, d + 1, device=ranked.device, dtype=torch.float64)
+    first = torch.where(ranked > 0, k, float(d + 1)).min(1).values
+    mrr = torch.where(has, 1.0 / first, 0.0)
+    ap = torch.where(has, (ranked * ranked.cumsum(1) / k).sum(1) / n_rel.clamp_min(1), 0.0)
+    disc = 1.0 / torch.log2(k[:10] + 1.0)
+    idcg = (disc[None, :] * (k[None, :10] <= n_rel[:, None])).sum(1)
+    ndcg = torch.where(has, (ranked[:, :10] * disc).sum(1) / idcg.clamp_min(1e-12), 0.0)
+    p10 = ranked[:, :10].sum(1) / 10.0
+    r_prec = torch.where(has, (ranked * (k[None, :] <= n_rel[:, None])).sum(1) / n_rel.clamp_min(1), 0.0)
+    return {"RetrievalMRR": mrr.mean().item(), "RetrievalMAP": ap.mean().item(),
+            "RetrievalNormalizedDCG(top_k=10)": ndcg.mean().item(),
+            "RetrievalPrecision(top_k=10)": p10.mean().item(), "RetrievalRPrecision": r_prec.mean().item()}
+
+
+class RecordingScan:
+    """Stands in for the scan wrapper: launches the kernel, keeps each call's lanes."""
+
+    def __init__(self, kernel):
+        self.kernel, self.calls = kernel, []
+
+    def __call__(self, values, flags, ops, reverse=False):
+        outs = self.kernel(values, flags, ops, reverse)
+        self.calls.append((tuple(values), flags, tuple(ops), reverse, outs))
+        return outs
+
+
+# the scan calls of one evaluation of the five metrics, in order (MRR, MAP, NDCG, P@10, R-precision)
+RETRIEVAL_LANE_SETS = [(("sum", "sum", "min"), False), (("sum", "sum"), False), (("sum", "sum"), False),
+                       (("sum", "sum"), False), (("sum",), False), (("sum", "sum"), False), (("sum",), True),
+                       (("sum",), False)]
+
+
+def phase_retrieval_path(torch, seed: int):
+    from metrics_tpu_torch.ops import segment
+    from metrics_tpu_torch.ops.segment import _plain_multi_scan, segment_scan_cuda
+
+    batches = msmarco_batches(torch, seed)
+    n = sum(b[0].numel() for b in batches)
+    if len(batches) != 70 or n != 6_980_000:
+        raise AssertionError(f"expected 70 updates and 6,980,000 rows, got {len(batches)} and {n}")
+    runs = {"list": retrieval_metrics(), "cat_capacity": retrieval_metrics(CAT_CAPACITY)}
+    torch.cuda.synchronize()
+
+    values, per_evaluation, seconds = {}, {}, {}
+    segment_scan_cuda.launches = 0  # ---- retrieval path starts
+    for kind, metrics in runs.items():
+        t0 = time.perf_counter()
+        for preds, target, indexes in batches:
+            for metric in metrics.values():
+                metric.update(preds, target, indexes=indexes)
+        before = segment_scan_cuda.launches
+        values[kind] = {name: metric.compute() for name, metric in metrics.items()}
+        torch.cuda.synchronize()
+        per_evaluation[kind] = segment_scan_cuda.launches - before
+        seconds[kind] = time.perf_counter() - t0
+    launches = segment_scan_cuda.launches  # ---- retrieval path ends
+
+    for kind, count in per_evaluation.items():
+        if count != len(RETRIEVAL_LANE_SETS):
+            raise AssertionError(f"one {kind} evaluation launched the scan kernel {count} times, not 8")
+    if launches != 2 * len(RETRIEVAL_LANE_SETS):
+        raise AssertionError(f"the retrieval path launched the scan kernel {launches} times, not 16")
+    for name in values["list"]:
+        a, b = values["list"][name], values["cat_capacity"][name]
+        if a.shape != () or not bool(torch.isfinite(a)) or not torch.equal(a, b):
+            raise AssertionError(f"{name}: list states {a} and cat_capacity states {b} differ or are not finite")
+    if not all(m.indexes.valid_count() == n and not m.indexes.overflowed() for m in runs["cat_capacity"].values()):
+        raise AssertionError("a cat_capacity state does not hold every row")
+    refs = msmarco_reference(torch, batches)
+    ref_err = {name: abs(values["list"][name].item() - ref) for name, ref in refs.items()}
+    for name, err in ref_err.items():
+        if err > 1e-5:
+            raise AssertionError(f"{name}: {values['list'][name].item()} on the card vs float64 {refs[name]}")
+
+    # one more evaluation, each launch held against the plain scan on its own lanes and flags
+    recorder = RecordingScan(segment_scan_cuda)
+    segment.segment_scan_cuda = recorder
+    try:
+        for metric in runs["list"].values():
+            metric._computed = None
+            metric.compute()
+    finally:
+        segment.segment_scan_cuda = segment_scan_cuda
+    if [(ops, reverse) for _, _, ops, reverse, _ in recorder.calls] != RETRIEVAL_LANE_SETS:
+        raise AssertionError(f"unexpected retrieval lane sets: {[c[2:4] for c in recorder.calls]}")
+    for lanes, flags, ops, reverse, outs in recorder.calls:
+        if flags is None or any(v.dtype != torch.int32 for v in lanes):
+            raise AssertionError("a retrieval scan ran without segment flags or on other than int32 lanes")
+        for a, b in zip(outs, _plain_multi_scan(lanes, flags, ops, reverse)):
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError(f"scan kernel != plain on the retrieval lanes ops={ops} reverse={reverse}")
+    emit({"phase": "retrieval_path", "rows": n, "queries": MSMARCO["queries"], "updates": len(batches),
+          "values": {k: v.item() for k, v in values["list"].items()}, "float64_reference": refs,
+          "abs_err_vs_float64": ref_err, "list_equals_cat_capacity": True,
+          "scan_launches_per_evaluation": per_evaluation, "scan_launches": launches,
+          "launches_bit_equal_to_plain": len(recorder.calls), "seconds_incl_updates": seconds})
+    return runs, batches[0], recorder.calls, launches
+
+
+def phase_retrieval_timing(torch, runs, batch, calls, smi: str) -> None:
+    from metrics_tpu_torch.ops.segment import _plain_multi_scan, segment_scan_cuda
+
+    def compute_ms(metric):
+        def run():
+            metric._computed = None  # time the computation, not the cached value
+            metric.compute()
+        return event_ms(torch, run, reps=5, warmup=1)
+
+    preds, target, indexes = batch
+    timing = {}
+    for name, metric in runs["list"].items():
+        top_k = getattr(metric, "top_k", None)
+        fresh = type(metric)(**({} if top_k is None else {"top_k": top_k}))
+        timing[name] = {"update_ms": event_ms(torch, lambda: fresh.update(preds, target, indexes=indexes), reps=10),
+                        "compute_ms": compute_ms(metric),
+                        "compute_ms_cat_capacity": compute_ms(runs["cat_capacity"][name])}
+    # the kernel at this shape: MRR's pass A (three lanes), MAP's pass A (two), P@10's pass B (one)
+    kernel = {}
+    for label, index in (("mrr_pass_a", 0), ("map_pass_a", 1), ("p10_pass_b", 4)):
+        lanes, flags, ops, reverse, _ = calls[index]
+        n, k = lanes[0].numel(), len(lanes)
+        call = lambda: segment_scan_cuda(lanes, flags, ops, reverse)  # noqa: E731
+        dev = device_ms(torch, call)
+        kernel[label] = {
+            "n": n, "lanes": k, "ops": list(ops), "kernel_ms": event_ms(torch, call, warmup=10),
+            "kernel_ms_back_to_back": back_to_back_ms(torch, call),
+            "device_ms": sum(v for key, v in dev.items() if "segment_scan" in key), "device_ms_by_name": dev,
+            "plain_ms": event_ms(torch, lambda: _plain_multi_scan(lanes, flags, ops, reverse), reps=5, warmup=1),
+            # each int32 lane read once and written once, the bool flag column read once
+            "bound_ms": n * (k * 2 * 4 + 1) / HBM_BYTES_PER_S * 1e3,
+        }
+    lane = calls[0][0][0]
+    cumsum = lambda: torch.cumsum(lane, 0, dtype=torch.int32)  # noqa: E731
+    kernel["torch_cumsum_ms_one_int32_lane"] = event_ms(torch, cumsum, warmup=10)
+    kernel["torch_cumsum_ms_one_int32_lane_back_to_back"] = back_to_back_ms(torch, cumsum)
+    emit({"phase": "retrieval_timing", "card": smi, "metrics": timing, "segment_scan": kernel})
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -798,7 +1034,12 @@ def main() -> int:
     curve = phase_curve_path(torch, args.seed)
     kernels = phase_timing(torch, gpu, batch, launches, smi, args.seed)
     del gpu, batch
-    kernels.append(phase_curve_timing(torch, *curve, smi))
+    scan = phase_curve_timing(torch, *curve, smi)
+    del curve
+    runs, batch, calls, retrieval_launches = phase_retrieval_path(torch, args.seed)
+    phase_retrieval_timing(torch, runs, batch, calls, smi)
+    scan["launches"] += retrieval_launches
+    kernels.append(scan)
 
     print(smi)
     emit({"kernels": kernels})

@@ -44,11 +44,18 @@ class _PrecisionRecallCurveBase(Metric):
     _sketch_computable: bool = False
 
     def _init_curve_state(
-        self, thresholds: Thresholds, tolerance: float, tolerance_bits: int, confmat_shape: Tuple[int, ...]
+        self,
+        thresholds: Thresholds,
+        tolerance: float,
+        tolerance_bits: int,
+        confmat_shape: Tuple[int, ...],
+        target_item_shape: Tuple[int, ...] = (),
     ) -> None:
         """Validate the tolerance knobs as the JAX package does, then register the states.
 
-        ``confmat_shape`` is the per-threshold shape of the binned confusion tensor.
+        ``confmat_shape`` is the per-threshold shape of the binned confusion tensor; its
+        leading axes are the shape of one exact ``preds`` row, and ``target_item_shape``
+        that of one ``target`` row (for ``cat_capacity`` buffers).
         """
         self.tolerance = float(tolerance)
         self.tolerance_bits = int(tolerance_bits)
@@ -71,8 +78,12 @@ class _PrecisionRecallCurveBase(Metric):
         thresholds = _adjust_threshold_arg(thresholds, self.device)
         self.register_buffer("thresholds", thresholds, persistent=False)
         if thresholds is None:
-            self.add_state("preds", [], dist_reduce_fx="cat")
-            self.add_state("target", [], dist_reduce_fx="cat")
+            self.add_state(
+                "preds", [], dist_reduce_fx="cat", cat_item_shape=confmat_shape[:-2], cat_dtype=torch.float32
+            )
+            self.add_state(
+                "target", [], dist_reduce_fx="cat", cat_item_shape=target_item_shape, cat_dtype=torch.int32
+            )
         else:
             self.add_state(
                 "confmat", torch.zeros((len(thresholds), *confmat_shape), dtype=_count_dtype()), dist_reduce_fx="sum"
@@ -185,7 +196,7 @@ class MultilabelPrecisionRecallCurve(_PrecisionRecallCurveBase):
         self.num_labels = num_labels
         self.ignore_index = ignore_index
         self.validate_args = validate_args
-        self._init_curve_state(thresholds, tolerance, tolerance_bits, (num_labels, 2, 2))
+        self._init_curve_state(thresholds, tolerance, tolerance_bits, (num_labels, 2, 2), (num_labels,))
 
     def update(self, preds: Tensor, target: Tensor) -> None:
         if self.validate_args:

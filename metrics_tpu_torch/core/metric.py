@@ -6,12 +6,15 @@ same state contract:
 
 - ``add_state`` registers a tensor state (reduced by ``"sum"``, ``"mean"``,
   ``"max"``, ``"min"``, ``None`` or a callable) as a buffer, or an empty list for a
-  ``"cat"`` state, kept as a plain Python list of tensors.
+  ``"cat"`` state, kept as a plain Python list of tensors or, when the metric is
+  built with ``cat_capacity=N``, as a fixed-capacity
+  :class:`~metrics_tpu_torch.core.state.CatBuffer`.
 - ``update`` accumulates in place of the live states, ``compute`` caches its value
   until the next ``update``, ``forward`` accumulates and returns the batch value
   (full-state or reduce-state strategy), ``reset`` restores the defaults.
 - ``state_dict`` holds the persistent states only (none by default), as the JAX
-  package does; list states go in as lists of tensors.
+  package does; list states go in as lists of tensors, ``CatBuffer`` states as
+  ``{"data", "count", "overflow"}``.
 
 Device: states live on ``device`` (``cuda`` unless the caller names another, and
 constructing on ``cuda`` without a card raises). An update input on another device
@@ -21,14 +24,16 @@ Not in this slice: the fleet axis, the fused engine, observability, fault inject
 checkpointing and the cross-process sync of the JAX package.
 """
 import functools
+import warnings
 from abc import ABC, abstractmethod
 from copy import deepcopy
-from typing import Any, Callable, Dict, List, Optional, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 from torch import Tensor, nn
 
+from metrics_tpu_torch.core.state import CatBuffer, cat_merge
 from metrics_tpu_torch.utils.data import (
     _resolve_device,
     _same_device,
@@ -78,6 +83,8 @@ class Metric(nn.Module, ABC):
     Args (keyword-only):
         device: where the states live and updates run; ``cuda`` by default.
         compute_on_cpu: move list states to the CPU after each update.
+        cat_capacity: keep each ``cat`` state as a ``CatBuffer`` of this many rows
+            instead of a list.
     """
 
     is_differentiable: Optional[bool] = None
@@ -94,11 +101,18 @@ class Metric(nn.Module, ABC):
         self.compute_on_cpu = kwargs.pop("compute_on_cpu", False)
         if not isinstance(self.compute_on_cpu, bool):
             raise ValueError(f"Expected keyword argument `compute_on_cpu` to be a `bool` but got {self.compute_on_cpu}")
+        self.cat_capacity = kwargs.pop("cat_capacity", None)
+        if self.cat_capacity is not None and (not isinstance(self.cat_capacity, int) or self.cat_capacity < 1):
+            raise ValueError(
+                f"Expected keyword argument `cat_capacity` to be a positive int or None but got {self.cat_capacity}"
+            )
         if kwargs:
             kwargs_ = [f"`{a}`" for a in sorted(kwargs)]
             raise ValueError(f"Unexpected keyword arguments: {', '.join(kwargs_)}")
 
-        self._defaults: Dict[str, Union[Tensor, List]] = {}
+        self._defaults: Dict[str, Union[Tensor, List, CatBuffer]] = {}
+        # declared (item_shape, dtype, fill) of each cat state's rows
+        self._cat_meta: Dict[str, tuple] = {}
         self._persistent: Dict[str, bool] = {}
         self._reductions: Dict[str, Any] = {}
 
@@ -117,12 +131,19 @@ class Metric(nn.Module, ABC):
         default: Union[Tensor, list, float, int],
         dist_reduce_fx: Union[str, Callable, None] = None,
         persistent: bool = False,
+        cat_item_shape: Sequence[int] = (),
+        cat_dtype: Optional[torch.dtype] = None,
+        cat_fill_value: Union[int, float] = 0,
     ) -> None:
         """Register a state: a tensor (reset value) or an empty list (a ``cat`` state).
 
         ``dist_reduce_fx`` is one of ``"sum" | "mean" | "max" | "min" | "cat" | None`` or
         a callable applied to a stacked ``(k, ...)`` tensor; ``forward`` and
         ``merge_state`` combine states with it.
+
+        ``cat_item_shape`` / ``cat_dtype`` / ``cat_fill_value`` describe one row of a
+        list state. With ``cat_capacity`` set, a ``"cat"`` list state becomes a
+        ``CatBuffer`` of such rows, unused rows holding ``cat_fill_value``.
         """
         if not name.isidentifier():
             raise ValueError(f"Argument `name` must be a valid python identifier, got {name!r}")
@@ -132,6 +153,14 @@ class Metric(nn.Module, ABC):
         if dist_reduce_fx is not None and not (dist_reduce_fx in _REDUCE_KIND_TO_FN or callable(dist_reduce_fx)):
             raise ValueError("`dist_reduce_fx` must be callable or one of ['mean', 'sum', 'cat', 'min', 'max', None]")
         if is_list:
+            self._cat_meta[name] = (tuple(cat_item_shape), cat_dtype, cat_fill_value)
+        if is_list and self.cat_capacity is not None and dist_reduce_fx == "cat":
+            default = CatBuffer.create(
+                self.cat_capacity, tuple(cat_item_shape), cat_dtype or torch.float32, cat_fill_value, self._device
+            )
+            setattr(self, name, default.clone())
+            self._defaults[name] = default
+        elif is_list:
             setattr(self, name, [])
             self._defaults[name] = []
         else:
@@ -155,7 +184,8 @@ class Metric(nn.Module, ABC):
         """Merge another instance's state (or a state dict) into the live state, in place.
 
         Only reductions with a pairwise merge are accepted: ``sum``/``max``/``min``
-        tensor states and ``cat`` list states; others raise :class:`MetricsUserError`.
+        tensor states and ``cat`` list states; others, and ``CatBuffer`` states, raise
+        :class:`MetricsUserError`.
         """
         if isinstance(other, Metric):
             if set(other._defaults) != set(self._defaults):
@@ -174,6 +204,11 @@ class Metric(nn.Module, ABC):
             if name not in incoming:
                 raise MetricsUserError(f"merge_state: incoming state is missing `{name}`")
             mine, theirs = getattr(self, name), incoming[name]
+            if isinstance(mine, CatBuffer) or isinstance(theirs, CatBuffer):
+                raise MetricsUserError(
+                    f"merge_state: `{name}` is a CatBuffer state; fixed-capacity cat states"
+                    " merge only through a cross-process gather (not ported yet)"
+                )
             if reduce_kind == "cat" and isinstance(mine, list):
                 merged[name] = list(mine) + [self._check_device(t) for t in theirs]
             elif reduce_kind == "sum":
@@ -246,6 +281,17 @@ class Metric(nn.Module, ABC):
                 )
             if self._computed is not None:
                 return self._computed
+            for attr in self._defaults:
+                val = getattr(self, attr)
+                if isinstance(val, CatBuffer) and val.overflowed():
+                    # every process warns: an overflow on any rank loses data
+                    warnings.warn(
+                        f"Metric {self.__class__.__name__}: cat state `{attr}` overflowed its"
+                        f" capacity {val.capacity}; the computed value is missing the overwritten"
+                        " rows. Increase `cat_capacity`.",
+                        RuntimeWarning,
+                        stacklevel=2,
+                    )
             self._computed = _squeeze_if_scalar(compute(*args, **kwargs))
             return self._computed
 
@@ -316,6 +362,8 @@ class Metric(nn.Module, ABC):
                 reduced = torch.maximum(global_state, local_state)
             elif reduce_fn == "min":
                 reduced = torch.minimum(global_state, local_state)
+            elif reduce_fn == "cat" and isinstance(global_state, CatBuffer):
+                reduced = cat_merge(global_state, local_state)
             elif reduce_fn == "cat" or (reduce_fn is None and isinstance(global_state, list)):
                 reduced = list(global_state) + list(local_state)
             elif reduce_fn is None:
@@ -332,7 +380,7 @@ class Metric(nn.Module, ABC):
         self._forward_cache = None
         self._computed = None
         for attr, default in self._defaults.items():
-            setattr(self, attr, [] if isinstance(default, list) else default.clone())
+            setattr(self, attr, [] if isinstance(default, list) else default.clone())  # CatBuffer: a fresh buffer
 
     def clone(self) -> "Metric":
         """Deep copy of the metric."""
@@ -352,7 +400,10 @@ class Metric(nn.Module, ABC):
             if not self._persistent[key]:
                 continue
             value = getattr(self, key)
-            if isinstance(value, list):
+            if isinstance(value, CatBuffer):
+                data = value.data if keep_vars else value.data.detach().clone()
+                destination[prefix + key] = {"data": data, "count": value.count, "overflow": value.overflow}
+            elif isinstance(value, list):
                 destination[prefix + key] = [v if keep_vars else v.detach().clone() for v in value]
             else:
                 destination[prefix + key] = value if keep_vars else value.detach().clone()
@@ -371,7 +422,10 @@ class Metric(nn.Module, ABC):
             name = prefix + key
             if name in state_dict:
                 value = state_dict.pop(name)
-                if isinstance(value, list):
+                if isinstance(value, dict) and {"data", "count"} <= set(value):
+                    data = torch.as_tensor(value["data"]).to(self._device)
+                    setattr(self, key, CatBuffer(data, value["count"], value.get("overflow", False)))
+                elif isinstance(value, list):
                     setattr(self, key, [torch.as_tensor(v).to(self._device) for v in value])
                 else:
                     setattr(self, key, torch.as_tensor(value).to(self._device, self._defaults[key].dtype))
@@ -381,14 +435,20 @@ class Metric(nn.Module, ABC):
         )
 
     def _apply(self, fn: Callable, *args: Any, **kwargs: Any) -> "Metric":
-        """Move defaults and list states with the buffers (``.to``, ``.cuda``, ``.cpu``)."""
+        """Move defaults, list and ``CatBuffer`` states with the buffers (``.to``, ``.cuda``, ``.cpu``)."""
         super()._apply(fn, *args, **kwargs)
-        self._defaults = {k: (v if isinstance(v, list) else fn(v)) for k, v in self._defaults.items()}
+
+        def move(v: Any) -> Any:
+            if isinstance(v, list):
+                return [fn(t) for t in v]
+            return v.apply(fn) if isinstance(v, CatBuffer) else fn(v)
+
+        self._defaults = {k: move(v) for k, v in self._defaults.items()}
         for key, default in self._defaults.items():
-            if isinstance(default, list):
-                setattr(self, key, [fn(v) for v in getattr(self, key)])
+            if not isinstance(default, Tensor):
+                setattr(self, key, move(getattr(self, key)))
         for default in self._defaults.values():
-            if isinstance(default, Tensor):
+            if isinstance(default, (Tensor, CatBuffer)):
                 self._device = default.device
                 break
         self._computed = None

@@ -16,6 +16,9 @@ Dispatch: a CUDA tensor of at least ``RANK_MIN_SIZE`` rows takes the rank tier (
 place of the JAX package's TPU and unsharded gate); everything else keeps the f32
 sort of ``ops/clf_curve.py``, the correctness reference. ``force_tier`` pins one.
 
+Since the retrieval slice, also ``ranked_targets`` and ``stable_front_pack``
+(:457-469), on :func:`descending_sort_key`, the key of XLA's float sort comparator.
+
 Not in this slice: the bucket-histogram machinery and the sketch tier (:235-451),
 ``record_dispatch`` and ``rank_scope``.
 """
@@ -30,6 +33,7 @@ RANK_MIN_SIZE = 1 << 20
 
 _EXP_FIELD = 0x7F800000
 _INT32_MIN = -(1 << 31)
+_INT32_MAX = (1 << 31) - 1
 #: Sortable int32 key of -inf, also pinned for invalid rows (uint32 0xFF800000).
 _NEG_INF_KEY_I32 = 0x7F800000
 #: The uint32 key of -inf, as in the JAX package.
@@ -121,3 +125,37 @@ def rank_run_end_counts(preds: Tensor, target: Tensor, valid: Tensor) -> Tuple[T
     slab = lab[order]
     fps, tps, boundary = _fps_tps_from_sorted(skey, slab == 1, (slab != 2).sum(dtype=torch.int32))
     return fps, tps, _sortable_key_to_f32(skey), boundary
+
+
+# --------------------------------------------------------- sort-slim helpers
+
+
+def descending_sort_key(x: Tensor) -> Tensor:
+    """int32 keys whose ascending stable order is the order of XLA's stable sort of ``-x``.
+
+    That comparator (the JAX package's ``lax.sort`` on the CPU) treats ±0.0 and every
+    denormal as one value and sorts NaN after everything: :func:`_sortable_key`, with
+    NaN mapped to the largest key.
+    """
+    x = x.to(torch.float32)
+    return torch.where(torch.isnan(x), _INT32_MAX, _sortable_key(x))
+
+
+def ranked_targets(preds: Tensor, target: Tensor) -> Tensor:
+    """``target`` reordered by descending ``preds`` along the last axis; stable, so
+    equal scores keep their original order (ties as in :func:`descending_sort_key`)."""
+    order = torch.sort(descending_sort_key(preds), dim=-1, stable=True).indices
+    return torch.gather(target, -1, order)
+
+
+def stable_front_pack(mask: Tensor, *cols: Tensor) -> Tuple[Tensor, ...]:
+    """Rows where ``mask`` is True first, then the others, each group in its order.
+
+    A stable partition needs no sort: each row's destination is its rank among the
+    rows of its group (a cumulative sum), and one scatter per column puts it there.
+    """
+    mask = mask.reshape(-1).to(torch.bool)
+    kept = torch.cumsum(mask, 0)
+    dropped = torch.cumsum(~mask, 0)
+    dest = torch.where(mask, kept - 1, kept[-1:] + dropped - 1)
+    return tuple(torch.empty_like(c).index_copy_(0, dest, c) for c in cols)

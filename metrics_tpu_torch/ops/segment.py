@@ -15,9 +15,14 @@ by where the lanes lie:
 Integer lanes only: int add/min/max are exact under any association, so the kernel,
 the plain version and every tier of the JAX package agree bit for bit. Sums wrap.
 
-The retrieval half of the JAX module (``_segment_cumsum_*``,
-``_scan_retrieval_scores``, ``grouped_retrieval_scores``) comes with the retrieval
-slice.
+The retrieval half (``_segment_cumsum_*`` :58-147, ``_scan_retrieval_scores``
+:451-608, ``grouped_retrieval_scores`` :611) follows the scan. Its integer passes
+all go through :func:`segment_multi_scan`, so on the card every one is a kernel
+launch with real segment flags: pass A (two int32 lanes, three with MRR's ``min``
+lane), pass B (the rank-gated count), and r_precision's reverse pass over
+segment-last flags and its gated pass. Its float running sums stay block-local
+(:func:`_segment_cumsum_float`), in plain PyTorch as the JAX package leaves them
+to XLA.
 """
 import ctypes
 from typing import Optional, Sequence, Tuple
@@ -26,6 +31,7 @@ import torch
 from torch import Tensor
 
 from metrics_tpu_torch import _build
+from metrics_tpu_torch.ops.rank import _INT32_MIN, _sortable_key_to_f32, descending_sort_key
 
 _OP_CODES = {"sum": 0, "min": 1, "max": 2}  # the kernel's op codes
 _SCAN_OPS = tuple(_OP_CODES)
@@ -219,3 +225,244 @@ def segment_multi_scan(
         lanes = [v.to(dtype).contiguous() for v in values[start:start + KERNEL_MAX_LANES]]
         outs.extend(segment_scan_cuda(lanes, flags, ops[start:start + KERNEL_MAX_LANES], reverse))
     return tuple(o.to(v.dtype) for o, v in zip(outs, values))
+
+
+# ------------------------------------------------------------------ retrieval half
+
+
+def _segment_cumsum_nonneg(values: Tensor, new_seg: Tensor) -> Tensor:
+    """Within-segment inclusive cumsum of NON-NEGATIVE values, in their dtype.
+
+    The global cumsum never decreases, so one ``cummax`` carries each segment's base
+    (the global sum just before it) to its rows. Integer lanes only for exactness:
+    a float global sum loses ``ulp(global)`` per segment (:func:`_segment_cumsum_float`).
+    """
+    g = torch.cumsum(values, 0, dtype=values.dtype)
+    base = torch.cummax(torch.where(new_seg, g - values, torch.zeros_like(g)), 0).values
+    return g - base
+
+
+def _segment_cumsum_float(values: Tensor, new_seg: Tensor, block: int = 2048) -> Tensor:
+    """Within-segment inclusive cumsum of float values, any sign, at block-local precision.
+
+    Rows split into blocks of ``block``: each block's segmented cumsum (sign-split
+    cumsum/cummax-base trick) runs on its own, so no intermediate exceeds a block's
+    or a segment's sum. The carry of the open segment across blocks is the affine
+    reset composition ``c -> m_i * c + a_i`` (``m_i`` 0 where block i holds a segment
+    start), scanned over the block summaries by log-step doubling. The summation
+    order differs from the JAX package's ``associative_scan``: equal to a tolerance.
+    """
+    n = values.shape[0]
+    pad = (-n) % block
+    if pad:
+        values = torch.cat([values, values.new_zeros(pad)])
+        # padding rows open their own segments: they never extend a carry
+        new_seg = torch.cat([new_seg, new_seg.new_ones(pad)])
+    nb = values.shape[0] // block
+    v = values.reshape(nb, block)
+    seg = new_seg.reshape(nb, block)
+
+    def inblock(x: Tensor) -> Tensor:
+        g = torch.cumsum(x, 1)
+        return g - torch.cummax(torch.where(seg, g - x, torch.zeros_like(g)), 1).values
+
+    within = inblock(v.clamp_min(0.0)) - inblock((-v).clamp_min(0.0))
+    m = (~seg.any(1)).to(values.dtype)
+    a = within[:, -1]
+    d = 1
+    while d < nb:  # inclusive scan of (m, a) under (f then g) = (gm * fm, gm * fa + ga)
+        a = torch.cat([a[:d], m[d:] * a[:-d] + a[d:]])
+        m = torch.cat([m[:d], m[d:] * m[:-d]])
+        d *= 2
+    carry = torch.cat([a.new_zeros(1), a[:-1]])
+    before_first = torch.cumsum(seg, 1) == 0  # rows that extend the carried-in segment
+    out = within + torch.where(before_first, carry[:, None], 0.0)
+    return out.reshape(-1)[:n]
+
+
+def _segment_suffix_sum_nonneg(values: Tensor, is_last: Tensor) -> Tensor:
+    """Within-segment inclusive SUFFIX sum of non-negative values (``is_last`` marks
+    each segment's last row): the prefix form on the flipped rows."""
+    return _segment_cumsum_nonneg(values.flip(0), is_last.flip(0)).flip(0)
+
+
+# every retrieval metric's per-query value is a segmented-scan read at the segment's
+# last row: no scatters, one or two sorts and a few fused scan passes
+_SCAN_METRICS = frozenset(
+    {
+        "average_precision", "reciprocal_rank", "precision", "recall", "hit_rate",
+        "fall_out", "ndcg", "r_precision",
+    }
+)
+
+
+def _sort_by_query(indexes: Tensor, key: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """One stable sort by ``(indexes, key)``: sorted indexes, sorted keys, order.
+
+    The int32 query id is the high word of an int64 key in signed order (fill rows
+    with index -1 come first) and the int32 ``key`` its low word, biased to unsigned.
+    Both columns come back out of the sorted key: no gather.
+    """
+    packed = indexes.to(torch.int64) * (1 << 32) + (key.to(torch.int64) - _INT32_MIN)
+    skey, order = torch.sort(packed, stable=True)
+    low = (skey & 0xFFFFFFFF) + _INT32_MIN
+    return skey >> 32, low.to(torch.int32), order
+
+
+def _scan_retrieval_scores(
+    indexes: Tensor,
+    preds: Tensor,
+    target: Tensor,
+    metric: str,
+    top_k: Optional[int],
+    adaptive_k: bool,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """Per-query score at each segment's LAST row (0 / ``valid`` False elsewhere).
+
+    Rows sort by (query, descending score), stable, as the JAX package's two-key
+    ``lax.sort`` of ``(indexes, -preds, target)``. Pass A scans every statistic that
+    does not depend on the within-query rank in one launch: the rank (a sum of
+    ones), the relevant (or, for fall-out, non-relevant) count and, for MRR, the
+    first relevant row (a ``min``). A statistic gated on the rank or on the query's
+    total needs a pass of its own: a data dependency, not a missed fusion.
+    """
+    n = indexes.shape[0]
+    device = indexes.device
+    s_idx, _, order = _sort_by_query(indexes, descending_sort_key(preds))
+    s_target = target[order]
+    new_seg = torch.ones(n, dtype=torch.bool, device=device)
+    new_seg[1:] = s_idx[1:] != s_idx[:-1]
+    is_last = torch.ones(n, dtype=torch.bool, device=device)
+    is_last[:-1] = new_seg[1:]
+    pos = torch.arange(n, dtype=torch.int32, device=device)
+
+    # counts are int32 lanes: exact to 2^31 rows; cast to float32 at the read points
+    binary_i = (s_target > 0).to(torch.int32)
+    binary_t = binary_i.to(torch.float32)
+
+    # ---- pass A: one launch
+    a_vals = [torch.ones(n, dtype=torch.int32, device=device)]
+    a_ops = ["sum"]
+    if metric == "fall_out":
+        nonrel = 1 - binary_i
+        a_vals.append(nonrel)
+    else:
+        a_vals.append(binary_i)
+    a_ops.append("sum")
+    if metric == "reciprocal_rank":
+        # 1-based position of the segment's first relevant row, read where n_pos > 0
+        a_vals.append(torch.where(binary_i > 0, pos + 1, (1 << 31) - 1).to(torch.int32))
+        a_ops.append("min")
+    a_out = segment_multi_scan(a_vals, new_seg, ops=a_ops)
+    rank = a_out[0]  # 1-based position within its segment
+    in_k = None if top_k is None else rank <= top_k
+
+    def gated(x: Tensor) -> Tensor:
+        return x if in_k is None else x * in_k.to(torch.int32)
+
+    valid = is_last & (s_idx >= 0)
+    if metric == "fall_out":
+        cum_nonrel = a_out[1].to(torch.float32)
+        if top_k is None:
+            cum_nonrel_k = cum_nonrel
+        else:
+            (cum_nonrel_k_i,) = segment_multi_scan((gated(nonrel),), new_seg)  # pass B
+            cum_nonrel_k = cum_nonrel_k_i.to(torch.float32)
+        n_neg = torch.where(is_last, cum_nonrel, 0.0)
+        scores = torch.where(is_last & (n_neg > 0), cum_nonrel_k / n_neg.clamp_min(1.0), 0.0)
+        return scores, n_neg, valid  # the n_positive slot counts negatives for empty handling
+
+    cum_rel_i = a_out[1]
+    cum_rel = cum_rel_i.to(torch.float32)
+    cum_rel_k = cum_rel
+    if top_k is not None and metric in ("average_precision", "precision", "recall", "hit_rate"):
+        (cum_rel_k_i,) = segment_multi_scan((gated(binary_i),), new_seg)  # pass B: rank-gated
+        cum_rel_k = cum_rel_k_i.to(torch.float32)
+    n_pos = torch.where(is_last, cum_rel, 0.0)
+
+    if metric == "average_precision":
+        contrib = binary_t * cum_rel_k / rank
+        if in_k is not None:
+            contrib = torch.where(in_k, contrib, 0.0)
+        cum_contrib = _segment_cumsum_float(contrib, new_seg)  # float stream: block-local
+        scores = torch.where(is_last & (cum_rel_k > 0), cum_contrib / cum_rel_k.clamp_min(1.0), 0.0)
+        return scores, n_pos, valid
+
+    if metric == "reciprocal_rank":
+        seg_start_row = pos - rank + 1
+        first_rel_rank = (a_out[2] - 1 - seg_start_row + 1).to(torch.float32)
+        scores = torch.where(is_last & (n_pos > 0), 1.0 / first_rel_rank.clamp_min(1.0), 0.0)
+        return scores, n_pos, valid
+
+    if metric == "ndcg":
+        # DCG over score-ranked targets, IDCG over value-sorted targets: both layouts
+        # are query-major with equal segment spans, so rank, in_k and disc carry over
+        disc = 1.0 / torch.log2(rank.to(torch.float32) + 1.0)
+
+        def dcg_terms(t: Tensor) -> Tensor:
+            terms = t * disc
+            return terms if in_k is None else torch.where(in_k, terms, 0.0)
+
+        cum_dcg = _segment_cumsum_float(dcg_terms(s_target.to(torch.float32)), new_seg)
+        # the ideal layout's targets come back from the sorted key itself
+        if target.is_floating_point():
+            _, key2, _ = _sort_by_query(indexes, descending_sort_key(target))
+            s_t2 = _sortable_key_to_f32(key2)
+        else:
+            _, key2, _ = _sort_by_query(indexes, -target.to(torch.int32))
+            s_t2 = (-key2).to(torch.float32)
+        cum_idcg = _segment_cumsum_float(dcg_terms(s_t2), new_seg)
+        idcg = torch.where(is_last, cum_idcg, 0.0)
+        scores = torch.where(is_last & (idcg > 0), (cum_dcg / idcg.clamp_min(1e-12)).clamp(0.0, 1.0), 0.0)
+        return scores, n_pos, valid
+
+    if metric == "r_precision":
+        # the query's positive total reaches every row as prefix + suffix - value (one
+        # reverse pass over segment-last flags); the re-count gated on it is a third pass
+        (suffix,) = segment_multi_scan((binary_i,), is_last, reverse=True)
+        total = (cum_rel_i + suffix - binary_i).to(torch.float32)
+        in_r = (rank.to(torch.float32) <= total).to(torch.int32)
+        (rel_in_r_i,) = segment_multi_scan((binary_i * in_r,), new_seg)
+        scores = torch.where(is_last & (n_pos > 0), rel_in_r_i.to(torch.float32) / n_pos.clamp_min(1.0), 0.0)
+        return scores, n_pos, valid
+
+    count_f = rank.to(torch.float32)  # at the last row: the segment's size
+    if top_k is None:
+        k_per_seg = count_f
+    elif adaptive_k:
+        k_per_seg = count_f.clamp_max(float(top_k))
+    else:
+        k_per_seg = torch.full_like(count_f, float(top_k))
+
+    if metric == "precision":
+        scores = torch.where(is_last & (n_pos > 0), cum_rel_k / k_per_seg.clamp_min(1.0), 0.0)
+        return scores, n_pos, valid
+    if metric == "recall":
+        scores = torch.where(is_last & (n_pos > 0), cum_rel_k / n_pos.clamp_min(1.0), 0.0)
+        return scores, n_pos, valid
+    if metric == "hit_rate":
+        scores = torch.where(is_last & (cum_rel_k > 0), 1.0, 0.0)
+        return scores, n_pos, valid
+    raise ValueError(f"Metric {metric} is not scan-friendly")
+
+
+def grouped_retrieval_scores(
+    indexes: Tensor,
+    preds: Tensor,
+    target: Tensor,
+    metric: str,
+    top_k: Optional[int] = None,
+    adaptive_k: bool = False,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """Per-query ``(scores, n_positive, valid)`` of every query, each of length N.
+
+    ROW-ALIGNED: a query's values sit at its LAST row in (query, descending score)
+    order; every other row holds 0 / False. Consume them position-agnostically
+    (masked reductions over ``valid``), never as a prefix. ``n_positive`` counts the
+    query's positive targets (negatives for ``fall_out``), for the caller's
+    ``empty_target_action``. Rows with a negative index (``CatBuffer`` fill) form no
+    valid query.
+    """
+    if metric not in _SCAN_METRICS:
+        raise ValueError(f"Unknown grouped retrieval metric: {metric}")
+    return _scan_retrieval_scores(indexes, preds, target, metric, top_k, adaptive_k)

@@ -71,7 +71,11 @@ def to_tensor(x, device: Optional[Union[str, torch.device]] = None) -> Tensor:
 
 
 def dim_zero_cat(x: Union[Tensor, List[Tensor]]) -> Tensor:
-    """Concatenate a list of tensors along dim 0."""
+    """Concatenate a list of tensors along dim 0; a ``CatBuffer`` gives its valid rows."""
+    from metrics_tpu_torch.core.state import CatBuffer
+
+    if isinstance(x, CatBuffer):
+        return x.values()
     if isinstance(x, Tensor):
         return x
     x = [torch.atleast_1d(v) for v in x]

@@ -7,7 +7,9 @@ Usage (from the root of a checkout, on a machine with a CUDA card and nvcc):
 
 Fills a ``BinaryAUROC()`` with the ``chip_smoke.py`` DLRM data (89,137,319 bf16-rounded
 click scores in 1,361 updates), then, for the rank tier (the card's default at this
-size) and the sort tier, prints one JSON line:
+size) and the sort tier, prints one JSON line; a third line is the rank tier on a
+``BinaryAUROC(cat_capacity=2**27)`` filled with the same updates (one buffer per
+state, nothing to concatenate):
 
 - ``compute_ms``: CUDA-event median of one ``compute`` (the cached value cleared);
 - ``device_busy_ms``: device time of one compute, summed over its kernels and copies
@@ -68,19 +70,21 @@ def main() -> int:
     from metrics_tpu_torch.classification import BinaryAUROC
     from metrics_tpu_torch.ops import rank
     from metrics_tpu_torch.ops.segment import segment_scan_cuda
-    from torch_update_profile import _device_events
 
     _build.build()
     scores, target = chip_smoke.dlrm_data(torch, args.seed)
-    metric = BinaryAUROC()
+    metrics = {"list": BinaryAUROC(), "cat_capacity": BinaryAUROC(cat_capacity=1 << 27)}
     for preds, labels in chip_smoke.dlrm_batches(scores, target, scores.numel()):
-        metric.update(preds, labels)
+        for m in metrics.values():
+            m.update(preds, labels)
 
-    def compute():
-        metric._computed = None  # time the computation, not the cached value
-        return metric.compute()
+    for states, tier in (("list", "rank"), ("list", "sort"), ("cat_capacity", "rank")):
+        metric = metrics[states]
 
-    for tier in ("rank", "sort"):
+        def compute():
+            metric._computed = None  # time the computation, not the cached value
+            return metric.compute()
+
         with rank.force_tier(tier):
             value = compute().item()
             compute_ms = chip_smoke.event_ms(torch, compute, reps=5, warmup=1)
@@ -91,7 +95,7 @@ def main() -> int:
                 for _ in range(args.reps):
                     compute()
                 torch.cuda.synchronize()
-        per_compute = {k: v / args.reps / 1e3 for k, v in _device_events(prof).items()}
+        per_compute = {k: v / args.reps / 1e3 for k, v in chip_smoke.device_events(prof).items()}
         groups = {}
         for name, ms in per_compute.items():
             groups[_group(name)] = groups.get(_group(name), 0.0) + ms
@@ -103,6 +107,7 @@ def main() -> int:
         )[:8]
         print(json.dumps({
             "tier": tier,
+            "states": states,
             "n": scores.numel(),
             "auroc": value,
             "compute_ms": compute_ms,
@@ -113,6 +118,7 @@ def main() -> int:
             "host_top": [{"name": k[:80], "self_cpu_ms": v} for k, v in host],
         }), flush=True)
 
+    del metrics
     # the scan kernel alone on the compute's own lanes, by kernel and memset, in both directions
     lanes, _ = chip_smoke.sorted_run_lanes(torch, scores, target)
     for reverse in (True, False):
@@ -122,7 +128,7 @@ def main() -> int:
             for _ in range(args.reps):
                 segment_scan_cuda(lanes, None, ("min", "min"), reverse)
             torch.cuda.synchronize()
-        by_kernel = {k[:60]: v / args.reps / 1e3 for k, v in _device_events(prof).items()}
+        by_kernel = {k[:60]: v / args.reps / 1e3 for k, v in chip_smoke.device_events(prof).items()}
         print(json.dumps({"scan_kernel": {"n": lanes[0].numel(), "lanes": 2, "reverse": reverse,
                                           "event_ms": ms, "device_ms_by_kernel": by_kernel}}), flush=True)
     print(subprocess.run(

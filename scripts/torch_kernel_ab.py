@@ -90,20 +90,6 @@ def scan_call(torch, lib, lanes, ops, reverse):
     return run, outs
 
 
-def device_ms(torch, run, reps):
-    """Device ms per call, by kernel or memset name, from a profiler trace."""
-    sys.path.insert(0, os.path.join(REPO, "scripts"))
-    from torch_update_profile import _device_events
-
-    run()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            run()
-        torch.cuda.synchronize()
-    return {k[:70]: v / reps / 1e3 for k, v in _device_events(prof).items()}
-
-
 def host_us(torch, fn, calls: int = 3000) -> float:
     """Host microseconds per ``fn()``: enqueue time, the device left to catch up after."""
     import time
@@ -129,7 +115,7 @@ def compare(torch, chip_smoke, label, calls, reps, extra=None):
     for tag in ("parent", "change", "change", "parent"):
         turns[tag].append(chip_smoke.event_ms(torch, calls[tag][0], reps=reps, warmup=10))
     line = {"input": label, "event_ms": turns, "outputs_bit_equal": equal,
-            "device_ms_per_call": {tag: device_ms(torch, run, 10) for tag, (run, _) in calls.items()}}
+            "device_ms_per_call": {tag: chip_smoke.device_ms(torch, run, 10) for tag, (run, _) in calls.items()}}
     line.update(extra or {})
     print(json.dumps(line), flush=True)
     if not equal:
@@ -180,14 +166,14 @@ def main() -> int:
     cumsum.append(chip_smoke.event_ms(torch, lambda: torch.cumsum(lanes[0], 0, dtype=torch.int32), reps=args.reps,
                                       warmup=10))
     print(json.dumps({"input": "torch.cumsum one sum lane", "event_ms": cumsum,
-                      "device_ms_per_call": device_ms(torch, lambda: torch.cumsum(lanes[0], 0, dtype=torch.int32),
-                                                      10)}), flush=True)
+                      "device_ms_per_call": chip_smoke.device_ms(
+                          torch, lambda: torch.cumsum(lanes[0], 0, dtype=torch.int32), 10)}), flush=True)
     # what the card reaches when it reads the lanes once and writes them once
     copies = [torch.empty_like(v) for v in lanes]
     copy = lambda: [d.copy_(v) for d, v in zip(copies, lanes)]  # noqa: E731
     print(json.dumps({"input": "copy of the two DLRM lanes", "n": lanes[0].numel(),
                       "event_ms": chip_smoke.event_ms(torch, copy, reps=args.reps, warmup=10),
-                      "device_ms_per_call": device_ms(torch, copy, 10)}), flush=True)
+                      "device_ms_per_call": chip_smoke.device_ms(torch, copy, 10)}), flush=True)
     del copies
     del calls, lanes
 

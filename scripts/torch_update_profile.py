@@ -25,20 +25,6 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _device_events(prof):
-    """(name, device microseconds) of each kernel or copy in the trace, summed by name."""
-    totals = {}
-    for evt in prof.key_averages():
-        if not str(evt.device_type).endswith("CUDA"):
-            continue
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = evt.self_cuda_time_total
-        if us > 0:
-            totals[evt.key] = totals.get(evt.key, 0.0) + us
-    return totals
-
-
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -72,7 +58,7 @@ def main() -> int:
             for _ in range(args.reps):
                 metric.update(logits, target)
             torch.cuda.synchronize()
-        per_update = {k: v / args.reps / 1e3 for k, v in _device_events(prof).items()}
+        per_update = {k: v / args.reps / 1e3 for k, v in chip_smoke.device_events(prof).items()}
         busy = sum(per_update.values())
         top = sorted(per_update.items(), key=lambda kv: -kv[1])[:8]
         print(json.dumps({

@@ -219,3 +219,62 @@ def test_kernel_bin_counts_above_48kb_in_turn_on_card(cuda):
         ids = torch.randint(-3, bins + 3, ((1 << 20) + 3,), generator=g, device=cuda, dtype=torch.int32)
         mask = torch.rand(ids.numel(), generator=g, device=cuda) < 0.7
         _assert_histogram_matches(ids, mask, torch.randn(ids.numel(), generator=g, device=cuda), bins)
+
+
+# ---- the retrieval path's lane sets, with real segment flags
+
+
+class _RecordingScan:
+    """Stands in for ``segment.segment_scan_cuda``: launches the kernel, keeps each call."""
+
+    def __init__(self, kernel):
+        self.kernel, self.calls = kernel, []
+
+    def __call__(self, values, flags, ops, reverse=False):
+        outs = self.kernel(values, flags, ops, reverse)
+        self.calls.append((tuple(values), flags, tuple(ops), reverse, outs))
+        return outs
+
+
+def _retrieval_rows(cuda, shape):
+    """Shuffled rows of a retrieval run on the card: 6,980 queries of 1,000 candidates,
+    or 60 queries of 1 to 300 rows; bf16-rounded scores, sparse relevance."""
+    g = torch.Generator(device=cuda).manual_seed(6980)
+    if shape == "msmarco":
+        sizes = torch.full((6980,), 1000, device=cuda)
+    else:
+        sizes = torch.randint(1, 301, (60,), generator=g, device=cuda)
+    indexes = torch.repeat_interleave(torch.arange(sizes.numel(), device=cuda, dtype=torch.int32), sizes)
+    n = indexes.numel()
+    target = (torch.rand(n, generator=g, device=cuda) < 0.002).to(torch.int32)
+    preds = (torch.randn(n, generator=g, device=cuda) + 1.5 * target).to(torch.bfloat16).to(torch.float32)
+    perm = torch.randperm(n, generator=g, device=cuda)
+    return indexes[perm], preds[perm], target[perm]
+
+
+# metric, top_k -> the lane sets of its scan calls, in order
+_RETRIEVAL_LANE_SETS = {
+    ("average_precision", None): [(("sum", "sum"), False)],
+    ("reciprocal_rank", None): [(("sum", "sum", "min"), False)],
+    ("precision", 10): [(("sum", "sum"), False), (("sum",), False)],
+    ("r_precision", None): [(("sum", "sum"), False), (("sum",), True), (("sum",), False)],
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["msmarco", "ragged"])
+@pytest.mark.parametrize("metric,top_k", list(_RETRIEVAL_LANE_SETS), ids=lambda v: str(v))
+def test_retrieval_lane_sets_on_card(cuda, monkeypatch, metric, top_k, shape):
+    """Pass A with 2 and 3 lanes, pass B, the reverse pass over segment-last flags and
+    the gated pass, as the retrieval compute issues them: each launch bit-equal to
+    the plain version on the same lanes and flags."""
+    recorder = _RecordingScan(segment.segment_scan_cuda)
+    monkeypatch.setattr(segment, "segment_scan_cuda", recorder)
+    indexes, preds, target = _retrieval_rows(cuda, shape)
+    scores, n_pos, valid = segment.grouped_retrieval_scores(indexes, preds, target, metric, top_k=top_k)
+    assert [(ops, reverse) for _, _, ops, reverse, _ in recorder.calls] == _RETRIEVAL_LANE_SETS[(metric, top_k)]
+    for lanes, flags, ops, reverse, outs in recorder.calls:
+        assert flags is not None and flags.dtype == torch.bool and all(v.dtype == torch.int32 for v in lanes)
+        for a, b in zip(outs, segment._plain_multi_scan(lanes, flags, ops, reverse)):
+            assert torch.equal(a, b), (metric, ops, reverse, int((a != b).sum()))
+    assert int(valid.sum()) == int(torch.unique(indexes).numel()) and bool(torch.isfinite(scores).all())
