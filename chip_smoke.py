@@ -80,6 +80,34 @@ Phases, each printing one JSON line:
    kernel's event and device time on MRR's three lanes, pass A's two and a one-lane
    pass at this shape, the plain version, and ``torch.cumsum`` on one int32 lane.
 
+9. collection: the Cityscapes evaluation (three new batches) through one
+   MetricCollection of nine metrics: Accuracy, Precision, Recall, F1Score and
+   Specificity (multiclass, macro), JaccardIndex, ConfusionMatrix, CohenKappa and
+   MatthewsCorrCoef; beside it a MeanMetric of each batch's pixel accuracy and the
+   composition 2PR/(P+R) of a macro precision and recall. Checks: the compute groups
+   are the JAX package's two; the histogram kernel launches once per group and
+   update (6), against 27 for the nine metrics updated apart; every value bit-equal
+   to the metric run apart, the confusion matrix to the plain histogram, the
+   composition to its formula on the apart values, the mean within 1e-6 of float64.
+   Timing: the collection's update against the nine updates apart (CUDA events).
+10. sync_nccl: an NCCL process group of one rank (``file://`` store under
+    ``build/``); the collection, a samplewise MulticlassExactMatch (a cat state of
+    bools) and RetrievalMAP over the MS MARCO rows, with list states and
+    ``cat_capacity=2**23``, built with ``distributed_available_fn=lambda: True`` and
+    the gather's collective body as ``dist_sync_fn``, so that every ``compute``
+    runs ``all_gather`` on the card. Checks: synced values bit-equal to unsynced
+    ones; the live states come back bit-equal after each synced compute, a
+    ``CatBuffer`` still a ``CatBuffer``; a second ``sync()`` raises. Timing: one
+    ``sync()`` per metric.
+11. sync_ranks: four processes on the one card in a ``gloo`` group (CUDA tensors,
+    which gloo stages through the host), spawned after the build; each rank feeds
+    its own two Cityscapes batches to the collection and its share of the MS MARCO
+    updates (14, 17, 22 and 17 of the 70) to RetrievalMAP with list and
+    ``cat_capacity`` states, and syncs at ``compute``. Every rank's values must equal
+    one process's run on the union in rank order (counts bit-equal, floats within
+    1e-6), its list and ``cat_capacity`` values bit-equal; a rank that outlives the
+    deadline is killed and the phase fails.
+
 The last three lines are the ``nvidia-smi`` name and power limit, the kernels JSON
 line and ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
 """
@@ -104,6 +132,15 @@ MSMARCO = {"queries": 6_980, "depth": 1_000, "batch_queries": 100, "relevant_shi
            "relevant_count_cdf": (0.15, 0.83, 0.9575)}
 CAT_CAPACITY = 1 << 23
 CPU_CHECK_ROWS = 1 << 22
+# the compute groups of the Cityscapes collection, as metrics_tpu forms them
+COLLECTION_GROUPS = [
+    ["MulticlassAccuracy", "MulticlassF1Score", "MulticlassPrecision", "MulticlassRecall", "MulticlassSpecificity"],
+    ["MulticlassCohenKappa", "MulticlassConfusionMatrix", "MulticlassJaccardIndex", "MulticlassMatthewsCorrCoef"],
+]
+SYNC_RANKS = 4
+RANK_BATCHES = 2  # Cityscapes batches per rank
+MSMARCO_RANK_UPDATES = (14, 17, 22, 17)  # of the 70 updates: 20, 24, 31 and 24% of the rows
+RANKS_DEADLINE_S = 420
 SCAN_SIZES = (1, 1000, 1024, 1025, (1 << 24) + 17, DLRM["samples"])
 SCAN_OPS = {1: ("min",), 2: ("min", "min"), 3: ("sum", "min", "max"), 4: ("max", "sum", "min", "sum")}
 
@@ -1010,6 +1047,401 @@ def phase_retrieval_timing(torch, runs, batch, calls, smi: str) -> None:
     emit({"phase": "retrieval_timing", "card": smi, "metrics": timing, "segment_scan": kernel})
 
 
+def collection_metrics(device, **kwargs):
+    """The Cityscapes evaluation's nine stat-scores and confusion metrics, by name."""
+    from metrics_tpu_torch.classification import (
+        MulticlassAccuracy,
+        MulticlassCohenKappa,
+        MulticlassConfusionMatrix,
+        MulticlassF1Score,
+        MulticlassJaccardIndex,
+        MulticlassMatthewsCorrCoef,
+        MulticlassPrecision,
+        MulticlassRecall,
+        MulticlassSpecificity,
+    )
+
+    c, ii = CITYSCAPES["classes"], CITYSCAPES["ignore_index"]
+    macro = dict(num_classes=c, average="macro", ignore_index=ii, device=device, **kwargs)
+    plain = dict(num_classes=c, ignore_index=ii, device=device, **kwargs)
+    return {
+        "MulticlassAccuracy": MulticlassAccuracy(**macro), "MulticlassPrecision": MulticlassPrecision(**macro),
+        "MulticlassRecall": MulticlassRecall(**macro), "MulticlassF1Score": MulticlassF1Score(**macro),
+        "MulticlassSpecificity": MulticlassSpecificity(**macro),
+        "MulticlassJaccardIndex": MulticlassJaccardIndex(**plain),
+        "MulticlassConfusionMatrix": MulticlassConfusionMatrix(**plain),
+        "MulticlassCohenKappa": MulticlassCohenKappa(**plain),
+        "MulticlassMatthewsCorrCoef": MulticlassMatthewsCorrCoef(**plain),
+    }
+
+
+def check_groups(collection) -> None:
+    got = {frozenset(v) for v in collection.compute_groups.values()}
+    if got != {frozenset(v) for v in COLLECTION_GROUPS}:
+        raise AssertionError(f"compute groups {collection.compute_groups} differ from {COLLECTION_GROUPS}")
+
+
+def phase_collection(torch, seed: int, smi: str):
+    """The Cityscapes evaluation through one MetricCollection of nine metrics (two
+    compute groups), a MeanMetric and a CompositionalMetric beside it."""
+    from metrics_tpu_torch.classification import MulticlassPrecision, MulticlassRecall
+    from metrics_tpu_torch.core import MeanMetric, MetricCollection
+    from metrics_tpu_torch.ops.histogram import histogram_cuda
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 6)
+    batches = [cityscapes_batch(torch, g) for _ in range(UPDATES)]
+    c, ii = CITYSCAPES["classes"], CITYSCAPES["ignore_index"]
+    collection = MetricCollection(collection_metrics("cuda"))
+    check_groups(collection)
+    apart = collection_metrics("cuda")
+    pixel_accuracy = MeanMetric()
+    precision = MulticlassPrecision(c, average="macro", ignore_index=ii)
+    recall = MulticlassRecall(c, average="macro", ignore_index=ii)
+    f1_of_means = 2 * (precision * recall) / (precision + recall)
+    torch.cuda.synchronize()
+
+    histogram_cuda.launches = 0  # ---- collection path starts
+    for logits, target in batches:
+        collection.update(logits, target)
+    values = collection.compute()
+    torch.cuda.synchronize()
+    launches = histogram_cuda.launches  # ---- collection path ends
+    groups = len(collection.compute_groups)
+    if launches != groups * UPDATES:
+        raise AssertionError(f"the collection launched the histogram kernel {launches} times, not {groups * UPDATES}")
+
+    histogram_cuda.launches = 0  # ---- the path's MeanMetric and composition start
+    for logits, target in batches:
+        valid = target != ii
+        pixel_accuracy.update(((logits.argmax(1) == target) & valid).sum() / valid.sum())
+        f1_of_means.update(logits, target)
+    mean_value, composed_value = pixel_accuracy.compute(), f1_of_means.compute()
+    torch.cuda.synchronize()
+    alongside_launches = histogram_cuda.launches  # ---- they end
+    # precision and recall each appear twice in the tree, and each appearance updates them
+    if alongside_launches != 4 * UPDATES:
+        raise AssertionError(f"the composition launched the histogram kernel {alongside_launches} times, not 12")
+
+    # checks: the nine metrics apart, the plain confusion matrix, float64 pixel accuracy
+    before = histogram_cuda.launches
+    for logits, target in batches:
+        for metric in apart.values():
+            metric.update(logits, target)
+    apart_values = {name: metric.compute() for name, metric in apart.items()}
+    torch.cuda.synchronize()
+    apart_launches = histogram_cuda.launches - before
+    if apart_launches != len(apart) * UPDATES:
+        raise AssertionError(f"nine metrics apart launched the histogram kernel {apart_launches} times")
+    for name, value in values.items():
+        if value.dtype != apart_values[name].dtype or not torch.equal(value, apart_values[name]):
+            raise AssertionError(f"{name}: {value} in the collection vs {apart_values[name]} apart")
+        if not bool(torch.isfinite(value.double()).all()):
+            raise AssertionError(f"{name}: not finite: {value}")
+    reference = sum(plain_confmat(torch, logits, target) for logits, target in batches)
+    if not torch.equal(values["MulticlassConfusionMatrix"], reference):
+        raise AssertionError("the collection's confusion matrix differs from the plain histogram")
+    p, r = apart_values["MulticlassPrecision"], apart_values["MulticlassRecall"]
+    want = torch.true_divide(torch.multiply(torch.tensor(2, device="cuda"), torch.multiply(p, r)), torch.add(p, r))
+    if not torch.equal(composed_value, want):
+        raise AssertionError(f"2PR/(P+R) composition {composed_value} vs {want}")
+    per_batch = [float((((lg.argmax(1) == t) & (t != ii)).sum().double() / (t != ii).sum().double()))
+                 for lg, t in batches]
+    mean_err = abs(mean_value.item() - sum(per_batch) / len(per_batch))
+    if mean_err > 1e-6:
+        raise AssertionError(f"MeanMetric of the pixel accuracy off by {mean_err}")
+
+    logits, target = batches[0]
+    timing = {
+        "collection_update_ms": event_ms(torch, lambda: collection.update(logits, target), reps=10),
+        "nine_updates_apart_ms": event_ms(torch, lambda: [m.update(logits, target) for m in apart.values()], reps=10),
+        "sum_of_nine_update_ms": sum(event_ms(torch, lambda: m.update(logits, target), reps=10)
+                                     for m in apart.values()),
+    }
+    emit({"phase": "collection", "card": smi, "updates": UPDATES,
+          "compute_groups": {k: list(v) for k, v in collection.compute_groups.items()},
+          "histogram_launches": {"collection": launches, "mean_and_composition": alongside_launches,
+                                 "nine_apart": apart_launches},
+          "values": {k: v.item() for k, v in values.items() if v.dim() == 0},
+          "pixel_accuracy_mean": mean_value.item(), "f1_of_macro_means": composed_value.item(),
+          "bit_equal_to_apart": True, "timing": timing})
+    return batches, values, launches + alongside_launches
+
+
+def snapshot_states(metric) -> dict:
+    from metrics_tpu_torch.core.state import CatBuffer
+
+    snap = {}
+    for name in metric._defaults:
+        value = getattr(metric, name)
+        if isinstance(value, CatBuffer):
+            snap[name] = ("buffer", value.values().clone())
+        elif isinstance(value, list):
+            snap[name] = ("list", [v.clone() for v in value])
+        else:
+            snap[name] = ("tensor", value.clone())
+    return snap
+
+
+def states_equal(a: dict, b: dict) -> bool:
+    import torch
+
+    for name, (kind, value) in a.items():
+        kind_b, value_b = b[name]
+        if kind != kind_b:
+            return False
+        pairs = zip(value, value_b) if kind == "list" else [(value, value_b)]
+        if kind == "list" and len(value) != len(value_b):
+            return False
+        if not all(x.dtype == y.dtype and torch.equal(x, y) for x, y in pairs):
+            return False
+    return True
+
+
+def synced_compute(torch, metric):
+    """``compute`` (which syncs), checking that the live states come back bit-equal."""
+    before = snapshot_states(metric)
+    value = metric.compute()
+    if metric._is_synced or not states_equal(before, snapshot_states(metric)):
+        raise AssertionError(f"{type(metric).__name__}: the live states did not come back after the synced compute")
+    return value
+
+
+def sync_ms(torch, metric, reps: int = 5) -> float:
+    """Median host time of one ``sync()`` (to the device's end) and ``unsync()``."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metric.sync()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        metric.unsync()
+    return statistics.median(times)
+
+
+def phase_sync_nccl(torch, seed: int, batches, collection_values, map_value, smi: str):
+    """An NCCL group of one rank: the collection, a samplewise ExactMatch and
+    RetrievalMAP over MS MARCO sync at ``compute`` through ``all_gather``."""
+    import torch.distributed as dist
+
+    from metrics_tpu_torch.classification import MulticlassExactMatch
+    from metrics_tpu_torch.core import MetricCollection
+    from metrics_tpu_torch.core.state import CatBuffer
+    from metrics_tpu_torch.ops.histogram import histogram_cuda
+    from metrics_tpu_torch.ops.segment import segment_scan_cuda
+    from metrics_tpu_torch.retrieval import RetrievalMAP
+    from metrics_tpu_torch.utils.distributed import all_gather_ragged
+    from metrics_tpu_torch.utils.exceptions import MetricsUserError
+
+    store = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "sync", f"nccl-{os.getpid()}")
+    os.makedirs(os.path.dirname(store), exist_ok=True)
+    if os.path.exists(store):
+        os.remove(store)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0, world_size=1)
+    try:
+        # at one rank gather_all_tensors returns its input; its collective body runs the all_gather
+        sync = {"dist_sync_fn": all_gather_ragged, "distributed_available_fn": lambda: True}
+        c, ii = CITYSCAPES["classes"], CITYSCAPES["ignore_index"]
+        collection = MetricCollection(collection_metrics("cuda", **sync))
+        check_groups(collection)
+        exact, exact_local = (MulticlassExactMatch(c, multidim_average="samplewise", ignore_index=ii, **kw)
+                              for kw in (sync, {}))
+        msmarco = msmarco_batches(torch, seed)
+        maps = {"list": RetrievalMAP(**sync), "cat_capacity": RetrievalMAP(cat_capacity=CAT_CAPACITY, **sync)}
+        torch.cuda.synchronize()
+
+        histogram_cuda.launches = segment_scan_cuda.launches = 0  # ---- NCCL sync path starts
+        t0 = time.perf_counter()
+        for logits, target in batches:
+            collection.update(logits, target)
+            # every other image predicted exactly: a cat state of bools with both values
+            even = torch.arange(target.shape[0], device="cuda")[:, None, None] % 2 == 0
+            preds = torch.where(even, target.masked_fill(target == ii, 0), logits.argmax(1))
+            exact.update(preds, target)
+            exact_local.update(preds, target)
+        synced = {name: synced_compute(torch, m) for name, m in collection.items(keep_base=True, copy_state=False)}
+        exact_value = synced_compute(torch, exact)
+        for preds, target, indexes in msmarco:
+            for metric in maps.values():
+                metric.update(preds, target, indexes=indexes)
+        map_values = {kind: synced_compute(torch, m) for kind, m in maps.items()}
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {"histogram": histogram_cuda.launches, "segment_scan": segment_scan_cuda.launches}
+        # ---- NCCL sync path ends
+        if launches != {"histogram": 2 * UPDATES, "segment_scan": 2}:
+            raise AssertionError(f"NCCL sync path launches {launches}, expected 6 histogram and 2 scan")
+
+        for name, value in synced.items():
+            if not torch.equal(value, collection_values[name]):
+                raise AssertionError(f"{name}: synced {value} vs unsynced {collection_values[name]}")
+        exact_want = exact_local.compute()
+        if exact_value.shape != (UPDATES * CITYSCAPES["batch"],) or not torch.equal(exact_value, exact_want):
+            raise AssertionError(f"samplewise ExactMatch synced {exact_value} vs unsynced {exact_want}")
+        if not torch.equal(exact_value[::2], torch.ones_like(exact_value[::2])):
+            raise AssertionError("an exactly predicted image did not count as a match")
+        for kind, value in map_values.items():
+            if not torch.equal(value, map_value):
+                raise AssertionError(f"RetrievalMAP ({kind}) synced {value} vs unsynced {map_value}")
+        if not all(isinstance(getattr(maps["cat_capacity"], s), CatBuffer) for s in maps["cat_capacity"]._defaults):
+            raise AssertionError("unsync did not restore the CatBuffer states")
+        member = collection.__getitem__("MulticlassCohenKappa", copy_state=False)
+        member.sync()
+        try:
+            member.sync()
+        except MetricsUserError:
+            pass
+        else:
+            raise AssertionError("a second sync() without unsync() did not raise")
+        member.unsync()
+
+        members = list(collection.values(copy_state=False))
+        timing = {
+            "collection_sync_ms_per_metric": {type(m).__name__: sync_ms(torch, m) for m in members},
+            "exact_match_sync_ms": sync_ms(torch, exact),
+            "retrieval_map_sync_ms": {kind: sync_ms(torch, m, reps=3) for kind, m in maps.items()},
+        }
+        timing["collection_sync_ms"] = sum(timing["collection_sync_ms_per_metric"].values())
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(store):
+            os.remove(store)
+    emit({"phase": "sync_nccl", "card": smi, "backend": "nccl", "world_size": 1, "rows": sum(b[0].numel() for b in msmarco),
+          "launches": launches, "synced_equal_unsynced": True, "retrieval_map": map_values["list"].item(),
+          "exact_match_rows": exact_value.numel(), "seconds_incl_updates": seconds, "timing": timing})
+    return launches
+
+
+def rank_cityscapes_batches(torch, seed: int, rank: int):
+    g = torch.Generator(device="cuda").manual_seed(seed + 10 + rank)
+    return [cityscapes_batch(torch, g) for _ in range(RANK_BATCHES)]
+
+
+def rank_msmarco_share(batches, rank: int):
+    lo = sum(MSMARCO_RANK_UPDATES[:rank])
+    return batches[lo:lo + MSMARCO_RANK_UPDATES[rank]]
+
+
+def rank_main(rank: int, world: int, store: str, out_dir: str, seed: int) -> None:
+    """One rank of the ``sync_ranks`` phase, in its own process on the one card."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=RANKS_DEADLINE_S))
+    try:
+        from metrics_tpu_torch.core import MetricCollection
+        from metrics_tpu_torch.core.state import CatBuffer
+        from metrics_tpu_torch.ops.histogram import histogram_cuda
+        from metrics_tpu_torch.ops.segment import segment_scan_cuda
+        from metrics_tpu_torch.retrieval import RetrievalMAP
+
+        collection = MetricCollection(collection_metrics("cuda"))
+        check_groups(collection)
+        maps = {"list": RetrievalMAP(), "cat_capacity": RetrievalMAP(cat_capacity=CAT_CAPACITY)}
+        batches = rank_cityscapes_batches(torch, seed, rank)
+        share = rank_msmarco_share(msmarco_batches(torch, seed), rank)
+        torch.cuda.synchronize()
+        histogram_cuda.launches = segment_scan_cuda.launches = 0  # ---- this rank's path starts
+        t0 = time.perf_counter()
+        for logits, target in batches:
+            collection.update(logits, target)
+        for preds, target, indexes in share:
+            for metric in maps.values():
+                metric.update(preds, target, indexes=indexes)
+        torch.cuda.synchronize()
+        update_s, compute_s = time.perf_counter() - t0, {}
+        values = {}
+        for name, metric in [*collection.items(keep_base=True, copy_state=False),
+                             *((f"RetrievalMAP/{kind}", m) for kind, m in maps.items())]:
+            t1 = time.perf_counter()
+            values[name] = synced_compute(torch, metric)
+            torch.cuda.synchronize()
+            compute_s[name] = time.perf_counter() - t1
+        launches = {"histogram": histogram_cuda.launches, "segment_scan": segment_scan_cuda.launches}
+        # ---- this rank's path ends
+        if not all(isinstance(getattr(maps["cat_capacity"], s), CatBuffer) for s in maps["cat_capacity"]._defaults):
+            raise AssertionError("unsync did not restore the CatBuffer states")
+        torch.save({"values": {k: v.cpu() for k, v in values.items()}, "launches": launches,
+                    "rows": sum(b[0].numel() for b in share), "update_s": update_s, "compute_s": compute_s},
+                   os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_sync_ranks(torch, seed: int, smi: str):
+    """Four ranks on the one card in a gloo group: each feeds its own Cityscapes
+    batches and MS MARCO share, syncs at ``compute``, and must equal one process
+    run on the union of the data in rank order."""
+    import shutil
+
+    import torch.multiprocessing as mp
+
+    from metrics_tpu_torch.core import MetricCollection
+    from metrics_tpu_torch.retrieval import RetrievalMAP
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "sync", f"ranks-{os.getpid()}")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(rank_main, args=(SYNC_RANKS, os.path.join(root, "store"), root, seed),
+                             nprocs=SYNC_RANKS, join=False, start_method="spawn")
+    deadline = time.monotonic() + RANKS_DEADLINE_S
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"the {SYNC_RANKS} ranks did not finish within {RANKS_DEADLINE_S} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(10)
+    ranks_s = time.perf_counter() - t0
+    results = [torch.load(os.path.join(root, f"rank{r}.pt")) for r in range(SYNC_RANKS)]
+    shutil.rmtree(root, ignore_errors=True)
+
+    # one process on the union, in rank order (not counted: it is the reference)
+    union = MetricCollection(collection_metrics("cuda"))
+    for rank in range(SYNC_RANKS):
+        for logits, target in rank_cityscapes_batches(torch, seed, rank):
+            union.update(logits, target)
+    want = {name: v.cpu() for name, v in union.compute().items()}
+    reference = RetrievalMAP()
+    for preds, target, indexes in msmarco_batches(torch, seed):
+        reference.update(preds, target, indexes=indexes)
+    want["RetrievalMAP"] = reference.compute().cpu()
+
+    worst, bit_equal = 0.0, True
+    for rank, result in enumerate(results):
+        got = result["values"]
+        if not torch.equal(got["RetrievalMAP/list"], got["RetrievalMAP/cat_capacity"]):
+            raise AssertionError(f"rank {rank}: RetrievalMAP of list and cat_capacity states differ")
+        for name, value in want.items():
+            mine = got[name if name in got else f"{name}/list"]
+            if not value.is_floating_point():
+                if mine.dtype != value.dtype or not torch.equal(mine, value):
+                    raise AssertionError(f"rank {rank}: {name} differs from the single-process run on the union")
+                continue
+            err = (mine.double() - value.double()).abs().max().item()
+            worst, bit_equal = max(worst, err), bit_equal and torch.equal(mine, value)
+            if err > 1e-6:
+                raise AssertionError(f"rank {rank}: {name} {mine} vs {value} on the union")
+    launches = {k: sum(r["launches"][k] for r in results) for k in ("histogram", "segment_scan")}
+    expected = {"histogram": SYNC_RANKS * 2 * RANK_BATCHES, "segment_scan": SYNC_RANKS * 2}
+    if launches != expected:
+        raise AssertionError(f"the ranks' launches {launches} differ from {expected}")
+    emit({"phase": "sync_ranks", "card": smi, "backend": "gloo", "world_size": SYNC_RANKS,
+          "msmarco_rows_per_rank": [r["rows"] for r in results], "launches": launches,
+          "max_abs_err_vs_union": worst, "bit_equal_to_union": bit_equal,
+          "update_s_per_rank": [r["update_s"] for r in results],
+          "synced_compute_s_per_rank": [r["compute_s"] for r in results], "seconds_incl_spawn": ranks_s})
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1038,8 +1470,17 @@ def main() -> int:
     del curve
     runs, batch, calls, retrieval_launches = phase_retrieval_path(torch, args.seed)
     phase_retrieval_timing(torch, runs, batch, calls, smi)
+    map_value = runs["list"]["RetrievalMAP"].compute()
+    del runs, batch, calls
     scan["launches"] += retrieval_launches
     kernels.append(scan)
+
+    batches, collection_values, collection_launches = phase_collection(torch, args.seed, smi)
+    nccl = phase_sync_nccl(torch, args.seed, batches, collection_values, map_value, smi)
+    del batches
+    ranks = phase_sync_ranks(torch, args.seed, smi)
+    kernels[0]["launches"] += collection_launches + nccl["histogram"] + ranks["histogram"]
+    scan["launches"] += nccl["segment_scan"] + ranks["segment_scan"]
 
     print(smi)
     emit({"kernels": kernels})

@@ -11,12 +11,14 @@ from metrics_tpu_torch.classification.average_precision import (
     MulticlassAveragePrecision,
     MultilabelAveragePrecision,
 )
+from metrics_tpu_torch.classification.cohen_kappa import BinaryCohenKappa, CohenKappa, MulticlassCohenKappa
 from metrics_tpu_torch.classification.confusion_matrix import (
     BinaryConfusionMatrix,
     ConfusionMatrix,
     MulticlassConfusionMatrix,
     MultilabelConfusionMatrix,
 )
+from metrics_tpu_torch.classification.exact_match import ExactMatch, MulticlassExactMatch, MultilabelExactMatch
 from metrics_tpu_torch.classification.f_beta import (
     BinaryF1Score,
     BinaryFBetaScore,
@@ -27,11 +29,23 @@ from metrics_tpu_torch.classification.f_beta import (
     MultilabelF1Score,
     MultilabelFBetaScore,
 )
+from metrics_tpu_torch.classification.hamming import (
+    BinaryHammingDistance,
+    HammingDistance,
+    MulticlassHammingDistance,
+    MultilabelHammingDistance,
+)
 from metrics_tpu_torch.classification.jaccard import (
     BinaryJaccardIndex,
     JaccardIndex,
     MulticlassJaccardIndex,
     MultilabelJaccardIndex,
+)
+from metrics_tpu_torch.classification.matthews_corrcoef import (
+    BinaryMatthewsCorrCoef,
+    MatthewsCorrCoef,
+    MulticlassMatthewsCorrCoef,
+    MultilabelMatthewsCorrCoef,
 )
 from metrics_tpu_torch.classification.precision_recall import (
     BinaryPrecision,
@@ -50,6 +64,12 @@ from metrics_tpu_torch.classification.precision_recall_curve import (
     PrecisionRecallCurve,
 )
 from metrics_tpu_torch.classification.roc import ROC, BinaryROC, MulticlassROC, MultilabelROC
+from metrics_tpu_torch.classification.specificity import (
+    BinarySpecificity,
+    MulticlassSpecificity,
+    MultilabelSpecificity,
+    Specificity,
+)
 from metrics_tpu_torch.classification.stat_scores import (
     BinaryStatScores,
     MulticlassStatScores,
@@ -61,14 +81,19 @@ __all__ = [
     "Accuracy", "BinaryAccuracy", "MulticlassAccuracy", "MultilabelAccuracy",
     "AUROC", "BinaryAUROC", "MulticlassAUROC", "MultilabelAUROC",
     "AveragePrecision", "BinaryAveragePrecision", "MulticlassAveragePrecision", "MultilabelAveragePrecision",
+    "BinaryCohenKappa", "CohenKappa", "MulticlassCohenKappa",
     "BinaryConfusionMatrix", "ConfusionMatrix", "MulticlassConfusionMatrix", "MultilabelConfusionMatrix",
+    "ExactMatch", "MulticlassExactMatch", "MultilabelExactMatch",
     "BinaryF1Score", "BinaryFBetaScore", "F1Score", "FBetaScore", "MulticlassF1Score", "MulticlassFBetaScore",
     "MultilabelF1Score", "MultilabelFBetaScore",
+    "BinaryHammingDistance", "HammingDistance", "MulticlassHammingDistance", "MultilabelHammingDistance",
     "BinaryJaccardIndex", "JaccardIndex", "MulticlassJaccardIndex", "MultilabelJaccardIndex",
+    "BinaryMatthewsCorrCoef", "MatthewsCorrCoef", "MulticlassMatthewsCorrCoef", "MultilabelMatthewsCorrCoef",
     "BinaryPrecision", "BinaryRecall", "MulticlassPrecision", "MulticlassRecall", "MultilabelPrecision",
     "MultilabelRecall", "Precision", "Recall",
     "BinaryPrecisionRecallCurve", "MulticlassPrecisionRecallCurve", "MultilabelPrecisionRecallCurve",
     "PrecisionRecallCurve",
     "BinaryROC", "MulticlassROC", "MultilabelROC", "ROC",
+    "BinarySpecificity", "MulticlassSpecificity", "MultilabelSpecificity", "Specificity",
     "BinaryStatScores", "MulticlassStatScores", "MultilabelStatScores", "StatScores",
 ]

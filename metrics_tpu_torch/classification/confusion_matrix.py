@@ -32,6 +32,9 @@ from metrics_tpu_torch.utils.enums import ClassificationTask
 class BinaryConfusionMatrix(Metric):
     """2x2 confusion matrix."""
 
+    # update-relevant constructor arguments (compute groups)
+    _update_signature_attrs = ("threshold", "ignore_index")
+
     is_differentiable: bool = False
     higher_is_better: Optional[bool] = None
     full_state_update: bool = False
@@ -66,6 +69,9 @@ class BinaryConfusionMatrix(Metric):
 class MulticlassConfusionMatrix(Metric):
     """C x C confusion matrix; one histogram kernel launch per update on the card."""
 
+    # update-relevant constructor arguments (compute groups)
+    _update_signature_attrs = ("num_classes", "ignore_index")
+
     is_differentiable: bool = False
     higher_is_better: Optional[bool] = None
     full_state_update: bool = False
@@ -99,6 +105,9 @@ class MulticlassConfusionMatrix(Metric):
 
 class MultilabelConfusionMatrix(Metric):
     """(L, 2, 2) confusion matrices."""
+
+    # update-relevant constructor arguments (compute groups)
+    _update_signature_attrs = ("num_labels", "threshold", "ignore_index")
 
     is_differentiable: bool = False
     higher_is_better: Optional[bool] = None

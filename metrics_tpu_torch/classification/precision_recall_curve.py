@@ -106,6 +106,9 @@ class _PrecisionRecallCurveBase(Metric):
 class BinaryPrecisionRecallCurve(_PrecisionRecallCurveBase):
     """Binary precision-recall curve: ``(precision, recall, thresholds)``."""
 
+    # update-relevant constructor arguments (compute groups)
+    _update_signature_attrs = ("thresholds", "ignore_index", "tolerance", "tolerance_bits")
+
     is_differentiable: bool = False
     higher_is_better: Optional[bool] = None
     full_state_update: bool = False
@@ -138,6 +141,9 @@ class BinaryPrecisionRecallCurve(_PrecisionRecallCurveBase):
 
 class MulticlassPrecisionRecallCurve(_PrecisionRecallCurveBase):
     """Multiclass precision-recall curves, one-vs-rest per class."""
+
+    # update-relevant constructor arguments (compute groups)
+    _update_signature_attrs = ("num_classes", "thresholds", "ignore_index", "tolerance", "tolerance_bits")
 
     is_differentiable: bool = False
     higher_is_better: Optional[bool] = None
@@ -175,6 +181,9 @@ class MulticlassPrecisionRecallCurve(_PrecisionRecallCurveBase):
 
 class MultilabelPrecisionRecallCurve(_PrecisionRecallCurveBase):
     """Multilabel precision-recall curves, one per label."""
+
+    # update-relevant constructor arguments (compute groups)
+    _update_signature_attrs = ("num_labels", "thresholds", "ignore_index", "tolerance", "tolerance_bits")
 
     is_differentiable: bool = False
     higher_is_better: Optional[bool] = None

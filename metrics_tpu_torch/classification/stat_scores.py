@@ -29,7 +29,7 @@ class _AbstractStatScores(Metric):
     def _create_state(self, size: int, multidim_average: str = "global") -> None:
         for name in ("tp", "fp", "tn", "fn"):
             if multidim_average == "samplewise":
-                self.add_state(name, [], dist_reduce_fx="cat")
+                self.add_state(name, [], dist_reduce_fx="cat", cat_dtype=_count_dtype())
             else:
                 self.add_state(name, torch.zeros(size, dtype=_count_dtype()), dist_reduce_fx="sum")
 
@@ -51,6 +51,9 @@ class _AbstractStatScores(Metric):
 
 class BinaryStatScores(_AbstractStatScores):
     """tp/fp/tn/fn/support for binary tasks."""
+
+    # update-relevant constructor arguments (compute groups)
+    _update_signature_attrs = ("threshold", "multidim_average", "ignore_index")
 
     is_differentiable: bool = False
     higher_is_better: Optional[bool] = None
@@ -86,6 +89,9 @@ class BinaryStatScores(_AbstractStatScores):
 
 class MulticlassStatScores(_AbstractStatScores):
     """tp/fp/tn/fn/support for multiclass tasks."""
+
+    # update-relevant constructor arguments (compute groups)
+    _update_signature_attrs = ("num_classes", "top_k", "average", "multidim_average", "ignore_index")
 
     is_differentiable: bool = False
     higher_is_better: Optional[bool] = None
@@ -128,6 +134,9 @@ class MulticlassStatScores(_AbstractStatScores):
 
 class MultilabelStatScores(_AbstractStatScores):
     """tp/fp/tn/fn/support for multilabel tasks."""
+
+    # update-relevant constructor arguments (compute groups)
+    _update_signature_attrs = ("num_labels", "threshold", "multidim_average", "ignore_index")
 
     is_differentiable: bool = False
     higher_is_better: Optional[bool] = None

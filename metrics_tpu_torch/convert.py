@@ -7,12 +7,17 @@ count states are float32; the port's are int64. :func:`load_jax_state` converts
 each state to the port's dtype and device, and refuses float counts that are not
 whole numbers rather than rounding them. A ``CatBuffer`` state comes as the JAX
 package's ``{"data", "count", "overflow"}`` dict and stays a ``CatBuffer``.
+
+A ``MetricCollection`` takes a ``metrics_tpu`` collection's ``state_dict()``, whose
+keys are ``"<name>.<state>"``: each compute group's state is loaded once, into its
+leader, and shared with the members again.
 """
-from typing import Any, Dict
+from typing import Any, Dict, Union
 
 import numpy as np
 import torch
 
+from metrics_tpu_torch.core.collections import MetricCollection
 from metrics_tpu_torch.core.metric import Metric
 from metrics_tpu_torch.core.state import CatBuffer
 
@@ -26,9 +31,13 @@ def _as_state_tensor(name: str, value: Any, dtype: torch.dtype, device: torch.de
     return torch.tensor(array).to(device=device, dtype=dtype)
 
 
-def load_jax_state(metric: Metric, state: Dict[str, Any]) -> Metric:
+def load_jax_state(metric: Union[Metric, MetricCollection], state: Dict[str, Any]) -> Union[Metric, MetricCollection]:
     """Load ``state`` (a ``metrics_tpu`` ``state_dict()``: name -> numpy array or list
     of arrays) into ``metric``, replacing its states, and return ``metric``.
+
+    For a collection, ``state`` is the collection's ``state_dict()`` and every
+    metric's part of it (``"<name>."`` keys) loads as below: a group's leader's
+    part once, shared by the members, the others each their own.
 
     Every state of ``metric`` must be present with the same shape. Tensor states take
     the port's dtype (float32 counts become int64); list (``cat``) states take the
@@ -36,6 +45,8 @@ def load_jax_state(metric: Metric, state: Dict[str, Any]) -> Metric:
     ``data``, ``count`` and ``overflow``) becomes a ``CatBuffer`` of the same fields,
     its data in the dtype the metric declared for the state.
     """
+    if isinstance(metric, MetricCollection):
+        return _load_collection(metric, state)
     missing = sorted(set(metric._defaults) - set(state))
     if missing:
         raise KeyError(f"load_jax_state: state dict lacks {missing} (call persistent(True) before state_dict())")
@@ -67,3 +78,14 @@ def load_jax_state(metric: Metric, state: Dict[str, Any]) -> Metric:
             setattr(metric, name, tensor)
     metric._computed = None
     return metric
+
+
+def _load_collection(collection: MetricCollection, state: Dict[str, Any]) -> MetricCollection:
+    grouped = {name for group in collection.compute_groups.values() for name in group[1:]}
+    for name, metric in collection.items(keep_base=True, copy_state=False):
+        if name in grouped:
+            continue
+        prefix = f"{name}."
+        load_jax_state(metric, {k[len(prefix):]: v for k, v in state.items() if k.startswith(prefix)})
+    collection._repoint()
+    return collection

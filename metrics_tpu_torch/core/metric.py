@@ -15,28 +15,40 @@ same state contract:
 - ``state_dict`` holds the persistent states only (none by default), as the JAX
   package does; list states go in as lists of tensors, ``CatBuffer`` states as
   ``{"data", "count", "overflow"}``.
+- ``compute`` syncs across processes first (``sync`` :860, ``_sync_dist`` :814,
+  ``unsync`` :893): every state is gathered with ``dist_sync_fn`` (default
+  :func:`~metrics_tpu_torch.utils.distributed.gather_all_tensors`), stacked and
+  reduced by its ``dist_reduce_fx``; ``cat`` lists are concatenated before the
+  gather, a ``CatBuffer`` goes across as its valid rows, and ``unsync`` restores
+  the live states. ``dist_sync_on_step`` syncs ``forward``'s batch value too.
+- Operators on metrics build a :class:`CompositionalMetric` (:1247-1365).
 
 Device: states live on ``device`` (``cuda`` unless the caller names another, and
 constructing on ``cuda`` without a card raises). An update input on another device
 raises; array-likes that are not tensors are copied to the metric's device.
 
-Not in this slice: the fleet axis, the fused engine, observability, fault injection,
-checkpointing and the cross-process sync of the JAX package.
+Not ported: the fleet axis, the pure ``local_update``/``sync_state`` tier and the
+fused engine, observability, fault injection and checkpointing.
 """
 import functools
+import inspect
 import warnings
 from abc import ABC, abstractmethod
+from contextlib import contextmanager
 from copy import deepcopy
-from typing import Any, Callable, Dict, List, Optional, Sequence, Union
+from typing import Any, Callable, Dict, Generator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 from torch import Tensor, nn
 
 from metrics_tpu_torch.core.state import CatBuffer, cat_merge
+from metrics_tpu_torch.parallel.collective import distributed_available
 from metrics_tpu_torch.utils.data import (
+    _flatten,
     _resolve_device,
     _same_device,
+    apply_to_collection,
     dim_zero_cat,
     dim_zero_max,
     dim_zero_mean,
@@ -44,6 +56,7 @@ from metrics_tpu_torch.utils.data import (
     dim_zero_sum,
     to_tensor,
 )
+from metrics_tpu_torch.utils.distributed import gather_all_tensors
 from metrics_tpu_torch.utils.exceptions import MetricsUserError, MetricsUserWarning
 from metrics_tpu_torch.utils.prints import rank_zero_warn
 
@@ -83,6 +96,13 @@ class Metric(nn.Module, ABC):
     Args (keyword-only):
         device: where the states live and updates run; ``cuda`` by default.
         compute_on_cpu: move list states to the CPU after each update.
+        dist_sync_on_step: sync ``forward``'s batch value across processes too.
+        process_group: the ``torch.distributed`` group to sync over (the default
+            group when None).
+        dist_sync_fn: the gather (``gather_all_tensors`` when None).
+        distributed_available_fn: the gate of the sync (``distributed_available``
+            when None: an initialised group of more than one process).
+        sync_on_compute: sync before ``compute``.
         cat_capacity: keep each ``cat`` state as a ``CatBuffer`` of this many rows
             instead of a list.
     """
@@ -93,6 +113,9 @@ class Metric(nn.Module, ABC):
     plot_lower_bound: Optional[float] = None
     plot_upper_bound: Optional[float] = None
     plot_legend_name: Optional[str] = None
+    # the constructor arguments that shape ``update``'s state transition, for a
+    # collection's compute groups (None: compare every constructor attribute)
+    _update_signature_attrs: Optional[Tuple[str, ...]] = None
 
     def __init__(self, **kwargs: Any) -> None:
         super().__init__()
@@ -101,6 +124,25 @@ class Metric(nn.Module, ABC):
         self.compute_on_cpu = kwargs.pop("compute_on_cpu", False)
         if not isinstance(self.compute_on_cpu, bool):
             raise ValueError(f"Expected keyword argument `compute_on_cpu` to be a `bool` but got {self.compute_on_cpu}")
+
+        self.dist_sync_on_step = kwargs.pop("dist_sync_on_step", False)
+        if not isinstance(self.dist_sync_on_step, bool):
+            raise ValueError(
+                f"Expected keyword argument `dist_sync_on_step` to be a `bool` but got {self.dist_sync_on_step}"
+            )
+        self.process_group = kwargs.pop("process_group", None)
+        self.dist_sync_fn = kwargs.pop("dist_sync_fn", None)
+        if self.dist_sync_fn is not None and not callable(self.dist_sync_fn):
+            raise ValueError(
+                f"Expected keyword argument `dist_sync_fn` to be a callable or None but got {self.dist_sync_fn}"
+            )
+        self.distributed_available_fn = kwargs.pop("distributed_available_fn", None) or distributed_available
+        self.sync_on_compute = kwargs.pop("sync_on_compute", True)
+        if not isinstance(self.sync_on_compute, bool):
+            raise ValueError(
+                f"Expected keyword argument `sync_on_compute` to be a `bool` but got {self.sync_on_compute}"
+            )
+
         self.cat_capacity = kwargs.pop("cat_capacity", None)
         if self.cat_capacity is not None and (not isinstance(self.cat_capacity, int) or self.cat_capacity < 1):
             raise ValueError(
@@ -119,6 +161,10 @@ class Metric(nn.Module, ABC):
         self._update_count = 0
         self._computed: Any = None
         self._forward_cache: Any = None
+        self._to_sync = self.sync_on_compute
+        self._should_unsync = True
+        self._is_synced = False
+        self._cache: Optional[Dict[str, Any]] = None
 
         self.update: Callable = self._wrap_update(self.update)
         self.compute: Callable = self._wrap_compute(self.compute)
@@ -292,7 +338,10 @@ class Metric(nn.Module, ABC):
                         RuntimeWarning,
                         stacklevel=2,
                     )
-            self._computed = _squeeze_if_scalar(compute(*args, **kwargs))
+            with self.sync_context(
+                dist_sync_fn=self.dist_sync_fn, should_sync=self._to_sync, should_unsync=self._should_unsync
+            ):
+                self._computed = _squeeze_if_scalar(compute(*args, **kwargs))
             return self._computed
 
         return wrapped_func
@@ -302,9 +351,16 @@ class Metric(nn.Module, ABC):
 
         ``full_state_update`` picks the strategy: True (or None) runs ``update`` twice,
         once on the global state and once on a fresh one; False runs it once on a
-        fresh state and merges that into the global state.
+        fresh state and merges that into the global state. With
+        ``dist_sync_on_step`` the batch value is synced across processes (and the
+        first strategy is taken), the global state stays local.
         """
-        if self.full_state_update or self.full_state_update is None:
+        if self._is_synced:
+            raise MetricsUserError(
+                "The Metric shouldn't be synced when performing ``forward``. "
+                "HINT: Did you forget to call ``unsync``?"
+            )
+        if self.full_state_update or self.full_state_update is None or self.dist_sync_on_step:
             self._forward_cache = self._forward_full_state_update(*args, **kwargs)
         else:
             self._forward_cache = self._forward_reduce_state_update(*args, **kwargs)
@@ -313,6 +369,8 @@ class Metric(nn.Module, ABC):
     def _forward_full_state_update(self, *args: Any, **kwargs: Any) -> Any:
         self.update(*args, **kwargs)
         update_count = self._update_count
+        self._to_sync = self.dist_sync_on_step
+        self._should_unsync = False
         compute_on_cpu = self.compute_on_cpu
         self.compute_on_cpu = False
         cache = {attr: getattr(self, attr) for attr in self._defaults}
@@ -324,16 +382,15 @@ class Metric(nn.Module, ABC):
         for attr, val in cache.items():
             setattr(self, attr, val)
         self._update_count = update_count
-        self._computed = None
-        self.compute_on_cpu = compute_on_cpu
-        if self.compute_on_cpu:
-            self._move_list_states_to_cpu()
+        self._end_forward(compute_on_cpu)
         return batch_val
 
     def _forward_reduce_state_update(self, *args: Any, **kwargs: Any) -> Any:
         global_state = {attr: getattr(self, attr) for attr in self._defaults}
         update_count = self._update_count
         self.reset()
+        self._to_sync = self.dist_sync_on_step
+        self._should_unsync = False
         compute_on_cpu = self.compute_on_cpu
         self.compute_on_cpu = False
 
@@ -342,11 +399,20 @@ class Metric(nn.Module, ABC):
 
         self._update_count = update_count + 1
         self._reduce_states(global_state)
+        self._end_forward(compute_on_cpu)
+        return batch_val
+
+    def _end_forward(self, compute_on_cpu: bool) -> None:
+        """Restore the sync bookkeeping after ``forward``'s batch compute (whose synced
+        view, if any, was replaced by the global state)."""
+        self._is_synced = False
+        self._cache = None
+        self._should_unsync = True
+        self._to_sync = self.sync_on_compute
         self._computed = None
         self.compute_on_cpu = compute_on_cpu
         if self.compute_on_cpu:
             self._move_list_states_to_cpu()
-        return batch_val
 
     def _reduce_states(self, incoming_state: Dict[str, Any]) -> None:
         """Merge the global state held before ``forward`` with the batch's state."""
@@ -374,6 +440,110 @@ class Metric(nn.Module, ABC):
                 raise TypeError(f"Unsupported reduce_fn: {reduce_fn}")
             setattr(self, attr, reduced)
 
+    # ------------------------------------------------------------------- sync
+
+    def _sync_dist(self, dist_sync_fn: Optional[Callable] = None, process_group: Optional[Any] = None) -> None:
+        """Gather every state from every process, stack, and reduce by its ``dist_reduce_fx``.
+
+        A ``cat`` list goes across as one concatenated tensor, an empty one as a
+        ``(0, *item_shape)`` tensor of its declared dtype, so that every rank joins
+        every gather; it comes back as ``[]`` when every rank's was empty. A
+        ``CatBuffer`` goes across as its valid rows; the synced view is a dense
+        tensor, and ``unsync`` restores the live buffer.
+        """
+        dist_sync_fn = dist_sync_fn or gather_all_tensors
+        input_dict = {attr: getattr(self, attr) for attr in self._reductions}
+        was_list = {attr for attr, value in input_dict.items() if isinstance(value, list)}
+
+        for attr, reduction_fn in self._reductions.items():
+            value = input_dict[attr]
+            if isinstance(value, CatBuffer):
+                input_dict[attr] = [value.values()]
+            elif isinstance(value, list) and not value:
+                item_shape, dtype, _ = self._cat_meta.get(attr, ((), None, 0))
+                input_dict[attr] = [torch.empty((0, *item_shape), dtype=dtype or torch.float32, device=self._device)]
+            elif reduction_fn == "cat" and isinstance(value, list) and len(value) > 1:
+                input_dict[attr] = [dim_zero_cat(value)]
+
+        output_dict = apply_to_collection(input_dict, Tensor, dist_sync_fn, group=process_group or self.process_group)
+
+        for attr, reduction_fn in self._reductions.items():
+            output = output_dict[attr]
+            if isinstance(output[0], Tensor):
+                output = torch.stack(output)
+            elif isinstance(output[0], list):
+                output = _flatten(output)
+                if attr in was_list and all(t.numel() == 0 for t in output):
+                    setattr(self, attr, [])
+                    continue
+
+            if reduction_fn is None:
+                reduced = output
+            elif isinstance(reduction_fn, str):
+                reduced = _REDUCE_KIND_TO_FN[reduction_fn](output)
+            elif callable(reduction_fn):
+                reduced = reduction_fn(output)
+            else:
+                raise TypeError("reduction_fn must be callable or None")
+            setattr(self, attr, reduced)
+
+    def sync(
+        self,
+        dist_sync_fn: Optional[Callable] = None,
+        process_group: Optional[Any] = None,
+        should_sync: bool = True,
+        distributed_available: Optional[Callable] = None,
+    ) -> None:
+        """Replace the live states by their sync across processes, keeping the live
+        ones for :meth:`unsync`. Does nothing unless ``should_sync`` and the gate
+        (``distributed_available``, else the metric's ``distributed_available_fn``)
+        say so; a second sync before ``unsync`` raises."""
+        if self._is_synced and should_sync:
+            raise MetricsUserError("The Metric has already been synced.")
+        if distributed_available is None and self.distributed_available_fn is not None:
+            distributed_available = self.distributed_available_fn
+        is_distributed = distributed_available() if callable(distributed_available) else None
+        if not should_sync or not is_distributed:
+            return
+
+        self._cache = {attr: getattr(self, attr) for attr in self._defaults}
+        self._sync_dist(dist_sync_fn or gather_all_tensors, process_group=process_group or self.process_group)
+        self._is_synced = True
+
+    def unsync(self, should_unsync: bool = True) -> None:
+        """Restore the live states that :meth:`sync` kept."""
+        if not should_unsync:
+            return
+        if not self._is_synced:
+            raise MetricsUserError("The Metric has already been un-synced.")
+        if self._cache is None:
+            raise MetricsUserError("The internal cache should exist to unsync the Metric.")
+        for attr, val in self._cache.items():
+            setattr(self, attr, val)
+        self._is_synced = False
+        self._cache = None
+
+    @contextmanager
+    def sync_context(
+        self,
+        dist_sync_fn: Optional[Callable] = None,
+        process_group: Optional[Any] = None,
+        should_sync: bool = True,
+        should_unsync: bool = True,
+        distributed_available: Optional[Callable] = None,
+    ) -> Generator[None, None, None]:
+        """Sync on entry and unsync on exit, also when the body raises."""
+        self.sync(
+            dist_sync_fn=dist_sync_fn,
+            process_group=process_group,
+            should_sync=should_sync,
+            distributed_available=distributed_available,
+        )
+        try:
+            yield
+        finally:
+            self.unsync(should_unsync=self._is_synced and should_unsync)
+
     def reset(self) -> None:
         """Restore the default states."""
         self._update_count = 0
@@ -381,6 +551,8 @@ class Metric(nn.Module, ABC):
         self._computed = None
         for attr, default in self._defaults.items():
             setattr(self, attr, [] if isinstance(default, list) else default.clone())  # CatBuffer: a fresh buffer
+        self._cache = None
+        self._is_synced = False
 
     def clone(self) -> "Metric":
         """Deep copy of the metric."""
@@ -487,3 +659,211 @@ class Metric(nn.Module, ABC):
 
     def extra_repr(self) -> str:
         return f"device={self._device}"
+
+    def _filter_kwargs(self, **kwargs: Any) -> Dict[str, Any]:
+        """The keyword arguments that ``update`` takes (all of them if it takes ``**kwargs``)."""
+        params = _class_update_signature(type(self)).parameters
+        if any(p.kind == inspect.Parameter.VAR_KEYWORD for p in params.values()):
+            return kwargs
+        skip = (inspect.Parameter.VAR_POSITIONAL, inspect.Parameter.VAR_KEYWORD)
+        return {k: v for k, v in kwargs.items() if k in params and params[k].kind not in skip}
+
+    def __hash__(self) -> int:
+        # identity, as for any module: ``__eq__`` below builds a metric, not a bool
+        return object.__hash__(self)
+
+    # --------------------------------------------------- operator composition
+
+    def __add__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.add, self, other)
+
+    def __radd__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.add, other, self)
+
+    def __sub__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.subtract, self, other)
+
+    def __rsub__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.subtract, other, self)
+
+    def __mul__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.multiply, self, other)
+
+    def __rmul__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.multiply, other, self)
+
+    def __truediv__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.true_divide, self, other)
+
+    def __rtruediv__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.true_divide, other, self)
+
+    def __floordiv__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.floor_divide, self, other)
+
+    def __rfloordiv__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.floor_divide, other, self)
+
+    def __mod__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.remainder, self, other)
+
+    def __rmod__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.remainder, other, self)
+
+    def __pow__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.pow, self, other)
+
+    def __rpow__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.pow, other, self)
+
+    def __matmul__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.matmul, self, other)
+
+    def __rmatmul__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.matmul, other, self)
+
+    def __and__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.bitwise_and, self, other)
+
+    def __rand__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.bitwise_and, other, self)
+
+    def __or__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.bitwise_or, self, other)
+
+    def __ror__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.bitwise_or, other, self)
+
+    def __xor__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.bitwise_xor, self, other)
+
+    def __rxor__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.bitwise_xor, other, self)
+
+    def __lt__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.lt, self, other)
+
+    def __le__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.le, self, other)
+
+    def __gt__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.gt, self, other)
+
+    def __ge__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.ge, self, other)
+
+    def __eq__(self, other: Any) -> "CompositionalMetric":  # type: ignore[override]
+        return CompositionalMetric(torch.eq, self, other)
+
+    def __ne__(self, other: Any) -> "CompositionalMetric":  # type: ignore[override]
+        return CompositionalMetric(torch.ne, self, other)
+
+    def __abs__(self) -> "CompositionalMetric":
+        return CompositionalMetric(torch.abs, self, None)
+
+    def __neg__(self) -> "CompositionalMetric":
+        return CompositionalMetric(_neg, self, None)
+
+    def __pos__(self) -> "CompositionalMetric":
+        return CompositionalMetric(torch.abs, self, None)
+
+    def __inv__(self) -> "CompositionalMetric":
+        return CompositionalMetric(torch.bitwise_not, self, None)
+
+    def __invert__(self) -> "CompositionalMetric":
+        return self.__inv__()
+
+    def __getitem__(self, idx: Any) -> "CompositionalMetric":
+        return CompositionalMetric(lambda x: x[idx], self, None)
+
+    def __iter__(self):
+        raise NotImplementedError("Metrics does not support iteration.")
+
+
+@functools.lru_cache(maxsize=None)
+def _class_update_signature(cls: type) -> inspect.Signature:
+    return inspect.signature(cls.update)
+
+
+def _neg(x: Tensor) -> Tensor:
+    # the JAX package's (and its reference's) negation: minus the absolute value
+    return -torch.abs(x)
+
+
+class CompositionalMetric(Metric):
+    """The value of ``operator`` over two metrics or constants (one for a unary
+    operator), computed lazily from each metric's own state.
+
+    ``update`` updates each metric operand; ``compute`` applies ``operator`` to
+    their values; ``reset`` and ``persistent`` reach the operands. Each operand
+    syncs itself, so the composition has nothing of its own to sync. It lives on
+    its first metric operand's device, and number operands become tensors there.
+    """
+
+    full_state_update = True
+
+    def __init__(
+        self,
+        operator: Callable,
+        metric_a: Union[Metric, float, int, Tensor, None],
+        metric_b: Union[Metric, float, int, Tensor, None],
+    ) -> None:
+        device = next((m.device for m in (metric_a, metric_b) if isinstance(m, Metric)), None)
+        super().__init__(device=device)
+        self.op = operator
+        self.metric_a = torch.tensor(metric_a, device=self._device) if isinstance(metric_a, (int, float)) else metric_a
+        self.metric_b = torch.tensor(metric_b, device=self._device) if isinstance(metric_b, (int, float)) else metric_b
+
+    def _sync_dist(self, dist_sync_fn: Optional[Callable] = None, process_group: Optional[Any] = None) -> None:
+        pass
+
+    def update(self, *args: Any, **kwargs: Any) -> None:
+        if isinstance(self.metric_a, Metric):
+            self.metric_a.update(*args, **self.metric_a._filter_kwargs(**kwargs))
+        if isinstance(self.metric_b, Metric):
+            self.metric_b.update(*args, **self.metric_b._filter_kwargs(**kwargs))
+
+    def compute(self) -> Any:
+        val_a = self.metric_a.compute() if isinstance(self.metric_a, Metric) else self.metric_a
+        val_b = self.metric_b.compute() if isinstance(self.metric_b, Metric) else self.metric_b
+        if val_b is None:
+            return self.op(val_a)
+        return self.op(val_a, val_b)
+
+    def forward(self, *args: Any, **kwargs: Any) -> Any:
+        val_a = (
+            self.metric_a(*args, **self.metric_a._filter_kwargs(**kwargs))
+            if isinstance(self.metric_a, Metric)
+            else self.metric_a
+        )
+        val_b = (
+            self.metric_b(*args, **self.metric_b._filter_kwargs(**kwargs))
+            if isinstance(self.metric_b, Metric)
+            else self.metric_b
+        )
+        if val_a is None or (val_b is None and isinstance(self.metric_b, Metric)):
+            self._forward_cache = None
+        elif val_b is None:
+            self._forward_cache = self.op(val_a)
+        else:
+            self._forward_cache = self.op(val_a, val_b)
+        return self._forward_cache
+
+    def reset(self) -> None:
+        if isinstance(self.metric_a, Metric):
+            self.metric_a.reset()
+        if isinstance(self.metric_b, Metric):
+            self.metric_b.reset()
+
+    def persistent(self, mode: bool = False) -> None:
+        if isinstance(self.metric_a, Metric):
+            self.metric_a.persistent(mode=mode)
+        if isinstance(self.metric_b, Metric):
+            self.metric_b.persistent(mode=mode)
+
+    def __repr__(self) -> str:
+        op_name = getattr(self.op, "__name__", "op")
+        return f"{self.__class__.__name__}(\n  {op_name}(\n    {self.metric_a!r},\n    {self.metric_b!r}\n  )\n)"
+
+    def _wrap_compute(self, compute: Callable) -> Callable:
+        return compute

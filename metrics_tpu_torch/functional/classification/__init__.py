@@ -11,11 +11,21 @@ from metrics_tpu_torch.functional.classification.average_precision import (
     multiclass_average_precision,
     multilabel_average_precision,
 )
+from metrics_tpu_torch.functional.classification.cohen_kappa import (
+    binary_cohen_kappa,
+    cohen_kappa,
+    multiclass_cohen_kappa,
+)
 from metrics_tpu_torch.functional.classification.confusion_matrix import (
     binary_confusion_matrix,
     confusion_matrix,
     multiclass_confusion_matrix,
     multilabel_confusion_matrix,
+)
+from metrics_tpu_torch.functional.classification.exact_match import (
+    exact_match,
+    multiclass_exact_match,
+    multilabel_exact_match,
 )
 from metrics_tpu_torch.functional.classification.f_beta import (
     binary_f1_score,
@@ -27,11 +37,23 @@ from metrics_tpu_torch.functional.classification.f_beta import (
     multilabel_f1_score,
     multilabel_fbeta_score,
 )
+from metrics_tpu_torch.functional.classification.hamming import (
+    binary_hamming_distance,
+    hamming_distance,
+    multiclass_hamming_distance,
+    multilabel_hamming_distance,
+)
 from metrics_tpu_torch.functional.classification.jaccard import (
     binary_jaccard_index,
     jaccard_index,
     multiclass_jaccard_index,
     multilabel_jaccard_index,
+)
+from metrics_tpu_torch.functional.classification.matthews_corrcoef import (
+    binary_matthews_corrcoef,
+    matthews_corrcoef,
+    multiclass_matthews_corrcoef,
+    multilabel_matthews_corrcoef,
 )
 from metrics_tpu_torch.functional.classification.precision_recall import (
     binary_precision,
@@ -50,6 +72,12 @@ from metrics_tpu_torch.functional.classification.precision_recall_curve import (
     precision_recall_curve,
 )
 from metrics_tpu_torch.functional.classification.roc import binary_roc, multiclass_roc, multilabel_roc, roc
+from metrics_tpu_torch.functional.classification.specificity import (
+    binary_specificity,
+    multiclass_specificity,
+    multilabel_specificity,
+    specificity,
+)
 from metrics_tpu_torch.functional.classification.stat_scores import (
     binary_stat_scores,
     multiclass_stat_scores,
@@ -61,14 +89,19 @@ __all__ = [
     "accuracy", "binary_accuracy", "multiclass_accuracy", "multilabel_accuracy",
     "auroc", "binary_auroc", "multiclass_auroc", "multilabel_auroc",
     "average_precision", "binary_average_precision", "multiclass_average_precision", "multilabel_average_precision",
+    "binary_cohen_kappa", "cohen_kappa", "multiclass_cohen_kappa",
     "binary_confusion_matrix", "confusion_matrix", "multiclass_confusion_matrix", "multilabel_confusion_matrix",
+    "exact_match", "multiclass_exact_match", "multilabel_exact_match",
     "binary_f1_score", "binary_fbeta_score", "f1_score", "fbeta_score", "multiclass_f1_score",
     "multiclass_fbeta_score", "multilabel_f1_score", "multilabel_fbeta_score",
+    "binary_hamming_distance", "hamming_distance", "multiclass_hamming_distance", "multilabel_hamming_distance",
     "binary_jaccard_index", "jaccard_index", "multiclass_jaccard_index", "multilabel_jaccard_index",
+    "binary_matthews_corrcoef", "matthews_corrcoef", "multiclass_matthews_corrcoef", "multilabel_matthews_corrcoef",
     "binary_precision", "binary_recall", "multiclass_precision", "multiclass_recall", "multilabel_precision",
     "multilabel_recall", "precision", "recall",
     "binary_precision_recall_curve", "multiclass_precision_recall_curve", "multilabel_precision_recall_curve",
     "precision_recall_curve",
     "binary_roc", "multiclass_roc", "multilabel_roc", "roc",
+    "binary_specificity", "multiclass_specificity", "multilabel_specificity", "specificity",
     "binary_stat_scores", "multiclass_stat_scores", "multilabel_stat_scores", "stat_scores",
 ]

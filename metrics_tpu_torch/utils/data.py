@@ -5,7 +5,7 @@ dispatch through :mod:`metrics_tpu_torch.ops.histogram`: the hand-written CUDA
 kernel for CUDA tensors with up to ``KERNEL_MAX_BINS`` bins, a scatter-add with
 drop semantics above that, and the plain version for CPU tensors.
 """
-from typing import List, Optional, Union
+from typing import Any, Callable, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -98,6 +98,65 @@ def dim_zero_max(x: Tensor) -> Tensor:
 
 def dim_zero_min(x: Tensor) -> Tensor:
     return torch.min(x, dim=0).values
+
+
+def _flatten(x: Sequence) -> list:
+    """Flatten a list of lists one level."""
+    return [item for sublist in x for item in sublist]
+
+
+def _flatten_dict(x: dict) -> dict:
+    """Flatten a dict of dicts one level."""
+    out = {}
+    for key, value in x.items():
+        if isinstance(value, dict):
+            out.update(value)
+        else:
+            out[key] = value
+    return out
+
+
+def allclose(tensor1: Tensor, tensor2: Tensor, rtol: float = 1e-5, atol: float = 1e-8) -> bool:
+    """Equal shapes and values within tolerance (integers compare as float64)."""
+    t1, t2 = torch.as_tensor(tensor1), torch.as_tensor(tensor2)
+    if t1.shape != t2.shape:
+        return False
+    if not (t1.is_floating_point() and t2.is_floating_point()):
+        t1, t2 = t1.double(), t2.double()
+    return bool(torch.allclose(t1, t2.to(t1.device, t1.dtype), rtol=rtol, atol=atol))
+
+
+def is_array(x: Any) -> bool:
+    """True for a tensor: what a metric state may hold."""
+    return isinstance(x, Tensor)
+
+
+def apply_to_collection(
+    data: Any,
+    dtype: Union[type, tuple],
+    function: Callable,
+    *args: Any,
+    wrong_dtype: Optional[Union[type, tuple]] = None,
+    **kwargs: Any,
+) -> Any:
+    """Apply ``function`` to every ``dtype`` element of a nested list, tuple,
+    namedtuple or dict, keeping the structure."""
+    if isinstance(data, dtype) and (wrong_dtype is None or not isinstance(data, wrong_dtype)):
+        return function(data, *args, **kwargs)
+    if isinstance(data, tuple) and hasattr(data, "_fields"):  # namedtuple
+        return type(data)(
+            *(apply_to_collection(d, dtype, function, *args, wrong_dtype=wrong_dtype, **kwargs) for d in data)
+        )
+    if isinstance(data, (list, tuple)):
+        return type(data)(
+            apply_to_collection(d, dtype, function, *args, wrong_dtype=wrong_dtype, **kwargs) for d in data
+        )
+    if isinstance(data, dict):
+        return {
+            k: apply_to_collection(v, dtype, function, *args, wrong_dtype=wrong_dtype, **kwargs)
+            for k, v in data.items()
+        }
+    return data
 
 
 def _one_hot(x: Tensor, num_classes: int) -> Tensor:

@@ -68,3 +68,17 @@ class ClassificationTask(EnumStr):
     BINARY = "binary"
     MULTICLASS = "multiclass"
     MULTILABEL = "multilabel"
+
+
+class ClassificationTaskNoBinary(EnumStr):
+    """multiclass / multilabel task selector (tasks without a binary form)."""
+
+    MULTICLASS = "multiclass"
+    MULTILABEL = "multilabel"
+
+
+class ClassificationTaskNoMultilabel(EnumStr):
+    """binary / multiclass task selector (tasks without a multilabel form)."""
+
+    BINARY = "binary"
+    MULTICLASS = "multiclass"

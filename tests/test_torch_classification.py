@@ -217,7 +217,8 @@ def test_cityscapes_shaped_path_at_small_size():
 
 def test_metric_device_rules():
     with pytest.raises(ValueError, match="Unexpected keyword"):
-        tc.MulticlassAccuracy(num_classes=3, device="cpu", dist_sync_on_step=True)
+        tc.MulticlassAccuracy(num_classes=3, device="cpu", fleet_size=2)  # the fleet axis is not ported
+    assert tc.MulticlassAccuracy(num_classes=3, device="cpu", dist_sync_on_step=True).dist_sync_on_step
     tm = tc.MulticlassAccuracy(num_classes=3, device="cpu")
     assert tm.device == torch.device("cpu")
     tm.update(torch.tensor([0, 1]), np.array([0, 2]))  # array-likes go to the metric's device

@@ -2,10 +2,14 @@
 
 - importing the package (and every module of it) in a fresh interpreter loads
   neither ``jax`` nor any ``metrics_tpu`` module;
-- no file of the package, nor ``chip_smoke.py`` and the ``scripts/torch_*.py``
-  profilers, imports them (AST scan);
-- a ``Metric`` built without ``device=`` raises where CUDA is absent, and so does a
-  functional entry point given a numpy input;
+- no file of the package, nor ``chip_smoke.py``, the ``scripts/torch_*.py``
+  profilers and the rank side of the sync tests (``tests/torch_sync_ranks.py``),
+  imports them (AST scan); both checks cover the runtime core for many ranks
+  (``parallel/``, ``core/collections.py``, ``core/aggregation.py``) and the
+  stat-scores classes added with it;
+- a ``Metric`` built without ``device=`` raises where CUDA is absent (every
+  aggregator and stat-scores class too, and so a ``MetricCollection`` of them), and
+  so does a functional entry point given a numpy input;
 - the kernel modules import, and a CPU run goes by the plain versions, without
   ``nvcc``: the launch counts stay 0.
 """
@@ -21,7 +25,21 @@ import torch
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "metrics_tpu_torch"
-SOURCES = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"] + sorted((REPO / "scripts").glob("torch_*.py"))
+SOURCES = (
+    sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "tests" / "torch_sync_ranks.py"]
+    + sorted((REPO / "scripts").glob("torch_*.py"))
+)
+# modules the scans must reach: the runtime core for many ranks and its classes
+REQUIRED_MODULES = (
+    "metrics_tpu_torch.parallel", "metrics_tpu_torch.parallel.collective", "metrics_tpu_torch.utils.distributed",
+    "metrics_tpu_torch.core.collections", "metrics_tpu_torch.core.aggregation",
+    "metrics_tpu_torch.classification.specificity", "metrics_tpu_torch.classification.hamming",
+    "metrics_tpu_torch.classification.cohen_kappa", "metrics_tpu_torch.classification.matthews_corrcoef",
+    "metrics_tpu_torch.classification.exact_match", "metrics_tpu_torch.functional.classification.specificity",
+    "metrics_tpu_torch.functional.classification.hamming", "metrics_tpu_torch.functional.classification.cohen_kappa",
+    "metrics_tpu_torch.functional.classification.matthews_corrcoef",
+    "metrics_tpu_torch.functional.classification.exact_match",
+)
 
 
 def _module_names():
@@ -32,6 +50,7 @@ def _module_names():
 
 
 def test_import_loads_no_jax_and_no_metrics_tpu():
+    assert set(REQUIRED_MODULES) <= set(_module_names())
     code = (
         "import importlib, sys\n"
         f"for name in {list(_module_names())!r}:\n"
@@ -73,6 +92,23 @@ def test_metric_without_device_raises_when_cuda_is_absent(monkeypatch):
         MulticlassAccuracy(num_classes=3)
 
 
+def test_aggregators_stat_classes_and_collections_without_device_raise_when_cuda_is_absent(monkeypatch):
+    from metrics_tpu_torch import classification as tc
+    from metrics_tpu_torch.core import MetricCollection, aggregation
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    makers = [getattr(aggregation, n) for n in ("MaxMetric", "MinMetric", "SumMetric", "CatMetric", "MeanMetric")]
+    makers += [
+        lambda: tc.MulticlassSpecificity(num_classes=3), lambda: tc.MulticlassHammingDistance(num_classes=3),
+        lambda: tc.MulticlassCohenKappa(num_classes=3), lambda: tc.MulticlassMatthewsCorrCoef(num_classes=3),
+        lambda: tc.MulticlassExactMatch(num_classes=3),
+        lambda: MetricCollection([tc.MulticlassAccuracy(num_classes=3), tc.MulticlassRecall(num_classes=3)]),
+    ]
+    for make in makers:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+
+
 def test_functional_numpy_input_goes_to_cuda_by_default(monkeypatch):
     from metrics_tpu_torch.functional.classification import binary_auroc, multiclass_accuracy
 
@@ -81,6 +117,11 @@ def test_functional_numpy_input_goes_to_cuda_by_default(monkeypatch):
         multiclass_accuracy(np.array([0, 1]), np.array([0, 1]), num_classes=3)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         binary_auroc(np.array([0.2, 0.7], np.float32), np.array([0, 1]))
+    from metrics_tpu_torch.functional.classification import matthews_corrcoef, specificity
+
+    for fn in (specificity, matthews_corrcoef):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn(np.array([0, 1]), np.array([0, 1]), task="multiclass", num_classes=3)
 
 
 def test_curve_metric_without_device_raises_when_cuda_is_absent(monkeypatch):
