@@ -108,6 +108,32 @@ Phases, each printing one JSON line:
     1e-6), its list and ``cat_capacity`` values bit-equal; a rank that outlives the
     deadline is killed and the phase fails.
 
+12. classification_rest: the rest of classification at published widths, data drawn on
+    the card, one line per configuration (update and compute ms, launches of both
+    kernels, the largest error against the reference):
+    - DLRM, Criteo 1TB day 23 (89,137,319 rows, 1,361 updates): BinaryCalibrationError
+      (15 bins) l1 with ``cat_capacity=2**27`` and max with list states (3 histogram
+      launches per compute: count, correct mask, float32 confidence sums), and
+      BinaryRecallAtFixedPrecision(0.5), BinaryPrecisionAtFixedRecall(0.5),
+      BinarySpecificityAtSensitivity(0.9) (one scan launch each). ECE and MCE within
+      1e-5 of float64 bucketing on the float32 boundaries of ``jnp.linspace``; each fixed
+      point within 1e-6 of the float64 curve's, its threshold a qualifying point of it.
+      The histogram's f32 and mask modes on these inputs (16 bins) against the plain
+      version, ``torch.bincount`` and the bound.
+    - ImageNet-1k validation (50,000 x 1,000 softmax, 50 updates): the 15-bin ECE within
+      1e-5 of float64, Crammer-Singer hinge within 1e-5, recall at precision 0.5 per class
+      (1,000 scan launches) within 1e-6 of the float64 curves.
+    - MS-COCO 2014 val as multilabel (40,504 x 80, ~2.9 labels per image, bf16 scores):
+      coverage error, label-ranking AP and ranking loss within 1e-6 of float64 per-sample
+      references, precision at recall 0.5 and specificity at sensitivity 0.5 per label
+      (160 scan launches) within 1e-6 of the float64 curves.
+    - FairFace validation (10,954 faces, 7 groups): BinaryFairness(task="all"), one
+      count-mode histogram launch (28 bins) per update, counts bit-equal to the plain
+      histogram; the count mode timed as above.
+    - Cityscapes: Dice on one batch (the void label as an ignored 20th class, micro,
+      ``mdmc_average="global"``), bit-equal to 2tp/(2tp+fp+fn) from the plain confusion
+      histogram; peak memory of the update.
+
 The last three lines are the ``nvidia-smi`` name and power limit, the kernels JSON
 line and ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
 """
@@ -1442,6 +1468,431 @@ def phase_sync_ranks(torch, seed: int, smi: str):
     return launches
 
 
+# ----------------------------------------------------------------- classification_rest
+
+# MS-COCO 2014 val as a multilabel evaluation: 40,504 images x 80 labels, ~2.9 labels per image
+COCO = {"images": 40_504, "labels": 80, "positives_per_image": 2.9, "positive_shift": 1.5, "batch": 1_024}
+# FairFace validation: 10,954 faces in 7 race groups (its published shares), a binary gender prediction
+FAIRFACE = {"faces": 10_954, "group_shares": (0.19, 0.15, 0.14, 0.14, 0.14, 0.13, 0.11), "batch": 1_024}
+CALIBRATION_BINS = 15
+FIXED_POINTS = {"recall_at_precision": 0.5, "precision_at_recall": 0.5, "specificity_at_sensitivity": 0.9}
+
+
+def jax_linspace_boundaries(torch, n_bins: int, device):
+    """The float32 values of ``jnp.linspace(0, 1, n_bins + 1)``: i times the float32
+    reciprocal of n_bins, then 1.0 (computed here with numpy, apart from the port)."""
+    import numpy as np
+
+    step = np.float32(1.0) / np.float32(n_bins)
+    values = np.append(np.arange(n_bins, dtype=np.float32) * step, np.float32(1.0)).astype(np.float32)
+    return torch.from_numpy(values).to(device)
+
+
+def calibration_reference(torch, conf, correct, n_bins: int):
+    """float64 ECE and MCE of float32 confidences, bucketed on the float32 boundaries."""
+    bounds = jax_linspace_boundaries(torch, n_bins, conf.device).double()
+    ids = (torch.searchsorted(bounds, conf.double().contiguous(), right=True) - 1).clamp(0, n_bins)
+    zeros = torch.zeros(n_bins + 1, dtype=torch.float64, device=conf.device)
+    count = zeros.index_add(0, ids, torch.ones_like(conf, dtype=torch.float64))
+    conf_bin = zeros.index_add(0, ids, conf.double()) / count.clamp_min(1)
+    acc_bin = zeros.index_add(0, ids, correct.double()) / count.clamp_min(1)
+    gap = (acc_bin - conf_bin).abs()
+    return float((gap * count / conf.numel()).sum()), float(gap.max())
+
+
+def curve_reference(torch, scores, target):
+    """float64 exact curves of the columns of ``scores`` (N, K) against binary ``target``:
+    descending keys, run-end mask, cumulative tps/fps and the totals."""
+    keys, order = torch.sort(scores.double(), dim=0, descending=True)
+    pos = torch.gather(target.to(torch.int64), 0, order)
+    tps = torch.cumsum(pos, 0)
+    fps = torch.cumsum(1 - pos, 0)
+    end = torch.ones_like(keys, dtype=torch.bool)
+    end[:-1] = keys[1:] != keys[:-1]
+    return {"keys": keys, "end": end, "tps": tps.double(), "fps": fps.double(),
+            "pos": tps[-1].double(), "neg": fps[-1].double()}
+
+
+def fixed_point_values(torch, ref, kind: str, bound: float):
+    """Per column: (primary, secondary) in float64 at every row, and the qualifying mask."""
+    t, f, p, q = ref["tps"], ref["fps"], ref["pos"], ref["neg"]
+    precision, recall = t / (t + f), t / p
+    if kind == "recall_at_precision":
+        primary, secondary = recall, precision
+    elif kind == "precision_at_recall":
+        primary, secondary = precision, recall
+    else:
+        primary, secondary = 1 - f / q, recall
+    return primary, ref["end"] & (secondary >= bound)
+
+
+def check_fixed_points(torch, label: str, ref, kind: str, bound: float, got, tol: float = 1e-6) -> float:
+    """The port's fixed points (value, threshold per column) against float64: the value
+    within ``tol`` of the best qualifying float64 value, and the port's threshold a
+    qualifying curve point whose float64 value is within ``tol`` of that best too."""
+    value, threshold = (g.reshape(-1).double() for g in got)
+    primary, ok = fixed_point_values(torch, ref, kind, bound)
+    best = torch.where(ok, primary, float("-inf")).amax(0)
+    best = torch.where(ok.any(0), best, 0.0)
+    at = ok & (ref["keys"] == threshold[None, :])
+    at_value = torch.where(at, primary, float("-inf")).amax(0)
+    err = (value - best).abs().max().item()
+    placed = ok.any(0) & (best != 0)  # a best of 0 pins the threshold to 1e6
+    if err > tol or not bool(at.any(0)[placed].all()) or (at_value - best)[placed].abs().max().item() > tol:
+        raise AssertionError(f"{label}: fixed point off the float64 curve by {err} (or its threshold)")
+    return err
+
+
+def metric_timing(torch, make, batch, metric, update_reps: int = 10, compute_reps: int = 3):
+    """CUDA-event medians of one update of a fresh metric on ``batch`` and of ``metric``'s compute."""
+    fresh = make()
+
+    def compute():
+        metric._computed = None  # time the computation, not the cached value
+        metric.compute()
+
+    return {"update_ms": event_ms(torch, lambda: fresh.update(*batch), reps=update_reps),
+            "compute_ms": event_ms(torch, compute, reps=compute_reps, warmup=1)}
+
+
+def histogram_mode_timing(torch, ids, weights, bins: int, library_weights):
+    """The histogram kernel in one mode against the plain version, ``torch.bincount`` and the bound."""
+    from metrics_tpu_torch.ops.histogram import _plain_bincount, histogram_cuda
+
+    got = histogram_cuda(ids, weights, bins)
+    want = _plain_bincount(ids, weights if weights is None or weights.dtype == torch.bool else weights.double(), bins)
+    if weights is None or weights.dtype == torch.bool:
+        if not torch.equal(got, want):
+            raise AssertionError(f"histogram kernel != plain in {'count' if weights is None else 'mask'} mode")
+        max_abs_err = 0.0
+    else:
+        scale = _plain_bincount(ids, weights.abs().double(), bins)
+        max_abs_err = (got.double() - want).abs().max().item()
+        if not bool(torch.all((got.double() - want).abs() <= 1e-5 * scale)):
+            raise AssertionError(f"histogram kernel f32 mode off by {max_abs_err}")
+    n = ids.numel()
+    per_row = ids.element_size() + (0 if weights is None else weights.element_size())
+    bound_ms = (n * per_row + bins * 4) / HBM_BYTES_PER_S * 1e3
+    call = lambda: histogram_cuda(ids, weights, bins)  # noqa: E731
+    lib = lambda: torch.bincount(ids, weights=library_weights, minlength=bins)  # noqa: E731
+    dev = sum(v for k, v in device_ms(torch, call).items() if "histogram" in k)
+    return {"n": n, "bins": bins, "kernel_ms": event_ms(torch, call, warmup=10),
+            "kernel_ms_back_to_back": back_to_back_ms(torch, call), "device_ms": dev,
+            "plain_ms": event_ms(torch, lambda: _plain_bincount(ids, weights, bins), reps=3, warmup=1),
+            "torch_bincount_ms": event_ms(torch, lib, reps=5, warmup=2), "bound_ms": bound_ms,
+            "kernel_share_of_bound": bound_ms / dev if dev else None, "max_abs_err": max_abs_err}
+
+
+def run_counted(torch, fn):
+    """``fn()`` with both launch counts set to 0 just before and read just after."""
+    from metrics_tpu_torch.ops.histogram import histogram_cuda
+    from metrics_tpu_torch.ops.segment import segment_scan_cuda
+
+    torch.cuda.synchronize()
+    histogram_cuda.launches = segment_scan_cuda.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return out, {"histogram": histogram_cuda.launches, "segment_scan": segment_scan_cuda.launches}, seconds
+
+
+def expect_launches(label: str, got: dict, histogram: int, scan: int) -> None:
+    if got != {"histogram": histogram, "segment_scan": scan}:
+        raise AssertionError(f"{label}: launches {got}, expected {histogram} histogram and {scan} scan")
+
+
+def rest_dlrm(torch, seed: int, smi: str):
+    """Criteo day 23: calibration (l1 with cat_capacity, max with list states) and the three fixed points."""
+    from metrics_tpu_torch.classification import (
+        BinaryCalibrationError,
+        BinaryPrecisionAtFixedRecall,
+        BinaryRecallAtFixedPrecision,
+        BinarySpecificityAtSensitivity,
+    )
+
+    scores, target = dlrm_data(torch, seed)
+    n = scores.numel()
+    batches = dlrm_batches(scores, target, n)
+    makers = {
+        "BinaryCalibrationError(l1, cat_capacity=2**27)":
+            lambda: BinaryCalibrationError(n_bins=CALIBRATION_BINS, norm="l1", cat_capacity=1 << 27),
+        "BinaryCalibrationError(max)": lambda: BinaryCalibrationError(n_bins=CALIBRATION_BINS, norm="max"),
+        "BinaryRecallAtFixedPrecision(0.5)": lambda: BinaryRecallAtFixedPrecision(FIXED_POINTS["recall_at_precision"]),
+        "BinaryPrecisionAtFixedRecall(0.5)": lambda: BinaryPrecisionAtFixedRecall(FIXED_POINTS["precision_at_recall"]),
+        "BinarySpecificityAtSensitivity(0.9)":
+            lambda: BinarySpecificityAtSensitivity(FIXED_POINTS["specificity_at_sensitivity"]),
+    }
+    metrics = {name: make() for name, make in makers.items()}
+
+    def drive():
+        for preds, labels in batches:
+            for metric in metrics.values():
+                metric.update(preds, labels)
+        return {name: metric.compute() for name, metric in metrics.items()}
+
+    values, launches, seconds = run_counted(torch, drive)
+    expect_launches("DLRM", launches, 2 * 3, 3)
+
+    errors = {}
+    ece, mce = calibration_reference(torch, scores, target, CALIBRATION_BINS)
+    for name, want in (("BinaryCalibrationError(l1, cat_capacity=2**27)", ece), ("BinaryCalibrationError(max)", mce)):
+        errors[name] = abs(values[name].item() - want)
+        if errors[name] > 1e-5:
+            raise AssertionError(f"{name}: {values[name].item()} vs float64 {want}")
+    ref = curve_reference(torch, scores[:, None], target[:, None])
+    for (name, kind) in zip(list(makers)[2:], FIXED_POINTS):
+        errors[name] = check_fixed_points(torch, f"DLRM {name}", ref, kind, FIXED_POINTS[kind], values[name])
+    del ref
+
+    # the histogram kernel in the calibration's f32 and mask modes, on its own inputs (16 bins)
+    bounds = jax_linspace_boundaries(torch, CALIBRATION_BINS, "cuda")
+    ids = (torch.searchsorted(bounds, scores, right=True) - 1).clamp(0, CALIBRATION_BINS).to(torch.int32)
+    correct = target != 0
+    modes = {"f32": histogram_mode_timing(torch, ids, scores, CALIBRATION_BINS + 1, scores),
+             "mask": histogram_mode_timing(torch, ids, correct, CALIBRATION_BINS + 1, correct.float())}
+    timing = {name: metric_timing(torch, makers[name], batches[0], metrics[name]) for name in makers}
+    emit({"phase": "classification_rest", "config": "dlrm_criteo_day23", "card": smi, "samples": n,
+          "updates": len(batches), "values": {k: [v.item() for v in vs] if isinstance(vs, tuple) else vs.item()
+                                              for k, vs in values.items()},
+          "float64_reference": {"ece": ece, "mce": mce}, "abs_err_vs_float64": errors, "max_abs_err": max(errors.values()),
+          "launches": launches, "seconds_incl_updates": seconds, "timing": timing, "histogram_modes": modes})
+    return launches
+
+
+def rest_imagenet(torch, seed: int, smi: str):
+    """ImageNet-1k validation: 15-bin ECE, Crammer-Singer hinge, recall at precision 0.5 per class."""
+    from metrics_tpu_torch.classification import (
+        MulticlassCalibrationError,
+        MulticlassHingeLoss,
+        MulticlassRecallAtFixedPrecision,
+    )
+
+    gi = torch.Generator(device="cuda").manual_seed(seed + 3)
+    c, m, b = IMAGENET["classes"], IMAGENET["samples"], IMAGENET["batch"]
+    probs = torch.softmax(2.0 * torch.randn((m, c), generator=gi, device="cuda"), dim=1)
+    labels = torch.randint(0, c, (m,), generator=gi, device="cuda")
+    makers = {
+        "MulticlassCalibrationError(1000, l1)": lambda: MulticlassCalibrationError(c, n_bins=CALIBRATION_BINS),
+        "MulticlassHingeLoss(1000)": lambda: MulticlassHingeLoss(c),
+        "MulticlassRecallAtFixedPrecision(1000, 0.5)": lambda: MulticlassRecallAtFixedPrecision(c, 0.5),
+    }
+    metrics = {name: make() for name, make in makers.items()}
+    batches = [(probs[s:s + b], labels[s:s + b]) for s in range(0, m, b)]
+
+    def drive():
+        for preds, target in batches:
+            for metric in metrics.values():
+                metric.update(preds, target)
+        return {name: metric.compute() for name, metric in metrics.items()}
+
+    values, launches, seconds = run_counted(torch, drive)
+    expect_launches("ImageNet", launches, 3, c)
+    conf, pred = probs.max(dim=1)
+    errors = {}
+    ece, _ = calibration_reference(torch, conf, pred == labels, CALIBRATION_BINS)
+    errors["MulticlassCalibrationError(1000, l1)"] = abs(values["MulticlassCalibrationError(1000, l1)"].item() - ece)
+    true_score = probs.double().gather(1, labels[:, None])[:, 0]
+    other = probs.double().scatter(1, labels[:, None], float("-inf")).amax(1)
+    hinge = (1 - (true_score - other)).clamp_min(0).mean().item()
+    errors["MulticlassHingeLoss(1000)"] = abs(values["MulticlassHingeLoss(1000)"].item() - hinge)
+    for name, err in errors.items():
+        if err > 1e-5:
+            raise AssertionError(f"ImageNet {name}: off float64 by {err}")
+    onehot = torch.nn.functional.one_hot(labels, c)
+    ref = curve_reference(torch, probs, onehot)
+    name = "MulticlassRecallAtFixedPrecision(1000, 0.5)"
+    errors[name] = check_fixed_points(torch, f"ImageNet {name}", ref, "recall_at_precision", 0.5, values[name])
+    del ref, onehot
+    timing = {name: metric_timing(torch, makers[name], batches[0], metrics[name], compute_reps=2) for name in makers}
+    emit({"phase": "classification_rest", "config": "imagenet_val", "card": smi, "samples": m, "classes": c,
+          "values": {"ece": values["MulticlassCalibrationError(1000, l1)"].item(),
+                     "hinge": values["MulticlassHingeLoss(1000)"].item(),
+                     "recall_at_precision_mean": values[name][0].mean().item()},
+          "float64_reference": {"ece": ece, "hinge": hinge}, "abs_err_vs_float64": errors,
+          "max_abs_err": max(errors.values()), "launches": launches,
+          "seconds_incl_updates": seconds, "timing": timing})
+    return launches
+
+
+def coco_data(torch, seed: int):
+    """MS-COCO 2014 val shaped multilabel scores, drawn on the card, rounded through bfloat16."""
+    c = COCO
+    g = torch.Generator(device="cuda").manual_seed(seed + 7)
+    n, k = c["images"], c["labels"]
+    target = (torch.rand((n, k), generator=g, device="cuda") < c["positives_per_image"] / k).long()
+    z = torch.randn((n, k), generator=g, device="cuda") + c["positive_shift"] * target
+    return torch.sigmoid(z).to(torch.bfloat16).to(torch.float32), target
+
+
+def ranking_reference(torch, scores, target):
+    """float64 per-sample coverage error, label-ranking AP and ranking loss (ties as the
+    JAX package resolves them: rank = labels scored at least as high; ranking loss over
+    the stable ascending order), averaged over the samples."""
+    s, rel = scores.double(), target == 1
+    k = s.shape[1]
+    n_rel = rel.sum(1)
+    lowest_rel = torch.where(rel, s, float("inf")).amin(1)
+    coverage = torch.where(n_rel > 0, (s >= lowest_rel[:, None]).sum(1).double(), 0.0)
+    ge = s[:, None, :] >= s[:, :, None]  # ge[i, j, l]: label l scores at least as high as j
+    rank_all = ge.sum(2).double()
+    rank_rel = (ge & rel[:, None, :]).sum(2).double()
+    per = torch.where(rel, rank_rel / rank_all, 0.0).sum(1) / n_rel.clamp_min(1)
+    lrap = torch.where((n_rel > 0) & (n_rel < k), per, 1.0)
+    idx = torch.arange(k, device=s.device)
+    after = (s[:, None, :] > s[:, :, None]) | ((s[:, None, :] == s[:, :, None]) & (idx[None, :] > idx[:, None]))
+    wrong = (after & rel[:, :, None] & ~rel[:, None, :]).sum((1, 2)).double()
+    loss = torch.where((n_rel > 0) & (n_rel < k), wrong / (n_rel * (k - n_rel)).clamp_min(1), 0.0)
+    return {"MultilabelCoverageError": coverage.mean().item(), "MultilabelRankingAveragePrecision": lrap.mean().item(),
+            "MultilabelRankingLoss": loss.mean().item()}
+
+
+def rest_coco(torch, seed: int, smi: str):
+    from metrics_tpu_torch.classification import (
+        MultilabelCoverageError,
+        MultilabelPrecisionAtFixedRecall,
+        MultilabelRankingAveragePrecision,
+        MultilabelRankingLoss,
+        MultilabelSpecificityAtSensitivity,
+    )
+
+    scores, target = coco_data(torch, seed)
+    k, b = COCO["labels"], COCO["batch"]
+    makers = {
+        "MultilabelCoverageError": lambda: MultilabelCoverageError(k),
+        "MultilabelRankingAveragePrecision": lambda: MultilabelRankingAveragePrecision(k),
+        "MultilabelRankingLoss": lambda: MultilabelRankingLoss(k),
+        "MultilabelPrecisionAtFixedRecall(80, 0.5)": lambda: MultilabelPrecisionAtFixedRecall(k, 0.5),
+        "MultilabelSpecificityAtSensitivity(80, 0.5)": lambda: MultilabelSpecificityAtSensitivity(k, 0.5),
+    }
+    metrics = {name: make() for name, make in makers.items()}
+    batches = [(scores[s:s + b], target[s:s + b]) for s in range(0, scores.shape[0], b)]
+
+    def drive():
+        for preds, labels in batches:
+            for metric in metrics.values():
+                metric.update(preds, labels)
+        return {name: metric.compute() for name, metric in metrics.items()}
+
+    values, launches, seconds = run_counted(torch, drive)
+    expect_launches("COCO", launches, 0, 2 * k)
+    refs = ranking_reference(torch, scores, target)
+    errors = {name: abs(values[name].item() - want) for name, want in refs.items()}
+    for name, err in errors.items():
+        if err > 1e-6:
+            raise AssertionError(f"COCO {name}: {values[name].item()} vs float64 {refs[name]}")
+    ref = curve_reference(torch, scores, target)
+    for name, kind in (("MultilabelPrecisionAtFixedRecall(80, 0.5)", "precision_at_recall"),
+                       ("MultilabelSpecificityAtSensitivity(80, 0.5)", "specificity_at_sensitivity")):
+        errors[name] = check_fixed_points(torch, f"COCO {name}", ref, kind, 0.5, values[name])
+    del ref
+    timing = {name: metric_timing(torch, makers[name], batches[0], metrics[name]) for name in makers}
+    emit({"phase": "classification_rest", "config": "coco2014_val_multilabel", "card": smi,
+          "images": scores.shape[0], "labels": k, "positives_per_image": target.sum().item() / scores.shape[0],
+          "values": {name: values[name].item() for name in refs}, "float64_reference": refs,
+          "abs_err_vs_float64": errors, "max_abs_err": max(errors.values()), "launches": launches,
+          "seconds_incl_updates": seconds, "timing": timing})
+    return launches
+
+
+def rest_fairface(torch, seed: int, smi: str):
+    from metrics_tpu_torch.classification import BinaryFairness
+    from metrics_tpu_torch.ops.histogram import _plain_bincount
+
+    f = FAIRFACE
+    g = torch.Generator(device="cuda").manual_seed(seed + 8)
+    n, shares = f["faces"], torch.tensor(f["group_shares"], device="cuda")
+    groups = torch.multinomial(shares, n, replacement=True, generator=g)
+    gender = (torch.rand(n, generator=g, device="cuda") < 0.53).long()
+    # a gender classifier whose margin varies with the group (the disparity the metric reads)
+    shift = torch.linspace(1.0, 2.0, len(f["group_shares"]), device="cuda")[groups]
+    scores = torch.sigmoid(torch.randn(n, generator=g, device="cuda") + shift * (2 * gender - 1))
+    metric = BinaryFairness(len(f["group_shares"]), task="all")
+    b = f["batch"]
+    batches = [(scores[s:s + b], gender[s:s + b], groups[s:s + b]) for s in range(0, n, b)]
+
+    def drive():
+        for batch in batches:
+            metric.update(*batch)
+        return metric.compute()
+
+    value, launches, seconds = run_counted(torch, drive)
+    expect_launches("FairFace", launches, len(batches), 0)
+    k = len(f["group_shares"])
+    ids = (groups * 4 + 2 * gender + (scores > 0.5).long()).to(torch.int32)
+    bins = _plain_bincount(ids, None, 4 * k).reshape(k, 4).long()
+    want = {"tn": bins[:, 0], "fp": bins[:, 1], "fn": bins[:, 2], "tp": bins[:, 3]}
+    for name, counts in want.items():
+        if not torch.equal(getattr(metric, name), counts):
+            raise AssertionError(f"FairFace {name} counts differ from the plain histogram")
+    mode = histogram_mode_timing(torch, ids, None, 4 * k, None)
+    emit({"phase": "classification_rest", "config": "fairface_val", "card": smi, "faces": n, "groups": k,
+          "values": {key: v.item() for key, v in value.items()}, "counts_bit_equal_to_plain": True, "max_abs_err": 0,
+          "launches": launches, "seconds_incl_updates": seconds,
+          "timing": metric_timing(torch, lambda: BinaryFairness(k, task="all"), batches[0], metric),
+          "histogram_count_mode": mode})
+    return launches
+
+
+def rest_cityscapes_dice(torch, seed: int, smi: str):
+    """Dice on one Cityscapes batch of (N, C, H, W) logits. The legacy class refuses
+    ``ignore_index=255`` (it must lie below ``num_classes``) and a target label past the
+    C axis, so the void label becomes a 20th class with a never-chosen logit, ignored
+    through ``ignore_index=19``: micro Dice with ``mdmc_average="global"``."""
+    from metrics_tpu_torch.classification import Dice
+    from metrics_tpu_torch.ops.histogram import _plain_bincount
+
+    c, ii = CITYSCAPES["classes"], CITYSCAPES["ignore_index"]
+    g = torch.Generator(device="cuda").manual_seed(seed + 9)
+    logits, target = cityscapes_batch(torch, g)
+    void = torch.full_like(logits[:, :1], float("-inf"))
+    logits = torch.cat([logits, void], 1)
+    target = target.masked_fill(target == ii, c)
+    del void
+    metric = Dice(num_classes=c + 1, ignore_index=c, mdmc_average="global")
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    value, launches, seconds = run_counted(torch, lambda: (metric.update(logits, target), metric.compute())[1])
+    peak = torch.cuda.max_memory_allocated() - base
+    expect_launches("Cityscapes Dice", launches, 0, 0)
+    cm = _plain_bincount((target * (c + 1) + logits.argmax(1)).reshape(-1), None, (c + 1) ** 2)
+    cm = cm.reshape(c + 1, c + 1).long()
+    tp = cm[:c, :c].diagonal().sum()
+    fp, fn = cm[:, :c].sum() - tp, cm[:c, :].sum() - tp
+    want = (2 * tp).to(torch.float32) / (2 * tp + fp + fn).to(torch.float32)
+    if not torch.equal(value, want):
+        raise AssertionError(f"Dice {value.item()} vs 2tp/(2tp+fp+fn) {want.item()} from the confusion histogram")
+    timing = metric_timing(torch, lambda: Dice(num_classes=c + 1, ignore_index=c, mdmc_average="global"),
+                           (logits, target), metric, update_reps=3)
+    emit({"phase": "classification_rest", "config": "cityscapes_dice", "card": smi,
+          "predictions": target.numel(), "value": value.item(), "bit_equal_to_confusion_histogram": True, "max_abs_err": 0,
+          "launches": launches, "seconds_incl_update": seconds, "update_peak_bytes": peak,
+          "logits_bytes": logits.numel() * logits.element_size(), "timing": timing})
+    return launches
+
+
+def phase_classification_rest(torch, seed: int, smi: str):
+    """The rest of classification at published widths: DLRM calibration and fixed points,
+    ImageNet calibration/hinge/fixed points, COCO ranking and fixed points, FairFace
+    fairness, Cityscapes Dice. Returns the launches of both kernels."""
+    total = {"histogram": 0, "segment_scan": 0}
+    t0 = time.perf_counter()
+    dlrm = rest_dlrm(torch, seed, smi)
+    torch.cuda.empty_cache()
+    imagenet = rest_imagenet(torch, seed, smi)
+    torch.cuda.empty_cache()
+    coco = rest_coco(torch, seed, smi)
+    fairface = rest_fairface(torch, seed, smi)
+    dice = rest_cityscapes_dice(torch, seed, smi)
+    torch.cuda.empty_cache()
+    for launches in (dlrm, imagenet, coco, fairface, dice):
+        for key in total:
+            total[key] += launches[key]
+    emit({"phase": "classification_rest", "config": "all", "launches": total,
+          "seconds_incl_checks_and_timing": time.perf_counter() - t0})
+    return total
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1481,6 +1932,9 @@ def main() -> int:
     ranks = phase_sync_ranks(torch, args.seed, smi)
     kernels[0]["launches"] += collection_launches + nccl["histogram"] + ranks["histogram"]
     scan["launches"] += nccl["segment_scan"] + ranks["segment_scan"]
+    rest = phase_classification_rest(torch, args.seed, smi)
+    kernels[0]["launches"] += rest["histogram"]
+    scan["launches"] += rest["segment_scan"]
 
     print(smi)
     emit({"kernels": kernels})

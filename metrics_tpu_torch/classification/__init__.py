@@ -77,6 +77,47 @@ from metrics_tpu_torch.classification.stat_scores import (
     StatScores,
 )
 
+from metrics_tpu_torch.classification.calibration_error import (
+    BinaryCalibrationError,
+    CalibrationError,
+    MulticlassCalibrationError,
+)
+from metrics_tpu_torch.classification.dice import (
+    Dice,
+)
+from metrics_tpu_torch.classification.group_fairness import (
+    BinaryFairness,
+    BinaryGroupStatRates,
+)
+from metrics_tpu_torch.classification.hinge import (
+    BinaryHingeLoss,
+    HingeLoss,
+    MulticlassHingeLoss,
+)
+from metrics_tpu_torch.classification.precision_fixed_recall import (
+    BinaryPrecisionAtFixedRecall,
+    MulticlassPrecisionAtFixedRecall,
+    MultilabelPrecisionAtFixedRecall,
+    PrecisionAtFixedRecall,
+)
+from metrics_tpu_torch.classification.ranking import (
+    MultilabelCoverageError,
+    MultilabelRankingAveragePrecision,
+    MultilabelRankingLoss,
+)
+from metrics_tpu_torch.classification.recall_fixed_precision import (
+    BinaryRecallAtFixedPrecision,
+    MulticlassRecallAtFixedPrecision,
+    MultilabelRecallAtFixedPrecision,
+    RecallAtFixedPrecision,
+)
+from metrics_tpu_torch.classification.specificity_sensitivity import (
+    BinarySpecificityAtSensitivity,
+    MulticlassSpecificityAtSensitivity,
+    MultilabelSpecificityAtSensitivity,
+    SpecificityAtSensitivity,
+)
+
 __all__ = [
     "Accuracy", "BinaryAccuracy", "MulticlassAccuracy", "MultilabelAccuracy",
     "AUROC", "BinaryAUROC", "MulticlassAUROC", "MultilabelAUROC",
@@ -96,4 +137,15 @@ __all__ = [
     "BinaryROC", "MulticlassROC", "MultilabelROC", "ROC",
     "BinarySpecificity", "MulticlassSpecificity", "MultilabelSpecificity", "Specificity",
     "BinaryStatScores", "MulticlassStatScores", "MultilabelStatScores", "StatScores",
+    "BinaryCalibrationError", "CalibrationError", "MulticlassCalibrationError",
+    "Dice",
+    "BinaryFairness", "BinaryGroupStatRates",
+    "BinaryHingeLoss", "HingeLoss", "MulticlassHingeLoss",
+    "BinaryPrecisionAtFixedRecall", "MulticlassPrecisionAtFixedRecall", "MultilabelPrecisionAtFixedRecall",
+    "PrecisionAtFixedRecall",
+    "MultilabelCoverageError", "MultilabelRankingAveragePrecision", "MultilabelRankingLoss",
+    "BinaryRecallAtFixedPrecision", "MulticlassRecallAtFixedPrecision", "MultilabelRecallAtFixedPrecision",
+    "RecallAtFixedPrecision",
+    "BinarySpecificityAtSensitivity", "MulticlassSpecificityAtSensitivity", "MultilabelSpecificityAtSensitivity",
+    "SpecificityAtSensitivity",
 ]

@@ -1,0 +1,152 @@
+"""Recall-at-fixed-precision metric classes (counterpart of
+``metrics_tpu/classification/recall_fixed_precision.py``).
+
+They keep the precision-recall curve's states (exact cat states, ``cat_capacity``
+buffers, or the binned confusion tensor) and reduce the curve at ``compute``
+(one segmented-scan launch per binary curve, class or label in exact mode).
+"""
+from typing import Any, Optional, Tuple
+
+from torch import Tensor
+
+from metrics_tpu_torch.classification.precision_recall_curve import (
+    BinaryPrecisionRecallCurve,
+    MulticlassPrecisionRecallCurve,
+    MultilabelPrecisionRecallCurve,
+)
+from metrics_tpu_torch.core.metric import Metric
+from metrics_tpu_torch.functional.classification.recall_fixed_precision import (
+    _binary_recall_at_fixed_precision_arg_validation,
+    _binary_recall_at_fixed_precision_compute,
+    _multiclass_recall_at_fixed_precision_arg_compute,
+    _multiclass_recall_at_fixed_precision_arg_validation,
+    _multilabel_recall_at_fixed_precision_arg_compute,
+    _multilabel_recall_at_fixed_precision_arg_validation,
+)
+from metrics_tpu_torch.functional.classification.precision_recall_curve import Thresholds
+from metrics_tpu_torch.utils.enums import ClassificationTask
+
+
+class BinaryRecallAtFixedPrecision(BinaryPrecisionRecallCurve):
+    """Highest recall with precision >= ``min_precision``, and its threshold."""
+
+    is_differentiable: bool = False
+    higher_is_better: Optional[bool] = None
+    full_state_update: bool = False
+    plot_lower_bound: float = 0.0
+    plot_upper_bound: float = 1.0
+
+    def __init__(
+        self,
+        min_precision: float,
+        thresholds: Thresholds = None,
+        ignore_index: Optional[int] = None,
+        validate_args: bool = True,
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(thresholds=thresholds, ignore_index=ignore_index, validate_args=False, **kwargs)
+        if validate_args:
+            _binary_recall_at_fixed_precision_arg_validation(min_precision, thresholds, ignore_index)
+        self.validate_args = validate_args
+        self.min_precision = min_precision
+
+    def compute(self) -> Tuple[Tensor, Tensor]:  # type: ignore[override]
+        return _binary_recall_at_fixed_precision_compute(self._curve_state(), self.thresholds, self.min_precision)
+
+
+class MulticlassRecallAtFixedPrecision(MulticlassPrecisionRecallCurve):
+    """Highest recall with precision >= ``min_precision`` per class, one-vs-rest."""
+
+    is_differentiable: bool = False
+    higher_is_better: Optional[bool] = None
+    full_state_update: bool = False
+    plot_lower_bound: float = 0.0
+    plot_upper_bound: float = 1.0
+    plot_legend_name: str = "Class"
+
+    def __init__(
+        self,
+        num_classes: int,
+        min_precision: float,
+        thresholds: Thresholds = None,
+        ignore_index: Optional[int] = None,
+        validate_args: bool = True,
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(
+            num_classes=num_classes, thresholds=thresholds, ignore_index=ignore_index, validate_args=False, **kwargs
+        )
+        if validate_args:
+            _multiclass_recall_at_fixed_precision_arg_validation(num_classes, min_precision, thresholds, ignore_index)
+        self.validate_args = validate_args
+        self.min_precision = min_precision
+
+    def compute(self) -> Tuple[Tensor, Tensor]:  # type: ignore[override]
+        return _multiclass_recall_at_fixed_precision_arg_compute(
+            self._curve_state(), self.num_classes, self.thresholds, self.min_precision
+        )
+
+
+class MultilabelRecallAtFixedPrecision(MultilabelPrecisionRecallCurve):
+    """Highest recall with precision >= ``min_precision`` per label."""
+
+    is_differentiable: bool = False
+    higher_is_better: Optional[bool] = None
+    full_state_update: bool = False
+    plot_lower_bound: float = 0.0
+    plot_upper_bound: float = 1.0
+    plot_legend_name: str = "Label"
+
+    def __init__(
+        self,
+        num_labels: int,
+        min_precision: float,
+        thresholds: Thresholds = None,
+        ignore_index: Optional[int] = None,
+        validate_args: bool = True,
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(
+            num_labels=num_labels, thresholds=thresholds, ignore_index=ignore_index, validate_args=False, **kwargs
+        )
+        if validate_args:
+            _multilabel_recall_at_fixed_precision_arg_validation(num_labels, min_precision, thresholds, ignore_index)
+        self.validate_args = validate_args
+        self.min_precision = min_precision
+
+    def compute(self) -> Tuple[Tensor, Tensor]:  # type: ignore[override]
+        return _multilabel_recall_at_fixed_precision_arg_compute(
+            self._curve_state(), self.num_labels, self.thresholds, self.ignore_index, self.min_precision
+        )
+
+
+class RecallAtFixedPrecision:
+    """Task dispatcher."""
+
+    def __new__(  # type: ignore[misc]
+        cls,
+        task: str,
+        min_precision: float,
+        thresholds: Thresholds = None,
+        num_classes: Optional[int] = None,
+        num_labels: Optional[int] = None,
+        ignore_index: Optional[int] = None,
+        validate_args: bool = True,
+        **kwargs: Any,
+    ) -> Metric:
+        task = ClassificationTask.from_str(task)
+        if task == ClassificationTask.BINARY:
+            return BinaryRecallAtFixedPrecision(min_precision, thresholds, ignore_index, validate_args, **kwargs)
+        if task == ClassificationTask.MULTICLASS:
+            if not isinstance(num_classes, int):
+                raise ValueError(f"`num_classes` is expected to be `int` but `{type(num_classes)} was passed.`")
+            return MulticlassRecallAtFixedPrecision(
+                num_classes, min_precision, thresholds, ignore_index, validate_args, **kwargs
+            )
+        if task == ClassificationTask.MULTILABEL:
+            if not isinstance(num_labels, int):
+                raise ValueError(f"`num_labels` is expected to be `int` but `{type(num_labels)} was passed.`")
+            return MultilabelRecallAtFixedPrecision(
+                num_labels, min_precision, thresholds, ignore_index, validate_args, **kwargs
+            )
+        raise ValueError(f"Not handled value: {task}")

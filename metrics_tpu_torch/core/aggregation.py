@@ -125,6 +125,15 @@ class CatMetric(BaseAggregator):
         return self.value
 
 
+def _broadcast_to(x: Tensor, shape: torch.Size) -> Tensor:
+    """``torch.broadcast_to`` that raises ``ValueError``, as ``jnp.broadcast_to`` does: a
+    weighted update whose NaN values were dropped, but not their weights, lands here."""
+    lead = len(shape) - x.ndim
+    if lead < 0 or any(d not in (1, n) for d, n in zip(x.shape, shape[lead:])):
+        raise ValueError(f"Incompatible shapes for broadcasting: {tuple(x.shape)} and requested shape {tuple(shape)}")
+    return torch.broadcast_to(x, shape)
+
+
 class MeanMetric(BaseAggregator):
     """Weighted running mean: ``sum(value * weight) / sum(weight)``."""
 
@@ -137,7 +146,7 @@ class MeanMetric(BaseAggregator):
         weight = self._cast_and_nan_check_input(weight)
         if value.numel() == 0:
             return
-        weight = torch.broadcast_to(weight, value.shape)
+        weight = _broadcast_to(weight, value.shape)
         self.value = self.value + (value * weight).sum()
         self.weight = self.weight + weight.sum()
 

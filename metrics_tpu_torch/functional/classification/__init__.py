@@ -85,6 +85,50 @@ from metrics_tpu_torch.functional.classification.stat_scores import (
     stat_scores,
 )
 
+from metrics_tpu_torch.functional.classification.calibration_error import (
+    binary_calibration_error,
+    calibration_error,
+    multiclass_calibration_error,
+)
+from metrics_tpu_torch.functional.classification.dice import (
+    dice,
+)
+from metrics_tpu_torch.functional.classification.group_fairness import (
+    binary_fairness,
+    binary_groups_stat_rates,
+    demographic_parity,
+    equal_opportunity,
+)
+from metrics_tpu_torch.functional.classification.hinge import (
+    binary_hinge_loss,
+    hinge_loss,
+    multiclass_hinge_loss,
+)
+from metrics_tpu_torch.functional.classification.precision_fixed_recall import (
+    binary_precision_at_fixed_recall,
+    multiclass_precision_at_fixed_recall,
+    multilabel_precision_at_fixed_recall,
+    precision_at_fixed_recall,
+)
+from metrics_tpu_torch.functional.classification.ranking import (
+    multilabel_coverage_error,
+    multilabel_ranking_average_precision,
+    multilabel_ranking_loss,
+)
+from metrics_tpu_torch.functional.classification.recall_fixed_precision import (
+    binary_recall_at_fixed_precision,
+    multiclass_recall_at_fixed_precision,
+    multilabel_recall_at_fixed_precision,
+    recall_at_fixed_precision,
+)
+from metrics_tpu_torch.functional.classification.specificity_sensitivity import (
+    binary_specificity_at_sensitivity,
+    multiclass_specificity_at_sensitivity,
+    multilabel_specificity_at_sensitivity,
+    specicity_at_sensitivity,
+    specificity_at_sensitivity,
+)
+
 __all__ = [
     "accuracy", "binary_accuracy", "multiclass_accuracy", "multilabel_accuracy",
     "auroc", "binary_auroc", "multiclass_auroc", "multilabel_auroc",
@@ -104,4 +148,15 @@ __all__ = [
     "binary_roc", "multiclass_roc", "multilabel_roc", "roc",
     "binary_specificity", "multiclass_specificity", "multilabel_specificity", "specificity",
     "binary_stat_scores", "multiclass_stat_scores", "multilabel_stat_scores", "stat_scores",
+    "binary_calibration_error", "calibration_error", "multiclass_calibration_error",
+    "dice",
+    "binary_fairness", "binary_groups_stat_rates", "demographic_parity", "equal_opportunity",
+    "binary_hinge_loss", "hinge_loss", "multiclass_hinge_loss",
+    "binary_precision_at_fixed_recall", "multiclass_precision_at_fixed_recall",
+    "multilabel_precision_at_fixed_recall", "precision_at_fixed_recall",
+    "multilabel_coverage_error", "multilabel_ranking_average_precision", "multilabel_ranking_loss",
+    "binary_recall_at_fixed_precision", "multiclass_recall_at_fixed_precision",
+    "multilabel_recall_at_fixed_precision", "recall_at_fixed_precision",
+    "binary_specificity_at_sensitivity", "multiclass_specificity_at_sensitivity",
+    "multilabel_specificity_at_sensitivity", "specicity_at_sensitivity", "specificity_at_sensitivity",
 ]

@@ -241,3 +241,22 @@ def multilabel_auroc_exact(preds2d: Tensor, target2d: Tensor) -> Tuple[Tensor, T
 
 def multilabel_average_precision_exact(preds2d: Tensor, target2d: Tensor) -> Tuple[Tensor, Tensor]:
     return _perlabel(_binary_ap_kernel, preds2d, target2d)
+
+
+# ---------------------------------------------------------------- fixed points
+
+
+def binary_curve_counts(
+    preds: Tensor, target: Tensor, valid: Tensor, tier: str = "sort"
+) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """The exact curve in the fixed shape of the descending sort, for the fixed-point
+    metrics (recall at precision, precision at recall, specificity at sensitivity).
+
+    Returns int32 ``fps``/``tps`` and the float32 score at every row, and ``point``,
+    True on the rows that are points of the curve: the last row of each tie run of
+    valid scores, in descending-score order. ``tps[-1]`` and ``fps[-1]`` are the
+    positive and negative totals. One sort and one scan launch.
+    """
+    fps, tps, keys, boundary = _run_end_counts(preds, target, valid, tier)
+    rows = torch.arange(boundary.shape[0], device=boundary.device)
+    return fps, tps, keys, boundary & (rows < fps[-1] + tps[-1])

@@ -1,4 +1,5 @@
 """Numeric helpers (counterpart of ``metrics_tpu/utils/compute.py``)."""
+import numpy as np
 import torch
 from torch import Tensor
 
@@ -41,3 +42,25 @@ def _auc_compute(x: Tensor, y: Tensor, reorder: bool = False, axis: int = -1) ->
         dx = torch.diff(x, dim=axis)
         direction = torch.where(torch.all(dx <= 0), -1.0, 1.0).to(x.device)
     return _auc_compute_without_check(x, y, direction, axis=axis)
+
+
+def auc(x: Tensor, y: Tensor, reorder: bool = False) -> Tensor:
+    """Area under the curve of 1-D ``x`` and ``y`` by the trapezoidal rule."""
+    if x.ndim != 1 or y.ndim != 1:
+        raise ValueError(f"Expected 1d arrays, got x.ndim={x.ndim}, y.ndim={y.ndim}")
+    if x.shape[0] != y.shape[0]:
+        raise ValueError("x and y must have the same length")
+    return _auc_compute(x, y, reorder=reorder)
+
+
+def _smallest_f32_at_least(value: float) -> np.float32:
+    """The smallest float32 >= ``value`` (a float64 constant).
+
+    Every curve value lies on the float32 grid, so ``v >= value`` compared in float64
+    decides as the float32 compare against this cutoff (``np.float32(0.7)`` rounds
+    down and would admit values below 0.7).
+    """
+    cutoff = np.float32(value)
+    if float(cutoff) < value:
+        cutoff = np.nextafter(cutoff, np.float32(np.inf), dtype=np.float32)
+    return cutoff

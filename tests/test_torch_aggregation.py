@@ -8,6 +8,7 @@ over aggregators and classification metrics. Both packages compute in float32:
 values agree within rtol 1e-6, atol 1e-6.
 """
 import operator
+import warnings
 
 import jax.numpy as jnp
 import numpy as np
@@ -84,6 +85,23 @@ def test_mean_metric_weights():
     tm.update(np.float32(1.5), np.float32(4.0))  # a scalar weight broadcasts
     jm.update(jnp.asarray(1.5), jnp.asarray(4.0))
     assert_close(tm.compute(), jm.compute())
+
+
+@pytest.mark.parametrize("nan_strategy", ["ignore", "warn"])
+def test_weighted_mean_with_nan_values_raises_value_error_in_both(nan_strategy):
+    """Both packages drop the NaN values but not their weights: the weights no longer
+    broadcast, and both raise ``ValueError``."""
+    v = np.array([1.0, np.nan, 3.0, 4.0], np.float32)
+    w = np.array([0.5, 1.0, 2.0, 1.0], np.float32)
+    jm, tm = ja.MeanMetric(nan_strategy=nan_strategy), ta.MeanMetric(nan_strategy=nan_strategy, device="cpu")
+    errors = []
+    for update, args in ((jm.update, (jnp.asarray(v), jnp.asarray(w))), (tm.update, (v, w))):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # "warn" announces the dropped NaN
+            with pytest.raises(ValueError, match="Incompatible shapes for broadcasting") as err:
+                update(*args)
+        errors.append(err.type)
+    assert errors[0] is errors[1] is ValueError
 
 
 def test_aggregator_arguments():

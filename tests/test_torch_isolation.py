@@ -1,7 +1,8 @@
 """metrics_tpu_torch stands alone: no JAX, nothing of metrics_tpu, CUDA by default.
 
 - importing the package (and every module of it) in a fresh interpreter loads
-  neither ``jax`` nor any ``metrics_tpu`` module;
+  neither ``jax`` nor any ``metrics_tpu`` module, the root exports and the rest of
+  classification (fixed points, calibration, hinge, ranking, fairness, Dice) included;
 - no file of the package, nor ``chip_smoke.py``, the ``scripts/torch_*.py``
   profilers and the rank side of the sync tests (``tests/torch_sync_ranks.py``),
   imports them (AST scan); both checks cover the runtime core for many ranks
@@ -11,7 +12,8 @@
   aggregator and stat-scores class too, and so a ``MetricCollection`` of them), and
   so does a functional entry point given a numpy input;
 - the kernel modules import, and a CPU run goes by the plain versions, without
-  ``nvcc``: the launch counts stay 0.
+  ``nvcc``: the launch counts stay 0 (the confusion path, the curves, calibration,
+  fairness and the fixed points).
 """
 import ast
 import os
@@ -39,6 +41,13 @@ REQUIRED_MODULES = (
     "metrics_tpu_torch.functional.classification.hamming", "metrics_tpu_torch.functional.classification.cohen_kappa",
     "metrics_tpu_torch.functional.classification.matthews_corrcoef",
     "metrics_tpu_torch.functional.classification.exact_match",
+    # the rest of classification, the retrieval shims and the root exports
+    "metrics_tpu_torch", "metrics_tpu_torch.functional", "metrics_tpu_torch.retrieval._deprecated",
+    "metrics_tpu_torch.functional.retrieval._deprecated",
+    *(f"metrics_tpu_torch.{kind}.{module}" for kind in ("classification", "functional.classification")
+      for module in ("recall_fixed_precision", "precision_fixed_recall", "specificity_sensitivity",
+                     "calibration_error", "hinge", "ranking", "group_fairness", "dice")),
+    "metrics_tpu_torch.functional.classification._legacy",
 )
 
 
@@ -146,6 +155,60 @@ def test_cpu_run_imports_the_kernel_module_without_nvcc():
         "a = BinaryAUROC(device='cpu')\n"
         "a.update(rng.rand(64).astype(np.float32), rng.randint(0, 2, 64))\n"
         "assert 0.0 <= float(a.compute()) <= 1.0\n"
+        "assert histogram.histogram_cuda.launches == 0 and segment.segment_scan_cuda.launches == 0\n"
+        "print('ok')\n"
+    )
+    env = {"PATH": "/usr/bin:/bin", "PYTHONPATH": str(REPO), "HOME": os.environ.get("HOME", "/tmp")}
+    result = subprocess.run(
+        [sys.executable, "-c", code], cwd=str(REPO), env=env, capture_output=True, text=True, timeout=300
+    )
+    assert result.returncode == 0, result.stderr
+    assert result.stdout.strip() == "ok"
+
+
+def test_rest_of_classification_without_device_raises_when_cuda_is_absent(monkeypatch):
+    import metrics_tpu_torch
+    from metrics_tpu_torch import classification as tc
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    makers = [
+        lambda: tc.BinaryRecallAtFixedPrecision(0.5), lambda: tc.MulticlassPrecisionAtFixedRecall(3, 0.5),
+        lambda: tc.MultilabelSpecificityAtSensitivity(3, 0.5), lambda: tc.RecallAtFixedPrecision("binary", 0.5),
+        tc.BinaryCalibrationError, lambda: tc.MulticlassCalibrationError(3), lambda: tc.CalibrationError("binary"),
+        tc.BinaryHingeLoss, lambda: tc.MulticlassHingeLoss(3), lambda: tc.MultilabelCoverageError(3),
+        lambda: tc.MultilabelRankingAveragePrecision(3), lambda: tc.MultilabelRankingLoss(3),
+        lambda: tc.BinaryGroupStatRates(2), lambda: tc.BinaryFairness(2), tc.Dice,
+        lambda: metrics_tpu_torch.Dice(),
+        lambda: metrics_tpu_torch.MetricCollection([metrics_tpu_torch.HingeLoss("binary")]),
+    ]
+    for make in makers:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    from metrics_tpu_torch.functional.classification import binary_calibration_error, binary_fairness, dice
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        binary_calibration_error(np.array([0.2, 0.7], np.float32), np.array([0, 1]))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        binary_fairness(np.array([0.2, 0.7], np.float32), np.array([0, 1]), np.array([0, 1]))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dice(np.array([0, 1]), np.array([0, 1]))
+
+
+def test_cpu_run_of_calibration_fairness_and_fixed_points_launches_no_kernel():
+    code = (
+        "import numpy as np\n"
+        "from metrics_tpu_torch.ops import histogram, segment\n"
+        "from metrics_tpu_torch import classification as tc\n"
+        "rng = np.random.RandomState(0)\n"
+        "p, t = rng.rand(256).astype(np.float32), rng.randint(0, 2, 256)\n"
+        "for m in (tc.BinaryCalibrationError(device='cpu'), tc.BinaryRecallAtFixedPrecision(0.5, device='cpu'),\n"
+        "          tc.BinaryPrecisionAtFixedRecall(0.5, device='cpu'),\n"
+        "          tc.BinarySpecificityAtSensitivity(0.5, device='cpu')):\n"
+        "    m.update(p, t)\n"
+        "    m.compute()\n"
+        "f = tc.BinaryFairness(7, device='cpu')\n"
+        "f.update(p, t, rng.randint(0, 7, 256))\n"
+        "f.compute()\n"
         "assert histogram.histogram_cuda.launches == 0 and segment.segment_scan_cuda.launches == 0\n"
         "print('ok')\n"
     )

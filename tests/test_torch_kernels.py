@@ -278,3 +278,45 @@ def test_retrieval_lane_sets_on_card(cuda, monkeypatch, metric, top_k, shape):
         for a, b in zip(outs, segment._plain_multi_scan(lanes, flags, ops, reverse)):
             assert torch.equal(a, b), (metric, ops, reverse, int((a != b).sum()))
     assert int(valid.sum()) == int(torch.unique(indexes).numel()) and bool(torch.isfinite(scores).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1000, (1 << 22) + 5])
+def test_kernel_calibration_modes_on_card(cuda, n):
+    """The calibration error's three launches: 16 bins (15 and the bin of confidences of
+    exactly 1.0), a mask of correct samples, and float32 confidence sums."""
+    from metrics_tpu_torch.functional.classification.calibration_error import _bin_boundaries
+
+    g = torch.Generator(device=cuda).manual_seed(n)
+    conf = torch.rand(n, generator=g, device=cuda)
+    conf[:7] = 1.0
+    ids = (torch.searchsorted(_bin_boundaries(15, cuda), conf, right=True) - 1).clamp(0, 15).to(torch.int32)
+    ids[::97] = -1  # masked samples drop
+    correct = torch.rand(n, generator=g, device=cuda) < conf
+    assert torch.equal(histogram.histogram_cuda(ids, None, 16), histogram._plain_bincount(ids, None, 16))
+    assert torch.equal(histogram.histogram_cuda(ids, correct, 16), histogram._plain_bincount(ids, correct, 16))
+    got = histogram.histogram_cuda(ids, conf, 16).double()
+    want = histogram._plain_bincount(ids, conf.double(), 16)
+    assert bool(torch.all((got - want).abs() <= 1e-5 * want.abs()))
+
+
+@pytest.mark.cuda
+def test_calibration_and_fairness_on_card_match_cpu(cuda):
+    from metrics_tpu_torch.classification import BinaryCalibrationError, BinaryFairness
+
+    g = torch.Generator(device=cuda).manual_seed(6)
+    preds = torch.rand(100_000, generator=g, device=cuda)
+    target = (torch.rand(100_000, generator=g, device=cuda) < preds).long()
+    groups = torch.randint(0, 7, (100_000,), generator=g, device=cuda)
+    before = histogram.histogram_cuda.launches
+    for norm in ("l1", "l2", "max"):
+        card, cpu = BinaryCalibrationError(norm=norm), BinaryCalibrationError(norm=norm, device="cpu")
+        card.update(preds, target)
+        cpu.update(preds.cpu(), target.cpu())
+        assert abs(card.compute().item() - cpu.compute().item()) <= 1e-6
+    fair, fair_cpu = BinaryFairness(7), BinaryFairness(7, device="cpu")
+    fair.update(preds, target, groups)
+    fair_cpu.update(preds.cpu(), target.cpu(), groups.cpu())
+    for name in ("tp", "fp", "tn", "fn"):
+        assert torch.equal(getattr(fair, name).cpu(), getattr(fair_cpu, name))
+    assert histogram.histogram_cuda.launches == before + 3 * 3 + 1
