@@ -134,6 +134,28 @@ Phases, each printing one JSON line:
       ``mdmc_average="global"``), bit-equal to 2tp/(2tp+fp+fn) from the plain confusion
       histogram; peak memory of the update.
 
+13. image: the image and pairwise slice, data drawn on the card, no hand kernel (both
+    launch counts 0):
+    - CIFAR-10 FID protocol: 50,000 real and 50,000 generated 3x32x32 uint8 images in
+      updates of 500, resized to 299x299 inside a full-width InceptionV3 on
+      ``random_inception_state(seed)``: FrechetInceptionDistance (tap 2048),
+      KernelInceptionDistance (100 subsets of 1,000) and InceptionScore (10 splits,
+      ``logits_unbiased``). Checks: 8 images' features on the card within 1e-3 of the
+      port's CPU forward; FID within 1e-5 relative of float64 numpy (symmetrised eigh)
+      on the same moments, and at the 768 tap (first 10,000 + 10,000 images) the numpy
+      trace within 1e-6 of ``scipy.linalg.sqrtm``'s; KID and IS within 1e-5 relative of
+      float64 numpy from the same features and draws. Timings: forward images/s (float32
+      and bf16), update and compute ms, tr(sqrtm) three ways (float64 eigh on the card,
+      float64 numpy on the host, float32 Newton-Schulz).
+    - Pairwise: the first 4,096 real and fake features through the five functions,
+      against float64 on the card; ms and peak memory of each.
+    - DIV2K x4 validation shape: 100 images of 3x1356x2040 in updates of 4, preds =
+      target + N(0, 0.05) clipped: SSIM, MS-SSIM, PSNR, PSNRB on the luma, UQI and TV
+      (``data_range=1.0``) within 1e-5 of float64 runs on the card, and one image on the
+      card against the port's CPU run; update and compute ms, the peak memory of an SSIM
+      update, and its stack blurred four ways (the port's separable grouped conv, the
+      11x11 product window, banded matmuls, the separable passes as one-channel convs).
+
 The last three lines are the ``nvidia-smi`` name and power limit, the kernels JSON
 line and ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
 """
@@ -1893,6 +1915,491 @@ def phase_classification_rest(torch, seed: int, smi: str):
     return total
 
 
+# CIFAR-10 FID protocol (Heusel et al. 2017, as torch-fidelity and pytorch-fid run it):
+# 50,000 real against 50,000 generated 3x32x32 uint8 images, resized to 299x299 inside
+# the network, in updates of 500
+CIFAR10 = {"real": 50_000, "fake": 50_000, "batch": 500, "size": 32}
+KID_ARGS = {"subsets": 100, "subset_size": 1000}
+IS_SPLITS = 10
+FID_768_IMAGES = 10_000  # per set: the 768-tap FID of the scipy.linalg.sqrtm cross-check
+FEATURE_CHECK_IMAGES = 8
+FEATURE_ATOL = 1e-3
+FID_REL = 1e-5  # FID, KID and IS against float64 numpy on the same moments, features and draws
+# DIV2K x4 super-resolution validation: 100 RGB images; DIV2K's sizes vary around
+# 2040 x 1356, here all 1356 x 2040; updates of 4, preds = target + N(0, 0.05) in [0, 1]
+DIV2K = {"images": 100, "height": 1356, "width": 2040, "batch": 4, "noise": 0.05}
+PAIRWISE_ROWS = 4_096
+
+
+def cifar_batch(torch, g, n: int, fake: bool):
+    """``n`` uint8 3x32x32 images on the card: smooth 8x8 colour fields, upsampled, plus
+    pixel noise; the generated set is darker and noisier, so its FID is far from 0."""
+    low = torch.rand((n, 3, 8, 8), generator=g, device="cuda")
+    img = torch.nn.functional.interpolate(low, size=CIFAR10["size"], mode="bilinear", align_corners=False) * 255
+    noise = torch.randn((n, 3, CIFAR10["size"], CIFAR10["size"]), generator=g, device="cuda")
+    img = img * (0.85 if fake else 1.0) + noise * (24.0 if fake else 12.0)
+    return img.clamp_(0, 255).to(torch.uint8)
+
+
+def fid_numpy(metric):
+    """FID in float64 numpy from ``metric``'s centered moments, through the symmetrised
+    form tr(sqrtm(sqrtm(S1) S2 sqrtm(S1))); returns (fid, S1, S2, trace of the root)."""
+    import numpy as np
+
+    mean1, m2_1, n1, mean2, m2_2, n2 = (
+        getattr(metric, name).double().cpu().numpy()
+        for name in ("real_mean", "real_m2", "real_features_num_samples",
+                     "fake_mean", "fake_m2", "fake_features_num_samples")
+    )
+    s1, s2 = m2_1 / (float(n1) - 1), m2_2 / (float(n2) - 1)
+    vals, vecs = np.linalg.eigh(s1)
+    half = (vecs * np.sqrt(np.clip(vals, 0, None))) @ vecs.T
+    tr = np.sqrt(np.clip(np.linalg.eigvalsh(half @ s2 @ half), 0, None)).sum()
+    diff = mean1 - mean2
+    return diff @ diff + np.trace(s1) + np.trace(s2) - 2 * tr, s1, s2, tr
+
+
+def kid_numpy(real, fake, idx_real, idx_fake):
+    """KID (mean, std) in float64 numpy over the given subsets (degree 3, gamma 1/d, coef 1)."""
+    import numpy as np
+
+    scores = []
+    for ir, if_ in zip(idx_real, idx_fake):
+        x, y = real[ir], fake[if_]
+        m, gamma = x.shape[0], 1.0 / x.shape[1]
+        k_xx, k_yy, k_xy = ((a @ b.T * gamma + 1.0) ** 3 for a, b in ((x, x), (y, y), (x, y)))
+        value = (k_xx.sum() - np.trace(k_xx) + k_yy.sum() - np.trace(k_yy)) / (m * (m - 1))
+        scores.append(value - 2 * k_xy.sum() / m**2)
+    scores = np.asarray(scores)
+    return scores.mean(), scores.std(ddof=1)
+
+
+def is_numpy(logits, perm, splits: int):
+    """IS (mean, std over splits of the mean KL) in float64 numpy, as the JAX package computes it."""
+    import numpy as np
+
+    logits = logits[perm]
+    shifted = logits - logits.max(1, keepdims=True)
+    log_prob = shifted - np.log(np.exp(shifted).sum(1, keepdims=True))
+    prob = np.exp(log_prob)
+    kls = []
+    for p, log_p in zip(np.array_split(prob, splits), np.array_split(log_prob, splits)):
+        kls.append((p * (log_p - np.log(p.mean(0, keepdims=True)))).sum(1).mean())
+    kls = np.asarray(kls)
+    return kls.mean(), kls.std(ddof=1)
+
+
+def events_ms(torch, pairs) -> list:
+    """Elapsed ms of each recorded (start, end) CUDA event pair."""
+    torch.cuda.synchronize()
+    return [start.elapsed_time(end) for start, end in pairs]
+
+
+def timed_call(torch, pairs: list, fn):
+    """``fn()`` between two recorded CUDA events appended to ``pairs`` (no synchronisation)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    pairs.append((start, end))
+    return out
+
+
+KERNEL_GROUPS = (  # substrings of kernel names, lower case, first match wins
+    ("convolution_and_matmul", ("conv", "xmma", "cudnn", "gemm", "cutlass", "implicit")),
+    ("pooling", ("pool",)),
+    ("reduction", ("reduce",)),
+    ("concatenation", ("cat",)),
+    ("copy_and_fill", ("copy", "memset", "fill")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+)
+
+
+def profile_groups(torch, fn, reps: int = 2) -> dict:
+    """Device ms per ``fn()`` call from a profiler trace: the busy total, the time of each
+    kernel group of KERNEL_GROUPS, and the five longest kernels."""
+    kernels = device_ms(torch, fn, reps=reps)
+    groups = {}
+    for name, ms in kernels.items():
+        low = name.lower()
+        group = next((g for g, keys in KERNEL_GROUPS if any(k in low for k in keys)), "other")
+        groups[group] = groups.get(group, 0.0) + ms
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:5]
+    return {"busy_ms": sum(kernels.values()), "groups": groups, "top": top}
+
+
+def compute_timing(torch, metric, reps: int = 3) -> dict:
+    """``metric.compute()`` in ms: the first timed call, and the median of the next ``reps``."""
+    times = []
+    for _ in range(reps + 1):
+        metric._computed = None  # time the computation, not the cached value
+        pairs = []
+        timed_call(torch, pairs, metric.compute)
+        times.append(events_ms(torch, pairs)[0])
+    return {"first_ms": times[0], "ms": statistics.median(times[1:])}
+
+
+def image_inception_metrics(torch, seed: int, smi: str):
+    """FID, KID and IS by the CIFAR-10 protocol on a full-width InceptionV3 with seeded
+    random weights; returns the first PAIRWISE_ROWS real and fake 2048-d features."""
+    import numpy as np
+    import scipy.linalg
+
+    from metrics_tpu_torch.functional.image.fid_math import _sqrtm_trace_eigh, _sqrtm_trace_newton_schulz
+    from metrics_tpu_torch.image import FrechetInceptionDistance, InceptionScore, KernelInceptionDistance
+    from metrics_tpu_torch.models.inception import FeatureExtractorInceptionV3, random_inception_state
+    from metrics_tpu_torch.utils.compute import fp32_exact
+    from metrics_tpu_torch.utils.data import dim_zero_cat
+
+    state = random_inception_state(seed)
+    net = FeatureExtractorInceptionV3(2048, state=state)
+    logits_net = FeatureExtractorInceptionV3("logits_unbiased", state=state)
+    net768 = FeatureExtractorInceptionV3(768, state=state)
+    fid, fid768 = FrechetInceptionDistance(feature=net), FrechetInceptionDistance(feature=net768)
+    kid = KernelInceptionDistance(feature=net, **KID_ARGS)
+    inception = InceptionScore(feature=logits_net, splits=IS_SPLITS)
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 20)
+    batch = CIFAR10["batch"]
+    pairs = {"fid": [], "kid": [], "is": []}
+    t0 = time.perf_counter()
+    for i in range(CIFAR10["real"] // batch):
+        real, fake = cifar_batch(torch, g, batch, fake=False), cifar_batch(torch, g, batch, fake=True)
+        if i == 0:
+            check_images = real[:FEATURE_CHECK_IMAGES].clone()
+        timed_call(torch, pairs["fid"], lambda: (fid.update(real, real=True), fid.update(fake, real=False)))
+        timed_call(torch, pairs["kid"], lambda: (kid.update(real, real=True), kid.update(fake, real=False)))
+        timed_call(torch, pairs["is"], lambda: inception.update(fake))
+        if (i + 1) * batch <= FID_768_IMAGES:
+            fid768.update(real, real=True)
+            fid768.update(fake, real=False)
+    update_ms = {name: statistics.median(events_ms(torch, p)) for name, p in pairs.items()}
+    loop_seconds = time.perf_counter() - t0
+
+    # the forward on the card against the port's CPU forward of the same images
+    cpu_net = FeatureExtractorInceptionV3(2048, state=state, device="cpu")
+    feature_err = {}
+    for tap in (2048, "logits_unbiased"):
+        got = net(check_images, tap).cpu()
+        feature_err[str(tap)] = (got - cpu_net(check_images.cpu(), tap)).abs().max().item()
+        if feature_err[str(tap)] > FEATURE_ATOL:
+            raise AssertionError(f"Inception tap {tap}: card vs CPU {feature_err[str(tap)]} > {FEATURE_ATOL}")
+    bf16_net = FeatureExtractorInceptionV3(2048, state=state, compute_dtype=torch.bfloat16)
+    f32_features = net(check_images)
+    bf16_rel = ((bf16_net(check_images) - f32_features).abs().max() / f32_features.abs().max()).item()
+    forward = {}
+    timing_batch = cifar_batch(torch, g, batch, fake=False)
+    for name, model in (("f32", net), ("bf16", bf16_net)):
+        ms = event_ms(torch, lambda: model(timing_batch), reps=5, warmup=2)
+        forward[name] = {"ms_per_500": ms, "images_per_s": batch / ms * 1e3}
+    # the same forwards with cuDNN's autotuner and channels-last layouts (not the port's path)
+    saved = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        for name, model in (("f32", net), ("bf16", bf16_net)):
+            ms = event_ms(torch, lambda: model(timing_batch), reps=5, warmup=2)
+            forward[name + "_cudnn_benchmark"] = {"ms_per_500": ms, "images_per_s": batch / ms * 1e3}
+            model.to(memory_format=torch.channels_last)
+            last = timing_batch.contiguous(memory_format=torch.channels_last)
+            ms = event_ms(torch, lambda: model(last), reps=5, warmup=2)
+            forward[name + "_cudnn_benchmark_channels_last"] = {"ms_per_500": ms, "images_per_s": batch / ms * 1e3}
+            model.to(memory_format=torch.contiguous_format)
+    finally:
+        torch.backends.cudnn.benchmark = saved
+
+    fresh = FrechetInceptionDistance(feature=net)
+    fid_update_profile = profile_groups(torch, lambda: fresh.update(timing_batch, real=True))
+    del fresh
+
+    # FID on the card (float64 eigh on the device) against float64 numpy on the same moments
+    fid_value = fid.compute().item()
+    fid_timing = compute_timing(torch, fid)
+    t1 = time.perf_counter()
+    ref, s1, s2, tr_ref = fid_numpy(fid)
+    host_ms = (time.perf_counter() - t1) * 1e3
+    if not abs(fid_value - ref) <= FID_REL * abs(ref):
+        raise AssertionError(f"FID {fid_value} vs float64 numpy {ref}")
+    s1_d, s2_d = torch.from_numpy(s1).cuda(), torch.from_numpy(s2).cuda()
+    sqrtm = {"host_numpy_f64": {"ms_incl_copy": host_ms, "trace_rel_err": 0.0}}
+    tr = _sqrtm_trace_eigh(s1_d, s2_d).item()
+    sqrtm["device_eigh_f64"] = {"ms": event_ms(torch, lambda: _sqrtm_trace_eigh(s1_d, s2_d), reps=3, warmup=1),
+                                "trace_rel_err": abs(tr - tr_ref) / tr_ref}
+    s1_f, s2_f = s1_d.float(), s2_d.float()
+
+    def newton_schulz():
+        with fp32_exact():
+            return _sqrtm_trace_newton_schulz(s1_f @ s2_f)
+
+    tr = newton_schulz().item()
+    sqrtm["device_newton_schulz_f32"] = {"ms": event_ms(torch, newton_schulz, reps=3, warmup=1),
+                                         "trace_rel_err": abs(tr - tr_ref) / tr_ref,
+                                         "fid_rel_err": abs(2 * (tr - tr_ref)) / abs(ref)}
+    del s1_d, s2_d, s1_f, s2_f
+
+    # the 768 tap: card, numpy eigh, and scipy.linalg.sqrtm of S1 S2 as a cross-check. A
+    # feature constant over a set (a dead channel of the random network) makes its
+    # covariance singular; S1 S2 keeps its nonzero spectrum without those features, so
+    # sqrtm runs on the others
+    ref768, s1, s2, tr768 = fid_numpy(fid768)
+    live = (np.diag(s1) > 0) & (np.diag(s2) > 0)
+    scipy_tr = float(np.trace(scipy.linalg.sqrtm(s1[live][:, live] @ s2[live][:, live])).real)
+    fid768_value = fid768.compute().item()
+    if not (abs(fid768_value - ref768) <= FID_REL * abs(ref768) and abs(scipy_tr - tr768) <= 1e-6 * tr768):
+        raise AssertionError(f"768 tap: FID {fid768_value} vs {ref768}; trace {tr768} vs scipy {scipy_tr}")
+
+    # KID and IS against float64 numpy from the same features and draws
+    real_features, fake_features = dim_zero_cat(kid.real_features), dim_zero_cat(kid.fake_features)
+    np.random.seed(seed)
+    kid_mean, kid_std = (v.item() for v in kid.compute())
+    kid_timing = compute_timing(torch, kid)
+    np.random.seed(seed)
+    rng = np.random.default_rng(np.random.randint(0, 2**31))
+    n_real, n_fake, size = real_features.shape[0], fake_features.shape[0], KID_ARGS["subset_size"]
+    idx_real = [rng.permutation(n_real)[:size] for _ in range(KID_ARGS["subsets"])]
+    idx_fake = [rng.permutation(n_fake)[:size] for _ in range(KID_ARGS["subsets"])]
+    t1 = time.perf_counter()
+    kid_ref = kid_numpy(real_features.double().cpu().numpy(), fake_features.double().cpu().numpy(), idx_real, idx_fake)
+    kid_numpy_s = time.perf_counter() - t1
+    kid_err = max(abs(kid_mean - kid_ref[0]) / abs(kid_ref[0]), abs(kid_std - kid_ref[1]) / abs(kid_ref[1]))
+    if not kid_err <= FID_REL:
+        raise AssertionError(f"KID ({kid_mean}, {kid_std}) vs float64 {kid_ref}")
+    np.random.seed(seed + 1)
+    is_mean, is_std = (v.item() for v in inception.compute())
+    is_timing = compute_timing(torch, inception)
+    np.random.seed(seed + 1)
+    logits = dim_zero_cat(inception.features).double().cpu().numpy()
+    is_ref = is_numpy(logits, np.random.permutation(logits.shape[0]), IS_SPLITS)
+    is_err = max(abs(is_mean - is_ref[0]) / abs(is_ref[0]), abs(is_std - is_ref[1]) / abs(is_ref[1]))
+    if not is_err <= FID_REL:
+        raise AssertionError(f"IS ({is_mean}, {is_std}) vs float64 {is_ref}")
+
+    emit({"phase": "image", "config": "cifar10_fid_kid_is", "card": smi, "network": "InceptionV3 full width,"
+          " random_inception_state(seed)", "images": [CIFAR10["real"], CIFAR10["fake"]], "batch": batch,
+          "loop_seconds": loop_seconds, "update_ms": update_ms, "forward": forward,
+          "fid_update_500_profile": fid_update_profile,
+          "feature_card_vs_cpu_max_abs_err": feature_err, "bf16_vs_f32_rel": bf16_rel,
+          "fid": fid_value, "fid_float64_numpy": ref, "fid_compute": fid_timing, "sqrtm_2048": sqrtm,
+          "fid768": fid768_value, "fid768_float64_numpy": ref768, "trace768_scipy_rel": abs(scipy_tr - tr768) / tr768,
+          "features768_live": int(live.sum()),
+          "kid": [kid_mean, kid_std], "kid_float64_numpy": list(kid_ref), "kid_max_rel_err": kid_err,
+          "kid_compute": kid_timing, "kid_numpy_seconds": kid_numpy_s,
+          "is": [is_mean, is_std], "is_float64_numpy": list(is_ref), "is_max_rel_err": is_err,
+          "is_compute": is_timing})
+    return real_features[:PAIRWISE_ROWS].clone(), fake_features[:PAIRWISE_ROWS].clone()
+
+
+def image_pairwise(torch, x, y, smi: str) -> None:
+    """The five pairwise functions on 4,096 x 4,096 2048-d features against float64 on the card."""
+    from metrics_tpu_torch.functional import pairwise as tp
+
+    out = {}
+    sq_x, sq_y = x.double().square().sum(1), y.double().square().sum(1)
+    for name in tp.__all__:
+        fn = getattr(tp, name)
+        got, want = fn(x, y).double(), fn(x.double(), y.double())
+        err = (got - want).abs()
+        if name == "pairwise_euclidean_distance":
+            # |x|^2 + |y|^2 - 2 x.y: each float32 sum of d products rounds by ~sqrt(d) ulps
+            # of its size, and the distance moves by at most the square root of that
+            slack = 4 * x.shape[1] ** 0.5 * 2.0**-24 * (sq_x[:, None] + sq_y[None, :])
+            bound = 1e-5 * want + slack.sqrt()
+        elif name == "pairwise_cosine_similarity":
+            bound = torch.full_like(want, 1e-5)
+        else:
+            bound = 1e-5 * want.abs()
+        if not bool(torch.all(err <= bound)):
+            raise AssertionError(f"{name}: float32 vs float64 max err {err.max().item()}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ms = event_ms(torch, lambda: fn(x, y), reps=3, warmup=1)
+        out[name] = {"ms": ms, "max_abs_err": err.max().item(), "peak_bytes": torch.cuda.max_memory_allocated() - base}
+    emit({"phase": "image", "config": "pairwise_4096x4096x2048", "card": smi, "functions": out})
+
+
+def div2k_batch(torch, seed: int, i: int):
+    """Update ``i`` of the DIV2K-shaped set: smooth fields (bicubic from 1/8 size) in
+    [0, 1] as targets, preds = target + N(0, 0.05) clipped."""
+    g = torch.Generator(device="cuda").manual_seed(seed * 1000 + 30 + i)
+    n, h, w = DIV2K["batch"], DIV2K["height"], DIV2K["width"]
+    low = torch.rand((n, 3, h // 8, w // 8), generator=g, device="cuda")
+    target = torch.nn.functional.interpolate(low, size=(h, w), mode="bicubic", align_corners=False).clamp_(0, 1)
+    noise = torch.randn(target.shape, generator=g, device="cuda") * DIV2K["noise"]
+    return (target + noise).clamp_(0, 1), target
+
+
+def luma(img):
+    """ITU-R BT.601 luma of an RGB batch, (N, 1, H, W)."""
+    return (0.299 * img[:, 0:1] + 0.587 * img[:, 1:2] + 0.114 * img[:, 2:3])
+
+
+def uqi_map64(torch, preds, target):
+    """The UQI map in float64 by the port's window helpers (the functional casts to float32)."""
+    from metrics_tpu_torch.functional.image.helper import _gaussian, _reflection_pad_2d, _separable_blur_2d
+
+    g = _gaussian(11, 1.5, torch.float64, preds.device)[0]
+    p, t = _reflection_pad_2d(preds, 5, 5), _reflection_pad_2d(target, 5, 5)
+    mu_p, mu_t, pp, tt, pt = _separable_blur_2d(torch.cat((p, t, p * p, t * t, p * t)), g, g).chunk(5)
+    var_p, var_t, cov = pp - mu_p**2, tt - mu_t**2, pt - mu_p * mu_t
+    eps = torch.finfo(torch.float32).eps
+    uqi = (2 * mu_p * mu_t) * (2 * cov) / ((mu_p**2 + mu_t**2) * (var_p + var_t) + eps)
+    return uqi[..., 5:-5, 5:-5]
+
+
+def image_div2k(torch, seed: int, smi: str) -> None:
+    """SSIM, MS-SSIM, PSNR, PSNRB (luma), UQI and TV over the DIV2K-shaped set."""
+    import math
+
+    import torch.nn.functional as F
+
+    from metrics_tpu_torch.functional import image as tfi
+    from metrics_tpu_torch.functional.image.helper import _gaussian, _reflection_pad_2d, _separable_blur_2d
+    from metrics_tpu_torch.functional.image.psnrb import _psnrb_compute, _psnrb_update
+    from metrics_tpu_torch.functional.image.ssim import _multiscale_ssim_update, _ssim_update
+    from metrics_tpu_torch.functional.image.tv import _total_variation_update
+    from metrics_tpu_torch.image import (
+        MultiScaleStructuralSimilarityIndexMeasure,
+        PeakSignalNoiseRatio,
+        PeakSignalNoiseRatioWithBlockedEffect,
+        StructuralSimilarityIndexMeasure,
+        TotalVariation,
+        UniversalImageQualityIndex,
+    )
+    from metrics_tpu_torch.utils.compute import fp32_exact
+
+    makers = {
+        "ssim": lambda: StructuralSimilarityIndexMeasure(data_range=1.0),
+        "ms_ssim": lambda: MultiScaleStructuralSimilarityIndexMeasure(data_range=1.0),
+        "psnr": lambda: PeakSignalNoiseRatio(data_range=1.0),
+        "psnrb_luma": lambda: PeakSignalNoiseRatioWithBlockedEffect(),
+        "uqi": lambda: UniversalImageQualityIndex(),
+        "tv": lambda: TotalVariation(),
+    }
+    inputs = {"psnrb_luma": lambda p, t: (luma(p), luma(t)), "tv": lambda p, t: (p,)}
+    metrics = {name: make() for name, make in makers.items()}
+    pairs = {name: [] for name in metrics}
+    ref = {"ssim": 0.0, "ms_ssim": 0.0, "sse": 0.0, "n": 0, "psnrb": [0.0, 0.0, 0, 0.0], "uqi": [0.0, 0], "tv": 0.0}
+    updates = DIV2K["images"] // DIV2K["batch"]
+    t0 = time.perf_counter()
+    for i in range(updates):
+        preds, target = div2k_batch(torch, seed, i)
+        for name, metric in metrics.items():
+            args = inputs.get(name, lambda p, t: (p, t))(preds, target)
+            timed_call(torch, pairs[name], lambda: metric.update(*args))
+        p64, t64 = preds.double(), target.double()
+        ref["ssim"] += _ssim_update(p64, t64, data_range=1.0).sum().item()
+        ref["ms_ssim"] += _multiscale_ssim_update(p64, t64, data_range=1.0, normalize="relu").sum().item()
+        ref["sse"] += ((p64 - t64) ** 2).sum().item()
+        ref["n"] += p64.numel()
+        sse, bef, n = _psnrb_update(luma(p64), luma(t64))
+        lt = luma(t64)
+        ref["psnrb"] = [ref["psnrb"][0] + sse.item(), ref["psnrb"][1] + bef.item(), ref["psnrb"][2] + n.item(),
+                        max(ref["psnrb"][3], (lt.max() - lt.min()).item())]
+        uqi = uqi_map64(torch, p64, t64)
+        ref["uqi"] = [ref["uqi"][0] + uqi.sum().item(), ref["uqi"][1] + uqi.numel()]
+        ref["tv"] += _total_variation_update(p64)[0].sum().item()
+        del p64, t64, uqi
+    update_ms = {name: statistics.median(events_ms(torch, p)) for name, p in pairs.items()}
+    loop_seconds = time.perf_counter() - t0
+
+    images = DIV2K["images"]
+    psnrb_ref = _psnrb_compute(*(torch.tensor(v, dtype=torch.float64) for v in ref["psnrb"])).item()
+    want = {"ssim": ref["ssim"] / images, "ms_ssim": ref["ms_ssim"] / images,
+            "psnr": 10 * math.log10(1.0 / (ref["sse"] / ref["n"])), "psnrb_luma": psnrb_ref,
+            "uqi": ref["uqi"][0] / ref["uqi"][1], "tv": ref["tv"]}
+    got, compute_ms, errors = {}, {}, {}
+    for name, metric in metrics.items():
+        pairs = []
+        got[name] = timed_call(torch, pairs, metric.compute).item()
+        compute_ms[name] = events_ms(torch, pairs)[0]
+        absolute = name in ("ssim", "ms_ssim", "uqi")
+        errors[name] = abs(got[name] - want[name]) / (1.0 if absolute else abs(want[name]))
+        if errors[name] > 1e-5:
+            raise AssertionError(f"DIV2K {name}: {got[name]} vs float64 {want[name]}")
+
+    # one image on the card against the port's CPU run
+    preds, target = div2k_batch(torch, seed, 0)
+    preds, target = preds[:1], target[:1]
+    functionals = {
+        "ssim": lambda p, t: tfi.structural_similarity_index_measure(p, t, data_range=1.0),
+        "ms_ssim": lambda p, t: tfi.multiscale_structural_similarity_index_measure(p, t, data_range=1.0),
+        "psnr": lambda p, t: tfi.peak_signal_noise_ratio(p, t, data_range=1.0),
+        "psnrb_luma": lambda p, t: tfi.peak_signal_noise_ratio_with_blocked_effect(luma(p), luma(t)),
+        "uqi": lambda p, t: tfi.universal_image_quality_index(p, t),
+        "tv": lambda p, t: tfi.total_variation(p),
+    }
+    cpu_errors = {}
+    for name, fn in functionals.items():
+        card, cpu = fn(preds, target).item(), fn(preds.cpu(), target.cpu()).item()
+        absolute = name in ("ssim", "ms_ssim", "uqi")
+        cpu_errors[name] = abs(card - cpu) / (1.0 if absolute else abs(cpu))
+        if cpu_errors[name] > 1e-5:
+            raise AssertionError(f"DIV2K {name}: card {card} vs CPU {cpu}")
+
+    # peak memory of one SSIM update, and the blur of its stack three ways
+    preds, target = div2k_batch(torch, seed, 1)
+    fresh = StructuralSimilarityIndexMeasure(data_range=1.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fresh.update(preds, target)
+    torch.cuda.synchronize()
+    ssim_peak = torch.cuda.max_memory_allocated() - base
+    ssim_update_profile = profile_groups(torch, lambda: fresh.update(preds, target))
+    p, t = _reflection_pad_2d(preds, 5, 5), _reflection_pad_2d(target, 5, 5)
+    stack = torch.cat((p, t, p * p, t * t, p * t))
+    del p, t
+    g = _gaussian(11, 1.5, device="cuda")[0]
+    window = (g[:, None] * g[None, :]).expand(3, 1, 11, 11)
+
+    def band(size):
+        d = torch.arange(size, device="cuda")[:, None] - torch.arange(size - 10, device="cuda")[None, :]
+        return torch.where((d >= 0) & (d < 11), g[d.clamp(0, 10)], 0.0)
+
+    bw, bh = band(stack.shape[-1]), band(stack.shape[-2])
+
+    def product_window():
+        with fp32_exact():
+            return F.conv2d(stack, window, groups=3)
+
+    def band_matmuls():
+        with fp32_exact():
+            return torch.matmul(bh.T, torch.matmul(stack, bw))
+
+    def channels_as_batch():  # the same two passes as one-channel convs over N*C images
+        n, c, h, w = stack.shape
+        with fp32_exact():
+            y = F.conv2d(stack.reshape(n * c, 1, h, w), g.reshape(1, 1, 1, -1))
+            return F.conv2d(y, g.reshape(1, 1, -1, 1)).reshape(n, c, h - 10, w - 10)
+
+    separable = _separable_blur_2d(stack, g, g)
+    blur = {"separable_grouped_conv_port": {"ms": event_ms(torch, lambda: _separable_blur_2d(stack, g, g), reps=5)}}
+    for name, fn in (("product_window_grouped_conv", product_window), ("band_matmuls", band_matmuls),
+                     ("separable_channels_as_batch_conv", channels_as_batch)):
+        blur[name] = {"ms": event_ms(torch, fn, reps=5), "max_abs_diff": (fn() - separable).abs().max().item()}
+    emit({"phase": "image", "config": "div2k_x4_val", "card": smi, "images": images, "shape": [3, DIV2K["height"],
+          DIV2K["width"]], "batch": DIV2K["batch"], "loop_seconds_incl_float64_refs": loop_seconds,
+          "update_ms": update_ms, "compute_ms": compute_ms, "values": got, "float64": want,
+          "err_vs_float64": errors, "err_card_vs_cpu_one_image": cpu_errors, "ssim_update_peak_bytes": ssim_peak,
+          "ssim_update_profile": ssim_update_profile,
+          "blur_stack_shape": list(stack.shape), "blur": blur})
+
+
+def phase_image(torch, seed: int, smi: str):
+    """Image and pairwise at published shapes; no hand kernel on this path (both launch counts 0)."""
+    t0 = time.perf_counter()
+    (x, y), launches, _ = run_counted(torch, lambda: image_inception_metrics(torch, seed, smi))
+    torch.cuda.empty_cache()
+    image_pairwise(torch, x, y, smi)
+    del x, y
+    torch.cuda.empty_cache()
+    _, div2k_launches, _ = run_counted(torch, lambda: image_div2k(torch, seed, smi))
+    torch.cuda.empty_cache()
+    expect_launches("image", launches, 0, 0)
+    expect_launches("image div2k", div2k_launches, 0, 0)
+    emit({"phase": "image", "config": "all", "launches": launches, "seconds": time.perf_counter() - t0})
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1935,6 +2442,7 @@ def main() -> int:
     rest = phase_classification_rest(torch, args.seed, smi)
     kernels[0]["launches"] += rest["histogram"]
     scan["launches"] += rest["segment_scan"]
+    phase_image(torch, args.seed, smi)
 
     print(smi)
     emit({"kernels": kernels})

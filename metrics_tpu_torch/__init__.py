@@ -7,7 +7,9 @@ live under ``csrc/`` and build at first use into ``build/kernels/``.
 The package root exports what ``metrics_tpu``'s root exports of the ported
 families: the classification classes, ``MetricCollection``, ``CompositionalMetric``,
 the aggregators and ``functional``; the retrieval classes through shims that warn
-(``FutureWarning``) as the JAX package's do. Families not ported yet are absent.
+(``FutureWarning``) as the JAX package's do; the image classes as the JAX root does
+(FID, KID, IS and PSNRB directly, the others through warning shims). Families not
+ported yet, and LPIPS, are absent.
 """
 from metrics_tpu_torch import functional
 from metrics_tpu_torch.classification import (
@@ -66,6 +68,24 @@ from metrics_tpu_torch.classification import (
 from metrics_tpu_torch.core.aggregation import CatMetric, MaxMetric, MeanMetric, MinMetric, SumMetric
 from metrics_tpu_torch.core.collections import MetricCollection
 from metrics_tpu_torch.core.metric import CompositionalMetric, Metric
+from metrics_tpu_torch.image import (
+    FrechetInceptionDistance,
+    InceptionScore,
+    KernelInceptionDistance,
+    PeakSignalNoiseRatioWithBlockedEffect,
+)
+from metrics_tpu_torch.image._deprecated import (
+    _ErrorRelativeGlobalDimensionlessSynthesis as ErrorRelativeGlobalDimensionlessSynthesis,
+    _MultiScaleStructuralSimilarityIndexMeasure as MultiScaleStructuralSimilarityIndexMeasure,
+    _PeakSignalNoiseRatio as PeakSignalNoiseRatio,
+    _RelativeAverageSpectralError as RelativeAverageSpectralError,
+    _RootMeanSquaredErrorUsingSlidingWindow as RootMeanSquaredErrorUsingSlidingWindow,
+    _SpectralAngleMapper as SpectralAngleMapper,
+    _SpectralDistortionIndex as SpectralDistortionIndex,
+    _StructuralSimilarityIndexMeasure as StructuralSimilarityIndexMeasure,
+    _TotalVariation as TotalVariation,
+    _UniversalImageQualityIndex as UniversalImageQualityIndex,
+)
 from metrics_tpu_torch.retrieval._deprecated import (
     _RetrievalFallOut as RetrievalFallOut,
     _RetrievalHitRate as RetrievalHitRate,
@@ -83,15 +103,19 @@ __all__ = [
     "AUROC", "Accuracy", "AveragePrecision", "BinaryAUROC", "BinaryAccuracy", "BinaryAveragePrecision",
     "BinaryCohenKappa", "BinaryConfusionMatrix", "BinaryJaccardIndex", "BinaryMatthewsCorrCoef",
     "BinaryPrecisionRecallCurve", "BinaryROC", "BinaryStatScores", "CalibrationError", "CatMetric", "CohenKappa",
-    "CompositionalMetric", "ConfusionMatrix", "Dice", "ExactMatch", "F1Score", "FBetaScore", "HammingDistance",
-    "HingeLoss", "JaccardIndex", "MatthewsCorrCoef", "MaxMetric", "MeanMetric", "Metric", "MetricCollection",
-    "MinMetric", "MulticlassAUROC", "MulticlassAccuracy", "MulticlassAveragePrecision", "MulticlassCohenKappa",
+    "CompositionalMetric", "ConfusionMatrix", "Dice", "ErrorRelativeGlobalDimensionlessSynthesis", "ExactMatch",
+    "F1Score", "FBetaScore", "FrechetInceptionDistance", "HammingDistance", "HingeLoss", "InceptionScore",
+    "JaccardIndex", "KernelInceptionDistance", "MatthewsCorrCoef", "MaxMetric", "MeanMetric", "Metric", "MetricCollection",
+    "MinMetric", "MultiScaleStructuralSimilarityIndexMeasure", "MulticlassAUROC", "MulticlassAccuracy", "MulticlassAveragePrecision", "MulticlassCohenKappa",
     "MulticlassConfusionMatrix", "MulticlassJaccardIndex", "MulticlassMatthewsCorrCoef",
     "MulticlassPrecisionRecallCurve", "MulticlassROC", "MulticlassStatScores", "MultilabelAUROC",
     "MultilabelAccuracy", "MultilabelAveragePrecision", "MultilabelConfusionMatrix", "MultilabelJaccardIndex",
     "MultilabelMatthewsCorrCoef", "MultilabelPrecisionRecallCurve", "MultilabelROC", "MultilabelStatScores",
-    "Precision", "PrecisionAtFixedRecall", "PrecisionRecallCurve", "ROC", "Recall", "RecallAtFixedPrecision",
+    "PeakSignalNoiseRatio", "PeakSignalNoiseRatioWithBlockedEffect", "Precision", "PrecisionAtFixedRecall",
+    "PrecisionRecallCurve", "ROC", "Recall", "RecallAtFixedPrecision", "RelativeAverageSpectralError",
     "RetrievalFallOut", "RetrievalHitRate", "RetrievalMAP", "RetrievalMRR", "RetrievalNormalizedDCG",
     "RetrievalPrecision", "RetrievalPrecisionRecallCurve", "RetrievalRPrecision", "RetrievalRecall",
-    "RetrievalRecallAtFixedPrecision", "Specificity", "StatScores", "SumMetric", "functional",
+    "RetrievalRecallAtFixedPrecision", "RootMeanSquaredErrorUsingSlidingWindow", "SpectralAngleMapper",
+    "SpectralDistortionIndex", "Specificity", "StatScores", "StructuralSimilarityIndexMeasure", "SumMetric",
+    "TotalVariation", "UniversalImageQualityIndex", "functional",
 ]

@@ -11,6 +11,15 @@ package's ``{"data", "count", "overflow"}`` dict and stays a ``CatBuffer``.
 A ``MetricCollection`` takes a ``metrics_tpu`` collection's ``state_dict()``, whose
 keys are ``"<name>.<state>"``: each compute group's state is loaded once, into its
 leader, and shared with the members again.
+
+A state with ``dist_reduce_fx=None`` may come stacked, as a sync leaves it (a leading
+process axis, e.g. FID's ``(k, D)`` means); FID's lazily sized moments are sized from
+the incoming ones, and the sliding-window maps of RASE and RMSE-SW take the shape they
+come with.
+
+:func:`inception_state_from_jax` carries weights across: the JAX InceptionV3's
+parameter pytree becomes the state dict of
+:class:`~metrics_tpu_torch.models.inception.FeatureExtractorInceptionV3`.
 """
 from typing import Any, Dict, Union
 
@@ -47,6 +56,8 @@ def load_jax_state(metric: Union[Metric, MetricCollection], state: Dict[str, Any
     """
     if isinstance(metric, MetricCollection):
         return _load_collection(metric, state)
+    if hasattr(metric, "_init_states_for_load"):
+        metric._init_states_for_load(state)
     missing = sorted(set(metric._defaults) - set(state))
     if missing:
         raise KeyError(f"load_jax_state: state dict lacks {missing} (call persistent(True) before state_dict())")
@@ -71,13 +82,41 @@ def load_jax_state(metric: Union[Metric, MetricCollection], state: Dict[str, Any
             setattr(metric, name, items)
         else:
             tensor = _as_state_tensor(name, value, default.dtype, metric.device)
-            if tensor.shape != default.shape:
+            stacked = metric._reductions[name] is None and tensor.shape[1:] == default.shape
+            if tensor.shape != default.shape and not stacked and not getattr(metric, "_lazy_state_shapes", False):
                 raise ValueError(
                     f"load_jax_state: state `{name}` has shape {tuple(tensor.shape)}, expected {tuple(default.shape)}"
                 )
             setattr(metric, name, tensor)
     metric._computed = None
     return metric
+
+
+_BN_NAMES = {"bn_scale": "bn.weight", "bn_bias": "bn.bias", "bn_mean": "bn.running_mean", "bn_var": "bn.running_var"}
+
+
+def inception_state_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The state dict of ``FeatureExtractorInceptionV3`` from the JAX package's InceptionV3
+    parameter pytree (``random_inception_params`` or ``params_from_state_dict``), whose
+    leaves are arrays: ``{block: {"kernel", "bn_*"}}`` for the stem convs,
+    ``{block: {branch: {...}}}`` for the mixed blocks and ``{"fc": {"weight", "bias"}}``."""
+    state: Dict[str, torch.Tensor] = {}
+
+    def conv_bn(prefix: str, leaves: Dict[str, Any]) -> None:
+        state[f"{prefix}.conv.weight"] = torch.tensor(np.asarray(leaves["kernel"]))
+        for key, name in _BN_NAMES.items():
+            state[f"{prefix}.{name}"] = torch.tensor(np.asarray(leaves[key]))
+
+    for block, leaves in params.items():
+        if block == "fc":
+            state["fc.weight"] = torch.tensor(np.asarray(leaves["weight"]))
+            state["fc.bias"] = torch.tensor(np.asarray(leaves["bias"]))
+        elif "kernel" in leaves:
+            conv_bn(block, leaves)
+        else:
+            for branch, branch_leaves in leaves.items():
+                conv_bn(f"{block}.{branch}", branch_leaves)
+    return state
 
 
 def _load_collection(collection: MetricCollection, state: Dict[str, Any]) -> MetricCollection:

@@ -1,9 +1,31 @@
-"""Functional entry points of metrics_tpu_torch: every classification functional, and
-the retrieval functionals through root shims that warn (as in ``metrics_tpu.functional``);
-``metrics_tpu_torch.functional.retrieval`` gives them silently.
+"""Functional entry points of metrics_tpu_torch: every classification functional, the
+pairwise functions and PSNRB, and the retrieval and the other image functionals through
+root shims that warn (as in ``metrics_tpu.functional``); ``metrics_tpu_torch.functional.retrieval``
+and ``.image`` give them silently.
 """
 from metrics_tpu_torch.functional.classification import *  # noqa: F401,F403
 from metrics_tpu_torch.functional.classification import __all__ as _classification_all
+from metrics_tpu_torch.functional.image import peak_signal_noise_ratio_with_blocked_effect
+from metrics_tpu_torch.functional.image._deprecated import (
+    _error_relative_global_dimensionless_synthesis as error_relative_global_dimensionless_synthesis,
+    _image_gradients as image_gradients,
+    _multiscale_structural_similarity_index_measure as multiscale_structural_similarity_index_measure,
+    _peak_signal_noise_ratio as peak_signal_noise_ratio,
+    _relative_average_spectral_error as relative_average_spectral_error,
+    _root_mean_squared_error_using_sliding_window as root_mean_squared_error_using_sliding_window,
+    _spectral_angle_mapper as spectral_angle_mapper,
+    _spectral_distortion_index as spectral_distortion_index,
+    _structural_similarity_index_measure as structural_similarity_index_measure,
+    _total_variation as total_variation,
+    _universal_image_quality_index as universal_image_quality_index,
+)
+from metrics_tpu_torch.functional.pairwise import (
+    pairwise_cosine_similarity,
+    pairwise_euclidean_distance,
+    pairwise_linear_similarity,
+    pairwise_manhattan_distance,
+    pairwise_minkowski_distance,
+)
 from metrics_tpu_torch.functional.retrieval._deprecated import (
     _retrieval_average_precision as retrieval_average_precision,
     _retrieval_fall_out as retrieval_fall_out,
@@ -17,6 +39,23 @@ from metrics_tpu_torch.functional.retrieval._deprecated import (
 )
 
 __all__ = _classification_all + [
+    "error_relative_global_dimensionless_synthesis",
+    "image_gradients",
+    "multiscale_structural_similarity_index_measure",
+    "pairwise_cosine_similarity",
+    "pairwise_euclidean_distance",
+    "pairwise_linear_similarity",
+    "pairwise_manhattan_distance",
+    "pairwise_minkowski_distance",
+    "peak_signal_noise_ratio",
+    "peak_signal_noise_ratio_with_blocked_effect",
+    "relative_average_spectral_error",
+    "root_mean_squared_error_using_sliding_window",
+    "spectral_angle_mapper",
+    "spectral_distortion_index",
+    "structural_similarity_index_measure",
+    "total_variation",
+    "universal_image_quality_index",
     "retrieval_average_precision",
     "retrieval_fall_out",
     "retrieval_hit_rate",

@@ -1,4 +1,7 @@
 """Numeric helpers (counterpart of ``metrics_tpu/utils/compute.py``)."""
+from contextlib import contextmanager
+from typing import Iterator
+
 import numpy as np
 import torch
 from torch import Tensor
@@ -15,6 +18,28 @@ def _safe_divide(num: Tensor, denom: Tensor) -> Tensor:
     denom = denom.to(dtype)
     zero = denom == 0
     return torch.where(zero, torch.zeros((), dtype=dtype, device=num.device), num / torch.where(zero, 1, denom))
+
+
+@contextmanager
+def fp32_exact() -> Iterator[None]:
+    """Run float32 convolutions and matmuls in full float32 inside the block.
+
+    cuDNN convolutions may use TF32 by default (``torch.backends.cudnn.allow_tf32``),
+    which moves a deep network's features by about 1e-3 relative; the image metrics
+    and the Inception forward choose float32 per call with this block instead of
+    inheriting the global flags, which it restores on exit.
+    """
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _safe_matmul(x: Tensor, y: Tensor) -> Tensor:
+    """``x @ y.T``."""
+    return torch.matmul(x, y.T)
 
 
 def _auc_compute_without_check(x: Tensor, y: Tensor, direction: float, axis: int = -1) -> Tensor:

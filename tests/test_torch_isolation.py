@@ -4,7 +4,8 @@
   neither ``jax`` nor any ``metrics_tpu`` module, the root exports and the rest of
   classification (fixed points, calibration, hinge, ranking, fairness, Dice) included;
 - no file of the package, nor ``chip_smoke.py``, the ``scripts/torch_*.py``
-  profilers and the rank side of the sync tests (``tests/torch_sync_ranks.py``),
+  profilers, the rank side of the sync tests (``tests/torch_sync_ranks.py``) and the
+  image slice's checks on the card (``tests/test_torch_image_card.py``),
   imports them (AST scan); both checks cover the runtime core for many ranks
   (``parallel/``, ``core/collections.py``, ``core/aggregation.py``) and the
   stat-scores classes added with it;
@@ -13,7 +14,11 @@
   so does a functional entry point given a numpy input;
 - the kernel modules import, and a CPU run goes by the plain versions, without
   ``nvcc``: the launch counts stay 0 (the confusion path, the curves, calibration,
-  fairness and the fixed points).
+  fairness and the fixed points);
+- the image and pairwise slice (``image/``, ``functional/image/``,
+  ``functional/pairwise/``, ``models/``) is in both scans, and its classes, its
+  functionals given numpy inputs and the InceptionV3 raise without a card unless
+  given ``device=``.
 """
 import ast
 import os
@@ -28,7 +33,8 @@ import torch
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "metrics_tpu_torch"
 SOURCES = (
-    sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "tests" / "torch_sync_ranks.py"]
+    sorted(PACKAGE.rglob("*.py"))
+    + [REPO / "chip_smoke.py", REPO / "tests" / "torch_sync_ranks.py", REPO / "tests" / "test_torch_image_card.py"]
     + sorted((REPO / "scripts").glob("torch_*.py"))
 )
 # modules the scans must reach: the runtime core for many ranks and its classes
@@ -48,6 +54,15 @@ REQUIRED_MODULES = (
       for module in ("recall_fixed_precision", "precision_fixed_recall", "specificity_sensitivity",
                      "calibration_error", "hinge", "ranking", "group_fairness", "dice")),
     "metrics_tpu_torch.functional.classification._legacy",
+    # image and pairwise, the InceptionV3 and their shims
+    *(f"metrics_tpu_torch.image.{m}" for m in ("ssim", "psnr", "psnrb", "uqi", "d_lambda", "ergas", "rase",
+                                               "rmse_sw", "sam", "tv", "fid", "kid", "inception", "_deprecated")),
+    *(f"metrics_tpu_torch.functional.image.{m}" for m in ("helper", "ssim", "psnr", "psnrb", "uqi", "d_lambda",
+                                                          "ergas", "rase", "rmse_sw", "sam", "tv", "gradients",
+                                                          "fid_math", "_deprecated")),
+    *(f"metrics_tpu_torch.functional.pairwise.{m}" for m in ("helpers", "cosine", "euclidean", "linear",
+                                                             "manhattan", "minkowski")),
+    "metrics_tpu_torch.models.inception", "metrics_tpu_torch.models._io",
 )
 
 
@@ -218,3 +233,27 @@ def test_cpu_run_of_calibration_fairness_and_fixed_points_launches_no_kernel():
     )
     assert result.returncode == 0, result.stderr
     assert result.stdout.strip() == "ok"
+
+
+def test_image_and_pairwise_without_device_raise_when_cuda_is_absent(monkeypatch):
+    from metrics_tpu_torch import image as ti
+    from metrics_tpu_torch.functional import image as tfi
+    from metrics_tpu_torch.functional import pairwise as tp
+    from metrics_tpu_torch.models.inception import FeatureExtractorInceptionV3
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    extractor = lambda imgs: imgs.reshape(imgs.shape[0], -1)  # noqa: E731
+    makers = [getattr(ti, name) for name in ti.__all__ if "Inception" not in name]
+    makers += [lambda: ti.FrechetInceptionDistance(feature=extractor), lambda: ti.InceptionScore(feature=extractor),
+               lambda: ti.KernelInceptionDistance(feature=extractor), FeatureExtractorInceptionV3]
+    for make in makers:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    img = np.random.RandomState(0).rand(1, 3, 24, 24).astype(np.float32)
+    for name in tfi.__all__:
+        args = (img,) if name in ("total_variation", "image_gradients") else (img, img)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            getattr(tfi, name)(*args)
+    for name in tp.__all__:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            getattr(tp, name)(img[0, 0])
