@@ -156,6 +156,32 @@ Phases, each printing one JSON line:
       update, and its stack blurred four ways (the port's separable grouped conv, the
       11x11 product window, banded matmuls, the separable passes as one-channel convs).
 
+14. detection: COCO 2017 val object detection drawn on the card (5,000 images of 640x480,
+    36,781 gt boxes over the 80 category ids, areas ~41/34/25% small/medium/large, 100
+    detections an image: jittered copies of 85% of the gts, false positives of random
+    class and place, bf16 scores, 4% integer pairs at IoU exactly 0.5 or 0.75; boxes on
+    quarter pixels; the 20 crowded images at random places):
+    - MeanAveragePrecision(class_metrics=True) in the consolidated layout (50 updates of
+      (100, 100, 4) boxes; 2 greedy-match launches a compute) and the list layout (the
+      same images as per-image dicts; 1 launch), again on the first 1,000 (consolidated),
+      200 and 500 images (list), segm on the first 100 images' top 20 detections as filled
+      480x640 masks and bbox on the same whole-pixel boxes; exact launches per compute.
+      Checks within 1e-6: consolidated against list, segm against bbox, the card against
+      the port's CPU run (consolidated on 1,000 images, list on 200), the list run on 500
+      images against a float64 numpy evaluator written here; classes equal.
+    - the four IoU classes over the 5,000 images, within 1e-5 of float64 and 1e-6 of the
+      CPU on 200 images;
+    - PanopticQuality and ModifiedPanopticQuality at the COCO panoptic val2017 shape (133
+      categories: 80 things, 53 stuffs) on 100 maps of 480x640 in updates of 10: one
+      count-mode histogram launch per map, counts equal to the CPU run's, PQ within 1e-6;
+    - the kernel bit-equal to its plain version on the COCO compute's small- and
+      big-bucket inputs and on D or G = 1, G = 1024, groups without valid rows, ties, IoUs
+      at a threshold and area-ignored gts; its event, device and back-to-back ms against
+      the plain version and the bound (the IoU of valid (detection, gt) pairs, areas and
+      masks read once, both masks and npig written once, at 3.35 TB/s) at both bucket
+      shapes; update, compute and the list layout's host ``_build_groups`` ms; the
+      consolidated compute's idle share (device busy over the same profiled call's wall).
+
 The last three lines are the ``nvidia-smi`` name and power limit, the kernels JSON
 line and ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
 """
@@ -2018,7 +2044,12 @@ KERNEL_GROUPS = (  # substrings of kernel names, lower case, first match wins
 def profile_groups(torch, fn, reps: int = 2) -> dict:
     """Device ms per ``fn()`` call from a profiler trace: the busy total, the time of each
     kernel group of KERNEL_GROUPS, and the five longest kernels."""
-    kernels = device_ms(torch, fn, reps=reps)
+    return group_kernels(device_ms(torch, fn, reps=reps))
+
+
+def group_kernels(kernels: dict) -> dict:
+    """The busy total of a {kernel: ms} profile, its ms by KERNEL_GROUPS and its five
+    longest kernels."""
     groups = {}
     for name, ms in kernels.items():
         low = name.lower()
@@ -2400,6 +2431,690 @@ def phase_image(torch, seed: int, smi: str):
     emit({"phase": "image", "config": "all", "launches": launches, "seconds": time.perf_counter() - t0})
 
 
+COCO_DET = {"images": 5_000, "width": 640, "height": 480, "gt_boxes": 36_781, "detections": 100, "batch": 100,
+            "area_shares": (0.41, 0.34, 0.25), "person_share": 0.3, "crowded_images": 20, "crowded_gts": (40, 61),
+            "crowded_person_share": 0.7, "tp_share": 0.85, "exact_share": 0.04}
+DET_SUBSETS = {"cpu_consolidated": 1_000, "cpu_list": 200, "reference": 500, "iou_cpu": 200, "segm": 100,
+               "segm_top": 20, "panoptic": 100, "panoptic_batch": 10}
+COCO_THING_IDS = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 27, 28, 31,
+                  32, 33, 34, 35, 36, 37, 38, 39, 40, 41, 42, 43, 44, 46, 47, 48, 49, 50, 51, 52, 53, 54, 55, 56, 57,
+                  58, 59, 60, 61, 62, 63, 64, 65, 67, 70, 72, 73, 74, 75, 76, 77, 78, 79, 80, 81, 82, 84, 85, 86, 87,
+                  88, 89, 90)
+COCO_STUFF_IDS = (92, 93, 95, 100, 107, 109, 112, 118, 119, 122, 125, 128, 130, 133, 138, 141, 144, 145, 147, 148,
+                  149, 151, 154, 155, 156, 159, 161, 166, 168, 171, 175, 176, 177, 178, 180, 181, 184, 185, 186, 187,
+                  188, 189, 190, 191, 192, 193, 194, 195, 196, 197, 198, 199, 200)
+MAP_ATOL = 1e-6  # layouts, devices, the float64 evaluator and segm against bbox
+IOU_ATOL = 1e-5  # the four IoU classes (float32 per-image means) against float64
+
+
+def sync(torch, device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def quarter(torch, x):
+    """Coordinates on quarter pixels: every box area, intersection and union below 2^20 is
+    then exact in float32, so float32 and float64 IoUs round to the same float32."""
+    return torch.round(x * 4) / 4
+
+
+def random_boxes(torch, g, n: int, device):
+    """``n`` boxes inside the image, areas split as COCO's small / medium / large."""
+    W, H = COCO_DET["width"], COCO_DET["height"]
+    size = torch.multinomial(torch.tensor(COCO_DET["area_shares"], device=device), n, replacement=True, generator=g)
+    lo = torch.tensor([8.0, 32.0, 96.0], device=device)[size].log() * 2
+    hi = torch.tensor([32.0, 96.0, 320.0], device=device)[size].log() * 2
+    area = torch.exp(lo + torch.rand(n, generator=g, device=device) * (hi - lo))
+    ratio = torch.exp((torch.rand(n, generator=g, device=device) - 0.5) * 1.4)
+    w = torch.sqrt(area * ratio).clamp(1, W)
+    h = torch.sqrt(area / ratio).clamp(1, H)
+    x0 = torch.rand(n, generator=g, device=device) * (W - w)
+    y0 = torch.rand(n, generator=g, device=device) * (H - h)
+    return quarter(torch, torch.stack([x0, y0, x0 + w, y0 + h], -1))
+
+
+def coco_detection_data(torch, seed: int, device="cuda") -> dict:
+    """COCO 2017 val object detection drawn from ``seed``: 5,000 images of 640x480, the
+    36,781 ground-truth boxes of ``instances_val2017`` over COCO's 80 category ids, 100
+    detections an image (jittered copies of 85% of the gts, false positives of random
+    class and place), scores rounded through bfloat16. The 20 crowded images (40-60
+    gts, mostly persons: the only (image, class) groups above 16) sit at random
+    places among the others. Every image has a gt.
+    """
+    c = COCO_DET
+    g = torch.Generator(device=device).manual_seed(seed + 80)
+    B, W, H, D = c["images"], c["width"], c["height"], c["detections"]
+    ids = torch.tensor(COCO_THING_IDS, device=device)
+    crowded = c["crowded_images"]
+    n_crowd = torch.randint(*c["crowded_gts"], (crowded,), generator=g, device=device)
+    is_crowded = torch.zeros(B, dtype=torch.bool, device=device)
+    is_crowded[torch.randperm(B, generator=g, device=device)[:crowded]] = True
+    spread = c["gt_boxes"] - int(n_crowd.sum()) - (B - crowded)
+    others = torch.nonzero(~is_crowded).flatten()
+    img = others[torch.randint(0, B - crowded, (spread,), generator=g, device=device)]
+    counts = 1 + torch.bincount(img, minlength=B)
+    counts[is_crowded] = n_crowd
+    gt_img = torch.repeat_interleave(torch.arange(B, device=device), counts)
+    n = gt_img.numel()
+    person_p = torch.where(is_crowded[gt_img], c["crowded_person_share"], c["person_share"])
+    is_person = torch.rand(n, generator=g, device=device) < person_p
+    gt_labels = torch.where(is_person, ids[0], ids[1:][torch.randint(0, 79, (n,), generator=g, device=device)])
+    gt_boxes = random_boxes(torch, g, n, device)
+
+    # true positives: jittered copies, IoU from ~0.3 to ~0.98
+    tp = torch.rand(n, generator=g, device=device) < c["tp_share"]
+    sigma = 0.01 + 0.24 * torch.rand(n, generator=g, device=device)
+    wh = (gt_boxes[:, 2:] - gt_boxes[:, :2]).repeat(1, 2)
+    det = quarter(torch, gt_boxes + torch.randn((n, 4), generator=g, device=device) * sigma[:, None] * wh)
+    det = torch.stack([det[:, 0].clamp(0, W - 1), det[:, 1].clamp(0, H - 1), det[:, 2], det[:, 3]], -1)
+    det[:, 2] = torch.maximum(det[:, 2], det[:, 0] + 0.25).clamp(max=W)
+    det[:, 3] = torch.maximum(det[:, 3], det[:, 1] + 0.25).clamp(max=H)
+    # integer pairs whose IoU is exactly 0.5 or 0.75: the detection is the gt's left half or three quarters
+    exact = tp & (torch.rand(n, generator=g, device=device) < c["exact_share"] / c["tp_share"])
+    gi = torch.round(gt_boxes)
+    w4 = (torch.round((gi[:, 2] - gi[:, 0]) / 4).clamp(min=1) * 4).clamp(max=W - W % 4)
+    x0 = torch.minimum(gi[:, 0], W - w4)
+    y1 = torch.maximum(gi[:, 3], gi[:, 1] + 1)
+    k = torch.where(torch.rand(n, generator=g, device=device) < 0.5, 0.5, 0.75)
+    gt_boxes = torch.where(exact[:, None], torch.stack([x0, gi[:, 1], x0 + w4, y1], -1), gt_boxes)
+    det = torch.where(exact[:, None], torch.stack([x0, gi[:, 1], x0 + w4 * k, y1], -1), det)
+    bf16 = lambda x: x.to(torch.bfloat16).to(torch.float32)  # noqa: E731
+
+    n_tp = torch.bincount(gt_img[tp], minlength=B)
+    n_fp = D - n_tp
+    fp_img = torch.repeat_interleave(torch.arange(B, device=device), n_fp)
+    nf = fp_img.numel()
+    all_img = torch.cat([gt_img[tp], fp_img])
+    boxes = torch.cat([det[tp], random_boxes(torch, g, nf, device)])
+    labels = torch.cat([gt_labels[tp], ids[torch.randint(0, 80, (nf,), generator=g, device=device)]])
+    scores = bf16(torch.cat([torch.sigmoid(torch.randn(int(tp.sum()), generator=g, device=device) + 1.0),
+                             torch.sigmoid(torch.randn(nf, generator=g, device=device) - 1.0)]))
+    # by image, in random order inside each image
+    order = torch.argsort(all_img.double() + 0.5 * torch.rand(all_img.numel(), generator=g, device=device,
+                                                              dtype=torch.float64))
+    offsets = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(n, device=device) - offsets[gt_img]
+    mg = int(counts.max())
+    gt_pad = torch.zeros((B, mg, 4), device=device)
+    gl_pad = torch.full((B, mg), -1, dtype=torch.int64, device=device)
+    gt_pad[gt_img, pos] = gt_boxes
+    gl_pad[gt_img, pos] = gt_labels
+    return {"det_boxes": boxes[order].reshape(B, D, 4), "det_scores": scores[order].reshape(B, D),
+            "det_labels": labels[order].reshape(B, D), "gt_boxes": gt_pad, "gt_labels": gl_pad,
+            "counts": counts.tolist(), "crowded": torch.nonzero(is_crowded).flatten().tolist(),
+            "exact_pairs": int(exact.sum()), "tp": int(tp.sum())}
+
+
+def det_consolidated(data, lo: int, hi: int):
+    return ({"boxes": data["det_boxes"][lo:hi], "scores": data["det_scores"][lo:hi],
+             "labels": data["det_labels"][lo:hi]},
+            {"boxes": data["gt_boxes"][lo:hi], "labels": data["gt_labels"][lo:hi]})
+
+
+def det_list(data, lo: int, hi: int):
+    counts = data["counts"]
+    preds = [{"boxes": data["det_boxes"][i], "scores": data["det_scores"][i], "labels": data["det_labels"][i]}
+             for i in range(lo, hi)]
+    target = [{"boxes": data["gt_boxes"][i, :counts[i]], "labels": data["gt_labels"][i, :counts[i]]}
+              for i in range(lo, hi)]
+    return preds, target
+
+
+def det_on(data, device) -> dict:
+    return {k: v.to(device) if hasattr(v, "to") else v for k, v in data.items()}
+
+
+def run_updates(torch, updates, device="cuda", **kwargs):
+    """MeanAveragePrecision(class_metrics=True) over ``updates``; returns the metric, its
+    result, the host ms of each update and of the compute, and the compute's greedy-match
+    launches."""
+    from metrics_tpu_torch.detection import MeanAveragePrecision
+    from metrics_tpu_torch.ops import greedy_match as gm
+
+    metric = MeanAveragePrecision(class_metrics=True, device=device, **kwargs)
+    update_ms = []
+    for args in updates:
+        sync(torch, device)
+        t0 = time.perf_counter()
+        metric.update(*args)
+        sync(torch, device)
+        update_ms.append((time.perf_counter() - t0) * 1e3)
+    before = gm.greedy_match_cuda.launches
+    t0 = time.perf_counter()
+    result = metric.compute()
+    sync(torch, device)
+    compute_ms = (time.perf_counter() - t0) * 1e3
+    return metric, result, update_ms, compute_ms, gm.greedy_match_cuda.launches - before
+
+
+def run_map(torch, data, lo: int, hi: int, layout: str, device="cuda", **kwargs):
+    """``run_updates`` over images [lo, hi) in updates of 100 images of one layout."""
+    make = det_consolidated if layout == "consolidated" else det_list
+    step = COCO_DET["batch"]
+    return run_updates(torch, [make(data, s, min(s + step, hi)) for s in range(lo, hi, step)], device, **kwargs)
+
+
+def map_max_diff(a: dict, b: dict) -> float:
+    """Largest difference over every result key of two mAP results; raises if the keys
+    or the classes differ."""
+    if sorted(a) != sorted(b):
+        raise AssertionError(f"result keys differ: {sorted(a)} vs {sorted(b)}")
+    worst = 0.0
+    for key in a:
+        x = a[key].detach().double().cpu().reshape(-1)
+        y = b[key].detach().double().cpu().reshape(-1) if hasattr(b[key], "detach") else b[key]
+        if key == "classes":
+            if x.tolist() != list(y.tolist() if hasattr(y, "tolist") else y):
+                raise AssertionError("classes differ")
+            continue
+        if len(x) != len(y):
+            raise AssertionError(f"{key}: {len(x)} values against {len(y)}")
+        worst = max(worst, max((abs(float(u) - float(v)) for u, v in zip(x, y)), default=0.0))
+    return worst
+
+
+def expect_close(label: str, diff: float, atol: float) -> None:
+    if not diff <= atol:
+        raise AssertionError(f"{label}: max abs diff {diff} above {atol}")
+
+
+def iou64(np, a, b):
+    """Pairwise box IoU in float64."""
+    lt = np.maximum(a[:, None, :2], b[None, :, :2])
+    rb = np.minimum(a[:, None, 2:], b[None, :, 2:])
+    wh = np.clip(rb - lt, 0, None)
+    inter = wh[..., 0] * wh[..., 1]
+    area = lambda x: (x[:, 2] - x[:, 0]) * (x[:, 3] - x[:, 1])  # noqa: E731
+    union = area(a)[:, None] + area(b)[None, :] - inter
+    return np.where(union > 0, inter / np.where(union > 0, union, 1.0), 0.0), inter, union
+
+
+def map_reference(np, det_boxes, det_scores, det_labels, gt_boxes, gt_labels, counts, metric) -> dict:
+    """COCO mAP in float64 numpy, independent of both packages, with the semantics the JAX
+    package keeps: per (image, class) the top ``max_det`` detections by score (stable),
+    greedy matching in score order to the free in-range ground truth of largest IoU (the
+    first of equal IoUs), a match only when that IoU is strictly above the float32
+    threshold, no crowd, ignored gts never matched, unmatched out-of-range detections
+    ignored; per class the rows of every image in image order, stably sorted by score,
+    float64 cumulative TP/FP, the reverse-max precision envelope and the 101 recall points
+    by ``searchsorted(side="left")``; each summary the mean of the entries above -1.
+    IoUs are float64 from quarter-pixel boxes (exact operands), rounded to float32."""
+    thr = np.asarray(metric.iou_thresholds, np.float32)
+    rec_thr = np.asarray(metric.rec_thresholds, np.float64)
+    caps = list(metric.max_detection_thresholds)
+    ranges = np.asarray(list(metric.bbox_area_ranges.values()), np.float32).astype(np.float64)
+    lo, hi = ranges[:, 0][:, None], ranges[:, 1][:, None]
+    T, R, A, M = len(thr), len(rec_thr), len(ranges), len(caps)
+    gl_all = [gt_labels[i, :counts[i]] for i in range(len(counts))]
+    classes = sorted(set(np.unique(det_labels).tolist()) | set(np.unique(np.concatenate(gl_all)).tolist()))
+    rows = {k: [] for k in classes}
+    npig = {k: np.zeros(A, np.int64) for k in classes}
+    area = lambda x: (x[:, 2] - x[:, 0]) * (x[:, 3] - x[:, 1])  # noqa: E731
+    for i in range(len(counts)):
+        dl, gl = det_labels[i], gl_all[i]
+        for k in np.unique(np.concatenate([dl, gl])).tolist():
+            sel = np.nonzero(dl == k)[0]
+            order = sel[np.argsort(-det_scores[i, sel], kind="stable")][:caps[-1]]
+            db = det_boxes[i, order].astype(np.float64)
+            gb = gt_boxes[i, :counts[i]][gl == k].astype(np.float64)
+            iou = iou64(np, db, gb)[0].astype(np.float32)
+            g_out = (area(gb)[None, :] < lo) | (area(gb)[None, :] > hi)  # (A, G)
+            npig[k] += (~g_out).sum(1)
+            removed = np.repeat(g_out[:, None, :], T, axis=1)  # (A, T, G)
+            matched = np.zeros((A, T, len(order)), bool)
+            for d in range(len(order)):
+                if not gb.shape[0]:
+                    break
+                cand = np.where(removed, np.float32(-1), iou[d][None, None, :])
+                m = cand.argmax(-1)
+                hit = np.take_along_axis(cand, m[..., None], -1)[..., 0] > thr[None, :]
+                a_idx, t_idx = np.nonzero(hit)
+                removed[a_idx, t_idx, m[a_idx, t_idx]] = True
+                matched[..., d] = hit
+            d_out = (area(db)[None, :] < lo) | (area(db)[None, :] > hi)  # (A, D)
+            rows[k].append((det_scores[i, order].astype(np.float64), matched, ~matched & d_out[:, None, :],
+                            np.arange(len(order))))
+    precision = -np.ones((T, R, len(classes), A, M))
+    recall = -np.ones((T, len(classes), A, M))
+    for kidx, k in enumerate(classes):
+        sc = np.concatenate([r[0] for r in rows[k]])
+        mt = np.concatenate([r[1] for r in rows[k]], axis=-1)
+        ig = np.concatenate([r[2] for r in rows[k]], axis=-1)
+        rank = np.concatenate([r[3] for r in rows[k]])
+        for a in range(A):
+            if npig[k][a] == 0:
+                continue
+            for mi, cap in enumerate(caps):
+                keep = rank < cap
+                order = np.argsort(-sc[keep], kind="stable")
+                m = mt[a][:, keep][:, order]
+                ign = ig[a][:, keep][:, order]
+                tps = np.cumsum(m & ~ign, axis=1, dtype=np.float64)
+                fps = np.cumsum(~m & ~ign, axis=1, dtype=np.float64)
+                nd = tps.shape[1]
+                rc = tps / npig[k][a]
+                pr = tps / (tps + fps + np.finfo(np.float64).eps)
+                recall[:, kidx, a, mi] = rc[:, -1] if nd else 0.0
+                env = np.maximum.accumulate(pr[:, ::-1], axis=1)[:, ::-1]
+                for t in range(T):
+                    inds = np.searchsorted(rc[t], rec_thr, side="left")
+                    precision[t, :, kidx, a, mi] = np.where(inds < nd, env[t][np.minimum(inds, nd - 1)], 0.0) \
+                        if nd else 0.0
+
+    def mean(x):
+        v = x[x > -1]
+        return -1.0 if v.size == 0 else float(v.mean())
+
+    t50, t75 = metric.iou_thresholds.index(0.5), metric.iou_thresholds.index(0.75)
+    out = {"map": mean(precision[..., 0, -1]), "map_50": mean(precision[t50, ..., 0, -1]),
+           "map_75": mean(precision[t75, ..., 0, -1]), "map_small": mean(precision[..., 1, -1]),
+           "map_medium": mean(precision[..., 2, -1]), "map_large": mean(precision[..., 3, -1]),
+           "mar_small": mean(recall[..., 1, -1]), "mar_medium": mean(recall[..., 2, -1]),
+           "mar_large": mean(recall[..., 3, -1]),
+           "map_per_class": [mean(precision[:, :, kidx, 0, -1]) for kidx in range(len(classes))],
+           f"mar_{caps[-1]}_per_class": [mean(recall[:, kidx, 0, -1]) for kidx in range(len(classes))],
+           "classes": classes}
+    for mi, cap in enumerate(caps):
+        out[f"mar_{cap}"] = mean(recall[:, :, 0, mi])
+    return out
+
+
+def iou_class_reference(np, det_boxes, det_labels, gt_boxes, gt_labels, counts) -> dict:
+    """The four IoU classes' values in float64 numpy: per image the mean of the (100, G)
+    matrix, label-mismatched pairs at the class's invalid value (label lists of unequal
+    length never count as equal), then the mean over the images."""
+    per = {"iou": [], "giou": [], "diou": [], "ciou": []}
+    eps = 1e-7
+    for i in range(len(counts)):
+        p, t = det_boxes[i].astype(np.float64), gt_boxes[i, :counts[i]].astype(np.float64)
+        mismatch = det_labels[i][:, None] != gt_labels[i, :counts[i]][None, :]
+        iou, inter, union = iou64(np, p, t)
+        lt = np.minimum(p[:, None, :2], t[None, :, :2])
+        rb = np.maximum(p[:, None, 2:], t[None, :, 2:])
+        ewh = np.clip(rb - lt, 0, None)
+        enclosing = ewh[..., 0] * ewh[..., 1]
+        giou = inter / union - (enclosing - union) / enclosing
+        cp, ct = (p[:, :2] + p[:, 2:]) / 2, (t[:, :2] + t[:, 2:]) / 2
+        center = ((cp[:, None, :] - ct[None, :, :]) ** 2).sum(-1)
+        diou = iou - center / ((ewh ** 2).sum(-1) + eps)
+        wp, hp, wt, ht = p[:, 2] - p[:, 0], p[:, 3] - p[:, 1], t[:, 2] - t[:, 0], t[:, 3] - t[:, 1]
+        v = (4 / np.pi ** 2) * (np.arctan(wt / ht)[None, :] - np.arctan(wp / hp)[:, None]) ** 2
+        ciou = diou - v / (1 - iou + v + eps) * v
+        for key, value, invalid in (("iou", iou, 0.0), ("giou", giou, -1.0), ("diou", diou, -1.0),
+                                    ("ciou", ciou, -2.0)):
+            per[key].append(np.where(mismatch, invalid, value).mean())
+    return {k: float(np.mean(v)) for k, v in per.items()}
+
+
+def run_iou_classes(torch, data, lo: int, hi: int, device="cuda") -> tuple:
+    """The four IoU classes over images [lo, hi) in updates of 100 images: values, update
+    ms (per update) and compute ms of each."""
+    from metrics_tpu_torch import detection as td
+
+    values, timings = {}, {}
+    for name in ("IntersectionOverUnion", "GeneralizedIntersectionOverUnion", "DistanceIntersectionOverUnion",
+                 "CompleteIntersectionOverUnion"):
+        metric = getattr(td, name)(device=device)
+        update_ms = []
+        for s in range(lo, hi, COCO_DET["batch"]):
+            args = det_list(data, s, min(s + COCO_DET["batch"], hi))
+            sync(torch, device)
+            t0 = time.perf_counter()
+            metric.update(*args)
+            sync(torch, device)
+            update_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        result = metric.compute()
+        sync(torch, device)
+        timings[name] = {"update_ms": statistics.median(update_ms), "compute_ms": (time.perf_counter() - t0) * 1e3}
+        values.update({k: float(v) for k, v in result.items()})
+    return values, timings
+
+
+def segm_inputs(torch, data, n: int, top: int):
+    """The first ``n`` images' top ``top`` detections and their gts on whole pixels, as
+    boxes and as filled ``H x W`` masks (the same pixels: mask IoU equals box IoU)."""
+    H, W = COCO_DET["height"], COCO_DET["width"]
+    dev = data["det_boxes"].device
+    ys = torch.arange(H, device=dev)[None, :, None]
+    xs = torch.arange(W, device=dev)[None, None, :]
+
+    def whole(b):
+        x0, y0 = torch.floor(b[:, 0]), torch.floor(b[:, 1])
+        x1 = torch.maximum(torch.ceil(b[:, 2]), x0 + 1).clamp(max=W)
+        y1 = torch.maximum(torch.ceil(b[:, 3]), y0 + 1).clamp(max=H)
+        return torch.stack([x0, y0, x1, y1], -1)
+
+    def masks(b):
+        return ((xs >= b[:, 0, None, None]) & (xs < b[:, 2, None, None])
+                & (ys >= b[:, 1, None, None]) & (ys < b[:, 3, None, None]))
+
+    boxes_p, boxes_t, masks_p, masks_t = [], [], [], []
+    for i in range(n):
+        order = torch.sort(-data["det_scores"][i], stable=True).indices[:top]
+        db = whole(data["det_boxes"][i, order])
+        gb = whole(data["gt_boxes"][i, :data["counts"][i]])
+        scores, labels, gl = data["det_scores"][i, order], data["det_labels"][i, order], \
+            data["gt_labels"][i, :data["counts"][i]]
+        boxes_p.append({"boxes": db, "scores": scores, "labels": labels})
+        boxes_t.append({"boxes": gb, "labels": gl})
+        masks_p.append({"masks": masks(db), "scores": scores, "labels": labels})
+        masks_t.append({"masks": masks(gb), "labels": gl})
+    return boxes_p, boxes_t, masks_p, masks_t
+
+
+def panoptic_maps(torch, data, seed: int, n: int):
+    """``n`` panoptic (category, instance) maps of 480x640 on the COCO panoptic val2017
+    categories (80 things, 53 stuffs), drawn from ``seed`` and the detection data: stuff
+    on a 6 x 8 grid of 80-pixel cells (four stuff categories an image; 15% of the cells
+    changed in the preds), the image's gt boxes painted as thing instances in the target
+    and its detections scored 0.6 or more (in ascending score) in the preds, and three
+    40 x 40 void patches (category 0) in the target."""
+    H, W = COCO_DET["height"], COCO_DET["width"]
+    dev = data["det_boxes"].device
+    g = torch.Generator(device=dev).manual_seed(seed + 133)
+    stuff = torch.tensor(COCO_STUFF_IDS, device=dev)
+    pick = stuff[torch.randint(0, len(COCO_STUFF_IDS), (n, 4), generator=g, device=dev)]
+    cells = torch.randint(0, 4, (n, 48), generator=g, device=dev)
+    other = torch.randint(0, 4, (n, 48), generator=g, device=dev)
+    changed = torch.rand((n, 48), generator=g, device=dev) < 0.15
+    t_cat = torch.gather(pick, 1, cells).reshape(n, 6, 8)
+    p_cat = torch.gather(pick, 1, torch.where(changed, other, cells)).reshape(n, 6, 8)
+    up = lambda x: x.repeat_interleave(80, 1).repeat_interleave(80, 2)  # noqa: E731
+    zeros = torch.zeros((n, H, W), dtype=torch.int64, device=dev)
+    target = torch.stack([up(t_cat), zeros], -1)
+    preds = torch.stack([up(p_cat), zeros.clone()], -1)
+    gb, gl = data["gt_boxes"][:n].cpu(), data["gt_labels"][:n].cpu()
+    db, dl, ds = data["det_boxes"][:n].cpu(), data["det_labels"][:n].cpu(), data["det_scores"][:n].cpu()
+    void = torch.randint(0, 440, (n, 3, 2), generator=g, device=dev).cpu()
+    for i in range(n):
+        for j in range(data["counts"][i]):
+            x0, y0, x1, y1 = (int(v) for v in torch.round(gb[i, j]).tolist())
+            target[i, y0:y1, x0:x1, 0] = int(gl[i, j])
+            target[i, y0:y1, x0:x1, 1] = j + 1
+        keep = torch.nonzero(ds[i] >= 0.6).reshape(-1)
+        for rank, j in enumerate(keep[torch.sort(ds[i][keep], stable=True).indices].tolist()):
+            x0, y0, x1, y1 = (int(v) for v in torch.round(db[i, j]).tolist())
+            preds[i, y0:y1, x0:x1, 0] = int(dl[i, j])
+            preds[i, y0:y1, x0:x1, 1] = rank + 1
+        for y, x in void[i].tolist():
+            target[i, y:y + 40, x:x + 40] = 0
+    return preds, target
+
+
+def run_panoptic(torch, preds, target, device, batch: int):
+    from metrics_tpu_torch.detection import ModifiedPanopticQuality, PanopticQuality
+
+    out = {}
+    for cls in (PanopticQuality, ModifiedPanopticQuality):
+        metric = cls(things=set(COCO_THING_IDS), stuffs=set(COCO_STUFF_IDS), device=device)
+        update_ms = []
+        for s in range(0, preds.shape[0], batch):
+            sync(torch, device)
+            t0 = time.perf_counter()
+            metric.update(preds[s:s + batch], target[s:s + batch])
+            sync(torch, device)
+            update_ms.append((time.perf_counter() - t0) * 1e3)
+        out[cls.__name__] = {"pq": float(metric.compute()), "update_ms": statistics.median(update_ms),
+                             "counts": [getattr(metric, s).cpu() for s in ("true_positives", "false_positives",
+                                                                           "false_negatives")]}
+    return out
+
+
+class RecordingMatch:
+    """Stands in for the greedy-match wrapper: launches the kernel, keeps each call's inputs
+    while ``keep`` is set."""
+
+    def __init__(self, kernel):
+        self.kernel, self.calls, self.keep = kernel, [], True
+
+    @property
+    def launches(self) -> int:
+        return self.kernel.launches
+
+    def __call__(self, *args):
+        if self.keep:
+            self.calls.append(args)
+        return self.kernel(*args)
+
+
+def match_case(torch, g, n: int, d: int, g_count: int, device="cuda"):
+    """A synthetic greedy-match input: tied IoUs, IoUs exactly at 0.5 and 0.75 (and one
+    float above 0.5), areas in every COCO range (area-ignored gts), invalid rows, and
+    groups without a valid detection or gt."""
+    special = torch.tensor([0.0, 0.5, 0.75, 0.50000006, 0.9, 0.3], device=device)
+    iou = special[torch.randint(0, 6, (n, d, g_count), generator=g, device=device)]
+    free = torch.rand((n, d, g_count), generator=g, device=device) < 0.4
+    iou = torch.where(free, torch.rand((n, d, g_count), generator=g, device=device), iou)
+    areas = torch.tensor([10.0, 32.0 ** 2, 1500.0, 96.0 ** 2, 2e4], device=device)
+    d_area = areas[torch.randint(0, 5, (n, d), generator=g, device=device)]
+    g_area = areas[torch.randint(0, 5, (n, g_count), generator=g, device=device)]
+    dv = torch.rand((n, d), generator=g, device=device) >= 0.2
+    gv = torch.rand((n, g_count), generator=g, device=device) >= 0.2
+    if n > 2:
+        dv[1] = False
+        gv[2] = False
+    return iou, d_area, g_area, dv, gv
+
+
+def match_bytes(iou, det_valid, gt_valid, thresholds, ranges) -> int:
+    """Bytes the greedy match must move: the IoU entries of valid (detection, gt) pairs,
+    the areas, masks, thresholds and ranges read once, each output written once."""
+    n, d, g = iou.shape
+    t, a = thresholds.numel(), ranges.shape[0]
+    pairs = int((det_valid.long().sum(1) * gt_valid.long().sum(1)).sum())
+    return 4 * pairs + 5 * n * d + 5 * n * g + 4 * t + 8 * a + 2 * n * a * t * d + 4 * n * a
+
+
+def match_timing(torch, args, label: str) -> dict:
+    from metrics_tpu_torch.ops.greedy_match import _plain_greedy_match, greedy_match_cuda
+
+    call = lambda: greedy_match_cuda(*args)  # noqa: E731
+    dev = None
+    for _ in range(3):  # a profile late in a long process sometimes records no kernel: None if none does
+        dev = sum(v for k, v in device_ms(torch, call).items() if "greedy_match" in k) or None
+        if dev:
+            break
+    bound_ms = match_bytes(args[0], args[3], args[4], args[5], args[6]) / HBM_BYTES_PER_S * 1e3
+    return {"shape": label, "kernel_ms": event_ms(torch, call, warmup=5), "device_ms": dev,
+            "kernel_ms_back_to_back": back_to_back_ms(torch, call),
+            "plain_ms": event_ms(torch, lambda: _plain_greedy_match(*args), reps=3, warmup=1),
+            "bound_ms": bound_ms, "kernel_share_of_bound": bound_ms / dev if dev else None}
+
+
+def check_match_kernel(torch, cases) -> tuple:
+    """Each (label, args) case through the kernel and its plain version on the card, the
+    three outputs bit-equal; returns the number of cases and the largest difference."""
+    from metrics_tpu_torch.ops.greedy_match import _plain_greedy_match, greedy_match_cuda
+
+    err = 0
+    for label, args in cases:
+        got = greedy_match_cuda(*args)
+        want = _plain_greedy_match(*args)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("det_matched", "det_ignored", "npig"), got, want):
+            diff = int((a.int() - b.int()).abs().max()) if a.numel() else 0
+            err = max(err, diff)
+            if a.dtype != b.dtype or diff:
+                raise AssertionError(f"greedy match kernel != plain at {label}: {name}")
+    return len(cases), err
+
+
+def phase_detection(torch, seed: int, smi: str):
+    """COCO 2017 val detection through mAP (both layouts, segm), the IoU family and panoptic quality."""
+    import numpy as np
+
+    from metrics_tpu_torch.functional.detection._mean_ap_device import plan_buckets
+    from metrics_tpu_torch.ops import greedy_match as gm
+    from metrics_tpu_torch.ops.greedy_match import greedy_match_cuda
+    from metrics_tpu_torch.ops.histogram import histogram_cuda
+
+    t_phase = time.perf_counter()
+    data = coco_detection_data(torch, seed)
+    B, sub = COCO_DET["images"], DET_SUBSETS
+    person = COCO_THING_IDS.index(1)
+    # the bucket routing the data was drawn for: the big groups are the crowded images' persons
+    dl_np, gl_np = data["det_labels"].cpu().numpy(), data["gt_labels"].cpu().numpy()
+    ids_np = np.asarray(COCO_THING_IDS)
+    det_counts = (dl_np[:, :, None] == ids_np).sum(1)
+    gt_counts = (gl_np[:, :, None] == ids_np).sum(1)
+    _, big_pairs, d_big, g_big = plan_buckets(det_counts, gt_counts, 100)
+    if sorted(big_pairs) != [(b, person) for b in data["crowded"]]:
+        raise AssertionError(f"big groups {big_pairs[:5]}... are not the crowded images' persons")
+    gb = data["gt_boxes"]
+    sizes = (gb[..., 2] - gb[..., 0]) * (gb[..., 3] - gb[..., 1])
+    valid = data["gt_labels"] >= 0
+    shares = [float(((sizes < hi) & (sizes >= lo) & valid).sum()) / sum(data["counts"])
+              for lo, hi in ((0, 32 ** 2), (32 ** 2, 96 ** 2), (96 ** 2, 1e10))]
+    emit({"phase": "detection", "config": "data", "images": B, "gt_boxes": sum(data["counts"]),
+          "detections": B * COCO_DET["detections"], "true_positive_copies": data["tp"],
+          "exact_threshold_pairs": data["exact_pairs"], "gt_area_shares": shares,
+          "max_gts_per_image": max(data["counts"]), "crowded_images": data["crowded"],
+          "big_groups": len(big_pairs), "d_big": d_big, "g_big": g_big})
+
+    # ---- the main path, with the launch counts at 0 just before and read just after
+    recorder = RecordingMatch(greedy_match_cuda)
+    gm.greedy_match_cuda = recorder
+    torch.cuda.synchronize()
+    histogram_cuda.launches = greedy_match_cuda.launches = 0
+    t0 = time.perf_counter()
+    try:
+        runs = {"consolidated": run_map(torch, data, 0, B, "consolidated")}
+        recorder.keep = False
+        runs["list"] = run_map(torch, data, 0, B, "list")
+        for layout, n in (("consolidated", sub["cpu_consolidated"]), ("list", sub["cpu_list"]),
+                          ("list", sub["reference"])):
+            runs[f"{layout}_first_{n}"] = run_map(torch, data, 0, n, layout)
+        boxes_p, boxes_t, masks_p, masks_t = segm_inputs(torch, data, sub["segm"], sub["segm_top"])
+        runs["segm"] = run_updates(torch, [(masks_p, masks_t)], iou_type="segm")
+        runs["segm_boxes"] = run_updates(torch, [(boxes_p, boxes_t)])
+        del masks_p, masks_t
+        iou_values, iou_timings = run_iou_classes(torch, data, 0, B)
+        iou_first, _ = run_iou_classes(torch, data, 0, sub["iou_cpu"])
+        pq_preds, pq_target = panoptic_maps(torch, data, seed, sub["panoptic"])
+        pq = run_panoptic(torch, pq_preds, pq_target, "cuda", sub["panoptic_batch"])
+        torch.cuda.synchronize()
+    finally:
+        gm.greedy_match_cuda = greedy_match_cuda
+    drive_s = time.perf_counter() - t0
+    launches = {"greedy_match": greedy_match_cuda.launches, "histogram": histogram_cuda.launches}
+    per_compute = {name: run[4] for name, run in runs.items()}
+    for name, got in per_compute.items():
+        if got != (2 if name.startswith("consolidated") else 1):
+            raise AssertionError(f"{name}: {got} greedy-match launches in its compute")
+    if launches != {"greedy_match": sum(per_compute.values()), "histogram": 2 * sub["panoptic"]}:
+        raise AssertionError(f"detection launches {launches}, per compute {per_compute}")
+
+    # ---- checks
+    checks = {"consolidated_vs_list": map_max_diff(runs["consolidated"][1], runs["list"][1]),
+              "segm_vs_bbox": map_max_diff(runs["segm"][1], runs["segm_boxes"][1])}
+    data_cpu = det_on(data, "cpu")
+    for name, layout, n in (("cpu_consolidated", "consolidated", sub["cpu_consolidated"]),
+                            ("cpu_list", "list", sub["cpu_list"])):
+        cpu = run_map(torch, data_cpu, 0, n, layout, device="cpu")
+        if cpu[4] != 0:
+            raise AssertionError(f"{name}: the CPU compute launched the kernel")
+        checks[name] = map_max_diff(runs[f"{layout}_first_{n}"][1], cpu[1])
+    n_ref = sub["reference"]
+    ref = map_reference(np, *(data_cpu[k][:n_ref].numpy() for k in ("det_boxes", "det_scores", "det_labels",
+                                                                    "gt_boxes", "gt_labels")),
+                        data["counts"][:n_ref], runs[f"list_first_{n_ref}"][0])
+    checks[f"float64_reference_{n_ref}"] = map_max_diff(
+        runs[f"list_first_{n_ref}"][1], {k: torch.tensor(v, dtype=torch.float64) for k, v in ref.items()})
+    for name, diff in checks.items():
+        expect_close(name, diff, MAP_ATOL)
+    result = runs["consolidated"][1]
+    if not all(bool(torch.isfinite(v).all()) for v in result.values()):
+        raise AssertionError("non-finite mAP result")
+
+    iou_ref = iou_class_reference(np, *(data_cpu[k].numpy() for k in ("det_boxes", "det_labels", "gt_boxes",
+                                                                      "gt_labels")), data["counts"])
+    iou_cpu, _ = run_iou_classes(torch, data_cpu, 0, sub["iou_cpu"], device="cpu")
+    iou_checks = {"float64": max(abs(iou_values[k] - iou_ref[k]) for k in iou_ref),
+                  f"cpu_first_{sub['iou_cpu']}": max(abs(iou_first[k] - iou_cpu[k]) for k in iou_cpu)}
+    expect_close("IoU classes against float64", iou_checks["float64"], IOU_ATOL)
+    expect_close("IoU classes against the CPU", iou_checks[f"cpu_first_{sub['iou_cpu']}"], MAP_ATOL)
+
+    pq_cpu = run_panoptic(torch, pq_preds.cpu(), pq_target.cpu(), "cpu", sub["panoptic_batch"])
+    for name in pq:
+        for got, want in zip(pq[name]["counts"], pq_cpu[name]["counts"]):
+            if not torch.equal(got, want):
+                raise AssertionError(f"{name}: counts differ from the CPU run")
+        expect_close(f"{name} against the CPU", abs(pq[name]["pq"] - pq_cpu[name]["pq"]), MAP_ATOL)
+    del pq_preds, pq_target
+
+    # ---- the kernel against its plain version, bit for bit (outside the counted run)
+    g = torch.Generator(device="cuda").manual_seed(seed + 8)
+    consolidated = runs["consolidated"][0]
+    thresholds = torch.tensor(consolidated.iou_thresholds, dtype=torch.float32, device="cuda")
+    ranges = consolidated._area_ranges()
+    cases = [("COCO small bucket", recorder.calls[0]), ("COCO big bucket", recorder.calls[1])]
+    for shape in ((7, 1, 9), (5, 9, 1), (3, 1, 1), (9, 20, 1024), (33, 13, 40), (4096, 16, 16)):
+        cases.append(("x".join(map(str, shape)), (*match_case(torch, g, *shape), thresholds, ranges)))
+    checked, match_err = check_match_kernel(torch, cases)
+
+    # ---- timings
+    small = match_timing(torch, recorder.calls[0], "x".join(map(str, recorder.calls[0][0].shape)))
+    big = match_timing(torch, recorder.calls[1], "x".join(map(str, recorder.calls[1][0].shape)))
+    recorder.calls.clear()
+
+    def compute_again():
+        consolidated._computed = None
+        return consolidated.compute()
+
+    compute_again()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    compute_again()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        compute_again()
+        torch.cuda.synchronize()
+        profiled_wall_ms = (time.perf_counter() - t0) * 1e3
+    profile = group_kernels({k[:70]: v / 1e3 for k, v in device_events(prof).items()})
+    listed = runs["list"][0]
+    host = listed._fetch_host_states()
+    classes = listed._get_classes(host)
+    t0 = time.perf_counter()
+    listed._build_groups(classes, host)
+    build_groups_ms = (time.perf_counter() - t0) * 1e3
+
+    emit({"phase": "detection", "config": "map", "nvidia_smi": smi,
+          "map": float(result["map"]), "map_50": float(result["map_50"]), "map_75": float(result["map_75"]),
+          "update_ms": {k: statistics.median(runs[k][2]) for k in ("consolidated", "list")},
+          "compute_ms": {k: runs[k][3] for k in runs}, "list_build_groups_ms": build_groups_ms,
+          "consolidated_compute_wall_ms": wall_ms, "consolidated_profiled_wall_ms": profiled_wall_ms,
+          "consolidated_device_busy_ms": profile["busy_ms"],
+          "consolidated_idle_share": 1 - profile["busy_ms"] / profiled_wall_ms, "consolidated_groups": profile["groups"],
+          "consolidated_top": profile["top"], "checks_max_abs_diff": checks, "atol": MAP_ATOL,
+          "launches_per_compute": per_compute})
+    emit({"phase": "detection", "config": "iou", "nvidia_smi": smi, "values": iou_values, "timings": iou_timings,
+          "checks_max_abs_diff": iou_checks, "atol": {"float64": IOU_ATOL, "cpu": MAP_ATOL}})
+    emit({"phase": "detection", "config": "panoptic", "nvidia_smi": smi, "images": sub["panoptic"],
+          "pq": {k: v["pq"] for k, v in pq.items()}, "update_ms": {k: v["update_ms"] for k, v in pq.items()},
+          "cpu_update_ms": {k: v["update_ms"] for k, v in pq_cpu.items()},
+          "tp_fp_fn": {k: [int(c.sum()) for c in v["counts"]] for k, v in pq.items()},
+          "histogram_launches": launches["histogram"]})
+    emit({"phase": "detection", "config": "kernel", "nvidia_smi": smi, "cases_bit_equal": checked,
+          "small": small, "big": big, "launches": launches, "drive_seconds": drive_s,
+          "seconds": time.perf_counter() - t_phase})
+    return {
+        "name": "greedy_match",
+        "route": "cuda",
+        "source": "metrics_tpu_torch/csrc/greedy_match.cu",
+        "replaces": "metrics_tpu/functional/detection/_mean_ap_kernel.py:26 (lax.scan; no Pallas kernel)",
+        "launches": launches["greedy_match"],
+        "max_abs_err": float(match_err),
+        "ms": small["kernel_ms"],
+        "plain_ms": small["plain_ms"],
+        "bound_ms": small["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+    }, launches["histogram"]
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2443,6 +3158,10 @@ def main() -> int:
     kernels[0]["launches"] += rest["histogram"]
     scan["launches"] += rest["segment_scan"]
     phase_image(torch, args.seed, smi)
+    torch.cuda.empty_cache()
+    match, detection_histogram = phase_detection(torch, args.seed, smi)
+    kernels[0]["launches"] += detection_histogram
+    kernels.append(match)
 
     print(smi)
     emit({"kernels": kernels})

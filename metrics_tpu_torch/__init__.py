@@ -8,7 +8,8 @@ The package root exports what ``metrics_tpu``'s root exports of the ported
 families: the classification classes, ``MetricCollection``, ``CompositionalMetric``,
 the aggregators and ``functional``; the retrieval classes through shims that warn
 (``FutureWarning``) as the JAX package's do; the image classes as the JAX root does
-(FID, KID, IS and PSNRB directly, the others through warning shims). Families not
+(FID, KID, IS and PSNRB directly, the others through warning shims); the detection
+classes as the JAX root does (the panoptic two through warning shims). Families not
 ported yet, and LPIPS, are absent.
 """
 from metrics_tpu_torch import functional
@@ -68,6 +69,17 @@ from metrics_tpu_torch.classification import (
 from metrics_tpu_torch.core.aggregation import CatMetric, MaxMetric, MeanMetric, MinMetric, SumMetric
 from metrics_tpu_torch.core.collections import MetricCollection
 from metrics_tpu_torch.core.metric import CompositionalMetric, Metric
+from metrics_tpu_torch.detection import (
+    CompleteIntersectionOverUnion,
+    DistanceIntersectionOverUnion,
+    GeneralizedIntersectionOverUnion,
+    IntersectionOverUnion,
+    MeanAveragePrecision,
+)
+from metrics_tpu_torch.detection._deprecated import (
+    _ModifiedPanopticQuality as ModifiedPanopticQuality,
+    _PanopticQuality as PanopticQuality,
+)
 from metrics_tpu_torch.image import (
     FrechetInceptionDistance,
     InceptionScore,
@@ -103,14 +115,17 @@ __all__ = [
     "AUROC", "Accuracy", "AveragePrecision", "BinaryAUROC", "BinaryAccuracy", "BinaryAveragePrecision",
     "BinaryCohenKappa", "BinaryConfusionMatrix", "BinaryJaccardIndex", "BinaryMatthewsCorrCoef",
     "BinaryPrecisionRecallCurve", "BinaryROC", "BinaryStatScores", "CalibrationError", "CatMetric", "CohenKappa",
-    "CompositionalMetric", "ConfusionMatrix", "Dice", "ErrorRelativeGlobalDimensionlessSynthesis", "ExactMatch",
-    "F1Score", "FBetaScore", "FrechetInceptionDistance", "HammingDistance", "HingeLoss", "InceptionScore",
-    "JaccardIndex", "KernelInceptionDistance", "MatthewsCorrCoef", "MaxMetric", "MeanMetric", "Metric", "MetricCollection",
-    "MinMetric", "MultiScaleStructuralSimilarityIndexMeasure", "MulticlassAUROC", "MulticlassAccuracy", "MulticlassAveragePrecision", "MulticlassCohenKappa",
-    "MulticlassConfusionMatrix", "MulticlassJaccardIndex", "MulticlassMatthewsCorrCoef",
-    "MulticlassPrecisionRecallCurve", "MulticlassROC", "MulticlassStatScores", "MultilabelAUROC",
-    "MultilabelAccuracy", "MultilabelAveragePrecision", "MultilabelConfusionMatrix", "MultilabelJaccardIndex",
-    "MultilabelMatthewsCorrCoef", "MultilabelPrecisionRecallCurve", "MultilabelROC", "MultilabelStatScores",
+    "CompleteIntersectionOverUnion", "CompositionalMetric", "ConfusionMatrix", "Dice",
+    "DistanceIntersectionOverUnion", "ErrorRelativeGlobalDimensionlessSynthesis", "ExactMatch", "F1Score",
+    "FBetaScore", "FrechetInceptionDistance", "GeneralizedIntersectionOverUnion", "HammingDistance", "HingeLoss",
+    "InceptionScore", "IntersectionOverUnion", "JaccardIndex", "KernelInceptionDistance", "MatthewsCorrCoef",
+    "MaxMetric", "MeanAveragePrecision", "MeanMetric", "Metric", "MetricCollection", "MinMetric",
+    "ModifiedPanopticQuality", "MultiScaleStructuralSimilarityIndexMeasure", "MulticlassAUROC",
+    "MulticlassAccuracy", "MulticlassAveragePrecision", "MulticlassCohenKappa", "MulticlassConfusionMatrix",
+    "MulticlassJaccardIndex", "MulticlassMatthewsCorrCoef", "MulticlassPrecisionRecallCurve", "MulticlassROC",
+    "MulticlassStatScores", "MultilabelAUROC", "MultilabelAccuracy", "MultilabelAveragePrecision",
+    "MultilabelConfusionMatrix", "MultilabelJaccardIndex", "MultilabelMatthewsCorrCoef",
+    "MultilabelPrecisionRecallCurve", "MultilabelROC", "MultilabelStatScores", "PanopticQuality",
     "PeakSignalNoiseRatio", "PeakSignalNoiseRatioWithBlockedEffect", "Precision", "PrecisionAtFixedRecall",
     "PrecisionRecallCurve", "ROC", "Recall", "RecallAtFixedPrecision", "RelativeAverageSpectralError",
     "RetrievalFallOut", "RetrievalHitRate", "RetrievalMAP", "RetrievalMRR", "RetrievalNormalizedDCG",

@@ -24,6 +24,7 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 KERNEL_SOURCES = {
     "histogram": CSRC_DIR / "histogram.cu",
     "segment_scan": CSRC_DIR / "segment_scan.cu",
+    "greedy_match": CSRC_DIR / "greedy_match.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
 _PTR, _INT, _LONG = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -39,6 +40,9 @@ SIGNATURES = {
         ),
         "tm_segment_scan_scratch_bytes": ([_INT, _INT, _LONG], _LONG),
         "tm_segment_scan_tile_rows": ([_INT, _INT], _LONG),
+    },
+    "greedy_match": {
+        "tm_greedy_match": ([_PTR] * 7 + [_LONG, _INT, _INT, _INT, _INT] + [_PTR] * 4, _INT),
     },
 }
 

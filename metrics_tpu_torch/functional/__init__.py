@@ -1,10 +1,21 @@
 """Functional entry points of metrics_tpu_torch: every classification functional, the
-pairwise functions and PSNRB, and the retrieval and the other image functionals through
-root shims that warn (as in ``metrics_tpu.functional``); ``metrics_tpu_torch.functional.retrieval``
-and ``.image`` give them silently.
+pairwise functions, PSNRB and the four box-IoU functionals, and the retrieval, the other
+image and the two panoptic functionals through root shims that warn (as in
+``metrics_tpu.functional``); ``metrics_tpu_torch.functional.retrieval``, ``.image`` and
+``.detection`` give them silently.
 """
 from metrics_tpu_torch.functional.classification import *  # noqa: F401,F403
 from metrics_tpu_torch.functional.classification import __all__ as _classification_all
+from metrics_tpu_torch.functional.detection import (
+    complete_intersection_over_union,
+    distance_intersection_over_union,
+    generalized_intersection_over_union,
+    intersection_over_union,
+)
+from metrics_tpu_torch.functional.detection._deprecated import (
+    _modified_panoptic_quality as modified_panoptic_quality,
+    _panoptic_quality as panoptic_quality,
+)
 from metrics_tpu_torch.functional.image import peak_signal_noise_ratio_with_blocked_effect
 from metrics_tpu_torch.functional.image._deprecated import (
     _error_relative_global_dimensionless_synthesis as error_relative_global_dimensionless_synthesis,
@@ -39,6 +50,12 @@ from metrics_tpu_torch.functional.retrieval._deprecated import (
 )
 
 __all__ = _classification_all + [
+    "complete_intersection_over_union",
+    "distance_intersection_over_union",
+    "generalized_intersection_over_union",
+    "intersection_over_union",
+    "modified_panoptic_quality",
+    "panoptic_quality",
     "error_relative_global_dimensionless_synthesis",
     "image_gradients",
     "multiscale_structural_similarity_index_measure",

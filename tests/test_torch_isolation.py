@@ -18,7 +18,12 @@
 - the image and pairwise slice (``image/``, ``functional/image/``,
   ``functional/pairwise/``, ``models/``) is in both scans, and its classes, its
   functionals given numpy inputs and the InceptionV3 raise without a card unless
-  given ``device=``.
+  given ``device=``;
+- the detection slice (``detection/``, ``functional/detection/``,
+  ``ops/greedy_match.py``, the rank side of its sync test and its checks on the card)
+  is in both scans; its classes and its functionals given numpy inputs raise without
+  a card unless given ``device=``, and a CPU mAP compute, in both layouts, leaves the
+  greedy-match launch count at 0 without ``nvcc``.
 """
 import ast
 import os
@@ -34,7 +39,8 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "metrics_tpu_torch"
 SOURCES = (
     sorted(PACKAGE.rglob("*.py"))
-    + [REPO / "chip_smoke.py", REPO / "tests" / "torch_sync_ranks.py", REPO / "tests" / "test_torch_image_card.py"]
+    + [REPO / "chip_smoke.py", REPO / "tests" / "torch_sync_ranks.py", REPO / "tests" / "test_torch_image_card.py",
+       REPO / "tests" / "torch_detection_ranks.py", REPO / "tests" / "test_torch_detection_card.py"]
     + sorted((REPO / "scripts").glob("torch_*.py"))
 )
 # modules the scans must reach: the runtime core for many ranks and its classes
@@ -63,6 +69,14 @@ REQUIRED_MODULES = (
     *(f"metrics_tpu_torch.functional.pairwise.{m}" for m in ("helpers", "cosine", "euclidean", "linear",
                                                              "manhattan", "minkowski")),
     "metrics_tpu_torch.models.inception", "metrics_tpu_torch.models._io",
+    # detection, its greedy-match kernel and their shims
+    *(f"metrics_tpu_torch.detection.{m}" for m in ("helpers", "rle", "iou", "giou", "diou", "ciou", "mean_ap",
+                                                   "panoptic_qualities", "_deprecated")),
+    *(f"metrics_tpu_torch.functional.detection.{m}" for m in ("box_ops", "iou", "giou", "diou", "ciou",
+                                                              "_mean_ap_kernel", "_mean_ap_device",
+                                                              "_panoptic_quality_common", "panoptic_qualities",
+                                                              "_deprecated")),
+    "metrics_tpu_torch.detection", "metrics_tpu_torch.functional.detection", "metrics_tpu_torch.ops.greedy_match",
 )
 
 
@@ -257,3 +271,55 @@ def test_image_and_pairwise_without_device_raise_when_cuda_is_absent(monkeypatch
     for name in tp.__all__:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             getattr(tp, name)(img[0, 0])
+
+
+def test_detection_without_device_raises_when_cuda_is_absent(monkeypatch):
+    from metrics_tpu_torch import detection as td
+    from metrics_tpu_torch.functional import detection as tfd
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    categories = {"things": {0}, "stuffs": {6}}
+    kwargs = {"PanopticQuality": categories, "ModifiedPanopticQuality": categories}
+    for name in td.__all__:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            getattr(td, name)(**kwargs.get(name, {}))
+    boxes = np.array([[0.0, 0.0, 2.0, 2.0]], np.float32)
+    for name in tfd.__all__:
+        if "panoptic" in name:
+            args, extra = (np.array([[[0, 0]]]), np.array([[[0, 0]]])), {"things": {0}, "stuffs": {6}}
+        elif name in ("box_area", "box_convert"):
+            args, extra = (boxes,), ({"in_fmt": "xywh"} if name == "box_convert" else {})
+        else:
+            args, extra = (boxes, boxes), {}
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            getattr(tfd, name)(*args, **extra)
+
+
+def test_cpu_map_compute_launches_no_greedy_match_kernel():
+    code = (
+        "import numpy as np, torch\n"
+        "from metrics_tpu_torch.ops import greedy_match, histogram\n"
+        "from metrics_tpu_torch.detection import MeanAveragePrecision, PanopticQuality\n"
+        "rng = np.random.RandomState(0)\n"
+        "b = torch.from_numpy(rng.rand(2, 5, 4).astype(np.float32) * 50); b[..., 2:] += b[..., :2] + 1\n"
+        "s = torch.from_numpy(rng.rand(2, 5).astype(np.float32)); l = torch.from_numpy(rng.randint(0, 3, (2, 5)))\n"
+        "for layout in ('list', 'consolidated'):\n"
+        "    m = MeanAveragePrecision(device='cpu')\n"
+        "    if layout == 'list':\n"
+        "        m.update([dict(boxes=b[i], scores=s[i], labels=l[i]) for i in range(2)],\n"
+        "                 [dict(boxes=b[i], labels=l[i]) for i in range(2)])\n"
+        "    else:\n"
+        "        m.update(dict(boxes=b, scores=s, labels=l), dict(boxes=b, labels=l))\n"
+        "    assert float(m.compute()['map']) == 1.0\n"
+        "pq = PanopticQuality(things={0}, stuffs={6}, device='cpu')\n"
+        "pq.update(torch.tensor([[[0, 0], [6, 0]]]), torch.tensor([[[0, 0], [6, 0]]]))\n"
+        "assert float(pq.compute()) == 1.0\n"
+        "assert greedy_match.greedy_match_cuda.launches == 0 and histogram.histogram_cuda.launches == 0\n"
+        "print('ok')\n"
+    )
+    env = {"PATH": "/usr/bin:/bin", "PYTHONPATH": str(REPO), "HOME": os.environ.get("HOME", "/tmp")}
+    result = subprocess.run(
+        [sys.executable, "-c", code], cwd=str(REPO), env=env, capture_output=True, text=True, timeout=300
+    )
+    assert result.returncode == 0, result.stderr
+    assert result.stdout.strip() == "ok"
