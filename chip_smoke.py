@@ -174,13 +174,18 @@ Phases, each printing one JSON line:
     - PanopticQuality and ModifiedPanopticQuality at the COCO panoptic val2017 shape (133
       categories: 80 things, 53 stuffs) on 100 maps of 480x640 in updates of 10: one
       count-mode histogram launch per map, counts equal to the CPU run's, PQ within 1e-6;
-    - the kernel bit-equal to its plain version on the COCO compute's small- and
-      big-bucket inputs and on D or G = 1, G = 1024, groups without valid rows, ties, IoUs
-      at a threshold and area-ignored gts; its event, device and back-to-back ms against
-      the plain version and the bound (the IoU of valid (detection, gt) pairs, areas and
-      masks read once, both masks and npig written once, at 3.35 TB/s) at both bucket
-      shapes; update, compute and the list layout's host ``_build_groups`` ms; the
-      consolidated compute's idle share (device busy over the same profiled call's wall).
+    - the kernel bit-equal to its plain version on the COCO computes' three launch
+      inputs (small and big bucket, the list layout's 524288 x 64 x 64) and on D or G = 1,
+      G = 1024, groups without valid rows, ties, IoUs at a threshold and area-ignored gts;
+      both of its variants (forced through ``tm_greedy_match_variant``) bit-equal too at
+      G = 32, 33, 64, 65, 1024, 4096, D = 1, 17, 100, triples not a multiple of a block,
+      equal maxima at gts 3, 35, 36 and 40, a NaN beside a row's maximum, thresholds -0.1
+      and 1.0; its event, device and back-to-back ms against the plain version (on eighths
+      of the groups at the list shape) and the bound (the IoU of valid (detection, gt)
+      pairs, areas and masks read once, both masks and npig written once, at 3.35 TB/s) at
+      the three launch shapes; update, compute and the list layout's host
+      ``_build_groups`` ms; the consolidated compute's idle share (device busy over the
+      same profiled call's wall); the phase's peak of allocated memory.
 
 The last three lines are the ``nvidia-smi`` name and power limit, the kernels JSON
 line and ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
@@ -2906,37 +2911,121 @@ def match_bytes(iou, det_valid, gt_valid, thresholds, ranges) -> int:
     return 4 * pairs + 5 * n * d + 5 * n * g + 4 * t + 8 * a + 2 * n * a * t * d + 4 * n * a
 
 
-def match_timing(torch, args, label: str) -> dict:
+EDGE_THRESHOLDS = (-0.1, 0.0, 0.5, 0.75, 1.0)
+# (N, D, G): G at each side of the narrow variant's one and two mask words and of the
+# warp variant's lane words, D not a multiple of 16, N * A * T not a multiple of a block
+MATCH_EDGE_SHAPES = ((33, 17, 32), (33, 17, 33), (7, 100, 64), (7, 100, 65), (5, 1, 1024), (3, 17, 4096),
+                     (31, 1, 33), (1700, 16, 16))
+
+
+def match_edges(torch, g, shape, ranges):
+    """``match_case`` at ``shape`` with the edge thresholds, equal maxima at gts 3, 35, 36
+    and 40 of group 0 (the first must win: across mask words and warp lanes) and a NaN
+    beside the maximum of the last group's first row."""
+    n, _, g_count = shape
+    iou, d_area, g_area, dv, gv = match_case(torch, g, *shape)
+    if g_count >= 41:
+        ties = [3, 35, 36, 40]
+        iou[0, :, ties] = 0.875
+        gv[0, ties] = True
+        g_area[0, ties] = 500.0
+    iou[n - 1, 0, :] = 0.25
+    iou[n - 1, 0, 5] = float("nan")
+    iou[n - 1, 0, g_count - 1] = 0.95
+    dv[n - 1, 0] = True
+    gv[n - 1, [5, g_count - 1]] = True
+    thresholds = torch.tensor(EDGE_THRESHOLDS, dtype=torch.float32, device="cuda")
+    return iou, d_area, g_area, dv, gv, thresholds, ranges
+
+
+def match_call(torch, lib, args, variant=None):
+    """One greedy-match launch of ``lib`` (a build of ``greedy_match.cu``) on ``args``,
+    outside the wrapper and its count: ``tm_greedy_match``, or with ``variant`` (0 narrow,
+    1 warp) ``tm_greedy_match_variant``. Returns a function that launches it and returns
+    the CUDA error, and the three outputs it writes."""
+    n, d, g = args[0].shape
+    t, a = args[5].shape[0], args[6].shape[0]
+    outs = [torch.empty((n, a, t, d), dtype=torch.bool, device="cuda") for _ in range(2)]
+    outs.append(torch.empty((n, a), dtype=torch.int32, device="cuda"))
+    ptrs = [x.data_ptr() for x in args] + [n, d, g, t, a] + [o.data_ptr() for o in outs]
+
+    def run() -> int:
+        stream = torch.cuda.current_stream().cuda_stream
+        if variant is None:
+            return lib.tm_greedy_match(*ptrs, stream)
+        return lib.tm_greedy_match_variant(*ptrs, stream, variant)
+    return run, outs
+
+
+def match_diff(label: str, got, want) -> int:
+    """The largest difference of the three outputs; raises unless bit-equal."""
+    err = 0
+    for name, a, b in zip(("det_matched", "det_ignored", "npig"), got, want):
+        diff = 0 if a.dtype == b.dtype and a.equal(b) else int((a.int() - b.int()).abs().max())
+        err = max(err, diff)
+        if a.dtype != b.dtype or diff:
+            raise AssertionError(f"greedy match kernel != plain at {label}: {name}")
+    return err
+
+
+def match_timing(torch, args, label: str, plain_slices: int = 1) -> dict:
+    """Times of the kernel and its plain version on one launch's inputs, the two outputs
+    held bit-equal, and the peak of memory allocated meanwhile. With ``plain_slices`` the
+    plain version runs on that many slices of the groups (each group is independent)
+    and its outputs are concatenated: its (N, A, D, G) intermediate is A times the IoU."""
     from metrics_tpu_torch.ops.greedy_match import _plain_greedy_match, greedy_match_cuda
 
+    torch.cuda.reset_peak_memory_stats()
     call = lambda: greedy_match_cuda(*args)  # noqa: E731
+    step = -(-args[0].shape[0] // plain_slices)
+
+    def plain():
+        parts = [_plain_greedy_match(*(x[i:i + step] for x in args[:5]), *args[5:])
+                 for i in range(0, args[0].shape[0], step)]
+        return tuple(torch.cat(p) for p in zip(*parts))
     dev = None
     for _ in range(3):  # a profile late in a long process sometimes records no kernel: None if none does
         dev = sum(v for k, v in device_ms(torch, call).items() if "greedy_match" in k) or None
         if dev:
             break
     bound_ms = match_bytes(args[0], args[3], args[4], args[5], args[6]) / HBM_BYTES_PER_S * 1e3
-    return {"shape": label, "kernel_ms": event_ms(torch, call, warmup=5), "device_ms": dev,
-            "kernel_ms_back_to_back": back_to_back_ms(torch, call),
-            "plain_ms": event_ms(torch, lambda: _plain_greedy_match(*args), reps=3, warmup=1),
-            "bound_ms": bound_ms, "kernel_share_of_bound": bound_ms / dev if dev else None}
+    out = {"shape": label, "kernel_ms": event_ms(torch, call, warmup=5), "device_ms": dev,
+           "kernel_ms_back_to_back": back_to_back_ms(torch, call), "bound_ms": bound_ms,
+           "kernel_share_of_bound": bound_ms / dev if dev else None}
+    got = call()
+    want = plain()
+    out["bit_equal"] = match_diff(label, got, want) == 0
+    del got, want
+    out["plain_ms"] = event_ms(torch, plain, reps=3, warmup=1)
+    out["plain_slices"] = plain_slices
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    return out
 
 
 def check_match_kernel(torch, cases) -> tuple:
-    """Each (label, args) case through the kernel and its plain version on the card, the
-    three outputs bit-equal; returns the number of cases and the largest difference."""
+    """Each (label, args) case through the kernel's wrapper and, forced, through each of
+    its variants that takes it, against the plain version on the card, the three outputs
+    bit-equal; returns the number of cases and the largest difference."""
+    from metrics_tpu_torch import _build
     from metrics_tpu_torch.ops.greedy_match import _plain_greedy_match, greedy_match_cuda
 
+    lib = _build.load("greedy_match")
     err = 0
     for label, args in cases:
-        got = greedy_match_cuda(*args)
         want = _plain_greedy_match(*args)
-        torch.cuda.synchronize()
-        for name, a, b in zip(("det_matched", "det_ignored", "npig"), got, want):
-            diff = int((a.int() - b.int()).abs().max()) if a.numel() else 0
-            err = max(err, diff)
-            if a.dtype != b.dtype or diff:
-                raise AssertionError(f"greedy match kernel != plain at {label}: {name}")
+        err = max(err, match_diff(label, greedy_match_cuda(*args), want))
+        n, d, g = args[0].shape
+        for variant in (0, 1):
+            run, got = match_call(torch, lib, args, variant)
+            code = run()
+            torch.cuda.synchronize()
+            if variant == 0 and not (g <= 64 and d <= 128):
+                if code == 0:
+                    raise AssertionError(f"the narrow variant took {label}")
+                continue
+            if code != 0:
+                raise AssertionError(f"variant {variant} at {label}: CUDA error {code}")
+            err = max(err, match_diff(f"{label} variant {variant}", got, want))
     return len(cases), err
 
 
@@ -2950,6 +3039,7 @@ def phase_detection(torch, seed: int, smi: str):
     from metrics_tpu_torch.ops.histogram import histogram_cuda
 
     t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
     data = coco_detection_data(torch, seed)
     B, sub = COCO_DET["images"], DET_SUBSETS
     person = COCO_THING_IDS.index(1)
@@ -2980,8 +3070,8 @@ def phase_detection(torch, seed: int, smi: str):
     t0 = time.perf_counter()
     try:
         runs = {"consolidated": run_map(torch, data, 0, B, "consolidated")}
-        recorder.keep = False
         runs["list"] = run_map(torch, data, 0, B, "list")
+        recorder.keep = False
         for layout, n in (("consolidated", sub["cpu_consolidated"]), ("list", sub["cpu_list"]),
                           ("list", sub["reference"])):
             runs[f"{layout}_first_{n}"] = run_map(torch, data, 0, n, layout)
@@ -3048,15 +3138,31 @@ def phase_detection(torch, seed: int, smi: str):
     consolidated = runs["consolidated"][0]
     thresholds = torch.tensor(consolidated.iou_thresholds, dtype=torch.float32, device="cuda")
     ranges = consolidated._area_ranges()
+    if len(recorder.calls) != 3:
+        raise AssertionError(f"{len(recorder.calls)} recorded greedy-match calls, not small, big and list")
     cases = [("COCO small bucket", recorder.calls[0]), ("COCO big bucket", recorder.calls[1])]
     for shape in ((7, 1, 9), (5, 9, 1), (3, 1, 1), (9, 20, 1024), (33, 13, 40), (4096, 16, 16)):
         cases.append(("x".join(map(str, shape)), (*match_case(torch, g, *shape), thresholds, ranges)))
+    for shape in MATCH_EDGE_SHAPES:
+        cases.append(("x".join(map(str, shape)) + " edges", match_edges(torch, g, shape, ranges)))
     checked, match_err = check_match_kernel(torch, cases)
+    del cases
 
-    # ---- timings
-    small = match_timing(torch, recorder.calls[0], "x".join(map(str, recorder.calls[0][0].shape)))
-    big = match_timing(torch, recorder.calls[1], "x".join(map(str, recorder.calls[1][0].shape)))
+    # ---- timings (each also holds that launch's outputs bit-equal to the plain version);
+    # the list layout's launch first, with nothing else held: its inputs are the largest
+    # tensors of the phase, and its plain version runs on eighths of them
+    peak_bytes = torch.cuda.max_memory_allocated()
+    label = lambda args: "x".join(map(str, args[0].shape))  # noqa: E731
+    listed_args = recorder.calls.pop()
+    torch.cuda.empty_cache()
+    list_timing = match_timing(torch, listed_args, label(listed_args), plain_slices=8)
+    del listed_args
+    torch.cuda.empty_cache()
+    small = match_timing(torch, recorder.calls[0], label(recorder.calls[0]))
+    big = match_timing(torch, recorder.calls[1], label(recorder.calls[1]))
+    checked += 1  # the list layout's launch, held bit-equal in its timing
     recorder.calls.clear()
+    peak_bytes = max(peak_bytes, *(t["peak_bytes"] for t in (list_timing, small, big)))
 
     def compute_again():
         consolidated._computed = None
@@ -3098,8 +3204,8 @@ def phase_detection(torch, seed: int, smi: str):
           "tp_fp_fn": {k: [int(c.sum()) for c in v["counts"]] for k, v in pq.items()},
           "histogram_launches": launches["histogram"]})
     emit({"phase": "detection", "config": "kernel", "nvidia_smi": smi, "cases_bit_equal": checked,
-          "small": small, "big": big, "launches": launches, "drive_seconds": drive_s,
-          "seconds": time.perf_counter() - t_phase})
+          "small": small, "big": big, "list": list_timing, "launches": launches, "drive_seconds": drive_s,
+          "peak_bytes": max(peak_bytes, torch.cuda.max_memory_allocated()), "seconds": time.perf_counter() - t_phase})
     return {
         "name": "greedy_match",
         "route": "cuda",

@@ -43,6 +43,7 @@ SIGNATURES = {
     },
     "greedy_match": {
         "tm_greedy_match": ([_PTR] * 7 + [_LONG, _INT, _INT, _INT, _INT] + [_PTR] * 4, _INT),
+        "tm_greedy_match_variant": ([_PTR] * 7 + [_LONG, _INT, _INT, _INT, _INT] + [_PTR] * 4 + [_INT], _INT),
     },
 }
 

@@ -8,8 +8,10 @@ over area ranges and groups, compiled by XLA into one loop on the device. Here:
   the D detections of batched tensor ops over ``(N, A, T, G)``. It is also the
   kernel's reference in the tests and in ``chip_smoke.py``.
 - **CUDA tensors:** the hand-written kernel in ``csrc/greedy_match.cu`` through
-  :data:`greedy_match_cuda` (one thread per group, area range and threshold). There
-  is no fallback: a CUDA input the kernel does not take raises.
+  :data:`greedy_match_cuda`, one launch a call: a thread per group, area range and
+  threshold for narrow groups, a warp per triple for wide groups or few triples (the
+  C function picks). There is no fallback: a CUDA input the kernel does not take
+  raises.
 
 Inputs: IoU ``(N, D, G)`` float32 with score-sorted detection rows, ``d_area (N, D)``
 and ``g_area (N, G)`` float32, ``det_valid (N, D)`` and ``gt_valid (N, G)`` bool,

@@ -5,11 +5,12 @@ Usage (from the root of a checkout, on a machine with a CUDA card and nvcc):
 
     git archive <older commit> | tar -x -C build/parent
     python3 scripts/torch_kernel_ab.py --parent build/parent [--seed 0] [--reps 30]
+        [--kernels histogram,segment_scan,greedy_match]
 
-Builds ``metrics_tpu_torch/csrc/histogram.cu`` and ``segment_scan.cu`` of this
-checkout and of the ``--parent`` tree into ``build/ab/`` (one ``nvcc`` each, all
-started together) and calls each library's C function directly, on the inputs of
-the port's main paths:
+Builds ``metrics_tpu_torch/csrc/histogram.cu``, ``segment_scan.cu`` and
+``greedy_match.cu`` (those ``--kernels`` names) of this checkout and of the
+``--parent`` tree into ``build/ab/`` (one ``nvcc`` each, all started together) and
+calls each library's C function directly, on the inputs of the port's main paths:
 
 - histogram, mask mode, 361 bins, N = 2^24: the Cityscapes update's ids and mask
   (``chip_smoke.histogram_inputs``), and a spatially coherent input of the same
@@ -19,7 +20,15 @@ the port's main paths:
   int32 ``sum`` lane at N = 89,137,319, forward, beside ``torch.cumsum``; and a
   plain copy of the two DLRM lanes, the same bytes read once and written once;
 - the host time per call of this checkout's two wrappers, their C calls and
-  ``torch.cumsum`` at N = 1,000, where the device work is negligible.
+  ``torch.cumsum`` at N = 1,000, where the device work is negligible;
+- greedy match (``tm_greedy_match``): the three launches of the COCO 2017 val
+  detection computes of ``chip_smoke.phase_detection`` (5,000 images drawn on the
+  card; the consolidated compute's small bucket 400000 x 16 x 16 and big bucket
+  32 x 64 x 64, the list compute's 524288 x 64 x 64), recorded from one run of each
+  compute; then this checkout's two variants forced (``tm_greedy_match_variant``:
+  0 narrow, 1 warp) on those inputs and on ``chip_smoke.match_case`` inputs of
+  N x 16 x G, G in {16, 32, 64}, N * 40 triples from 1,280 to 1,310,720: the sweep
+  that sets the crossover ``narrow_min_triples`` in the source.
 
 The two versions compute the same function with the same C signature; the older
 histogram expects a zeroed output, so its call zeroes it first (as its wrapper
@@ -37,10 +46,10 @@ import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-NAMES = ("histogram", "segment_scan")
+NAMES = ("histogram", "segment_scan", "greedy_match")
 
 
-def build(trees):
+def build(trees, names=NAMES):
     """nvcc for every (tag, source) at once; returns {(tag, name): ctypes library}."""
     sys.path.insert(0, REPO)
     from metrics_tpu_torch import _build
@@ -49,7 +58,7 @@ def build(trees):
     os.makedirs(out_dir, exist_ok=True)
     jobs = {}
     for tag, root in trees.items():
-        for name in NAMES:
+        for name in names:
             lib = os.path.join(out_dir, f"{tag}_{name}.so")
             src = os.path.join(root, "metrics_tpu_torch", "csrc", f"{name}.cu")
             cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib, src]
@@ -90,6 +99,44 @@ def scan_call(torch, lib, lanes, ops, reverse):
     return run, outs
 
 
+def coco_match_inputs(torch, chip_smoke, seed):
+    """The greedy-match inputs of the COCO 2017 val computes: {label: args}."""
+    from metrics_tpu_torch.ops import greedy_match as gm
+
+    data = chip_smoke.coco_detection_data(torch, seed)
+    recorder = chip_smoke.RecordingMatch(gm.greedy_match_cuda)
+    kernel, gm.greedy_match_cuda = gm.greedy_match_cuda, recorder
+    try:
+        for layout in ("consolidated", "list"):
+            chip_smoke.run_map(torch, data, 0, chip_smoke.COCO_DET["images"], layout)
+    finally:
+        gm.greedy_match_cuda = kernel
+    labels = ("small bucket", "big bucket", "list layout")
+    return {f"greedy match {name} " + "x".join(map(str, args[0].shape)): args
+            for name, args in zip(labels, recorder.calls)}
+
+
+def match_sweep(torch, chip_smoke, lib, coco, seed, reps):
+    """Both variants of this checkout's kernel at each shape: the crossover."""
+    g = torch.Generator(device="cuda").manual_seed(seed + 9)
+    ranges = next(iter(coco.values()))[6]
+    thresholds = next(iter(coco.values()))[5]
+    cases = dict(coco)
+    for width in (16, 32, 64):
+        for n in (32, 128, 512, 1024, 2048, 4096, 8192, 32768):
+            cases[f"match_case {n}x16x{width}"] = (*chip_smoke.match_case(torch, g, n, 16, width), thresholds, ranges)
+    for label, args in cases.items():
+        ms = {}
+        for variant in (0, 1):
+            run, _ = chip_smoke.match_call(torch, lib, args, variant)
+            if run() != 0:
+                raise RuntimeError(f"variant {variant} at {label}: greedy match launch failed")
+            ms[variant] = chip_smoke.event_ms(torch, run, reps=reps, warmup=3)
+        n, _, width = args[0].shape
+        print(json.dumps({"input": f"variant sweep {label}", "triples": n * args[5].shape[0] * args[6].shape[0],
+                          "g": width, "narrow_ms": ms[0], "warp_ms": ms[1]}), flush=True)
+
+
 def host_us(torch, fn, calls: int = 3000) -> float:
     """Host microseconds per ``fn()``: enqueue time, the device left to catch up after."""
     import time
@@ -106,9 +153,11 @@ def host_us(torch, fn, calls: int = 3000) -> float:
 
 
 def compare(torch, chip_smoke, label, calls, reps, extra=None):
-    """calls: {tag: (run, outs)}; times in turns parent, change, change, parent."""
-    for run, _ in calls.values():
-        run()
+    """calls: {tag: (run, outs)}; times in turns parent, change, change, parent. A run
+    that returns a value (the greedy match's CUDA error) fails on any but 0."""
+    for tag, (run, _) in calls.items():
+        if run():
+            raise RuntimeError(f"{label}: the {tag} launch failed")
     torch.cuda.synchronize()
     equal = all(torch.equal(a, b) for a, b in zip(calls["parent"][1], calls["change"][1]))
     turns = {"parent": [], "change": []}
@@ -127,7 +176,11 @@ def main() -> int:
     parser.add_argument("--parent", required=True, help="root of a checkout of the version to compare against")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--reps", type=int, default=30)
+    parser.add_argument("--kernels", default=",".join(NAMES), help="comma-separated names among " + ", ".join(NAMES))
     args = parser.parse_args()
+    names = tuple(args.kernels.split(","))
+    if not set(names) <= set(NAMES):
+        parser.error(f"--kernels takes names among {NAMES}")
 
     import torch
 
@@ -137,21 +190,44 @@ def main() -> int:
     sys.path.insert(0, REPO)
     import chip_smoke
 
-    libs = build({"parent": os.path.abspath(args.parent), "change": REPO})
+    libs = build({"parent": os.path.abspath(args.parent), "change": REPO}, names)
     tags = ("parent", "change")
     g = torch.Generator(device="cuda").manual_seed(args.seed)
+    if "greedy_match" in names:
+        coco = coco_match_inputs(torch, chip_smoke, args.seed)
+        for label, match_args in coco.items():
+            calls = {tag: chip_smoke.match_call(torch, libs[(tag, "greedy_match")], match_args) for tag in tags}
+            compare(torch, chip_smoke, label, calls, args.reps)
+            del calls
+        match_sweep(torch, chip_smoke, libs[("change", "greedy_match")], coco, args.seed, args.reps)
+        del coco
+        torch.cuda.empty_cache()
+    if "histogram" in names:
+        histogram_ab(torch, chip_smoke, libs, tags, g, args.reps)
+    if "segment_scan" in names:
+        scan_ab(torch, chip_smoke, libs, tags, g, args)
+        if "histogram" in names:
+            wrapper_host_times(torch, chip_smoke, libs)
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0])
+    return 0
+
+
+def histogram_ab(torch, chip_smoke, libs, tags, g, reps):
     c = chip_smoke.CITYSCAPES["classes"]
     bins = c * c
-
     logits, target = chip_smoke.cityscapes_batch(torch, g)
     ids, mask = chip_smoke.histogram_inputs(torch, target, logits.argmax(1))
     del logits, target
     coherent = chip_smoke.coherent_histogram_inputs(torch, g)
     for label, (x, m) in (("histogram uniform", (ids, mask)), ("histogram coherent", coherent)):
         calls = {tag: histogram_call(torch, libs[(tag, "histogram")], x, m, bins, tag == "parent") for tag in tags}
-        compare(torch, chip_smoke, label, calls, args.reps, {"n": x.numel(), "bins": bins})
-    del ids, mask, coherent
+        compare(torch, chip_smoke, label, calls, reps, {"n": x.numel(), "bins": bins})
 
+
+def scan_ab(torch, chip_smoke, libs, tags, g, args):
     scores, labels = chip_smoke.dlrm_data(torch, args.seed)
     lanes, _ = chip_smoke.sorted_run_lanes(torch, scores, labels)
     del scores, labels
@@ -174,8 +250,7 @@ def main() -> int:
     print(json.dumps({"input": "copy of the two DLRM lanes", "n": lanes[0].numel(),
                       "event_ms": chip_smoke.event_ms(torch, copy, reps=args.reps, warmup=10),
                       "device_ms_per_call": chip_smoke.device_ms(torch, copy, 10)}), flush=True)
-    del copies
-    del calls, lanes
+    del copies, calls, lanes
 
     m, classes = chip_smoke.IMAGENET["samples"], chip_smoke.IMAGENET["classes"]
     probs = torch.softmax(2.0 * torch.randn((m, classes), generator=g, device="cuda"), dim=1)
@@ -184,11 +259,14 @@ def main() -> int:
     calls = {tag: scan_call(torch, libs[(tag, "segment_scan")], small, ops, True) for tag in tags}
     compare(torch, chip_smoke, "segment scan ImageNet class", calls, 5 * args.reps, {"n": m, "lanes": 2})
 
-    # host time per call where the device work is negligible (N = 1,000): what each
-    # wrapper adds before its launch, against the C call alone and torch.cumsum
+
+def wrapper_host_times(torch, chip_smoke, libs):
+    """Host time per call where the device work is negligible (N = 1,000): what each
+    wrapper adds before its launch, against the C call alone and torch.cumsum."""
     from metrics_tpu_torch.ops.histogram import histogram_cuda
     from metrics_tpu_torch.ops.segment import segment_scan_cuda
 
+    bins = chip_smoke.CITYSCAPES["classes"] ** 2
     x = torch.arange(1000, dtype=torch.int32, device="cuda")
     ones = torch.ones(1000, dtype=torch.bool, device="cuda")
     scan_c, _ = scan_call(torch, libs[("change", "segment_scan")], [x], ("sum",), False)
@@ -200,12 +278,6 @@ def main() -> int:
         "histogram wrapper": host_us(torch, lambda: histogram_cuda(x, ones, bins)),
         "histogram C call": host_us(torch, hist_c),
     }}), flush=True)
-
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0])
-    return 0
 
 
 if __name__ == "__main__":

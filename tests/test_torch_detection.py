@@ -251,12 +251,31 @@ def assert_match_equal(got, want):
         np.testing.assert_array_equal(g, w, err_msg=name)
 
 
-@pytest.mark.parametrize("shape", [(8, 16, 16), (5, 7, 3), (3, 1, 1), (1, 1, 9), (6, 32, 64), (4, 13, 40)],
+@pytest.mark.parametrize("shape", [(8, 16, 16), (5, 7, 3), (3, 1, 1), (1, 1, 9), (6, 32, 64), (4, 13, 40),
+                                   (5, 17, 33), (3, 9, 65)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_plain_greedy_match_bit_equal_to_jax_from_iou(shape):
     iou, d_area, g_area, dv, gv = match_inputs(sum(shape), *shape)
     want = _match_groups_from_iou(*(jnp.asarray(x) for x in (iou, d_area, g_area, dv, gv, THRESHOLDS, AREAS)))
     got = tk._match_groups_from_iou(*(t(x) for x in (iou, d_area, g_area, dv, gv, THRESHOLDS, AREAS)))
+    assert_match_equal(got, want)
+
+
+@pytest.mark.parametrize("other", [35, 36], ids=["same-lane", "next-lane"])
+def test_plain_greedy_match_cross_lane_tie_bit_equal_to_jax(other):
+    """Equal maxima at gt 3 and a gt past the first 32 (one lane of 32 apart, or two):
+    the first wins, as in the scan; a NaN beside another row's maximum leaves it unmatched."""
+    iou, d_area, g_area, dv, gv = match_inputs(7, 4, 6, 65)
+    for g in (3, other):
+        iou[:, :, g] = 0.875
+    gv[:, [3, other]] = True
+    g_area[:, [3, other]] = 500.0
+    iou[1, 2, :] = 0.25
+    iou[1, 2, 5] = np.nan
+    iou[1, 2, 64] = 0.95
+    thresholds = np.array([-0.1, 0.5, 0.75, 1.0], np.float32)
+    want = _match_groups_from_iou(*(jnp.asarray(x) for x in (iou, d_area, g_area, dv, gv, thresholds, AREAS)))
+    got = _plain_greedy_match(*(t(x) for x in (iou, d_area, g_area, dv, gv, thresholds, AREAS)))
     assert_match_equal(got, want)
 
 

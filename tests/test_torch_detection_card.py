@@ -63,6 +63,58 @@ def test_kernel_bit_equal_to_plain_on_card(cuda, shape):
         assert g.dtype == w.dtype and torch.equal(g, w), name
 
 
+def run_variant(args, variant):
+    """The kernel's C entry with its variant forced: 0 narrow (thread per triple), 1 warp."""
+    from metrics_tpu_torch import _build
+
+    n, num_d, num_g = args[0].shape
+    num_t, num_a = args[5].shape[0], args[6].shape[0]
+    matched = torch.empty((n, num_a, num_t, num_d), dtype=torch.bool, device=args[0].device)
+    ignored = torch.empty_like(matched)
+    npig = torch.empty((n, num_a), dtype=torch.int32, device=args[0].device)
+    err = _build.load("greedy_match").tm_greedy_match_variant(
+        *(x.data_ptr() for x in args), n, num_d, num_g, num_t, num_a, matched.data_ptr(), ignored.data_ptr(),
+        npig.data_ptr(), torch.cuda.current_stream().cuda_stream, variant)
+    return err, (matched, ignored, npig)
+
+
+# G at each side of the narrow variant's one and two mask words and of the warp
+# variant's lane words; D not a multiple of 16; n * A * T not a multiple of a block
+VARIANT_SHAPES = [(33, 17, 32), (33, 17, 33), (7, 100, 64), (7, 100, 65), (5, 1, 1024), (3, 17, KERNEL_MAX_G),
+                  (31, 1, 33), (1700, 16, 16), (9, 128, 64), (4, 129, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", VARIANT_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_both_variants_bit_equal_to_plain_on_card(cuda, shape):
+    args = match_inputs(sum(shape) + 1, *shape, thresholds=[-0.1, 0.0, 0.5, 0.75, 1.0])
+    n, _, g = shape
+    if g >= 41:
+        args[0][0, :, 3] = args[0][0, :, 35] = args[0][0, :, 36] = 0.875  # equal maxima across words and lanes
+        args[0][0, :, 40] = 0.875
+        args[4][0, [3, 35, 36, 40]] = True
+        args[2][0, [3, 35, 36, 40]] = 500.0
+    args[0][n - 1, 0, :] = 0.25
+    args[0][n - 1, 0, 5] = float("nan")  # a NaN beside the row's maximum in another lane
+    args[0][n - 1, 0, g - 1] = 0.95
+    args[3][n - 1, 0] = True
+    args[4][n - 1, [5, g - 1]] = True
+    args = [x.to(cuda) for x in args]
+    want = _plain_greedy_match(*args)
+    narrow_takes = g <= 64 and shape[1] <= 128
+    for variant in (0, 1):
+        err, got = run_variant(args, variant)
+        torch.cuda.synchronize()
+        if variant == 0 and not narrow_takes:
+            assert err != 0
+            continue
+        assert err == 0
+        for name, a, b in zip(("det_matched", "det_ignored", "npig"), got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b), (variant, name)
+    for name, a, b in zip(("det_matched", "det_ignored", "npig"), greedy_match_cuda(*args), want):
+        assert torch.equal(a, b), name
+
+
 @pytest.mark.cuda
 def test_kernel_edge_thresholds_and_nan_on_card(cuda):
     args = match_inputs(1, 6, 9, 12, thresholds=[-0.1, 0.0, 0.5, 0.75, 1.0])
