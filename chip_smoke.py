@@ -95,18 +95,22 @@ Phases, each printing one JSON line:
     bools) and RetrievalMAP over the MS MARCO rows, with list states and
     ``cat_capacity=2**23``, built with ``distributed_available_fn=lambda: True`` and
     the gather's collective body as ``dist_sync_fn``, so that every ``compute``
-    runs ``all_gather`` on the card. Checks: synced values bit-equal to unsynced
-    ones; the live states come back bit-equal after each synced compute, a
-    ``CatBuffer`` still a ``CatBuffer``; a second ``sync()`` raises. Timing: one
-    ``sync()`` per metric.
+    runs ``all_gather`` on the card; then PearsonCorrCoef(num_outputs=12) and
+    SpearmanCorrCoef(num_outputs=12) over the QM9 rows of phase 15 (Pearson's moments
+    come back stacked ``(1, 12)`` and merge through ``_final_aggregation``). Checks:
+    synced values bit-equal to unsynced ones; the live states come back bit-equal after
+    each synced compute, a ``CatBuffer`` still a ``CatBuffer``; a second ``sync()``
+    raises. Timing: one ``sync()`` per metric.
 11. sync_ranks: four processes on the one card in a ``gloo`` group (CUDA tensors,
     which gloo stages through the host), spawned after the build; each rank feeds
     its own two Cityscapes batches to the collection and its share of the MS MARCO
     updates (14, 17, 22 and 17 of the 70) to RetrievalMAP with list and
-    ``cat_capacity`` states, and syncs at ``compute``. Every rank's values must equal
-    one process's run on the union in rank order (counts bit-equal, floats within
-    1e-6), its list and ``cat_capacity`` values bit-equal; a rank that outlives the
-    deadline is killed and the phase fails.
+    ``cat_capacity`` states, and its share of the QM9 updates (30, 20, 25 and 25%) to
+    PearsonCorrCoef and SpearmanCorrCoef (12 outputs), and syncs at ``compute``. Every
+    rank's values must equal one process's run on the union in rank order (counts
+    bit-equal, floats within 1e-6, Pearson's merged moments and Spearman within 1e-5),
+    its list and ``cat_capacity`` values bit-equal; a rank that outlives the deadline is
+    killed and the phase fails.
 
 12. classification_rest: the rest of classification at published widths, data drawn on
     the card, one line per configuration (update and compute ms, launches of both
@@ -187,6 +191,31 @@ Phases, each printing one JSON line:
       ``_build_groups`` ms; the consolidated compute's idle share (device busy over the
       same profiled call's wall); the phase's peak of allocated memory.
 
+15. regression_audio: regression and audio at published shapes, data drawn on the card,
+    one line per configuration; every compute's launches counted with the counts at 0
+    just before it:
+    - NYU Depth v2, Eigen test split: 654 depth maps of 480x640 (0.7-10 m, predictions =
+      target x log-normal noise) in updates of 8 maps' pixels through RMSE, AbsRel (MAPE),
+      MSLE, MAE and R2, each within 1e-5 relative of float64 on the whole set; no launch;
+    - QM9 test part (DimeNet's split): 10,831 molecules x 12 targets in updates of 32 through
+      Pearson, Spearman, Kendall (tau-b, and tau-c with the t-test), concordance, explained
+      variance and R2 (raw values), against float64 numpy and scipy's spearmanr and
+      kendalltau (1e-5; Spearman and Kendall 1e-6); exactly 2 scan launches per Spearman
+      compute and 1 ``kendall_pairs`` launch per Kendall compute; again with
+      ``cat_capacity``, bit-equal;
+    - STS-B dev: 1,500 pairs, gold scores on multiples of 0.2: Pearson, Spearman, Kendall
+      a/b/c against float64 (pair counts in numpy, scipy), the tie-run ranks equal to
+      scipy's ``rankdata``;
+    - Libri2Mix test (8 kHz, min, 3,000 mixtures x 2 speakers cut to 4 s; estimates the
+      targets permuted and noised) in updates of 16: PIT on SI-SDR (the drawn permutation
+      undone), SI-SNR, SNR and SDR (filter 512, float64) on the aligned estimates, against
+      float64 (1e-4 dB); SDR on 50 sources within 1e-6 dB of numpy FFT + scipy's
+      ``solve_toeplitz``; STOI of 200 mixtures on the host, card tensors equal to CPU ones;
+      PESQ's ``ModuleNotFoundError``; the SDR update's kernel profile;
+    - the pair-count kernel alone at N = 131,072: bit-equal to its plain version, the
+      closed form on a ramp (8,589,869,056 concordant pairs, past 2^31), event and device
+      ms, the plain ms, the bound (operations), ``-Xptxas -v`` registers and spills.
+
 The last three lines are the ``nvidia-smi`` name and power limit, the kernels JSON
 line and ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
 """
@@ -199,6 +228,12 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
+KERNEL_WRAPPERS = {  # name in the kernels line: (module, wrapper whose ``launches`` counts its kernel)
+    "histogram": ("metrics_tpu_torch.ops.histogram", "histogram_cuda"),
+    "segment_scan": ("metrics_tpu_torch.ops.segment", "segment_scan_cuda"),
+    "greedy_match": ("metrics_tpu_torch.ops.greedy_match", "greedy_match_cuda"),
+    "kendall_pairs": ("metrics_tpu_torch.ops.kendall", "kendall_pairs_cuda"),
+}
 CITYSCAPES = {"classes": 19, "batch": 8, "height": 1024, "width": 2048, "ignore_index": 255}
 UPDATES = 3
 # MLPerf Training DLRM: exact ROC AUC over the Criteo 1TB day-23 evaluation split
@@ -220,6 +255,7 @@ SYNC_RANKS = 4
 RANK_BATCHES = 2  # Cityscapes batches per rank
 MSMARCO_RANK_UPDATES = (14, 17, 22, 17)  # of the 70 updates: 20, 24, 31 and 24% of the rows
 RANKS_DEADLINE_S = 420
+QM9_RANK_SHARES = (0.3, 0.2, 0.25, 0.25)  # of the QM9 updates, in rank order
 SCAN_SIZES = (1, 1000, 1024, 1025, (1 << 24) + 17, DLRM["samples"])
 SCAN_OPS = {1: ("min",), 2: ("min", "min"), 3: ("sum", "min", "max"), 4: ("max", "sum", "min", "sum")}
 
@@ -676,6 +712,25 @@ def device_events(prof) -> dict:
     return totals
 
 
+def kernel_device_ms(torch, fn, key: str, reps: int = 10):
+    """Device ms per ``fn()`` call of the one kernel, named with ``key``, that each call
+    launches. A profile late in a long process sometimes records none or only some of
+    the launches, so a reading counts only when the trace holds all ``reps`` of them:
+    up to three tries, else None."""
+    for _ in range(3):
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA") and key in e.key]
+        if sum(e.count for e in events) == reps:
+            return sum(getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+                       for e in events) / reps / 1e3
+    return None
+
+
 def device_ms(torch, fn, reps: int = 10) -> dict:
     """Device ms per ``fn()`` call of each kernel and memset, by name, from a profiler trace."""
     fn()
@@ -1110,11 +1165,10 @@ def phase_retrieval_timing(torch, runs, batch, calls, smi: str) -> None:
         lanes, flags, ops, reverse, _ = calls[index]
         n, k = lanes[0].numel(), len(lanes)
         call = lambda: segment_scan_cuda(lanes, flags, ops, reverse)  # noqa: E731
-        dev = device_ms(torch, call)
         kernel[label] = {
             "n": n, "lanes": k, "ops": list(ops), "kernel_ms": event_ms(torch, call, warmup=10),
             "kernel_ms_back_to_back": back_to_back_ms(torch, call),
-            "device_ms": sum(v for key, v in dev.items() if "segment_scan" in key), "device_ms_by_name": dev,
+            "device_ms": kernel_device_ms(torch, call, "segment_scan"),
             "plain_ms": event_ms(torch, lambda: _plain_multi_scan(lanes, flags, ops, reverse), reps=5, warmup=1),
             # each int32 lane read once and written once, the bool flag column read once
             "bound_ms": n * (k * 2 * 4 + 1) / HBM_BYTES_PER_S * 1e3,
@@ -1306,8 +1360,7 @@ def phase_sync_nccl(torch, seed: int, batches, collection_values, map_value, smi
     from metrics_tpu_torch.classification import MulticlassExactMatch
     from metrics_tpu_torch.core import MetricCollection
     from metrics_tpu_torch.core.state import CatBuffer
-    from metrics_tpu_torch.ops.histogram import histogram_cuda
-    from metrics_tpu_torch.ops.segment import segment_scan_cuda
+    from metrics_tpu_torch.regression import PearsonCorrCoef, SpearmanCorrCoef
     from metrics_tpu_torch.retrieval import RetrievalMAP
     from metrics_tpu_torch.utils.distributed import all_gather_ragged
     from metrics_tpu_torch.utils.exceptions import MetricsUserError
@@ -1328,9 +1381,13 @@ def phase_sync_nccl(torch, seed: int, batches, collection_values, map_value, smi
                               for kw in (sync, {}))
         msmarco = msmarco_batches(torch, seed)
         maps = {"list": RetrievalMAP(**sync), "cat_capacity": RetrievalMAP(cat_capacity=CAT_CAPACITY, **sync)}
+        qm9 = qm9_data(torch, seed)
+        c12 = qm9[0].shape[1]
+        regs, regs_local = ({"PearsonCorrCoef": PearsonCorrCoef(num_outputs=c12, **kw),
+                             "SpearmanCorrCoef": SpearmanCorrCoef(num_outputs=c12, **kw)} for kw in (sync, {}))
         torch.cuda.synchronize()
 
-        histogram_cuda.launches = segment_scan_cuda.launches = 0  # ---- NCCL sync path starts
+        zero_launches()  # ---- NCCL sync path starts
         t0 = time.perf_counter()
         for logits, target in batches:
             collection.update(logits, target)
@@ -1345,12 +1402,15 @@ def phase_sync_nccl(torch, seed: int, batches, collection_values, map_value, smi
             for metric in maps.values():
                 metric.update(preds, target, indexes=indexes)
         map_values = {kind: synced_compute(torch, m) for kind, m in maps.items()}
+        for i in range(0, QM9["molecules"], QM9["batch"]):
+            for metric in regs.values():
+                metric.update(qm9[0][i:i + QM9["batch"]], qm9[1][i:i + QM9["batch"]])
+        reg_values = {name: synced_compute(torch, m) for name, m in regs.items()}
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = {"histogram": histogram_cuda.launches, "segment_scan": segment_scan_cuda.launches}
+        launches = all_launches()
         # ---- NCCL sync path ends
-        if launches != {"histogram": 2 * UPDATES, "segment_scan": 2}:
-            raise AssertionError(f"NCCL sync path launches {launches}, expected 6 histogram and 2 scan")
+        expect_launches("NCCL sync path", launches, histogram=2 * UPDATES, scan=2 + 2)
 
         for name, value in synced.items():
             if not torch.equal(value, collection_values[name]):
@@ -1365,6 +1425,16 @@ def phase_sync_nccl(torch, seed: int, batches, collection_values, map_value, smi
                 raise AssertionError(f"RetrievalMAP ({kind}) synced {value} vs unsynced {map_value}")
         if not all(isinstance(getattr(maps["cat_capacity"], s), CatBuffer) for s in maps["cat_capacity"]._defaults):
             raise AssertionError("unsync did not restore the CatBuffer states")
+        # Pearson's moments come back stacked (1, 12) and merge; Spearman's cat states gather
+        if regs["PearsonCorrCoef"].mean_x.shape != (c12,):
+            raise AssertionError("the live Pearson moments did not come back unstacked")
+        for i in range(0, QM9["molecules"], QM9["batch"]):
+            for metric in regs_local.values():
+                metric.update(qm9[0][i:i + QM9["batch"]], qm9[1][i:i + QM9["batch"]])
+        for name, value in reg_values.items():
+            local = regs_local[name].compute()
+            if value.shape != (c12,) or not torch.equal(value, local):
+                raise AssertionError(f"{name}: synced {value} vs unsynced {local}")
         member = collection.__getitem__("MulticlassCohenKappa", copy_state=False)
         member.sync()
         try:
@@ -1380,6 +1450,7 @@ def phase_sync_nccl(torch, seed: int, batches, collection_values, map_value, smi
             "collection_sync_ms_per_metric": {type(m).__name__: sync_ms(torch, m) for m in members},
             "exact_match_sync_ms": sync_ms(torch, exact),
             "retrieval_map_sync_ms": {kind: sync_ms(torch, m, reps=3) for kind, m in maps.items()},
+            "qm9_sync_ms": {name: sync_ms(torch, m, reps=3) for name, m in regs.items()},
         }
         timing["collection_sync_ms"] = sum(timing["collection_sync_ms_per_metric"].values())
     finally:
@@ -1388,6 +1459,7 @@ def phase_sync_nccl(torch, seed: int, batches, collection_values, map_value, smi
             os.remove(store)
     emit({"phase": "sync_nccl", "card": smi, "backend": "nccl", "world_size": 1, "rows": sum(b[0].numel() for b in msmarco),
           "launches": launches, "synced_equal_unsynced": True, "retrieval_map": map_values["list"].item(),
+          "qm9_pearson": reg_values["PearsonCorrCoef"].tolist(), "qm9_spearman": reg_values["SpearmanCorrCoef"].tolist(),
           "exact_match_rows": exact_value.numel(), "seconds_incl_updates": seconds, "timing": timing})
     return launches
 
@@ -1400,6 +1472,14 @@ def rank_cityscapes_batches(torch, seed: int, rank: int):
 def rank_msmarco_share(batches, rank: int):
     lo = sum(MSMARCO_RANK_UPDATES[:rank])
     return batches[lo:lo + MSMARCO_RANK_UPDATES[rank]]
+
+
+def rank_qm9_share(qm9, rank: int):
+    """This rank's updates of the QM9 rows: ``QM9_RANK_SHARES`` of the updates, in rank order."""
+    n = QM9["molecules"]
+    starts = list(range(0, n, QM9["batch"]))
+    bounds = [round(sum(QM9_RANK_SHARES[:r]) * len(starts)) for r in range(SYNC_RANKS + 1)]
+    return [(qm9[0][i:i + QM9["batch"]], qm9[1][i:i + QM9["batch"]]) for i in starts[bounds[rank]:bounds[rank + 1]]]
 
 
 def rank_main(rank: int, world: int, store: str, out_dir: str, seed: int) -> None:
@@ -1415,33 +1495,38 @@ def rank_main(rank: int, world: int, store: str, out_dir: str, seed: int) -> Non
     try:
         from metrics_tpu_torch.core import MetricCollection
         from metrics_tpu_torch.core.state import CatBuffer
-        from metrics_tpu_torch.ops.histogram import histogram_cuda
-        from metrics_tpu_torch.ops.segment import segment_scan_cuda
+        from metrics_tpu_torch.regression import PearsonCorrCoef, SpearmanCorrCoef
         from metrics_tpu_torch.retrieval import RetrievalMAP
 
         collection = MetricCollection(collection_metrics("cuda"))
         check_groups(collection)
         maps = {"list": RetrievalMAP(), "cat_capacity": RetrievalMAP(cat_capacity=CAT_CAPACITY)}
+        qm9 = rank_qm9_share(qm9_data(torch, seed), rank)
+        regs = {"PearsonCorrCoef": PearsonCorrCoef(num_outputs=len(QM9["targets"])),
+                "SpearmanCorrCoef": SpearmanCorrCoef(num_outputs=len(QM9["targets"]))}
         batches = rank_cityscapes_batches(torch, seed, rank)
         share = rank_msmarco_share(msmarco_batches(torch, seed), rank)
         torch.cuda.synchronize()
-        histogram_cuda.launches = segment_scan_cuda.launches = 0  # ---- this rank's path starts
+        zero_launches()  # ---- this rank's path starts
         t0 = time.perf_counter()
         for logits, target in batches:
             collection.update(logits, target)
         for preds, target, indexes in share:
             for metric in maps.values():
                 metric.update(preds, target, indexes=indexes)
+        for preds, target in qm9:
+            for metric in regs.values():
+                metric.update(preds, target)
         torch.cuda.synchronize()
         update_s, compute_s = time.perf_counter() - t0, {}
         values = {}
         for name, metric in [*collection.items(keep_base=True, copy_state=False),
-                             *((f"RetrievalMAP/{kind}", m) for kind, m in maps.items())]:
+                             *((f"RetrievalMAP/{kind}", m) for kind, m in maps.items()), *regs.items()]:
             t1 = time.perf_counter()
             values[name] = synced_compute(torch, metric)
             torch.cuda.synchronize()
             compute_s[name] = time.perf_counter() - t1
-        launches = {"histogram": histogram_cuda.launches, "segment_scan": segment_scan_cuda.launches}
+        launches = all_launches()
         # ---- this rank's path ends
         if not all(isinstance(getattr(maps["cat_capacity"], s), CatBuffer) for s in maps["cat_capacity"]._defaults):
             raise AssertionError("unsync did not restore the CatBuffer states")
@@ -1454,13 +1539,14 @@ def rank_main(rank: int, world: int, store: str, out_dir: str, seed: int) -> Non
 
 def phase_sync_ranks(torch, seed: int, smi: str):
     """Four ranks on the one card in a gloo group: each feeds its own Cityscapes
-    batches and MS MARCO share, syncs at ``compute``, and must equal one process
-    run on the union of the data in rank order."""
+    batches and MS MARCO and QM9 shares, syncs at ``compute``, and must equal one
+    process run on the union of the data in rank order."""
     import shutil
 
     import torch.multiprocessing as mp
 
     from metrics_tpu_torch.core import MetricCollection
+    from metrics_tpu_torch.regression import PearsonCorrCoef, SpearmanCorrCoef
     from metrics_tpu_torch.retrieval import RetrievalMAP
 
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "sync", f"ranks-{os.getpid()}")
@@ -1493,8 +1579,15 @@ def phase_sync_ranks(torch, seed: int, smi: str):
     for preds, target, indexes in msmarco_batches(torch, seed):
         reference.update(preds, target, indexes=indexes)
     want["RetrievalMAP"] = reference.compute().cpu()
+    qm9 = qm9_data(torch, seed)
+    for name, make in (("PearsonCorrCoef", PearsonCorrCoef), ("SpearmanCorrCoef", SpearmanCorrCoef)):
+        metric = make(num_outputs=qm9[0].shape[1])
+        for rank in range(SYNC_RANKS):
+            for preds, target in rank_qm9_share(qm9, rank):
+                metric.update(preds, target)
+        want[name] = metric.compute().cpu()
 
-    worst, bit_equal = 0.0, True
+    worst, bit_equal, pearson_worst = 0.0, True, 0.0
     for rank, result in enumerate(results):
         got = result["values"]
         if not torch.equal(got["RetrievalMAP/list"], got["RetrievalMAP/cat_capacity"]):
@@ -1506,16 +1599,21 @@ def phase_sync_ranks(torch, seed: int, smi: str):
                     raise AssertionError(f"rank {rank}: {name} differs from the single-process run on the union")
                 continue
             err = (mine.double() - value.double()).abs().max().item()
+            if name == "PearsonCorrCoef":  # merged moments: 1e-5
+                pearson_worst = max(pearson_worst, err)
+                if mine.shape != value.shape or err > 1e-5:
+                    raise AssertionError(f"rank {rank}: {name} {mine} vs {value} on the union")
+                continue
+            if name == "SpearmanCorrCoef" and not torch.equal(mine, value):  # gathered rows in rank order
+                raise AssertionError(f"rank {rank}: {name} {mine} vs {value} on the union")
             worst, bit_equal = max(worst, err), bit_equal and torch.equal(mine, value)
             if err > 1e-6:
                 raise AssertionError(f"rank {rank}: {name} {mine} vs {value} on the union")
-    launches = {k: sum(r["launches"][k] for r in results) for k in ("histogram", "segment_scan")}
-    expected = {"histogram": SYNC_RANKS * 2 * RANK_BATCHES, "segment_scan": SYNC_RANKS * 2}
-    if launches != expected:
-        raise AssertionError(f"the ranks' launches {launches} differ from {expected}")
+    launches = {k: sum(r["launches"][k] for r in results) for k in results[0]["launches"]}
+    expect_launches("the ranks", launches, histogram=SYNC_RANKS * 2 * RANK_BATCHES, scan=SYNC_RANKS * (2 + 2))
     emit({"phase": "sync_ranks", "card": smi, "backend": "gloo", "world_size": SYNC_RANKS,
           "msmarco_rows_per_rank": [r["rows"] for r in results], "launches": launches,
-          "max_abs_err_vs_union": worst, "bit_equal_to_union": bit_equal,
+          "max_abs_err_vs_union": worst, "bit_equal_to_union": bit_equal, "pearson_max_abs_err_vs_union": pearson_worst,
           "update_s_per_rank": [r["update_s"] for r in results],
           "synced_compute_s_per_rank": [r["compute_s"] for r in results], "seconds_incl_spawn": ranks_s})
     return launches
@@ -1628,7 +1726,7 @@ def histogram_mode_timing(torch, ids, weights, bins: int, library_weights):
     bound_ms = (n * per_row + bins * 4) / HBM_BYTES_PER_S * 1e3
     call = lambda: histogram_cuda(ids, weights, bins)  # noqa: E731
     lib = lambda: torch.bincount(ids, weights=library_weights, minlength=bins)  # noqa: E731
-    dev = sum(v for k, v in device_ms(torch, call).items() if "histogram" in k)
+    dev = kernel_device_ms(torch, call, "histogram")
     return {"n": n, "bins": bins, "kernel_ms": event_ms(torch, call, warmup=10),
             "kernel_ms_back_to_back": back_to_back_ms(torch, call), "device_ms": dev,
             "plain_ms": event_ms(torch, lambda: _plain_bincount(ids, weights, bins), reps=3, warmup=1),
@@ -1636,23 +1734,39 @@ def histogram_mode_timing(torch, ids, weights, bins: int, library_weights):
             "kernel_share_of_bound": bound_ms / dev if dev else None, "max_abs_err": max_abs_err}
 
 
-def run_counted(torch, fn):
-    """``fn()`` with both launch counts set to 0 just before and read just after."""
-    from metrics_tpu_torch.ops.histogram import histogram_cuda
-    from metrics_tpu_torch.ops.segment import segment_scan_cuda
+def kernel_wrappers() -> dict:
+    """Each hand kernel's wrapper, by its name in the kernels line."""
+    import importlib
 
+    return {name: getattr(importlib.import_module(module), attr) for name, (module, attr) in KERNEL_WRAPPERS.items()}
+
+
+def all_launches() -> dict:
+    """The launch count of every kernel wrapper."""
+    return {name: wrapper.launches for name, wrapper in kernel_wrappers().items()}
+
+
+def zero_launches() -> None:
+    for wrapper in kernel_wrappers().values():
+        wrapper.launches = 0
+
+
+def run_counted(torch, fn):
+    """``fn()`` with every launch count set to 0 just before and read just after."""
     torch.cuda.synchronize()
-    histogram_cuda.launches = segment_scan_cuda.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    return out, {"histogram": histogram_cuda.launches, "segment_scan": segment_scan_cuda.launches}, seconds
+    return out, all_launches(), seconds
 
 
-def expect_launches(label: str, got: dict, histogram: int, scan: int) -> None:
-    if got != {"histogram": histogram, "segment_scan": scan}:
-        raise AssertionError(f"{label}: launches {got}, expected {histogram} histogram and {scan} scan")
+def expect_launches(label: str, got: dict, histogram: int = 0, scan: int = 0, greedy: int = 0,
+                    kendall: int = 0) -> None:
+    want = {"histogram": histogram, "segment_scan": scan, "greedy_match": greedy, "kendall_pairs": kendall}
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, expected {want}")
 
 
 def rest_dlrm(torch, seed: int, smi: str):
@@ -2983,11 +3097,7 @@ def match_timing(torch, args, label: str, plain_slices: int = 1) -> dict:
         parts = [_plain_greedy_match(*(x[i:i + step] for x in args[:5]), *args[5:])
                  for i in range(0, args[0].shape[0], step)]
         return tuple(torch.cat(p) for p in zip(*parts))
-    dev = None
-    for _ in range(3):  # a profile late in a long process sometimes records no kernel: None if none does
-        dev = sum(v for k, v in device_ms(torch, call).items() if "greedy_match" in k) or None
-        if dev:
-            break
+    dev = kernel_device_ms(torch, call, "greedy_match")
     bound_ms = match_bytes(args[0], args[3], args[4], args[5], args[6]) / HBM_BYTES_PER_S * 1e3
     out = {"shape": label, "kernel_ms": event_ms(torch, call, warmup=5), "device_ms": dev,
            "kernel_ms_back_to_back": back_to_back_ms(torch, call), "bound_ms": bound_ms,
@@ -3036,7 +3146,6 @@ def phase_detection(torch, seed: int, smi: str):
     from metrics_tpu_torch.functional.detection._mean_ap_device import plan_buckets
     from metrics_tpu_torch.ops import greedy_match as gm
     from metrics_tpu_torch.ops.greedy_match import greedy_match_cuda
-    from metrics_tpu_torch.ops.histogram import histogram_cuda
 
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
@@ -3063,10 +3172,10 @@ def phase_detection(torch, seed: int, smi: str):
           "big_groups": len(big_pairs), "d_big": d_big, "g_big": g_big})
 
     # ---- the main path, with the launch counts at 0 just before and read just after
+    torch.cuda.synchronize()
+    zero_launches()  # before the recorder stands in for the wrapper in its module
     recorder = RecordingMatch(greedy_match_cuda)
     gm.greedy_match_cuda = recorder
-    torch.cuda.synchronize()
-    histogram_cuda.launches = greedy_match_cuda.launches = 0
     t0 = time.perf_counter()
     try:
         runs = {"consolidated": run_map(torch, data, 0, B, "consolidated")}
@@ -3087,13 +3196,13 @@ def phase_detection(torch, seed: int, smi: str):
     finally:
         gm.greedy_match_cuda = greedy_match_cuda
     drive_s = time.perf_counter() - t0
-    launches = {"greedy_match": greedy_match_cuda.launches, "histogram": histogram_cuda.launches}
+    launches = all_launches()
     per_compute = {name: run[4] for name, run in runs.items()}
     for name, got in per_compute.items():
         if got != (2 if name.startswith("consolidated") else 1):
             raise AssertionError(f"{name}: {got} greedy-match launches in its compute")
-    if launches != {"greedy_match": sum(per_compute.values()), "histogram": 2 * sub["panoptic"]}:
-        raise AssertionError(f"detection launches {launches}, per compute {per_compute}")
+    expect_launches(f"detection (per compute {per_compute})", launches, histogram=2 * sub["panoptic"],
+                    greedy=sum(per_compute.values()))
 
     # ---- checks
     checks = {"consolidated_vs_list": map_max_diff(runs["consolidated"][1], runs["list"][1]),
@@ -3221,6 +3330,589 @@ def phase_detection(torch, seed: int, smi: str):
     }, launches["histogram"]
 
 
+# ------------------------------------------------------------------ regression_audio
+
+# NYU Depth v2, Eigen test split (monocular-depth evaluation): 654 depth maps of 480x640
+# in metres, capped at 10 m; predictions = target x log-normal noise; updates of 8 maps
+NYU = {"maps": 654, "height": 480, "width": 640, "batch": 8, "min_m": 0.7, "max_m": 10.0, "log_sigma": 0.1}
+# QM9, DimeNet's split, test part: 10,831 molecules x the 12 targets (mu, alpha, homo,
+# lumo, gap, r2, zpve, U0, U, H, G, Cv), each at its dataset mean and spread; updates of 32
+QM9 = {"molecules": 10_831, "batch": 32, "noise": 0.1, "cat_capacity": 16_384,
+       "targets": ((2.7, 1.5), (75.2, 8.2), (-0.24, 0.022), (0.012, 0.047), (0.25, 0.047), (1190.0, 280.0),
+                   (0.149, 0.033), (-411.5, 40.1), (-411.5, 40.1), (-411.5, 40.1), (-411.5, 40.1), (31.6, 4.1))}
+# STS-B dev (sentence-similarity evaluation): 1,500 pairs, gold scores on multiples of 0.2
+# in [0, 5]; predictions a model's cosine similarities; updates of 64
+STSB = {"pairs": 1_500, "batch": 64, "step": 0.2, "noise": 0.15}
+# Kendall's kernel alone: random values, and preds = target = arange (concordant past 2^31)
+KENDALL_ALONE = {"rows": 131_072}
+# Libri2Mix test, 8 kHz, min mode (two-speaker separation): 3,000 mixtures x 2 speakers,
+# cut to 4 s; estimates = the targets with their speakers permuted, plus noise; updates of 16
+LIBRI2MIX = {"mixtures": 3_000, "speakers": 2, "samples": 32_000, "fs": 8_000, "batch": 16, "noise": 0.25,
+             "sdr_filter": 512, "sdr_seconds": 30.0, "sdr_reference_sources": 50, "stoi_mixtures": 200}
+# H100 SXM float32 peak outside the tensor cores (NVIDIA data sheet), the bound's rate on
+# purpose: it counts an FMA as two operations, so a lone subtraction issues at half of it
+F32_PEAK_OPS_PER_S = 67e12
+NYU_REL = 1e-5  # each error metric against float64 on the whole set, relative
+QM9_ATOL = 1e-5  # correlations, explained variance and R2 against float64 (float32 running sums)
+TAU_ATOL = 1e-6  # Kendall and Spearman (exact counts and ranks, float32 results) against float64
+SDR_ATOL_DB = 1e-6  # the card's float64 SDR against numpy FFT + scipy solve_toeplitz
+SNR_ATOL_DB = 1e-4  # SNR, SI-SNR, SI-SDR (float32 sums) against float64
+
+
+def counted_computes(torch, metrics: dict) -> tuple:
+    """Each metric's ``compute`` with every launch count at 0 just before it and read just
+    after: the values and the launches of each kernel in each."""
+    values, launches = {}, {}
+    for name, metric in metrics.items():
+        torch.cuda.synchronize()
+        zero_launches()
+        values[name] = metric.compute()
+        torch.cuda.synchronize()
+        launches[name] = all_launches()
+    return values, launches
+
+
+def nyu_data(torch, seed: int):
+    g = torch.Generator(device="cuda").manual_seed(seed + 400)
+    shape = (NYU["maps"], NYU["height"], NYU["width"])
+    target = NYU["min_m"] + (NYU["max_m"] - NYU["min_m"]) * torch.rand(shape, generator=g, device="cuda")
+    preds = target * torch.exp(NYU["log_sigma"] * torch.randn(shape, generator=g, device="cuda"))
+    return preds, target
+
+
+def nyu_reference(torch, preds, target) -> dict:
+    """RMSE, AbsRel (MAPE), MSLE, MAE and R2 over the whole set, in float64 on the card."""
+    sums = dict.fromkeys(("se", "ape", "sle", "ae", "t", "t2"), 0.0)
+    for i in range(0, preds.shape[0], NYU["batch"]):
+        p, t = preds[i:i + NYU["batch"]].double(), target[i:i + NYU["batch"]].double()
+        sums["se"] += float(((p - t) ** 2).sum())
+        sums["ape"] += float(((p - t).abs() / t.abs()).sum())
+        sums["sle"] += float(((torch.log1p(p) - torch.log1p(t)) ** 2).sum())
+        sums["ae"] += float((p - t).abs().sum())
+        sums["t"] += float(t.sum())
+        sums["t2"] += float((t * t).sum())
+    n = preds.numel()
+    tss = sums["t2"] - sums["t"] ** 2 / n
+    return {"MeanSquaredError": (sums["se"] / n) ** 0.5, "MeanAbsolutePercentageError": sums["ape"] / n,
+            "MeanSquaredLogError": sums["sle"] / n, "MeanAbsoluteError": sums["ae"] / n,
+            "R2Score": 1 - sums["se"] / tss}
+
+
+def nyu_metrics(device="cuda"):
+    from metrics_tpu_torch.regression import (
+        MeanAbsoluteError,
+        MeanAbsolutePercentageError,
+        MeanSquaredError,
+        MeanSquaredLogError,
+        R2Score,
+    )
+
+    return {"MeanSquaredError": lambda: MeanSquaredError(squared=False, device=device),
+            "MeanAbsolutePercentageError": lambda: MeanAbsolutePercentageError(device=device),
+            "MeanSquaredLogError": lambda: MeanSquaredLogError(device=device),
+            "MeanAbsoluteError": lambda: MeanAbsoluteError(device=device),
+            "R2Score": lambda: R2Score(device=device)}
+
+
+def ra_nyu(torch, seed: int, smi: str) -> dict:
+    """NYU Depth v2's Eigen test split through five error metrics; no kernel launches."""
+    preds, target = nyu_data(torch, seed)
+    makers = nyu_metrics()
+    metrics = {name: make() for name, make in makers.items()}
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    for i in range(0, NYU["maps"], NYU["batch"]):  # each update: the batch's pixels, flattened
+        for metric in metrics.values():
+            metric.update(preds[i:i + NYU["batch"]].reshape(-1), target[i:i + NYU["batch"]].reshape(-1))
+    values = {name: float(m.compute()) for name, m in metrics.items()}
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = all_launches()
+    if any(launches.values()):
+        raise AssertionError(f"NYU evaluation launched {launches}; no hand kernel is on its path")
+    want = nyu_reference(torch, preds, target)
+    rel = {name: abs(values[name] - want[name]) / abs(want[name]) for name in want}
+    for name, err in rel.items():
+        if not err <= NYU_REL:
+            raise AssertionError(f"NYU {name}: {values[name]} vs float64 {want[name]} (relative {err})")
+    batch = (preds[:NYU["batch"]].reshape(-1), target[:NYU["batch"]].reshape(-1))
+    update_ms = {name: event_ms(torch, lambda m=make(): m.update(*batch), reps=10) for name, make in makers.items()}
+    emit({"phase": "regression_audio", "config": "nyu_depth_v2", "nvidia_smi": smi, "maps": NYU["maps"],
+          "pixels": preds.numel(), "values": values, "float64": want, "max_rel_err": max(rel.values()),
+          "rel_tol": NYU_REL, "update_ms_batch_8": update_ms, "seconds_incl_updates": seconds, "launches": launches})
+    return launches
+
+
+def qm9_data(torch, seed: int, device="cuda"):
+    g = torch.Generator(device=device).manual_seed(seed + 500)
+    n = QM9["molecules"]
+    loc = torch.tensor([m for m, _ in QM9["targets"]], device=device)
+    scale = torch.tensor([s for _, s in QM9["targets"]], device=device)
+    target = loc + scale * torch.randn(n, len(loc), generator=g, device=device)
+    preds = target + QM9["noise"] * scale * torch.randn(n, len(loc), generator=g, device=device)
+    return preds, target
+
+
+def qm9_metrics(num_outputs: int, device="cuda", **cat):
+    from metrics_tpu_torch.regression import (
+        ConcordanceCorrCoef,
+        ExplainedVariance,
+        KendallRankCorrCoef,
+        PearsonCorrCoef,
+        R2Score,
+        SpearmanCorrCoef,
+    )
+
+    return {
+        "PearsonCorrCoef": PearsonCorrCoef(num_outputs=num_outputs, device=device),
+        "SpearmanCorrCoef": SpearmanCorrCoef(num_outputs=num_outputs, device=device, **cat),
+        "KendallRankCorrCoef_b": KendallRankCorrCoef(num_outputs=num_outputs, device=device, **cat),
+        "KendallRankCorrCoef_c_t_test": KendallRankCorrCoef(variant="c", t_test=True, num_outputs=num_outputs,
+                                                            device=device, **cat),
+        "ConcordanceCorrCoef": ConcordanceCorrCoef(num_outputs=num_outputs, device=device),
+        "ExplainedVariance": ExplainedVariance(multioutput="raw_values", device=device),
+        "R2Score": R2Score(num_outputs=num_outputs, multioutput="raw_values", device=device),
+    }
+
+
+def kendall_p_reference(np, tau, n: int):
+    """The JAX package's normal-approximation two-sided p-value, float64 (scipy's norm)."""
+    from scipy.stats import norm
+
+    z = np.asarray(tau, np.float64) / np.sqrt((2 * (2 * n + 5)) / (9 * n * (n - 1)))
+    return 2 * norm.sf(np.abs(z))
+
+
+def correlation_references(np, x, y) -> dict:
+    """Float64 references of every column of x, y (N, C): numpy, scipy's spearmanr and kendalltau."""
+    from scipy.stats import kendalltau, spearmanr
+
+    cols = range(x.shape[1])
+    mx, my = x.mean(0), y.mean(0)
+    vx, vy = x.var(0, ddof=1), y.var(0, ddof=1)
+    cov = ((x - mx) * (y - my)).sum(0) / (len(x) - 1)
+    pearson = cov / np.sqrt(vx * vy)
+    tau_c = np.array([kendalltau(x[:, j], y[:, j], variant="c")[0] for j in cols])
+    resid = y - x
+    ev_num = resid.var(0)
+    return {
+        "PearsonCorrCoef": pearson,
+        "SpearmanCorrCoef": np.array([spearmanr(x[:, j], y[:, j])[0] for j in cols]),
+        "KendallRankCorrCoef_b": np.array([kendalltau(x[:, j], y[:, j])[0] for j in cols]),
+        "KendallRankCorrCoef_c_t_test": (tau_c, kendall_p_reference(np, tau_c, len(x))),
+        "ConcordanceCorrCoef": 2 * cov / (vx + vy + (mx - my) ** 2),
+        "ExplainedVariance": 1 - ev_num / y.var(0),
+        "R2Score": 1 - (resid ** 2).sum(0) / ((y - my) ** 2).sum(0),
+    }
+
+
+def max_err(np, got, want) -> float:
+    if isinstance(want, tuple):
+        return max(max_err(np, g, w) for g, w in zip(got, want))
+    got = got.double().cpu().numpy() if hasattr(got, "cpu") else np.asarray(got, np.float64)
+    return float(np.max(np.abs(got - np.asarray(want, np.float64))))
+
+
+def qm9_kernel_timing(torch, preds, target) -> dict:
+    """The launches of a QM9 compute timed alone: Spearman's two scans over the packed
+    (24 columns x 10,831 rows) positions against the plain version, ``torch.cummin`` and
+    the bound; Kendall's pair kernel over the 12 columns against the plain version and
+    the bound. Outputs held equal to the plain versions'."""
+    from metrics_tpu_torch.ops.kendall import _plain_pair_counts, kendall_pairs_cuda
+    from metrics_tpu_torch.ops.rank import _tie_runs
+    from metrics_tpu_torch.ops.segment import _plain_multi_scan, segment_scan_cuda
+
+    _, _, new_run, is_last, pos = _tie_runs(torch.cat([preds, target], 1))
+    n = pos.numel()
+    scans = {}
+    for name, flags, op, reverse in (("forward_min", new_run, "min", False), ("reverse_max", is_last, "max", True)):
+        call = lambda f=flags, o=op, r=reverse: segment_scan_cuda((pos,), f, (o,), r)  # noqa: E731
+        if not torch.equal(call()[0], _plain_multi_scan((pos,), flags, (op,), reverse)[0]):
+            raise AssertionError(f"segment scan kernel != plain on Spearman's {name} lane")
+        dev = kernel_device_ms(torch, call, "segment_scan")
+        bound = (4 + 1 + 4) * n / HBM_BYTES_PER_S * 1e3  # position in, flag in, run bound out
+        scans[name] = {"rows": n, "kernel_ms": event_ms(torch, call), "kernel_ms_back_to_back": back_to_back_ms(torch, call),
+                       "device_ms": dev, "bound_ms": bound, "kernel_share_of_bound": bound / dev if dev else None,
+                       "plain_ms": event_ms(torch, lambda f=flags, o=op, r=reverse: _plain_multi_scan((pos,), f, (o,), r),
+                                            reps=5, warmup=1),
+                       "torch_cummin_ms": event_ms(torch, lambda: torch.cummin(pos, 0))}
+    call = lambda: kendall_pairs_cuda(preds, target)  # noqa: E731
+    got, want = call(), _plain_pair_counts(preds, target)
+    if not torch.equal(got, want):
+        raise AssertionError("kendall pairs kernel != plain at the QM9 shape")
+    m, c = preds.shape
+    dev = kernel_device_ms(torch, call, "kendall")
+    bound = max(2 * m * (m - 1) / 2 * c / F32_PEAK_OPS_PER_S, (8 * m * c + 32 * c) / HBM_BYTES_PER_S) * 1e3
+    pairs = {"rows": m, "columns": c, "max_abs_err": (got - want).abs().max().item(),
+             "kernel_ms": event_ms(torch, call), "device_ms": dev, "bound_ms": bound,
+             "kernel_share_of_bound": bound / dev if dev else None,
+             "plain_ms": event_ms(torch, lambda: _plain_pair_counts(preds, target), reps=3, warmup=1)}
+    return {"spearman_scans": scans, "kendall_pairs": pairs}
+
+
+def ra_qm9(torch, seed: int, smi: str) -> tuple:
+    """QM9's test part through the correlations (Spearman on the scan, Kendall on the pair
+    kernel, exact launches per compute), with list and cat_capacity states. Returns the
+    launches and the pair kernel's largest difference from its plain version."""
+    import numpy as np
+
+    preds, target = qm9_data(torch, seed)
+    c = preds.shape[1]
+    runs, launches, seconds = {}, {}, {}
+    for kind, cat in (("list", {}), ("cat_capacity", {"cat_capacity": QM9["cat_capacity"]})):
+        metrics = qm9_metrics(c, **cat)
+        if cat:
+            metrics = {k: v for k, v in metrics.items() if "Spearman" in k or "Kendall" in k}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(0, QM9["molecules"], QM9["batch"]):
+            for metric in metrics.values():
+                metric.update(preds[i:i + QM9["batch"]], target[i:i + QM9["batch"]])
+        torch.cuda.synchronize()
+        seconds[kind] = time.perf_counter() - t0
+        runs[kind], launches[kind] = counted_computes(torch, metrics)
+        runs[kind + "_metrics"] = metrics
+    for kind in ("list", "cat_capacity"):
+        for name, got in launches[kind].items():
+            expect_launches(f"QM9 {kind} {name}", got, scan=2 if "Spearman" in name else 0,
+                            kendall=1 if "Kendall" in name else 0)
+        if kind == "cat_capacity":
+            for name, value in runs[kind].items():
+                same = all(torch.equal(a, b) for a, b in zip(value, runs["list"][name])) if isinstance(value, tuple) \
+                    else torch.equal(value, runs["list"][name])
+                if not same:
+                    raise AssertionError(f"QM9 {name}: cat_capacity {value} vs list {runs['list'][name]}")
+    want = correlation_references(np, preds.double().cpu().numpy(), target.double().cpu().numpy())
+    errs = {name: max_err(np, runs["list"][name], w) for name, w in want.items()}
+    for name, err in errs.items():
+        tol = TAU_ATOL if ("Kendall" in name or "Spearman" in name) else QM9_ATOL
+        if not err <= tol:
+            raise AssertionError(f"QM9 {name}: {runs['list'][name]} vs float64 {want[name]} (max |err| {err})")
+    compute_ms = {name: compute_timing(torch, m)["ms"] for name, m in runs["list_metrics"].items()}
+    compute_ms.update({f"{name}/cat_capacity": compute_timing(torch, m)["ms"]
+                       for name, m in runs["cat_capacity_metrics"].items()})
+    kernels = qm9_kernel_timing(torch, preds, target)
+    total = {k: sum(sum(v[k] for v in launches[kind].values()) for kind in launches)
+             for k in ("segment_scan", "kendall_pairs")}
+    emit({"phase": "regression_audio", "config": "qm9", "nvidia_smi": smi, "molecules": QM9["molecules"],
+          "targets": c, "values": {k: (v.tolist() if not isinstance(v, tuple) else [x.tolist() for x in v])
+                                   for k, v in runs["list"].items()},
+          "max_abs_err_vs_float64": errs, "atol": {"correlations": QM9_ATOL, "ranks": TAU_ATOL},
+          "launches_per_compute": launches["list"], "cat_capacity_bit_equal": True, "compute_ms": compute_ms,
+          "kernels_at_this_shape": kernels,
+          "update_seconds": seconds, "launches": total})
+    return total, kernels["kendall_pairs"]["max_abs_err"]
+
+
+def stsb_data(torch, seed: int):
+    g = torch.Generator(device="cuda").manual_seed(seed + 600)
+    n, step = STSB["pairs"], STSB["step"]
+    latent = 5 * torch.rand(n, generator=g, device="cuda")
+    gold = torch.round(latent / step) * step
+    preds = (latent / 5 + STSB["noise"] * torch.randn(n, generator=g, device="cuda")).clamp(-1, 1)
+    return preds, gold
+
+
+def pair_count_reference(np, x, y):
+    """Concordant, discordant, x-tied and y-tied pairs in float64 numpy (all pairs i < j)."""
+    dx = np.sign(x[:, None] - x[None, :])
+    dy = np.sign(y[:, None] - y[None, :])
+    iu = np.triu_indices(len(x), k=1)
+    dx, dy = dx[iu], dy[iu]
+    return (int(((dx * dy) > 0).sum()), int(((dx * dy) < 0).sum()), int((dx == 0).sum()), int((dy == 0).sum()))
+
+
+def ra_stsb(torch, seed: int, smi: str) -> tuple:
+    """STS-B dev: Pearson, Spearman and Kendall a/b/c on gold scores with many ties; the
+    tie-run ranks against scipy's rankdata, the pair counts against numpy's and the plain
+    version's. Returns the launches and the pair kernel's largest difference from its
+    plain version."""
+    import numpy as np
+    from scipy.stats import kendalltau, pearsonr, rankdata, spearmanr
+
+    from metrics_tpu_torch.ops.kendall import _plain_pair_counts, kendall_pairs_cuda
+    from metrics_tpu_torch.ops.rank import average_ranks
+    from metrics_tpu_torch.regression import KendallRankCorrCoef, PearsonCorrCoef, SpearmanCorrCoef
+
+    preds, gold = stsb_data(torch, seed)
+    metrics = {"PearsonCorrCoef": PearsonCorrCoef(), "SpearmanCorrCoef": SpearmanCorrCoef(),
+               **{f"KendallRankCorrCoef_{v}": KendallRankCorrCoef(variant=v) for v in "abc"}}
+    for i in range(0, STSB["pairs"], STSB["batch"]):
+        for metric in metrics.values():
+            metric.update(preds[i:i + STSB["batch"]], gold[i:i + STSB["batch"]])
+    values, launches = counted_computes(torch, metrics)
+    for name, got in launches.items():
+        expect_launches(f"STS-B {name}", got, scan=2 if "Spearman" in name else 0,
+                        kendall=1 if "Kendall" in name else 0)
+
+    x, y = preds.double().cpu().numpy(), gold.double().cpu().numpy()
+    ranks = average_ranks(torch.stack([preds, gold], 1)).cpu().numpy()
+    if not (np.array_equal(ranks[:, 0], rankdata(x)) and np.array_equal(ranks[:, 1], rankdata(y))):
+        raise AssertionError("STS-B tie-run ranks differ from scipy's rankdata(method='average')")
+    con, dis, tx, ty = pair_count_reference(np, x, y)  # float64 differences of float32 values: same signs
+    counts, plain = kendall_pairs_cuda(preds, gold), _plain_pair_counts(preds, gold)
+    if counts.tolist() != [[con, dis, tx, ty]] or not torch.equal(counts, plain):
+        raise AssertionError(f"STS-B pair counts: kernel {counts.tolist()}, plain {plain.tolist()}, "
+                             f"numpy {[con, dis, tx, ty]}")
+    pairs_err = (counts - plain).abs().max().item()
+    n_pairs = len(x) * (len(x) - 1) / 2
+    want = {"PearsonCorrCoef": pearsonr(x, y)[0], "SpearmanCorrCoef": spearmanr(x, y)[0],
+            "KendallRankCorrCoef_a": (con - dis) / n_pairs, "KendallRankCorrCoef_b": kendalltau(x, y)[0],
+            "KendallRankCorrCoef_c": kendalltau(x, y, variant="c")[0]}
+    errs = {name: abs(float(values[name]) - float(w)) for name, w in want.items()}
+    for name, err in errs.items():
+        if not err <= (QM9_ATOL if name == "PearsonCorrCoef" else TAU_ATOL):
+            raise AssertionError(f"STS-B {name}: {float(values[name])} vs float64 {want[name]} (|err| {err})")
+    total = {k: sum(v[k] for v in launches.values()) for k in ("segment_scan", "kendall_pairs")}
+    emit({"phase": "regression_audio", "config": "stsb", "nvidia_smi": smi, "pairs": STSB["pairs"],
+          "gold_tie_runs": int(len(np.unique(y))), "values": {k: float(v) for k, v in values.items()},
+          "max_abs_err_vs_float64": errs, "ranks_equal_rankdata": True, "pair_counts": [con, dis, tx, ty],
+          "pair_counts_equal_numpy_and_plain": True, "launches_per_compute": launches, "launches": total})
+    return total, pairs_err
+
+
+def ptxas_report(name: str) -> dict:
+    """Registers, spills and shared memory of each kernel of one source, from ``-Xptxas -v``."""
+    import re
+
+    from metrics_tpu_torch import _build
+
+    out = os.path.join(str(_build.BUILD_DIR), f"ptxas-{name}.cubin")
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    proc = subprocess.run([_build._nvcc(), *flags, "-cubin", "-Xptxas", "-v", "-o", out,
+                           str(_build.KERNEL_SOURCES[name])], capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"nvcc -Xptxas -v of {name} failed:\n{proc.stderr}")
+    text = proc.stderr + proc.stdout
+    return {"registers": [int(r) for r in re.findall(r"Used (\d+) registers", text)],
+            "spill_stores_bytes": [int(s) for s in re.findall(r"(\d+) bytes spill stores", text)],
+            "spill_loads_bytes": [int(s) for s in re.findall(r"(\d+) bytes spill loads", text)],
+            "smem_bytes": [int(s) for s in re.findall(r"(\d+) bytes smem", text)]}
+
+
+def ra_kendall_kernel(torch, seed: int, smi: str) -> dict:
+    """The pair-count kernel alone at N = 131,072: bit-equal to its plain version on
+    random values, the closed form past 2^31 on a ramp, its times against the bound."""
+    from metrics_tpu_torch.ops.kendall import _plain_pair_counts, kendall_pairs_cuda
+
+    n = KENDALL_ALONE["rows"]
+    g = torch.Generator(device="cuda").manual_seed(seed + 700)
+    x = torch.randn(n, generator=g, device="cuda")
+    y = x + torch.randn(n, generator=g, device="cuda")
+    got, want = kendall_pairs_cuda(x, y), _plain_pair_counts(x, y)
+    if not torch.equal(got, want):
+        raise AssertionError(f"kendall pairs kernel {got.tolist()} != plain {want.tolist()}")
+    ramp = torch.arange(n, device="cuda", dtype=torch.float32)
+    on_ramp = kendall_pairs_cuda(ramp, ramp)
+    closed = on_ramp.tolist()
+    if closed != [[n * (n - 1) // 2, 0, 0, 0]]:  # 8,589,869,056 concordant pairs at N = 131,072
+        raise AssertionError(f"kendall pairs kernel on a ramp: {closed}")
+    err = max((got - want).abs().max().item(),
+              (on_ramp - torch.tensor([[n * (n - 1) // 2, 0, 0, 0]], device="cuda")).abs().max().item())
+    call = lambda: kendall_pairs_cuda(x, y)  # noqa: E731
+    dev = kernel_device_ms(torch, call, "kendall")
+    ops_ms = 2 * (n * (n - 1) / 2) / F32_PEAK_OPS_PER_S * 1e3
+    bytes_ms = (8 * n + 32) / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    out = {"rows": n, "columns": 1, "counts": got.tolist()[0], "max_abs_err": err, "closed_form_concordant": closed[0][0],
+           "closed_form_past_2_to_31": closed[0][0] > (1 << 31),
+           "kernel_ms": event_ms(torch, call, reps=10), "device_ms": dev,
+           "plain_ms": event_ms(torch, lambda: _plain_pair_counts(x, y), reps=3, warmup=1), "bound_ms": bound_ms,
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "ops_bound_ms": ops_ms,
+           "bytes_bound_ms": bytes_ms, "ops_bound_ms_at_subtraction_issue_rate": 2 * ops_ms,
+           "kernel_share_of_bound": bound_ms / dev if dev else None,
+           "ptxas": ptxas_report("kendall_pairs")}
+    emit({"phase": "regression_audio", "config": "kendall_kernel", "nvidia_smi": smi, **out})
+    return out
+
+
+def libri2mix_data(torch, seed: int):
+    g = torch.Generator(device="cuda").manual_seed(seed + 800)
+    m, s, t = LIBRI2MIX["mixtures"], LIBRI2MIX["speakers"], LIBRI2MIX["samples"]
+    # speech-like sources: noise through a slowly varying envelope
+    env = torch.rand(m, s, t // 400 + 1, generator=g, device="cuda").repeat_interleave(400, dim=-1)[..., :t]
+    target = env * torch.randn(m, s, t, generator=g, device="cuda")
+    perm = torch.stack([torch.randperm(s, generator=g, device="cuda") for _ in range(m)])
+    estimates = torch.take_along_dim(target, perm[:, :, None], dim=1)
+    estimates = estimates + LIBRI2MIX["noise"] * env * torch.randn(m, s, t, generator=g, device="cuda")
+    return estimates, target, perm
+
+
+def sdr_reference(np, preds, target, filter_length: int):
+    """SDR in dB of each (source, estimate) row in float64 numpy: FFT correlations and
+    scipy's Levinson solve of the Toeplitz system."""
+    from scipy.linalg import solve_toeplitz
+
+    out = []
+    for p, t in zip(preds, target):
+        t = t / max(np.linalg.norm(t), 1e-6)
+        p = p / max(np.linalg.norm(p), 1e-6)
+        n_fft = 1 << int(np.ceil(np.log2(len(p) + len(t) - 1)))
+        t_fft = np.fft.rfft(t, n=n_fft)
+        r_0 = np.fft.irfft(np.abs(t_fft) ** 2, n=n_fft)[:filter_length]
+        b = np.fft.irfft(np.conj(t_fft) * np.fft.rfft(p, n=n_fft), n=n_fft)[:filter_length]
+        coh = b @ solve_toeplitz(r_0, b)
+        out.append(10 * np.log10(coh / (1 - coh)))
+    return np.asarray(out)
+
+
+def ra_libri2mix(torch, seed: int, smi: str) -> dict:
+    """Libri2Mix test (8 kHz, min, 4 s): PIT on SI-SDR, SI-SNR, SNR and SDR on the aligned
+    estimates, SDR against a float64 host reference, STOI on the host, PESQ's gate."""
+    import numpy as np
+
+    from metrics_tpu_torch.audio import (
+        PerceptualEvaluationSpeechQuality,
+        PermutationInvariantTraining,
+        ScaleInvariantSignalNoiseRatio,
+        ShortTimeObjectiveIntelligibility,
+        SignalDistortionRatio,
+        SignalNoiseRatio,
+    )
+    from metrics_tpu_torch.functional.audio import (
+        permutation_invariant_training,
+        pit_permutate,
+        scale_invariant_signal_distortion_ratio,
+        short_time_objective_intelligibility,
+        signal_noise_ratio,
+    )
+
+    estimates, target, perm = libri2mix_data(torch, seed)
+    m, b = LIBRI2MIX["mixtures"], LIBRI2MIX["batch"]
+    makers = {"PermutationInvariantTraining": lambda: PermutationInvariantTraining(
+                  scale_invariant_signal_distortion_ratio, "max"),
+              "ScaleInvariantSignalNoiseRatio": ScaleInvariantSignalNoiseRatio, "SignalNoiseRatio": SignalNoiseRatio}
+    metrics = {name: make() for name, make in makers.items()}
+    sdr = SignalDistortionRatio(filter_length=LIBRI2MIX["sdr_filter"])
+    aligned_all, sdr_mixtures = [], 0
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    for i in range(0, m, b):
+        est, tgt = estimates[i:i + b], target[i:i + b]
+        metrics["PermutationInvariantTraining"].update(est, tgt)
+        _, best = permutation_invariant_training(est, tgt, scale_invariant_signal_distortion_ratio, "max")
+        aligned = pit_permutate(est, best)
+        aligned_all.append(aligned)
+        metrics["ScaleInvariantSignalNoiseRatio"].update(aligned, tgt)
+        metrics["SignalNoiseRatio"].update(aligned, tgt)
+    torch.cuda.synchronize()
+    t_sdr = time.perf_counter()
+    for i in range(0, m, b):
+        if time.perf_counter() - t_sdr > LIBRI2MIX["sdr_seconds"]:
+            break  # a listed subset: the mixtures before the limit
+        sdr.update(aligned_all[i // b], target[i:i + b])
+        sdr_mixtures = min(m, i + b)
+    values = {name: float(metric.compute()) for name, metric in metrics.items()}
+    values["SignalDistortionRatio"] = float(sdr.compute())
+    torch.cuda.synchronize()
+    seconds = {"pit_snr": t_sdr - t0, "sdr": time.perf_counter() - t_sdr}
+    launches = all_launches()
+    if any(launches.values()):
+        raise AssertionError(f"Libri2Mix evaluation launched {launches}; no hand kernel is on its path")
+    aligned = torch.cat(aligned_all)
+    del aligned_all
+
+    # checks: the permutation found is the one drawn; SNRs against float64; SDR against the host
+    inverse = torch.argsort(perm, dim=1)
+    _, best = permutation_invariant_training(estimates[:b], target[:b], scale_invariant_signal_distortion_ratio)
+    if not torch.equal(torch.take_along_dim(perm[:b], best, dim=1),
+                       torch.arange(LIBRI2MIX["speakers"], device="cuda").expand(b, -1)):
+        raise AssertionError("PIT did not undo the drawn speaker permutation")
+    if not torch.equal(aligned, torch.take_along_dim(estimates, inverse[:, :, None], dim=1)):
+        raise AssertionError("the PIT-aligned estimates are not the drawn permutation undone")
+    p64, t64 = aligned.double(), target.double()
+    want = {"SignalNoiseRatio": float(signal_noise_ratio(p64, t64).mean()),
+            "ScaleInvariantSignalNoiseRatio": float(scale_invariant_signal_distortion_ratio(p64, t64, True).mean()),
+            "PermutationInvariantTraining": float(scale_invariant_signal_distortion_ratio(p64, t64).mean())}
+    errs = {name: abs(values[name] - w) for name, w in want.items()}
+    for name, err in errs.items():
+        if not err <= SNR_ATOL_DB:
+            raise AssertionError(f"Libri2Mix {name}: {values[name]} vs float64 {want[name]} dB (|err| {err})")
+    k = LIBRI2MIX["sdr_reference_sources"]
+    rows_p = aligned.reshape(-1, aligned.shape[-1])[:k]
+    rows_t = target.reshape(-1, target.shape[-1])[:k]
+    from metrics_tpu_torch.functional.audio import signal_distortion_ratio
+
+    card_sdr = signal_distortion_ratio(rows_p.double(), rows_t.double(), filter_length=LIBRI2MIX["sdr_filter"])
+    host_sdr = sdr_reference(np, rows_p.double().cpu().numpy(), rows_t.double().cpu().numpy(), LIBRI2MIX["sdr_filter"])
+    sdr_err = float(np.max(np.abs(card_sdr.cpu().numpy() - host_sdr)))
+    if not sdr_err <= SDR_ATOL_DB:
+        raise AssertionError(f"Libri2Mix SDR on the card vs numpy/scipy float64: max |err| {sdr_err} dB")
+
+    # STOI on the host, from card and from CPU tensors; the class on the first tenth
+    s = LIBRI2MIX["stoi_mixtures"]
+    t1 = time.perf_counter()
+    card_stoi = short_time_objective_intelligibility(aligned[:s], target[:s], LIBRI2MIX["fs"])
+    stoi_s = time.perf_counter() - t1
+    cpu_stoi = short_time_objective_intelligibility(aligned[:s].cpu(), target[:s].cpu(), LIBRI2MIX["fs"])
+    if card_stoi.device.type != "cuda" or not torch.equal(card_stoi.cpu(), cpu_stoi):
+        raise AssertionError("STOI of card tensors differs from STOI of CPU tensors")
+    stoi = ShortTimeObjectiveIntelligibility(LIBRI2MIX["fs"])
+    stoi.update(aligned[:s // 10], target[:s // 10])
+    stoi_value = float(stoi.compute())
+    if abs(stoi_value - float(card_stoi[:s // 10].double().mean())) > 1e-6:
+        raise AssertionError(f"STOI class {stoi_value} vs the mean of its mixtures' values")
+    try:
+        PerceptualEvaluationSpeechQuality(LIBRI2MIX["fs"], "nb")
+    except ModuleNotFoundError as err:
+        pesq_error = str(err)
+    else:
+        raise AssertionError("PESQ built without the `pesq` package")
+
+    batch = (estimates[:b], target[:b])
+    aligned_batch = (aligned[:b], target[:b])
+    update_ms = {"PermutationInvariantTraining": event_ms(torch, lambda mm=makers["PermutationInvariantTraining"]():
+                                                          mm.update(*batch), reps=10)}
+    for name in ("ScaleInvariantSignalNoiseRatio", "SignalNoiseRatio"):
+        update_ms[name] = event_ms(torch, lambda mm=makers[name](): mm.update(*aligned_batch), reps=10)
+    fresh_sdr = SignalDistortionRatio(filter_length=LIBRI2MIX["sdr_filter"])
+    update_ms["SignalDistortionRatio"] = event_ms(torch, lambda: fresh_sdr.update(*aligned_batch), reps=5, warmup=1)
+    sdr_profile = profile_groups(torch, lambda: fresh_sdr.update(*aligned_batch))
+    emit({"phase": "regression_audio", "config": "libri2mix", "nvidia_smi": smi, "mixtures": m,
+          "samples": LIBRI2MIX["samples"], "sdr_mixtures": sdr_mixtures, "values": values, "float64": want,
+          "max_abs_err_db": errs, "sdr_max_abs_err_db_vs_host": sdr_err, "stoi_mean": float(card_stoi.mean()),
+          "stoi_class_first_tenth": stoi_value, "stoi_mixtures": s, "stoi_seconds": stoi_s, "stoi_card_equals_cpu": True, "pesq_error": pesq_error,
+          "update_ms_batch_16": update_ms, "sdr_update_profile": sdr_profile, "seconds": seconds,
+          "launches": launches})
+    return launches
+
+
+def phase_regression_audio(torch, seed: int, smi: str):
+    """Regression and audio at published shapes: NYU Depth v2, QM9, STS-B, Libri2Mix, and
+    Kendall's pair kernel alone. Returns the main path's scan and pair-kernel launches
+    and the pair kernel's line of the kernels JSON."""
+    t0 = time.perf_counter()
+    launches = {"segment_scan": 0, "kendall_pairs": 0}
+    nyu = ra_nyu(torch, seed, smi)
+    torch.cuda.empty_cache()
+    (qm9, qm9_err), (stsb, stsb_err) = ra_qm9(torch, seed, smi), ra_stsb(torch, seed, smi)
+    for counted in (qm9, stsb, nyu):
+        for key in launches:
+            launches[key] += counted[key]
+    libri = ra_libri2mix(torch, seed, smi)
+    torch.cuda.empty_cache()
+    for key in launches:
+        launches[key] += libri[key]
+    alone = ra_kendall_kernel(torch, seed, smi)
+    emit({"phase": "regression_audio", "config": "all", "launches": launches,
+          "seconds": time.perf_counter() - t0})
+    return launches, {
+        "name": "kendall_pairs",
+        "route": "cuda",
+        "source": "metrics_tpu_torch/csrc/kendall_pairs.cu",
+        "replaces": "metrics_tpu/functional/regression/kendall.py:17 (_kendall_stats_1d; XLA, no Pallas kernel)",
+        "launches": launches["kendall_pairs"],
+        "max_abs_err": max(qm9_err, stsb_err, alone["max_abs_err"]),
+        "ms": alone["kernel_ms"],
+        "plain_ms": alone["plain_ms"],
+        "bound_ms": alone["bound_ms"],
+        "bound_by": alone["bound_by"],
+        "library_ms": None,
+    }
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3268,6 +3960,10 @@ def main() -> int:
     match, detection_histogram = phase_detection(torch, args.seed, smi)
     kernels[0]["launches"] += detection_histogram
     kernels.append(match)
+    torch.cuda.empty_cache()
+    regression_audio, kendall = phase_regression_audio(torch, args.seed, smi)
+    scan["launches"] += regression_audio["segment_scan"]
+    kernels.append(kendall)
 
     print(smi)
     emit({"kernels": kernels})

@@ -9,10 +9,19 @@ families: the classification classes, ``MetricCollection``, ``CompositionalMetri
 the aggregators and ``functional``; the retrieval classes through shims that warn
 (``FutureWarning``) as the JAX package's do; the image classes as the JAX root does
 (FID, KID, IS and PSNRB directly, the others through warning shims); the detection
-classes as the JAX root does (the panoptic two through warning shims). Families not
-ported yet, and LPIPS, are absent.
+classes as the JAX root does (the panoptic two through warning shims); the regression
+classes, and the audio classes as the JAX root does (PESQ and STOI directly, the other
+five through warning shims). Families not ported yet, and LPIPS, are absent.
 """
 from metrics_tpu_torch import functional
+from metrics_tpu_torch.audio import PerceptualEvaluationSpeechQuality, ShortTimeObjectiveIntelligibility
+from metrics_tpu_torch.audio._deprecated import (
+    _PermutationInvariantTraining as PermutationInvariantTraining,
+    _ScaleInvariantSignalDistortionRatio as ScaleInvariantSignalDistortionRatio,
+    _ScaleInvariantSignalNoiseRatio as ScaleInvariantSignalNoiseRatio,
+    _SignalDistortionRatio as SignalDistortionRatio,
+    _SignalNoiseRatio as SignalNoiseRatio,
+)
 from metrics_tpu_torch.classification import (
     AUROC,
     ROC,
@@ -98,6 +107,25 @@ from metrics_tpu_torch.image._deprecated import (
     _TotalVariation as TotalVariation,
     _UniversalImageQualityIndex as UniversalImageQualityIndex,
 )
+from metrics_tpu_torch.regression import (
+    ConcordanceCorrCoef,
+    CosineSimilarity,
+    ExplainedVariance,
+    KendallRankCorrCoef,
+    KLDivergence,
+    LogCoshError,
+    MeanAbsoluteError,
+    MeanAbsolutePercentageError,
+    MeanSquaredError,
+    MeanSquaredLogError,
+    MinkowskiDistance,
+    PearsonCorrCoef,
+    R2Score,
+    SpearmanCorrCoef,
+    SymmetricMeanAbsolutePercentageError,
+    TweedieDevianceScore,
+    WeightedMeanAbsolutePercentageError,
+)
 from metrics_tpu_torch.retrieval._deprecated import (
     _RetrievalFallOut as RetrievalFallOut,
     _RetrievalHitRate as RetrievalHitRate,
@@ -133,4 +161,11 @@ __all__ = [
     "RetrievalRecallAtFixedPrecision", "RootMeanSquaredErrorUsingSlidingWindow", "SpectralAngleMapper",
     "SpectralDistortionIndex", "Specificity", "StatScores", "StructuralSimilarityIndexMeasure", "SumMetric",
     "TotalVariation", "UniversalImageQualityIndex", "functional",
+    # regression and audio
+    "ConcordanceCorrCoef", "CosineSimilarity", "ExplainedVariance", "KLDivergence", "KendallRankCorrCoef",
+    "LogCoshError", "MeanAbsoluteError", "MeanAbsolutePercentageError", "MeanSquaredError", "MeanSquaredLogError",
+    "MinkowskiDistance", "PearsonCorrCoef", "PerceptualEvaluationSpeechQuality", "PermutationInvariantTraining",
+    "R2Score", "ScaleInvariantSignalDistortionRatio", "ScaleInvariantSignalNoiseRatio",
+    "ShortTimeObjectiveIntelligibility", "SignalDistortionRatio", "SignalNoiseRatio", "SpearmanCorrCoef",
+    "SymmetricMeanAbsolutePercentageError", "TweedieDevianceScore", "WeightedMeanAbsolutePercentageError",
 ]

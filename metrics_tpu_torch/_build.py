@@ -25,6 +25,7 @@ KERNEL_SOURCES = {
     "histogram": CSRC_DIR / "histogram.cu",
     "segment_scan": CSRC_DIR / "segment_scan.cu",
     "greedy_match": CSRC_DIR / "greedy_match.cu",
+    "kendall_pairs": CSRC_DIR / "kendall_pairs.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
 _PTR, _INT, _LONG = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -44,6 +45,9 @@ SIGNATURES = {
     "greedy_match": {
         "tm_greedy_match": ([_PTR] * 7 + [_LONG, _INT, _INT, _INT, _INT] + [_PTR] * 4, _INT),
         "tm_greedy_match_variant": ([_PTR] * 7 + [_LONG, _INT, _INT, _INT, _INT] + [_PTR] * 4 + [_INT], _INT),
+    },
+    "kendall_pairs": {
+        "tm_kendall_pairs": ([_PTR, _PTR, _LONG, _INT, _PTR, _PTR], _INT),
     },
 }
 

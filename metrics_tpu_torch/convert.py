@@ -13,7 +13,8 @@ keys are ``"<name>.<state>"``: each compute group's state is loaded once, into i
 leader, and shared with the members again.
 
 A state with ``dist_reduce_fx=None`` may come stacked, as a sync leaves it (a leading
-process axis, e.g. FID's ``(k, D)`` means); FID's lazily sized moments are sized from
+process axis, e.g. FID's ``(k, D)`` means, or Pearson's six ``(k, num_outputs)``
+moments, which ``compute`` merges); FID's lazily sized moments are sized from
 the incoming ones, and the sliding-window maps of RASE and RMSE-SW take the shape they
 come with.
 

@@ -1,11 +1,24 @@
-"""Functional entry points of metrics_tpu_torch: every classification functional, the
-pairwise functions, PSNRB and the four box-IoU functionals, and the retrieval, the other
-image and the two panoptic functionals through root shims that warn (as in
-``metrics_tpu.functional``); ``metrics_tpu_torch.functional.retrieval``, ``.image`` and
-``.detection`` give them silently.
+"""Functional entry points of metrics_tpu_torch: every classification and regression
+functional, the pairwise functions, PSNRB, the four box-IoU functionals, PESQ and STOI,
+and the retrieval, the other image, the two panoptic and the other six audio functionals
+through root shims that warn (as in ``metrics_tpu.functional``);
+``metrics_tpu_torch.functional.retrieval``, ``.image``, ``.detection`` and ``.audio``
+give them silently.
 """
 from metrics_tpu_torch.functional.classification import *  # noqa: F401,F403
 from metrics_tpu_torch.functional.classification import __all__ as _classification_all
+from metrics_tpu_torch.functional.audio import (
+    perceptual_evaluation_speech_quality,
+    short_time_objective_intelligibility,
+)
+from metrics_tpu_torch.functional.audio._deprecated import (
+    _permutation_invariant_training as permutation_invariant_training,
+    _pit_permutate as pit_permutate,
+    _scale_invariant_signal_distortion_ratio as scale_invariant_signal_distortion_ratio,
+    _scale_invariant_signal_noise_ratio as scale_invariant_signal_noise_ratio,
+    _signal_distortion_ratio as signal_distortion_ratio,
+    _signal_noise_ratio as signal_noise_ratio,
+)
 from metrics_tpu_torch.functional.detection import (
     complete_intersection_over_union,
     distance_intersection_over_union,
@@ -37,6 +50,8 @@ from metrics_tpu_torch.functional.pairwise import (
     pairwise_manhattan_distance,
     pairwise_minkowski_distance,
 )
+from metrics_tpu_torch.functional.regression import *  # noqa: F401,F403
+from metrics_tpu_torch.functional.regression import __all__ as _regression_all
 from metrics_tpu_torch.functional.retrieval._deprecated import (
     _retrieval_average_precision as retrieval_average_precision,
     _retrieval_fall_out as retrieval_fall_out,
@@ -49,7 +64,15 @@ from metrics_tpu_torch.functional.retrieval._deprecated import (
     _retrieval_reciprocal_rank as retrieval_reciprocal_rank,
 )
 
-__all__ = _classification_all + [
+__all__ = _classification_all + _regression_all + [
+    "perceptual_evaluation_speech_quality",
+    "permutation_invariant_training",
+    "pit_permutate",
+    "scale_invariant_signal_distortion_ratio",
+    "scale_invariant_signal_noise_ratio",
+    "short_time_objective_intelligibility",
+    "signal_distortion_ratio",
+    "signal_noise_ratio",
     "complete_intersection_over_union",
     "distance_intersection_over_union",
     "generalized_intersection_over_union",

@@ -19,6 +19,10 @@ sort of ``ops/clf_curve.py``, the correctness reference. ``force_tier`` pins one
 Since the retrieval slice, also ``ranked_targets`` and ``stable_front_pack``
 (:457-469), on :func:`descending_sort_key`, the key of XLA's float sort comparator.
 
+Since the regression slice, also :func:`average_ranks`, the tie-averaged ranks of
+Spearman's correlation (``metrics_tpu/functional/regression/spearman.py:_rank_data``)
+for every column at once, on the segmented scan.
+
 Not in this slice: the bucket-histogram machinery and the sketch tier (:235-451),
 ``record_dispatch`` and ``rank_scope``.
 """
@@ -159,3 +163,61 @@ def stable_front_pack(mask: Tensor, *cols: Tensor) -> Tuple[Tensor, ...]:
     dropped = torch.cumsum(~mask, 0)
     dest = torch.where(mask, kept - 1, kept[-1:] + dropped - 1)
     return tuple(torch.empty_like(c).index_copy_(0, dest, c) for c in cols)
+
+
+# --------------------------------------------------------- tie-averaged ranks
+
+
+def _ascending_total_key(x: Tensor) -> Tensor:
+    """int32 keys whose signed order is the ascending order of float32 ``x``, as XLA's
+    sort comparator orders it (``lax._float_to_int_for_sort``): ±0.0 share 0's key and
+    every NaN takes the largest key, after +inf. Denormals keep keys of their own."""
+    x = x.to(torch.float32).contiguous()
+    bits = x.view(torch.int32)
+    key = torch.where(bits < 0, bits ^ _INT32_MAX, bits)  # negatives: flip the magnitude bits
+    key = torch.where(x == 0, 0, key)
+    return torch.where(torch.isnan(x), _INT32_MAX, key)
+
+
+def _tie_runs(x: Tensor) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """The sorted packed keys of the columns of ``x`` ``(N, C)``, the sort's order, the
+    tie-run start and end flags and the row positions that :func:`average_ranks` scans."""
+    n, c = x.shape
+    total = n * c
+    key = _ascending_total_key(x.t().reshape(-1))  # column-major: row i of column j at j * n + i
+    col = torch.arange(c, dtype=torch.int64, device=x.device).repeat_interleave(n)
+    skey, order = torch.sort(col * (1 << 32) + (key.to(torch.int64) - _INT32_MIN), stable=True)
+    new_run = torch.ones(total, dtype=torch.bool, device=x.device)
+    new_run[1:] = (skey[1:] != skey[:-1]) | ((skey[1:] & 0xFFFFFFFF) == _INT32_MAX - _INT32_MIN)  # NaN
+    is_last = torch.ones_like(new_run)
+    is_last[:-1] = new_run[1:]
+    pos = torch.arange(total, dtype=torch.int32 if total < (1 << 31) else torch.int64, device=x.device)
+    return skey, order, new_run, is_last, pos
+
+
+def average_ranks(x: Tensor) -> Tensor:
+    """1-based tie-averaged ranks of every column of ``x`` ``(N, C)``, as float64 ``(N, C)``.
+
+    Ties are the JAX package's: adjacent sorted float32 values with ``a != b`` False,
+    so ±0.0 form one run and each NaN (sorted last, in row order) a run of its own.
+    One stable sort of packed (column, value key) int64 keys orders all C columns;
+    tie-run starts (a column start is one) flag a forward ``min`` scan of the row
+    position, which gives each run's first position, and run ends a reverse ``max``
+    scan, which gives its last: two :func:`~metrics_tpu_torch.ops.segment.segment_multi_scan`
+    launches on the card whatever C. A rank is ``(first + last) / 2 + 1`` less the
+    column's offset, exact in float64 (the JAX package sums ranks in float32, exact
+    while a run's sum stays below 2^24).
+    """
+    from metrics_tpu_torch.ops.segment import segment_multi_scan
+
+    n, c = x.shape
+    if n * c == 0:
+        return torch.empty((n, c), dtype=torch.float64, device=x.device)
+    skey, order, new_run, is_last, pos = _tie_runs(x)
+    (first,) = segment_multi_scan((pos,), new_run, ops=("min",))
+    (last,) = segment_multi_scan((pos,), is_last, ops=("max",), reverse=True)
+    offset = (skey >> 32) * n
+    ranked = (first.to(torch.float64) + last.to(torch.float64)) / 2 + 1 - offset.to(torch.float64)
+    ranks = torch.empty(n * c, dtype=torch.float64, device=x.device)
+    ranks[order] = ranked
+    return ranks.view(c, n).t()

@@ -97,3 +97,9 @@ def _check_retrieval_target_and_prediction_types(
     if not allow_non_binary_target and bool(_non_binary(target)):
         raise ValueError("`target` must contain `binary` values")
     return preds.reshape(-1).to(torch.float32), _as_target(target).reshape(-1)
+
+
+def _as_float(x: Tensor) -> Tensor:
+    """A float tensor that keeps a floating input's dtype (bf16, f16, f32, f64); any
+    other input becomes float32, as ``metrics_tpu/utils/checks.py:_as_float``."""
+    return x if x.is_floating_point() else x.to(torch.float32)

@@ -20,6 +20,14 @@ def _safe_divide(num: Tensor, denom: Tensor) -> Tensor:
     return torch.where(zero, torch.zeros((), dtype=dtype, device=num.device), num / torch.where(zero, 1, denom))
 
 
+def _safe_xlogy(x: Tensor, y: Tensor) -> Tensor:
+    """``x * log(y)`` with ``x == 0 -> 0`` even where ``y`` is 0 or inf (counterpart of
+    ``metrics_tpu/utils/compute.py:_safe_xlogy``)."""
+    zero = x == 0
+    res = x * torch.log(torch.where(zero, torch.ones_like(y), y))
+    return torch.where(zero, torch.zeros_like(res), res)
+
+
 @contextmanager
 def fp32_exact() -> Iterator[None]:
     """Run float32 convolutions and matmuls in full float32 inside the block.

@@ -23,7 +23,12 @@
   ``ops/greedy_match.py``, the rank side of its sync test and its checks on the card)
   is in both scans; its classes and its functionals given numpy inputs raise without
   a card unless given ``device=``, and a CPU mAP compute, in both layouts, leaves the
-  greedy-match launch count at 0 without ``nvcc``.
+  greedy-match launch count at 0 without ``nvcc``;
+- the regression and audio slice (``regression/``, ``functional/regression/``,
+  ``audio/``, ``functional/audio/``, ``ops/kendall.py``, ``utils/imports.py``) is in
+  both scans; its classes and its functionals given numpy inputs raise without a card
+  unless given ``device=``, and a CPU Spearman and Kendall compute leaves every
+  kernel's launch count at 0 without ``nvcc``.
 """
 import ast
 import os
@@ -77,6 +82,15 @@ REQUIRED_MODULES = (
                                                               "_panoptic_quality_common", "panoptic_qualities",
                                                               "_deprecated")),
     "metrics_tpu_torch.detection", "metrics_tpu_torch.functional.detection", "metrics_tpu_torch.ops.greedy_match",
+    # regression and audio, the Kendall kernel and their shims
+    *(f"metrics_tpu_torch.{kind}.{m}" for kind in ("regression", "functional.regression")
+      for m in ("concordance", "cosine_similarity", "explained_variance", "kendall", "kl_divergence", "log_cosh",
+                "log_mse", "mae", "mape", "minkowski", "mse", "pearson", "r2", "spearman", "symmetric_mape",
+                "tweedie_deviance", "wmape")),
+    *(f"metrics_tpu_torch.{kind}.{m}" for kind in ("audio", "functional.audio")
+      for m in ("pesq", "pit", "sdr", "snr", "stoi", "_deprecated")),
+    "metrics_tpu_torch.regression", "metrics_tpu_torch.functional.regression", "metrics_tpu_torch.audio",
+    "metrics_tpu_torch.functional.audio", "metrics_tpu_torch.ops.kendall", "metrics_tpu_torch.utils.imports",
 )
 
 
@@ -315,6 +329,55 @@ def test_cpu_map_compute_launches_no_greedy_match_kernel():
         "pq.update(torch.tensor([[[0, 0], [6, 0]]]), torch.tensor([[[0, 0], [6, 0]]]))\n"
         "assert float(pq.compute()) == 1.0\n"
         "assert greedy_match.greedy_match_cuda.launches == 0 and histogram.histogram_cuda.launches == 0\n"
+        "print('ok')\n"
+    )
+    env = {"PATH": "/usr/bin:/bin", "PYTHONPATH": str(REPO), "HOME": os.environ.get("HOME", "/tmp")}
+    result = subprocess.run(
+        [sys.executable, "-c", code], cwd=str(REPO), env=env, capture_output=True, text=True, timeout=300
+    )
+    assert result.returncode == 0, result.stderr
+    assert result.stdout.strip() == "ok"
+
+
+def test_regression_and_audio_without_device_raise_when_cuda_is_absent(monkeypatch):
+    from metrics_tpu_torch import audio as ta
+    from metrics_tpu_torch import regression as tr
+    from metrics_tpu_torch.functional import audio as tfa
+    from metrics_tpu_torch.functional import regression as tfr
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = {"MinkowskiDistance": (2,), "PermutationInvariantTraining": (tfa.signal_noise_ratio,),
+            "ShortTimeObjectiveIntelligibility": (8000,), "PerceptualEvaluationSpeechQuality": (8000, "nb")}
+    for name in tr.__all__ + ta.__all__:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            getattr(tr if name in tr.__all__ else ta, name)(*args.get(name, ()))
+    x = np.random.RandomState(0).rand(2, 3, 40).astype(np.float32)
+    extra = {"minkowski_distance": (2,), "permutation_invariant_training": (tfa.signal_noise_ratio,),
+             "short_time_objective_intelligibility": (8000,), "perceptual_evaluation_speech_quality": (8000, "nb")}
+    for module, name in [(tfr, n) for n in tfr.__all__] + [(tfa, n) for n in tfa.__all__]:
+        if name == "perceptual_evaluation_speech_quality":
+            continue  # raises for the missing package before it reads its inputs
+        inputs = (x[0], x[0]) if module is tfr else (x, x)
+        if name == "pit_permutate":
+            inputs = (x, np.zeros((2, 3), np.int64))
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            getattr(module, name)(*inputs, *extra.get(name, ()))
+
+
+def test_cpu_spearman_and_kendall_compute_launch_no_kernel():
+    code = (
+        "import numpy as np, torch\n"
+        "from metrics_tpu_torch.ops import greedy_match, histogram, kendall, segment\n"
+        "from metrics_tpu_torch.regression import KendallRankCorrCoef, PearsonCorrCoef, SpearmanCorrCoef\n"
+        "rng = np.random.RandomState(0)\n"
+        "p, t = rng.rand(64, 3).astype(np.float32), rng.rand(64, 3).astype(np.float32)\n"
+        "for m in (SpearmanCorrCoef(num_outputs=3, device='cpu'), KendallRankCorrCoef(num_outputs=3, device='cpu'),\n"
+        "          KendallRankCorrCoef(num_outputs=3, variant='c', t_test=True, cat_capacity=128, device='cpu'),\n"
+        "          PearsonCorrCoef(num_outputs=3, device='cpu')):\n"
+        "    m.update(torch.from_numpy(p), torch.from_numpy(t))\n"
+        "    m.compute()\n"
+        "assert (kendall.kendall_pairs_cuda.launches, segment.segment_scan_cuda.launches,\n"
+        "        histogram.histogram_cuda.launches, greedy_match.greedy_match_cuda.launches) == (0, 0, 0, 0)\n"
         "print('ok')\n"
     )
     env = {"PATH": "/usr/bin:/bin", "PYTHONPATH": str(REPO), "HOME": os.environ.get("HOME", "/tmp")}

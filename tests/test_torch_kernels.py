@@ -1,4 +1,5 @@
-"""The hand-written CUDA kernels against their plain PyTorch versions, on the card.
+"""The hand-written CUDA kernels against their plain PyTorch versions, on the card
+(the histogram, the segmented scan and its uses, Kendall's pair counts).
 
 Every test here needs a CUDA card and nvcc (the kernels have no CPU mode): each is
 marked ``cuda`` and skips elsewhere. The file imports neither JAX nor metrics_tpu,
@@ -320,3 +321,72 @@ def test_calibration_and_fairness_on_card_match_cpu(cuda):
     for name in ("tp", "fp", "tn", "fn"):
         assert torch.equal(getattr(fair, name).cpu(), getattr(fair_cpu, name))
     assert histogram.histogram_cuda.launches == before + 3 * 3 + 1
+
+
+# ------------------------------------------------------------- Kendall's pair counts
+
+
+def _kendall_columns(cuda, g, n, c, kind):
+    if kind == "continuous":
+        x = torch.randn(n, c, generator=g, device=cuda)
+        y = x + 0.5 * torch.randn(n, c, generator=g, device=cuda)
+    else:  # ties, signed zeros, infinities and NaNs
+        x = torch.randint(-3, 4, (n, c), generator=g, device=cuda).float()
+        y = torch.randint(-2, 3, (n, c), generator=g, device=cuda).float()
+        pick = torch.rand(n, c, generator=g, device=cuda)
+        x = torch.where(pick < 0.02, float("nan"), torch.where(pick > 0.97, float("inf"), x))
+        y = torch.where(pick > 0.99, float("-inf"), torch.where((pick > 0.5) & (pick < 0.52), -0.0, y))
+    return x, y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["continuous", "special"])
+@pytest.mark.parametrize("n,c", [(1, 1), (2, 1), (1023, 1), (1024, 2), (1025, 3), (5000, 12), (10_831, 12)])
+def test_kendall_pairs_matches_plain_on_card(cuda, n, c, kind):
+    from metrics_tpu_torch.ops import kendall
+
+    g = torch.Generator(device=cuda).manual_seed(n + c)
+    x, y = _kendall_columns(cuda, g, n, c, kind)
+    before = kendall.kendall_pairs_cuda.launches
+    got = kendall.pair_counts(x, y)
+    assert kendall.kendall_pairs_cuda.launches == before + 1
+    assert got.dtype == torch.int64 and torch.equal(got, kendall._plain_pair_counts(x, y))
+
+
+@pytest.mark.cuda
+def test_kendall_pairs_closed_form_past_2_to_the_31_on_card(cuda):
+    """preds = target = arange(131,072): every pair concordant, N (N - 1) / 2 of them."""
+    from metrics_tpu_torch.ops import kendall
+
+    n = 131_072
+    ramp = torch.arange(n, device=cuda, dtype=torch.float32)
+    got = kendall.kendall_pairs_cuda(ramp, ramp)
+    assert got.tolist() == [[n * (n - 1) // 2, 0, 0, 0]] and n * (n - 1) // 2 == 8_589_869_056
+    assert kendall.kendall_pairs_cuda(ramp, -ramp).tolist() == [[0, n * (n - 1) // 2, 0, 0]]
+
+
+@pytest.mark.cuda
+def test_kendall_pairs_wrapper_checks(cuda):
+    from metrics_tpu_torch.ops import kendall
+
+    x = torch.zeros(10, device=cuda)
+    with pytest.raises(ValueError):
+        kendall.kendall_pairs_cuda(x.cpu(), x.cpu())
+    with pytest.raises(ValueError):
+        kendall.kendall_pairs_cuda(x, x[:9])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c", [(7, 1), (10_831, 24), ((1 << 20) + 3, 2)])
+def test_average_ranks_on_card_match_cpu(cuda, n, c):
+    """Spearman's tie-run ranks: two scan launches on the card, equal to the CPU's plain scans."""
+    from metrics_tpu_torch.ops.rank import average_ranks
+
+    g = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randint(0, max(2, n // 50), (n, c), generator=g, device=cuda).float()
+    x[::13] = -0.0
+    x[5::101] = float("nan")
+    before = segment.segment_scan_cuda.launches
+    got = average_ranks(x)
+    assert segment.segment_scan_cuda.launches == before + 2
+    assert torch.equal(got.cpu(), average_ranks(x.cpu()))

@@ -11,8 +11,10 @@ world size (``tests/torch_sync_ranks.py``, which imports no JAX): each rank feed
 its uneven share of every scenario and syncs at ``compute``. This process holds
 every rank's results against a single-process ``metrics_tpu`` run on the union of
 the shares, concatenated in rank order: counts by value, floats within rtol 1e-6,
-atol 1e-6; list and ``cat_capacity`` states bit-equal to each other. A spawn that
-outlives its deadline is killed and fails the test.
+atol 1e-6; list and ``cat_capacity`` states bit-equal to each other. PearsonCorrCoef
+(moments stacked by the sync, merged by ``_final_aggregation``) and SpearmanCorrCoef
+(gathered cat states) of three outputs are held within 1e-5 by a test of their own on the
+same spawn. A spawn that outlives its deadline is killed and fails the test.
 """
 import time
 
@@ -25,6 +27,7 @@ import torch.multiprocessing as mp
 import metrics_tpu.classification as jc
 import metrics_tpu.core.aggregation as ja
 import metrics_tpu.core.collections as jcol
+import metrics_tpu.regression as jreg
 import metrics_tpu.retrieval as jr
 from metrics_tpu_torch.core import CatMetric, Metric
 from metrics_tpu_torch.core.state import CatBuffer
@@ -212,6 +215,12 @@ def test_metric_refuses_bad_sync_arguments():
 # ------------------------------------------------------------ real gloo groups
 
 
+@pytest.fixture(scope="module", params=[2, 4], ids=str)
+def spawned(request, tmp_path_factory):
+    """``(world, every rank's results)``, one spawn per world size for the tests below."""
+    return request.param, spawn(request.param, tmp_path_factory.mktemp(f"world{request.param}"))
+
+
 def spawn(world: int, tmp_path) -> list:
     """Run ``ranks.rank_main`` on ``world`` spawned processes; every rank's results."""
     store, results = str(tmp_path / "store"), str(tmp_path / "results")
@@ -270,9 +279,8 @@ def oracle(data) -> dict:
     return want
 
 
-@pytest.mark.parametrize("world", [2, 4])
-def test_gloo_ranks_match_a_single_process_run_on_the_union(world, tmp_path):
-    results = spawn(world, tmp_path)
+def test_gloo_ranks_match_a_single_process_run_on_the_union(spawned):
+    world, results = spawned
     want = oracle(ranks.make_data(SEED))
     for rank, got in enumerate(results):
         assert not got["imports_jax"], f"rank {rank} imported JAX"
@@ -286,3 +294,21 @@ def test_gloo_ranks_match_a_single_process_run_on_the_union(world, tmp_path):
         assert got["cat_nowhere_filled"] == []
         confmat = got["collection/MulticlassConfusionMatrix"]
         assert confmat.dtype == torch.int64 and torch.equal(confmat, results[0]["collection/MulticlassConfusionMatrix"])
+
+
+def test_gloo_ranks_pearson_and_spearman_match_one_jax_run_on_the_union(spawned):
+    """Pearson's moments, stacked by the sync and merged by ``_final_aggregation``, and
+    Spearman's gathered cat states (list and ``CatBuffer``, bit-equal to each other)
+    against one ``metrics_tpu`` run on the union, within 1e-5."""
+    world, results = spawned
+    reg = ranks.make_data(SEED)["reg"]
+    preds, target = jnp.asarray(reg["preds"], jnp.float32), jnp.asarray(reg["target"], jnp.float32)
+    pearson = jreg.PearsonCorrCoef(num_outputs=ranks.REG_OUTPUTS)
+    spearman = jreg.SpearmanCorrCoef(num_outputs=ranks.REG_OUTPUTS)
+    for metric in (pearson, spearman):
+        metric.update(preds, target)
+    for rank, got in enumerate(results):
+        assert got["pearson"].shape == (ranks.REG_OUTPUTS,), (world, rank)
+        np.testing.assert_allclose(got["pearson"].numpy(), np.asarray(pearson.compute()), rtol=1e-5, atol=1e-6)
+        assert torch.equal(got["spearman/list"], got["spearman/buffer"]), (world, rank)
+        np.testing.assert_allclose(got["spearman/list"].numpy(), np.asarray(spearman.compute()), rtol=1e-5, atol=1e-6)

@@ -21,6 +21,7 @@ IGNORE = 255
 SHARES = {2: (0.4, 0.6), 4: (0.2, 0.25, 0.3, 0.25)}
 SHARES_WITH_EMPTY_RANK = {2: (0.45, 0.55), 4: (0.35, 0.4, 0.25, 0.0)}
 STEPS = 2  # forward steps of the dist_sync_on_step scenario
+REG_OUTPUTS = 3  # outputs of the Pearson and Spearman scenarios
 
 
 def make_data(seed: int) -> Dict[str, Dict[str, np.ndarray]]:
@@ -36,7 +37,7 @@ def make_data(seed: int) -> Dict[str, Dict[str, np.ndarray]]:
     ret_target = (rng.rand(queries * depth) < 0.3).astype(np.int64)
     ret_order = rng.permutation(queries * depth)
     em_target = rng.randint(0, C, (40, 3))
-    return {
+    data = {
         "seg": {"preds": rng.randn(48, C, 4).astype(np.float32), "target": seg_target},
         "bin": {"preds": bin_preds, "target": bin_target},
         "ret": {"preds": np.round(rng.randn(queries * depth), 1).astype(np.float32)[ret_order],
@@ -46,6 +47,11 @@ def make_data(seed: int) -> Dict[str, Dict[str, np.ndarray]]:
         "em": {"preds": np.where(rng.rand(40, 3) < 0.7, em_target, rng.randint(0, C, (40, 3))), "target": em_target},
         "step": {"preds": rng.randn(STEPS, 36, C).astype(np.float32), "target": rng.randint(0, C, (STEPS, 36))},
     }
+    # regression rows with REG_OUTPUTS targets, rounded to one decimal: ties across ranks
+    reg_preds = rng.randn(90, REG_OUTPUTS)
+    data["reg"] = {"preds": np.round(reg_preds, 1).astype(np.float32),
+                   "target": np.round(reg_preds + 0.5 * rng.randn(90, REG_OUTPUTS), 1).astype(np.float32)}
+    return data
 
 
 def bounds(n: int, shares: Sequence[float]) -> List[int]:
@@ -143,6 +149,7 @@ def run_scenarios(world: int, rank: int, device: str, seed: int) -> dict:
     """Every scenario on this rank; returns name -> result (tensors on the CPU)."""
     from metrics_tpu_torch.core import CatMetric, MeanMetric, MetricCollection
     from metrics_tpu_torch.classification import BinaryAUROC, MulticlassAccuracy, MulticlassExactMatch
+    from metrics_tpu_torch.regression import PearsonCorrCoef, SpearmanCorrCoef
     from metrics_tpu_torch.core.state import CatBuffer
     from metrics_tpu_torch.retrieval import RetrievalMAP
     from metrics_tpu_torch.utils.exceptions import MetricsUserError
@@ -218,6 +225,19 @@ def run_scenarios(world: int, rank: int, device: str, seed: int) -> dict:
     else:
         raise AssertionError("a second sync() without unsync() did not raise")
     metric.unsync()
+
+    # Pearson's None-reduced moments (stacked, then merged) and Spearman's cat states,
+    # list and CatBuffer, two updates per rank
+    mine = share(data["reg"], world, rank, SHARES)
+    half = len(mine["target"]) // 2
+    for name, metric in (("pearson", PearsonCorrCoef(num_outputs=REG_OUTPUTS, device=device)),
+                         ("spearman/list", SpearmanCorrCoef(num_outputs=REG_OUTPUTS, device=device)),
+                         ("spearman/buffer", SpearmanCorrCoef(num_outputs=REG_OUTPUTS, cat_capacity=96,
+                                                              device=device))):
+        for part in (slice(0, half), slice(half, None)):
+            metric.update(tensor(mine["preds"][part]), tensor(mine["target"][part]))
+        out[name] = compute_keeping_states(metric).cpu()
+
     out["imports_jax"] = any(m == "jax" or m.startswith(("jax.", "metrics_tpu.")) or m == "metrics_tpu"
                              for m in sys.modules)
     return out
