@@ -201,20 +201,29 @@ Phases, each printing one JSON line:
       Pearson, Spearman, Kendall (tau-b, and tau-c with the t-test), concordance, explained
       variance and R2 (raw values), against float64 numpy and scipy's spearmanr and
       kendalltau (1e-5; Spearman and Kendall 1e-6); exactly 2 scan launches per Spearman
-      compute and 1 ``kendall_pairs`` launch per Kendall compute; again with
-      ``cat_capacity``, bit-equal;
+      compute and 1 ``kendall_pairs`` call (the merge-count chain) per Kendall compute;
+      again with ``cat_capacity``, bit-equal; the chain at this
+      shape bit-equal to both plain versions (all pairs, and the merge count in plain
+      PyTorch), its device ms summed over every launch of a call (sort, memsets, hand
+      kernels) and its bounds;
     - STS-B dev: 1,500 pairs, gold scores on multiples of 0.2: Pearson, Spearman, Kendall
       a/b/c against float64 (pair counts in numpy, scipy), the tie-run ranks equal to
-      scipy's ``rankdata``;
+      scipy's ``rankdata``; 1 ``kendall_pairs`` call per Kendall compute, its counts
+      equal to numpy's and both plain versions', its times and bounds at 1,500 x 1;
     - Libri2Mix test (8 kHz, min, 3,000 mixtures x 2 speakers cut to 4 s; estimates the
       targets permuted and noised) in updates of 16: PIT on SI-SDR (the drawn permutation
       undone), SI-SNR, SNR and SDR (filter 512, float64) on the aligned estimates, against
       float64 (1e-4 dB); SDR on 50 sources within 1e-6 dB of numpy FFT + scipy's
       ``solve_toeplitz``; STOI of 200 mixtures on the host, card tensors equal to CPU ones;
       PESQ's ``ModuleNotFoundError``; the SDR update's kernel profile;
-    - the pair-count kernel alone at N = 131,072: bit-equal to its plain version, the
-      closed form on a ramp (8,589,869,056 concordant pairs, past 2^31), event and device
-      ms, the plain ms, the bound (operations), ``-Xptxas -v`` registers and spills.
+    - Kendall's merge-count chain alone at N = 131,072: bit-equal to both plain versions,
+      the closed form on a ramp (8,589,869,056 concordant pairs, past 2^31), event,
+      back-to-back and device ms (the whole call, split into sort, memsets and hand
+      kernels), the plain ms, the bound (bytes) and the bytes of its own design,
+      ``-Xptxas -v`` registers and spills; at N = 2^22, a continuous column and one of 64
+      levels, the counts equal to the plain merge count's and tau-b within 1e-9 of scipy's
+      kendalltau; at N = 2^24, ramp against ramp and against -ramp give the closed forms
+      [[C(N, 2), 0, 0, 0]] and [[0, C(N, 2), 0, 0]] exactly; device ms of both sizes.
 
 The last three lines are the ``nvidia-smi`` name and power limit, the kernels JSON
 line and ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
@@ -700,30 +709,32 @@ def run_end_references(torch, fps, tps, boundary, max_fpr: float):
 
 def device_events(prof) -> dict:
     """(name, device microseconds) of each kernel or copy in a profiler trace, summed by name."""
-    totals = {}
-    for evt in prof.key_averages():
-        if not str(evt.device_type).endswith("CUDA"):
-            continue
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = evt.self_cuda_time_total
-        if us > 0:
-            totals[evt.key] = totals.get(evt.key, 0.0) + us
-    return totals
+    return {k: us for k, (_, us) in device_launches(prof).items() if us > 0}
+
+
+def profile_window(torch, fn, reps: int):
+    """A profiler trace of ``reps`` calls of ``fn``, recorded as the active step of a
+    schedule whose warmup step makes the same calls first. A trace without the warmup
+    step, late in a long process, lost the first device event of its window (a memset
+    of the first call, or its kernel), so a reading that needs every launch failed."""
+    fn()
+    torch.cuda.synchronize()
+    schedule = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA], schedule=schedule) as prof:
+        for _ in range(2):  # the warmup step, then the recorded one
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return prof
 
 
 def kernel_device_ms(torch, fn, key: str, reps: int = 10):
     """Device ms per ``fn()`` call of the one kernel, named with ``key``, that each call
-    launches. A profile late in a long process sometimes records none or only some of
-    the launches, so a reading counts only when the trace holds all ``reps`` of them:
+    launches. A reading counts only when the trace holds all ``reps`` of its launches:
     up to three tries, else None."""
     for _ in range(3):
-        fn()
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
+        prof = profile_window(torch, fn, reps)
         events = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA") and key in e.key]
         if sum(e.count for e in events) == reps:
             return sum(getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
@@ -731,15 +742,41 @@ def kernel_device_ms(torch, fn, key: str, reps: int = 10):
     return None
 
 
+def device_launches(prof) -> dict:
+    """(launches, device microseconds) of each kernel, copy and memset in a trace, by name."""
+    out = {}
+    for evt in prof.key_averages():
+        if str(evt.device_type).endswith("CUDA"):
+            us = getattr(evt, "self_device_time_total", None)
+            out[evt.key] = (evt.count, us if us is not None else evt.self_cuda_time_total)
+    return out
+
+
+def call_device_ms(torch, fn, hand_key: str, reps: int = 10):
+    """Device ms of one ``fn()`` call summed over every kernel, copy and memset it
+    launches, split into the hand-written kernels (names with ``hand_key``), memsets and
+    the rest (the library's sort). It counts only when the trace of ``reps`` calls holds
+    ``reps`` times each launch of a trace of one call: up to three tries, else None."""
+    for _ in range(3):
+        one = {k: n for k, (n, _) in device_launches(profile_window(torch, fn, 1)).items()}
+        many = device_launches(profile_window(torch, fn, reps))
+        if not one or {k: n for k, (n, _) in many.items()} != {k: reps * n for k, n in one.items()}:
+            continue
+        split = {"hand_kernels_ms": 0.0, "memset_ms": 0.0, "sort_ms": 0.0}
+        for name, (_, us) in many.items():
+            part = "hand_kernels_ms" if hand_key in name else "memset_ms" if "Memset" in name else "sort_ms"
+            split[part] += us / reps / 1e3
+        return {"device_ms": sum(split.values()), **split, "launches_per_call": one}
+    return None
+
+
 def device_ms(torch, fn, reps: int = 10) -> dict:
-    """Device ms per ``fn()`` call of each kernel and memset, by name, from a profiler trace."""
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return {k[:70]: v / reps / 1e3 for k, v in device_events(prof).items()}
+    """Device ms per ``fn()`` call of each kernel and memset, by the first 70 characters
+    of its name (kernels that share them summed), from a profiler trace."""
+    out = {}
+    for name, (_, us) in device_launches(profile_window(torch, fn, reps)).items():
+        out[name[:70]] = out.get(name[:70], 0.0) + us / reps / 1e3
+    return out
 
 
 def phase_curve_path(torch, seed: int):
@@ -3343,8 +3380,10 @@ QM9 = {"molecules": 10_831, "batch": 32, "noise": 0.1, "cat_capacity": 16_384,
 # STS-B dev (sentence-similarity evaluation): 1,500 pairs, gold scores on multiples of 0.2
 # in [0, 5]; predictions a model's cosine similarities; updates of 64
 STSB = {"pairs": 1_500, "batch": 64, "step": 0.2, "noise": 0.15}
-# Kendall's kernel alone: random values, and preds = target = arange (concordant past 2^31)
-KENDALL_ALONE = {"rows": 131_072}
+# Kendall's chain alone: random values, and preds = target = arange (concordant past 2^31);
+# at scale, where the all-pairs form cannot go: tau-b against scipy, and the ramp's closed forms
+KENDALL_ALONE = {"rows": 131_072, "rows_at_scale": 1 << 22, "rows_closed_form": 1 << 24}
+KENDALL_SCALE_ATOL = 1e-9  # tau-b from the exact counts (float64) against scipy's kendalltau
 # Libri2Mix test, 8 kHz, min mode (two-speaker separation): 3,000 mixtures x 2 speakers,
 # cut to 4 s; estimates = the targets with their speakers permuted, plus noise; updates of 16
 LIBRI2MIX = {"mixtures": 3_000, "speakers": 2, "samples": 32_000, "fs": 8_000, "batch": 16, "noise": 0.25,
@@ -3514,12 +3553,55 @@ def max_err(np, got, want) -> float:
     return float(np.max(np.abs(got - np.asarray(want, np.float64))))
 
 
+def kendall_bounds(n: int, c: int) -> dict:
+    """The merge-count chain's bound at ``n`` rows and ``c`` columns (each input read once,
+    each output written once, at 3.35 TB/s), the bytes its own design moves, and the
+    all-pairs bound (two float32 subtractions a pair at 67 TFLOP/s)."""
+    from metrics_tpu_torch.ops.kendall import MERGE_TILE, KendallPairsKernel
+
+    stride = max(1, -(-n // MERGE_TILE)) * MERGE_TILE
+    passes = KendallPairsKernel.merge_passes(n)
+    design = {  # bytes of each step, from the shapes
+        "keys": (8 + 8) * n * c,  # x, y in; packed key out
+        "sort": 8 * 2 * 16 * n * c,  # 8 radix passes of 8-bit digits over 64-bit keys and 64-bit indices
+        "tile_pass": 8 * n * c + 2 * 4 * stride * c,  # keys in; sorted tiles (and the pad key) out
+        "merge_passes": passes * 2 * 4 * stride * c,
+        "tie_runs": (8 + 4) * n * c,
+    }
+    function_bytes = 8 * n * c + 32 * c
+    return {"bound_ms": function_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "function_bytes": function_bytes,
+            "merge_passes": passes, "design_bytes": design,
+            "design_bytes_ms": sum(design.values()) / HBM_BYTES_PER_S * 1e3,
+            "all_pairs_bound_ms": 2 * n * (n - 1) / 2 * c / F32_PEAK_OPS_PER_S * 1e3}
+
+
+def kendall_chain_timing(torch, x, y, reps: int = 10) -> dict:
+    """The merge-count chain on ``x, y`` (N, C): bit-equal to both plain versions, its
+    event and back-to-back ms, the device ms of a whole call (sort, memsets and the hand
+    kernels, every launch of every rep in the trace) and its bounds."""
+    from metrics_tpu_torch.ops.kendall import _plain_merge_pair_counts, _plain_pair_counts, kendall_pairs_cuda
+
+    call = lambda: kendall_pairs_cuda(x, y)  # noqa: E731
+    got = call()
+    want, want_merge = _plain_pair_counts(x, y), _plain_merge_pair_counts(x, y)
+    err = max((got - want).abs().max().item(), (got - want_merge).abs().max().item())
+    if err != 0:
+        raise AssertionError(f"kendall merge chain {got.tolist()} != plain {want.tolist()} / {want_merge.tolist()}")
+    n, c = x.shape
+    dev = call_device_ms(torch, call, "kendall", reps=reps)
+    bounds = kendall_bounds(n, c)
+    return {"rows": n, "columns": c, "max_abs_err": err, "kernel_ms": event_ms(torch, call),
+            "kernel_ms_back_to_back": back_to_back_ms(torch, call), "device": dev,
+            "kernel_share_of_bound": bounds["bound_ms"] / dev["device_ms"] if dev else None,
+            "plain_merge_ms": event_ms(torch, lambda: _plain_merge_pair_counts(x, y), reps=3, warmup=1), **bounds}
+
+
 def qm9_kernel_timing(torch, preds, target) -> dict:
     """The launches of a QM9 compute timed alone: Spearman's two scans over the packed
     (24 columns x 10,831 rows) positions against the plain version, ``torch.cummin`` and
-    the bound; Kendall's pair kernel over the 12 columns against the plain version and
-    the bound. Outputs held equal to the plain versions'."""
-    from metrics_tpu_torch.ops.kendall import _plain_pair_counts, kendall_pairs_cuda
+    the bound; Kendall's merge-count chain over the 12 columns against both plain
+    versions and its bounds. Outputs held equal to the plain versions'."""
+    from metrics_tpu_torch.ops.kendall import _plain_pair_counts
     from metrics_tpu_torch.ops.rank import _tie_runs
     from metrics_tpu_torch.ops.segment import _plain_multi_scan, segment_scan_cuda
 
@@ -3537,17 +3619,9 @@ def qm9_kernel_timing(torch, preds, target) -> dict:
                        "plain_ms": event_ms(torch, lambda f=flags, o=op, r=reverse: _plain_multi_scan((pos,), f, (o,), r),
                                             reps=5, warmup=1),
                        "torch_cummin_ms": event_ms(torch, lambda: torch.cummin(pos, 0))}
-    call = lambda: kendall_pairs_cuda(preds, target)  # noqa: E731
-    got, want = call(), _plain_pair_counts(preds, target)
-    if not torch.equal(got, want):
-        raise AssertionError("kendall pairs kernel != plain at the QM9 shape")
     m, c = preds.shape
-    dev = kernel_device_ms(torch, call, "kendall")
-    bound = max(2 * m * (m - 1) / 2 * c / F32_PEAK_OPS_PER_S, (8 * m * c + 32 * c) / HBM_BYTES_PER_S) * 1e3
-    pairs = {"rows": m, "columns": c, "max_abs_err": (got - want).abs().max().item(),
-             "kernel_ms": event_ms(torch, call), "device_ms": dev, "bound_ms": bound,
-             "kernel_share_of_bound": bound / dev if dev else None,
-             "plain_ms": event_ms(torch, lambda: _plain_pair_counts(preds, target), reps=3, warmup=1)}
+    pairs = kendall_chain_timing(torch, preds, target, reps=10)
+    pairs["plain_ms"] = event_ms(torch, lambda: _plain_pair_counts(preds, target), reps=3, warmup=1)
     return {"spearman_scans": scans, "kendall_pairs": pairs}
 
 
@@ -3625,13 +3699,13 @@ def pair_count_reference(np, x, y):
 
 def ra_stsb(torch, seed: int, smi: str) -> tuple:
     """STS-B dev: Pearson, Spearman and Kendall a/b/c on gold scores with many ties; the
-    tie-run ranks against scipy's rankdata, the pair counts against numpy's and the plain
-    version's. Returns the launches and the pair kernel's largest difference from its
-    plain version."""
+    tie-run ranks against scipy's rankdata, the chain's pair counts against numpy's and
+    both plain versions', its times at this shape. Returns the launches and the chain's
+    largest difference from the plain versions here."""
     import numpy as np
     from scipy.stats import kendalltau, pearsonr, rankdata, spearmanr
 
-    from metrics_tpu_torch.ops.kendall import _plain_pair_counts, kendall_pairs_cuda
+    from metrics_tpu_torch.ops.kendall import _plain_merge_pair_counts, _plain_pair_counts, kendall_pairs_cuda
     from metrics_tpu_torch.ops.rank import average_ranks
     from metrics_tpu_torch.regression import KendallRankCorrCoef, PearsonCorrCoef, SpearmanCorrCoef
 
@@ -3651,11 +3725,12 @@ def ra_stsb(torch, seed: int, smi: str) -> tuple:
     if not (np.array_equal(ranks[:, 0], rankdata(x)) and np.array_equal(ranks[:, 1], rankdata(y))):
         raise AssertionError("STS-B tie-run ranks differ from scipy's rankdata(method='average')")
     con, dis, tx, ty = pair_count_reference(np, x, y)  # float64 differences of float32 values: same signs
-    counts, plain = kendall_pairs_cuda(preds, gold), _plain_pair_counts(preds, gold)
-    if counts.tolist() != [[con, dis, tx, ty]] or not torch.equal(counts, plain):
-        raise AssertionError(f"STS-B pair counts: kernel {counts.tolist()}, plain {plain.tolist()}, "
-                             f"numpy {[con, dis, tx, ty]}")
-    pairs_err = (counts - plain).abs().max().item()
+    plain, plain_merge = _plain_pair_counts(preds, gold), _plain_merge_pair_counts(preds, gold)
+    counts = kendall_pairs_cuda(preds, gold)
+    if counts.tolist() != [[con, dis, tx, ty]] or not torch.equal(counts, plain) \
+            or not torch.equal(counts, plain_merge):
+        raise AssertionError(f"STS-B pair counts: chain {counts.tolist()}, plain {plain.tolist()} and "
+                             f"{plain_merge.tolist()}, numpy {[con, dis, tx, ty]}")
     n_pairs = len(x) * (len(x) - 1) / 2
     want = {"PearsonCorrCoef": pearsonr(x, y)[0], "SpearmanCorrCoef": spearmanr(x, y)[0],
             "KendallRankCorrCoef_a": (con - dis) / n_pairs, "KendallRankCorrCoef_b": kendalltau(x, y)[0],
@@ -3664,12 +3739,15 @@ def ra_stsb(torch, seed: int, smi: str) -> tuple:
     for name, err in errs.items():
         if not err <= (QM9_ATOL if name == "PearsonCorrCoef" else TAU_ATOL):
             raise AssertionError(f"STS-B {name}: {float(values[name])} vs float64 {want[name]} (|err| {err})")
+
+    chain = kendall_chain_timing(torch, preds[:, None], gold[:, None])
     total = {k: sum(v[k] for v in launches.values()) for k in ("segment_scan", "kendall_pairs")}
     emit({"phase": "regression_audio", "config": "stsb", "nvidia_smi": smi, "pairs": STSB["pairs"],
           "gold_tie_runs": int(len(np.unique(y))), "values": {k: float(v) for k, v in values.items()},
           "max_abs_err_vs_float64": errs, "ranks_equal_rankdata": True, "pair_counts": [con, dis, tx, ty],
-          "pair_counts_equal_numpy_and_plain": True, "launches_per_compute": launches, "launches": total})
-    return total, pairs_err
+          "pair_counts_equal_numpy_and_both_plain_versions": True, "launches_per_compute": launches,
+          "launches": total, "merge_chain": chain})
+    return total, chain["max_abs_err"]
 
 
 def ptxas_report(name: str) -> dict:
@@ -3692,38 +3770,70 @@ def ptxas_report(name: str) -> dict:
 
 
 def ra_kendall_kernel(torch, seed: int, smi: str) -> dict:
-    """The pair-count kernel alone at N = 131,072: bit-equal to its plain version on
-    random values, the closed form past 2^31 on a ramp, its times against the bound."""
-    from metrics_tpu_torch.ops.kendall import _plain_pair_counts, kendall_pairs_cuda
+    """The merge-count chain alone. At N = 131,072: bit-equal to both plain versions on
+    random values, the closed form past 2^31 on a ramp, its times against its bounds. At
+    N = 2^22, a continuous column and one rounded to 64 levels: its counts equal the plain
+    merge count's (plain PyTorch on the card), and tau-b from them is within 1e-9 of
+    scipy's kendalltau (float64, on the host). At N = 2^24: the ramp's closed forms,
+    concordant and discordant. Device ms of each size."""
+    import numpy as np
+    from scipy.stats import kendalltau
+
+    from metrics_tpu_torch.functional.regression.kendall import _kendall_tau
+    from metrics_tpu_torch.ops.kendall import _plain_merge_pair_counts, _plain_pair_counts, kendall_pairs_cuda
 
     n = KENDALL_ALONE["rows"]
     g = torch.Generator(device="cuda").manual_seed(seed + 700)
-    x = torch.randn(n, generator=g, device="cuda")
-    y = x + torch.randn(n, generator=g, device="cuda")
-    got, want = kendall_pairs_cuda(x, y), _plain_pair_counts(x, y)
-    if not torch.equal(got, want):
-        raise AssertionError(f"kendall pairs kernel {got.tolist()} != plain {want.tolist()}")
+    x = torch.randn(n, generator=g, device="cuda")[:, None]
+    y = x + torch.randn(n, 1, generator=g, device="cuda")
+    out = kendall_chain_timing(torch, x, y)
+    out["counts"] = kendall_pairs_cuda(x, y).tolist()[0]
     ramp = torch.arange(n, device="cuda", dtype=torch.float32)
     on_ramp = kendall_pairs_cuda(ramp, ramp)
-    closed = on_ramp.tolist()
-    if closed != [[n * (n - 1) // 2, 0, 0, 0]]:  # 8,589,869,056 concordant pairs at N = 131,072
-        raise AssertionError(f"kendall pairs kernel on a ramp: {closed}")
-    err = max((got - want).abs().max().item(),
-              (on_ramp - torch.tensor([[n * (n - 1) // 2, 0, 0, 0]], device="cuda")).abs().max().item())
-    call = lambda: kendall_pairs_cuda(x, y)  # noqa: E731
-    dev = kernel_device_ms(torch, call, "kendall")
-    ops_ms = 2 * (n * (n - 1) / 2) / F32_PEAK_OPS_PER_S * 1e3
-    bytes_ms = (8 * n + 32) / HBM_BYTES_PER_S * 1e3
-    bound_ms = max(ops_ms, bytes_ms)
-    out = {"rows": n, "columns": 1, "counts": got.tolist()[0], "max_abs_err": err, "closed_form_concordant": closed[0][0],
-           "closed_form_past_2_to_31": closed[0][0] > (1 << 31),
-           "kernel_ms": event_ms(torch, call, reps=10), "device_ms": dev,
-           "plain_ms": event_ms(torch, lambda: _plain_pair_counts(x, y), reps=3, warmup=1), "bound_ms": bound_ms,
-           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "ops_bound_ms": ops_ms,
-           "bytes_bound_ms": bytes_ms, "ops_bound_ms_at_subtraction_issue_rate": 2 * ops_ms,
-           "kernel_share_of_bound": bound_ms / dev if dev else None,
-           "ptxas": ptxas_report("kendall_pairs")}
+    both = n * (n - 1) // 2  # 8,589,869,056 at N = 131,072: past 2^31
+    if on_ramp.tolist() != [[both, 0, 0, 0]]:
+        raise AssertionError(f"kendall merge chain on a ramp: {on_ramp.tolist()}")
+    out["max_abs_err"] = max(out["max_abs_err"], (on_ramp - torch.tensor([[both, 0, 0, 0]], device="cuda")).abs()
+                             .max().item())
+    out["closed_form_concordant"] = both
+    out["plain_all_pairs_ms"] = event_ms(torch, lambda: _plain_pair_counts(x, y), reps=3, warmup=1)
+    out["ptxas"] = ptxas_report("kendall_merge")
     emit({"phase": "regression_audio", "config": "kendall_kernel", "nvidia_smi": smi, **out})
+
+    at_scale = {}
+    g = torch.Generator(device="cuda").manual_seed(seed + 701)
+    big = KENDALL_ALONE["rows_at_scale"]
+    u = torch.randn(big, 1, generator=g, device="cuda")
+    v = u + torch.randn(big, 1, generator=g, device="cuda")
+    levels = ((u * 8).round().clamp(-32, 31), (v * 5.5).round().clamp(-32, 31))  # 64 levels each
+    for kind, (a, b) in (("continuous", (u, v)), ("64_levels", levels)):
+        counts = kendall_pairs_cuda(a, b)
+        plain_merge = _plain_merge_pair_counts(a, b)  # every count exact, through the same merge depth
+        if not torch.equal(counts, plain_merge):
+            raise AssertionError(f"kendall merge chain at N = {big} ({kind}): {counts.tolist()} != plain merge "
+                                 f"count {plain_merge.tolist()}")
+        tau = float(_kendall_tau(counts, a, b, "b")[0])
+        want = float(kendalltau(a[:, 0].double().cpu().numpy(), b[:, 0].double().cpu().numpy())[0])
+        if not abs(tau - want) <= KENDALL_SCALE_ATOL:
+            raise AssertionError(f"kendall tau-b at N = {big} ({kind}): {tau} vs scipy {want}")
+        at_scale[f"{big}_{kind}"] = {"levels": int(torch.unique(a).numel()), "counts": counts.tolist()[0],
+                                     "counts_equal_plain_merge_count": True,
+                                     "tau_b": tau, "scipy_tau_b": want, "abs_err": abs(tau - want),
+                                     "device": call_device_ms(torch, lambda: kendall_pairs_cuda(a, b), "kendall",
+                                                              reps=5)}
+    del u, v, levels, a, b
+    huge = KENDALL_ALONE["rows_closed_form"]
+    ramp = torch.arange(huge, device="cuda", dtype=torch.float32)
+    both = huge * (huge - 1) // 2
+    for kind, sign, want in (("ramp_ramp", 1, [[both, 0, 0, 0]]), ("ramp_minus_ramp", -1, [[0, both, 0, 0]])):
+        got = kendall_pairs_cuda(ramp, sign * ramp).tolist()
+        if got != want:
+            raise AssertionError(f"kendall merge chain at N = {huge} ({kind}): {got}, expected {want}")
+        at_scale[f"{huge}_{kind}"] = {"counts": got[0], "device": call_device_ms(
+            torch, lambda s=sign: kendall_pairs_cuda(ramp, s * ramp), "kendall", reps=3)}
+    emit({"phase": "regression_audio", "config": "kendall_at_scale", "nvidia_smi": smi,
+          "tau_b_atol": KENDALL_SCALE_ATOL, **at_scale})
+    out["at_scale"] = at_scale
     return out
 
 
@@ -3881,8 +3991,8 @@ def ra_libri2mix(torch, seed: int, smi: str) -> dict:
 
 def phase_regression_audio(torch, seed: int, smi: str):
     """Regression and audio at published shapes: NYU Depth v2, QM9, STS-B, Libri2Mix, and
-    Kendall's pair kernel alone. Returns the main path's scan and pair-kernel launches
-    and the pair kernel's line of the kernels JSON."""
+    Kendall's merge-count chain alone. Returns the main path's scan and Kendall launches
+    and Kendall's line of the kernels JSON."""
     t0 = time.perf_counter()
     launches = {"segment_scan": 0, "kendall_pairs": 0}
     nyu = ra_nyu(torch, seed, smi)
@@ -3896,17 +4006,18 @@ def phase_regression_audio(torch, seed: int, smi: str):
     for key in launches:
         launches[key] += libri[key]
     alone = ra_kendall_kernel(torch, seed, smi)
+    torch.cuda.empty_cache()
     emit({"phase": "regression_audio", "config": "all", "launches": launches,
           "seconds": time.perf_counter() - t0})
     return launches, {
         "name": "kendall_pairs",
         "route": "cuda",
-        "source": "metrics_tpu_torch/csrc/kendall_pairs.cu",
+        "source": "metrics_tpu_torch/csrc/kendall_merge.cu",
         "replaces": "metrics_tpu/functional/regression/kendall.py:17 (_kendall_stats_1d; XLA, no Pallas kernel)",
         "launches": launches["kendall_pairs"],
         "max_abs_err": max(qm9_err, stsb_err, alone["max_abs_err"]),
         "ms": alone["kernel_ms"],
-        "plain_ms": alone["plain_ms"],
+        "plain_ms": alone["plain_merge_ms"],
         "bound_ms": alone["bound_ms"],
         "bound_by": alone["bound_by"],
         "library_ms": None,
@@ -3965,6 +4076,9 @@ def main() -> int:
     scan["launches"] += regression_audio["segment_scan"]
     kernels.append(kendall)
 
+    idle = [k["name"] for k in kernels if k["launches"] < 1]
+    if idle:
+        raise AssertionError(f"kernels never launched on the main path: {idle}")
     print(smi)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,7 +25,7 @@ KERNEL_SOURCES = {
     "histogram": CSRC_DIR / "histogram.cu",
     "segment_scan": CSRC_DIR / "segment_scan.cu",
     "greedy_match": CSRC_DIR / "greedy_match.cu",
-    "kendall_pairs": CSRC_DIR / "kendall_pairs.cu",
+    "kendall_merge": CSRC_DIR / "kendall_merge.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
 _PTR, _INT, _LONG = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -46,8 +46,10 @@ SIGNATURES = {
         "tm_greedy_match": ([_PTR] * 7 + [_LONG, _INT, _INT, _INT, _INT] + [_PTR] * 4, _INT),
         "tm_greedy_match_variant": ([_PTR] * 7 + [_LONG, _INT, _INT, _INT, _INT] + [_PTR] * 4 + [_INT], _INT),
     },
-    "kendall_pairs": {
-        "tm_kendall_pairs": ([_PTR, _PTR, _LONG, _INT, _PTR, _PTR], _INT),
+    "kendall_merge": {
+        "tm_kendall_tile_rows": ([], _LONG),
+        "tm_kendall_keys": ([_PTR, _PTR, _LONG, _INT, _PTR, _PTR, _PTR], _INT),
+        "tm_kendall_count": ([_PTR, _LONG, _INT, _PTR, _PTR, _LONG, _PTR, _PTR, _PTR], _INT),
     },
 }
 

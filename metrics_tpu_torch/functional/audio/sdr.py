@@ -5,7 +5,8 @@ SDR solves for the optimal length-``filter_length`` distortion filter that proje
 (``torch.fft.rfft``/``irfft``), the symmetric Toeplitz matrix built by an ``|i - j|``
 gather, and a batched ``torch.linalg.solve``. It computes in float64 on the inputs'
 device whatever their dtype, as the reference torchmetrics does (the JAX package
-computes in float32 unless x64 is on), and returns the input dtype.
+computes in float32 unless x64 is on), and returns the input dtype. The coherence is
+clamped below 1, so a perfect estimate reads 156.5 dB and not NaN.
 """
 import math
 from typing import Optional
@@ -73,6 +74,11 @@ def signal_distortion_ratio(
     sol = torch.linalg.solve(r, b[..., None])[..., 0]
 
     coh = torch.einsum("...l,...l->...", b, sol)
+    # A perfect or scaled estimate has coh = 1, which rounding can leave at or just
+    # above 1, where coh / (1 - coh) is inf or negative and its log NaN. Clamped, such
+    # an estimate reads 10 log10((1 - eps) / eps) = 156.5 dB (a deliberate deviation:
+    # the JAX package gives inf, NaN or that value, as the rounding falls).
+    coh = torch.clamp(coh, max=1 - torch.finfo(torch.float64).eps)
     ratio = coh / (1 - coh)
     return (10.0 * torch.log10(ratio)).to(out_dtype)
 

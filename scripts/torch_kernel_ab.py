@@ -5,7 +5,7 @@ Usage (from the root of a checkout, on a machine with a CUDA card and nvcc):
 
     git archive <older commit> | tar -x -C build/parent
     python3 scripts/torch_kernel_ab.py --parent build/parent [--seed 0] [--reps 30]
-        [--kernels histogram,segment_scan,greedy_match]
+        [--pairs 12] [--kernels histogram,segment_scan,greedy_match,kendall_pairs]
 
 Builds ``metrics_tpu_torch/csrc/histogram.cu``, ``segment_scan.cu`` and
 ``greedy_match.cu`` (those ``--kernels`` names) of this checkout and of the
@@ -28,7 +28,17 @@ calls each library's C function directly, on the inputs of the port's main paths
   compute; then this checkout's two variants forced (``tm_greedy_match_variant``:
   0 narrow, 1 warp) on those inputs and on ``chip_smoke.match_case`` inputs of
   N x 16 x G, G in {16, 32, 64}, N * 40 triples from 1,280 to 1,310,720: the sweep
-  that sets the crossover ``narrow_min_triples`` in the source.
+  that sets the crossover ``narrow_min_triples`` in the source;
+- Kendall's pair counts: the all-pairs kernel of a ``--parent`` tree that still holds
+  it (``kendall_pairs.cu``, ``tm_kendall_pairs``, with the transposes its wrapper
+  made; this checkout has only the chain) against this checkout's merge-count chain
+  (``KendallPairsKernel._merge``: the key kernel, ``torch.sort``, the tile, merge,
+  tie-run and finish kernels) on the Kendall inputs of
+  ``chip_smoke.phase_regression_audio`` (N = 131,072 x 1, QM9's 10,831 x 12, STS-B's
+  1,500 x 1); then, at STS-B's 1,500 x 1, QM9's first column (10,831 x 1) and random
+  columns of 4,096 and 24,576 rows, ``--pairs`` pairs of turns that alternate which
+  of the two runs first, each turn the CUDA-event median of ``--reps`` calls: each
+  side's quartiles over its turns, and the pairs the all-pairs kernel wins.
 
 The two versions compute the same function with the same C signature; the older
 histogram expects a zeroed output, so its call zeroes it first (as its wrapper
@@ -42,11 +52,14 @@ import argparse
 import ctypes
 import json
 import os
+import statistics
 import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-NAMES = ("histogram", "segment_scan", "greedy_match")
+NAMES = ("histogram", "segment_scan", "greedy_match", "kendall_pairs")
+#: the versions built from --parent only: this checkout's Kendall chain runs through its wrapper
+PARENT_ONLY = ("kendall_pairs",)
 
 
 def build(trees, names=NAMES):
@@ -59,6 +72,8 @@ def build(trees, names=NAMES):
     jobs = {}
     for tag, root in trees.items():
         for name in names:
+            if name in PARENT_ONLY and tag != "parent":
+                continue
             lib = os.path.join(out_dir, f"{tag}_{name}.so")
             src = os.path.join(root, "metrics_tpu_torch", "csrc", f"{name}.cu")
             cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib, src]
@@ -176,6 +191,7 @@ def main() -> int:
     parser.add_argument("--parent", required=True, help="root of a checkout of the version to compare against")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--reps", type=int, default=30)
+    parser.add_argument("--pairs", type=int, default=12, help="alternating pairs of turns of each Kendall cell")
     parser.add_argument("--kernels", default=",".join(NAMES), help="comma-separated names among " + ", ".join(NAMES))
     args = parser.parse_args()
     names = tuple(args.kernels.split(","))
@@ -202,6 +218,8 @@ def main() -> int:
         match_sweep(torch, chip_smoke, libs[("change", "greedy_match")], coco, args.seed, args.reps)
         del coco
         torch.cuda.empty_cache()
+    if "kendall_pairs" in names:
+        kendall_ab(torch, chip_smoke, libs[("parent", "kendall_pairs")], args)
     if "histogram" in names:
         histogram_ab(torch, chip_smoke, libs, tags, g, args.reps)
     if "segment_scan" in names:
@@ -213,6 +231,76 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0])
     return 0
+
+
+def all_pairs_call(torch, lib, x, y):
+    """The all-pairs route's call: the columns transposed to be contiguous, one ``tm_kendall_pairs`` launch."""
+    n, c = x.shape
+    out = torch.empty((c, 4), dtype=torch.int64, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        xt, yt = x.t().contiguous(), y.t().contiguous()
+        return lib.tm_kendall_pairs(xt.data_ptr(), yt.data_ptr(), n, c, out.data_ptr(), stream)
+    return run, [out]
+
+
+def chain_call(torch, wrapper, x, y):
+    """This checkout's merge-count chain, as its wrapper runs it: the columns as float32,
+    the output allocated, one ``_merge``."""
+    from metrics_tpu_torch.ops.kendall import _as_columns
+
+    outs = [None]
+
+    def run():
+        a, b = _as_columns(x, y)
+        outs[0] = torch.empty((a.shape[1], 4), dtype=torch.int64, device="cuda")
+        wrapper._merge(a, b, outs[0])
+    return run, outs
+
+
+def quartiles(values):
+    q1, q2, q3 = statistics.quantiles(values, n=4)
+    return {"q1": q1, "median": q2, "q3": q3}
+
+
+def kendall_ab(torch, chip_smoke, lib, args):
+    from metrics_tpu_torch.ops.kendall import kendall_pairs_cuda
+
+    n = chip_smoke.KENDALL_ALONE["rows"]
+    g = torch.Generator(device="cuda").manual_seed(args.seed + 700)  # chip_smoke.ra_kendall_kernel's draw
+    x = torch.randn(n, generator=g, device="cuda")
+    y = x + torch.randn(n, generator=g, device="cuda")
+    qm9 = chip_smoke.qm9_data(torch, args.seed)
+    preds, gold = chip_smoke.stsb_data(torch, args.seed)
+    inputs = {f"kendall alone {n}x1": (x[:, None], y[:, None]), "kendall QM9 10831x12": qm9,
+              "kendall STS-B 1500x1": (preds[:, None], gold[:, None])}
+    for label, (a, b) in inputs.items():
+        calls = {"parent": all_pairs_call(torch, lib, a, b), "change": chain_call(torch, kendall_pairs_cuda, a, b)}
+        compare(torch, chip_smoke, label, calls, args.reps, {"rows": a.shape[0], "columns": a.shape[1]})
+    sweep = torch.Generator(device="cuda").manual_seed(args.seed + 701)
+    cells = {"STS-B 1500x1": (preds[:, None], gold[:, None]), "QM9 column 0 10831x1": (qm9[0][:, :1], qm9[1][:, :1])}
+    for rows in (4096, 24_576):
+        a = torch.randn(rows, 1, generator=sweep, device="cuda")
+        cells[f"random {rows}x1"] = (a, a + torch.randn(rows, 1, generator=sweep, device="cuda"))
+    for label, (a, b) in cells.items():
+        calls = {"all_pairs": all_pairs_call(torch, lib, a, b), "chain": chain_call(torch, kendall_pairs_cuda, a, b)}
+        for run, _ in calls.values():
+            if run():
+                raise RuntimeError(f"kendall {label}: a launch failed")
+        torch.cuda.synchronize()
+        if not torch.equal(calls["all_pairs"][1][0], calls["chain"][1][0]):
+            raise AssertionError(f"kendall {label}: the all-pairs kernel and the chain disagree")
+        turns = {"all_pairs": [], "chain": []}
+        for i in range(args.pairs):
+            for tag in ("all_pairs", "chain") if i % 2 == 0 else ("chain", "all_pairs"):
+                turns[tag].append(chip_smoke.event_ms(torch, calls[tag][0], reps=args.reps, warmup=3))
+        wins = sum(p < c for p, c in zip(turns["all_pairs"], turns["chain"]))
+        print(json.dumps({"input": f"kendall route pairs {label}", "rows": a.shape[0], "columns": a.shape[1],
+                          "pairs": args.pairs, "all_pairs_wins": wins, "event_ms": turns,
+                          "quartiles": {tag: quartiles(v) for tag, v in turns.items()},
+                          "device_ms_per_call": {tag: chip_smoke.device_ms(torch, run, 10)
+                                                 for tag, (run, _) in calls.items()}}), flush=True)
 
 
 def histogram_ab(torch, chip_smoke, libs, tags, g, reps):

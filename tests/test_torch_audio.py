@@ -7,6 +7,8 @@ JAX package and the port (``device="cpu"``):
 - SDR, which the port computes in float64 whatever the input dtype: within 1e-6 dB of
   the JAX package under ``jax.enable_x64(True)`` (float64 there too), and within the
   JAX package's own 5e-3 dB of its float32 default;
+- SDR of a perfect or scaled estimate finite (156.5 dB, the clamped coherence: a
+  deliberate deviation) through the functional, the class and PIT;
 - PIT's best values and permutations for 2 and 3 speakers (the exhaustive table) and
   9 (scipy's linear sum assignment), ``pit_permutate``;
 - STOI equal to the JAX package's numpy implementation, at 10 kHz and resampled;
@@ -83,6 +85,53 @@ def test_sdr_matches_jax_in_float64_and_float32(kwargs):
     np.testing.assert_allclose(as_numpy(got32), as_numpy(want32), rtol=0, atol=5e-3)
     # the float32 input computes in float64: the value is the float64 one, rounded
     np.testing.assert_allclose(as_numpy(got32), as_numpy(want64), rtol=1e-6, atol=1e-6)
+
+
+#: SDR of a perfect or scaled estimate: the coherence clamped at 1 - eps (float64)
+SDR_PERFECT_DB = 10 * np.log10((1 - np.finfo(np.float64).eps) / np.finfo(np.float64).eps)
+
+
+@pytest.mark.parametrize("scale", [1.0, 0.5], ids=["equal", "half"])
+def test_sdr_of_a_perfect_or_scaled_estimate_is_finite(scale):
+    _, target = signals(6, (3, 800))
+    preds = (scale * target).astype(np.float32)
+    got = tf.signal_distortion_ratio(preds, target, filter_length=64, device="cpu")
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), SDR_PERFECT_DB, rtol=1e-6)
+    metric = ta.SignalDistortionRatio(filter_length=64, device="cpu")
+    metric.update(torch.from_numpy(preds), torch.from_numpy(target))
+    assert np.isfinite(float(metric.compute()))
+    # PIT over two speakers: the perfect pairing wins, with a finite value
+    pair = np.stack([target, target[::-1]], axis=1)
+    best, perm = tf.permutation_invariant_training((scale * pair).astype(np.float32), pair,
+                                                   tf.signal_distortion_ratio, "max", filter_length=64, device="cpu")
+    assert torch.isfinite(best).all()
+    np.testing.assert_array_equal(perm.numpy(), np.broadcast_to(np.arange(2), (3, 2)))
+    pit = ta.PermutationInvariantTraining(tf.signal_distortion_ratio, "max", filter_length=64, device="cpu")
+    pit.update(torch.from_numpy((scale * pair).astype(np.float32)), torch.from_numpy(pair))
+    assert np.isfinite(float(pit.compute()))
+
+
+def test_sdr_epoch_with_one_perfect_row_is_finite_and_matches_jax_on_the_noisy_rows():
+    # 4 x 2 mixtures of 4,000 samples, row (0, 0) perfect. Under x64 the JAX package's
+    # perfect row is inf, NaN or finite as its rounding of coh falls (on this seed
+    # 159.5 dB: coh one ulp below 1); the port's clamp gives every such row 156.5 dB.
+    # The epoch value is the JAX rows' mean with that row read as the port reads it.
+    preds, target = signals(1, (4, 2, 4000))
+    preds[0, 0] = target[0, 0]
+    with jax.enable_x64(True):
+        want_rows = np.asarray(jf.signal_distortion_ratio(jnp.asarray(preds, jnp.float64),
+                                                          jnp.asarray(target, jnp.float64)))
+    got_rows = tf.signal_distortion_ratio(preds, target, device="cpu").double().numpy()
+    noisy = np.ones((4, 2), bool)
+    noisy[0, 0] = False
+    np.testing.assert_allclose(got_rows[noisy], want_rows[noisy], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(got_rows[0, 0], SDR_PERFECT_DB, rtol=1e-6)
+    tmetric = ta.SignalDistortionRatio(device="cpu")
+    tmetric.update(torch.from_numpy(preds), torch.from_numpy(target))
+    got = float(tmetric.compute())
+    assert np.isfinite(got)
+    np.testing.assert_allclose(got, np.where(noisy, want_rows, SDR_PERFECT_DB).mean(), rtol=1e-5)
 
 
 def test_sdr_use_cg_iter_warns_as_in_jax():

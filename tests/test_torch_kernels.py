@@ -1,5 +1,5 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on the card
-(the histogram, the segmented scan and its uses, Kendall's pair counts).
+(the histogram, the segmented scan and its uses, Kendall's merge-count chain).
 
 Every test here needs a CUDA card and nvcc (the kernels have no CPU mode): each is
 marked ``cuda`` and skips elsewhere. The file imports neither JAX nor metrics_tpu,
@@ -339,30 +339,56 @@ def _kendall_columns(cuda, g, n, c, kind):
     return x, y
 
 
+KENDALL_SHAPES = [(1, 1), (2, 1), (1023, 1), (1024, 2), (1025, 3), (4095, 1), (4096, 2), (4097, 3), (5000, 12),
+                  (8193, 2), (10_831, 12), (131_072, 1)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["continuous", "special"])
-@pytest.mark.parametrize("n,c", [(1, 1), (2, 1), (1023, 1), (1024, 2), (1025, 3), (5000, 12), (10_831, 12)])
+@pytest.mark.parametrize("n,c", KENDALL_SHAPES)
 def test_kendall_pairs_matches_plain_on_card(cuda, n, c, kind):
+    """The chain equals both plain versions: one call, its merge passes."""
     from metrics_tpu_torch.ops import kendall
 
     g = torch.Generator(device=cuda).manual_seed(n + c)
     x, y = _kendall_columns(cuda, g, n, c, kind)
-    before = kendall.kendall_pairs_cuda.launches
+    wrapper = kendall.kendall_pairs_cuda
+    before = (wrapper.launches, wrapper.kernel_launches)
     got = kendall.pair_counts(x, y)
-    assert kendall.kendall_pairs_cuda.launches == before + 1
+    assert (wrapper.launches, wrapper.kernel_launches) == (
+        before[0] + 1, before[1] + 4 + kendall.KendallPairsKernel.merge_passes(n))
     assert got.dtype == torch.int64 and torch.equal(got, kendall._plain_pair_counts(x, y))
+    assert torch.equal(got, kendall._plain_merge_pair_counts(x, y))
 
 
 @pytest.mark.cuda
-def test_kendall_pairs_closed_form_past_2_to_the_31_on_card(cuda):
-    """preds = target = arange(131,072): every pair concordant, N (N - 1) / 2 of them."""
+def test_kendall_pairs_of_ragged_columns_on_card(cuda):
+    """Columns whose R (rows without a NaN) ends at different lengths, some of them empty."""
     from metrics_tpu_torch.ops import kendall
 
-    n = 131_072
+    g = torch.Generator(device=cuda).manual_seed(7)
+    n, c = 3 * kendall.MERGE_TILE + 5, 6
+    x = torch.randint(0, 50, (n, c), generator=g, device=cuda).float()
+    y = torch.randint(0, 50, (n, c), generator=g, device=cuda).float()
+    for col, keep in enumerate((n, n - 1, kendall.MERGE_TILE, kendall.MERGE_TILE + 1, 1, 0)):
+        x[keep:, col] = float("nan") if col % 2 else x[keep:, col]
+        y[keep:, col] = y[keep:, col] if col % 2 else float("nan")
+    got = kendall.kendall_pairs_cuda(x, y)
+    assert torch.equal(got, kendall._plain_pair_counts(x, y))
+    assert torch.equal(got, kendall._plain_merge_pair_counts(x, y))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [131_072, 1 << 24])
+def test_kendall_pairs_closed_form_past_2_to_the_31_on_card(cuda, n):
+    """preds = target = arange(n): every pair concordant, N (N - 1) / 2 of them; -target:
+    every pair discordant."""
+    from metrics_tpu_torch.ops import kendall
+
     ramp = torch.arange(n, device=cuda, dtype=torch.float32)
-    got = kendall.kendall_pairs_cuda(ramp, ramp)
-    assert got.tolist() == [[n * (n - 1) // 2, 0, 0, 0]] and n * (n - 1) // 2 == 8_589_869_056
-    assert kendall.kendall_pairs_cuda(ramp, -ramp).tolist() == [[0, n * (n - 1) // 2, 0, 0]]
+    both = n * (n - 1) // 2
+    assert kendall.kendall_pairs_cuda(ramp, ramp).tolist() == [[both, 0, 0, 0]] and both > 1 << 31
+    assert kendall.kendall_pairs_cuda(ramp, -ramp).tolist() == [[0, both, 0, 0]]
 
 
 @pytest.mark.cuda
@@ -374,6 +400,12 @@ def test_kendall_pairs_wrapper_checks(cuda):
         kendall.kendall_pairs_cuda(x.cpu(), x.cpu())
     with pytest.raises(ValueError):
         kendall.kendall_pairs_cuda(x, x[:9])
+    with pytest.raises(ValueError):
+        kendall.kendall_pairs_cuda(torch.zeros(2, kendall.MAX_COLUMNS + 1, device=cuda),
+                                   torch.zeros(2, kendall.MAX_COLUMNS + 1, device=cuda))
+    assert kendall.kendall_pairs_cuda(torch.zeros(5, 0, device=cuda), torch.zeros(5, 0, device=cuda)).shape == (0, 4)
+    empty = torch.zeros(0, 3, device=cuda)
+    assert kendall.kendall_pairs_cuda(empty, empty).tolist() == [[0, 0, 0, 0]] * 3
 
 
 @pytest.mark.cuda

@@ -229,7 +229,7 @@ def test_pair_counts_of_many_columns_and_row_chunks(monkeypatch):
     for j in range(3):
         np.testing.assert_array_equal(whole[j].numpy(), jax_pair_counts(x[:, j], y[:, j]))
     monkeypatch.setattr(tk, "_PLAIN_CHUNK_BYTES", 4 * 3 * N * 7)  # 7 rows a chunk
-    assert torch.equal(tk.pair_counts(torch.from_numpy(x), torch.from_numpy(y)), whole)
+    assert torch.equal(tk._plain_pair_counts(torch.from_numpy(x), torch.from_numpy(y)), whole)
 
 
 def test_plain_counts_are_int64_and_chunk_sums_pass_2_to_the_31():
