@@ -58,8 +58,10 @@ Phases, each printing one JSON line:
    class, predictions agreeing on 90% of pixels); the scan on the DLRM compute's
    two lanes, timed in turns (kernel, plain, ``torch.cummin`` on each pre-flipped
    lane, kernel) and reported from its second turn; the scan on one int32 sum lane
-   of the same length in turns with ``torch.cumsum`` (CUB's single-pass scan: the
-   library yardstick of the kernels line); the scan per call at the ImageNet
+   of the same length in turns with ``torch.cumsum`` (CUB's single-pass scan), and
+   ``torch.cumsum`` of the DLRM compute's two lanes in one call: as a (2, N) tensor
+   along dim 1 in turns with the kernel (the library yardstick of the kernels line),
+   and once as an (N, 2) tensor along dim 0; the scan per call at the ImageNet
    shape (one class, 50,000 rows). Each kernel and yardstick is timed once per
    call with the device idle between calls (the host's time before the launch
    counts) and, where marked ``back_to_back``, per call over 20 calls queued
@@ -140,8 +142,8 @@ Phases, each printing one JSON line:
 
 13. image: the image and pairwise slice, data drawn on the card, no hand kernel (both
     launch counts 0):
-    - CIFAR-10 FID protocol: 50,000 real and 50,000 generated 3x32x32 uint8 images in
-      updates of 500, resized to 299x299 inside a full-width InceptionV3 on
+    - CIFAR-10 FID protocol, cut to 25,000 real and 25,000 generated 3x32x32 uint8 images
+      (the protocol's 50,000 each) in updates of 500, resized to 299x299 inside a full-width InceptionV3 on
       ``random_inception_state(seed)``: FrechetInceptionDistance (tap 2048),
       KernelInceptionDistance (100 subsets of 1,000) and InceptionScore (10 splits,
       ``logits_unbiased``). Checks: 8 images' features on the card within 1e-3 of the
@@ -224,6 +226,37 @@ Phases, each printing one JSON line:
       levels, the counts equal to the plain merge count's and tau-b within 1e-9 of scipy's
       kendalltau; at N = 2^24, ramp against ramp and against -ramp give the closed forms
       [[C(N, 2), 0, 0, 0]] and [[0, C(N, 2), 0, 0]] exactly; device ms of both sizes.
+
+16. wrappers_nominal: nominal association and the five wrappers, data drawn on the card,
+    every path's launches counted with the counts at 0 just before it:
+    - UCI Adult: 48,842 rows x its 8 categorical columns at their cardinalities with "?"
+      as a category (9, 16, 7, 15, 6, 5, 2, 42), skewed marginals, education -> occupation
+      and relationship -> sex dependent, ~1% NaN in workclass, occupation and
+      native-country. The four ``_matrix`` forms under both NaN strategies: exactly one
+      histogram launch a call (28 pairs, 3,982 bins, 1,367,576 ids), the pair tables
+      bit-equal to 28 plain per-pair counts on the card, to a CPU run of the port and to
+      the per-pair tables of a numpy evaluator that densifies each pair's joint labels as
+      the JAX package does; the values within 1e-6 of its float64 statistics. The four
+      classes on (education, occupation) in updates of 4,096 (one launch an update each),
+      their tables bit-equal to the pair launch's, their values within 1e-6 of the matrix
+      entries. Timings: each form's call, the pair launch alone against the plain version,
+      ``torch.bincount`` and the bound, and the 28 per-pair launches the JAX loop makes.
+    - ImageNet-1k val: 50,000 x 1,000 logits (true class shifted up) in updates of 256
+      through BootStrapper(MulticlassAccuracy(1000, average="macro"), 100 copies,
+      quantiles 0.025 and 0.975): the copies' states after 10 updates bit-equal to a CPU
+      run with the same seed, mean/std/quantile equal to the copies' values; no kernel
+      launch (10^6 confusion bins take the scatter-add route); ClasswiseWrapper over
+      MulticlassAccuracy(1000, average=None) bit-equal to the metric alone, MinMaxMetric
+      over 10 computes equal to the running min and max of the macro values.
+    - DLRM-style rows: 20 updates of 65,536 through BootStrapper(BinaryAUROC(), 20): each
+      copy's rows as many as the replayed Poisson draws, its AUROC within 1e-5 of a
+      float64 Mann-Whitney statistic, exactly 20 scan launches a compute.
+    - QM9 with 1% NaN per target in both inputs, updates of 32, through
+      MultioutputWrapper(PearsonCorrCoef(), 12): bit-equal to per-column PearsonCorrCoef
+      on the NaN-free rows, within 1e-5 of float64.
+    - MetricTracker over the Cityscapes collection, 3 steps of one batch: 2 histogram
+      launches a step, each step's values bit-equal to the collection run alone,
+      ``best_metric`` the steps' maximum.
 
 The last three lines are the ``nvidia-smi`` name and power limit, the kernels JSON
 line and ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
@@ -942,6 +975,24 @@ def phase_curve_timing(torch, gpu, batch, imagenet, imagenet_batch, imagenet_cla
         back_to_back[key].append(back_to_back_ms(torch, fn))
     sum_bound_ms = n * 2 * sum_lane.element_size() / HBM_BYTES_PER_S * 1e3
 
+    # the kernels line's library yardstick: torch.cumsum of the same two lanes in one call,
+    # as one (2, N) tensor along dim 1, in turns with the kernel; as one (N, 2) tensor along
+    # dim 0 PyTorch scans the long outer dimension at seconds a call, so that form is timed once
+    rows = torch.stack(lanes, 0)
+    want_rows = torch.stack([torch.cumsum(lane, 0, dtype=torch.int32) for lane in lanes], 0)
+    rows_cumsum = lambda: torch.cumsum(rows, 1, dtype=torch.int32)  # noqa: E731
+    if not torch.equal(rows_cumsum(), want_rows):
+        raise AssertionError("torch.cumsum of the (2, N) lanes differs from the lanes' cumsums")
+    rows_cumsum_ms = [event_ms(torch, rows_cumsum, warmup=10)]
+    pair_kernel_ms = event_ms(torch, lambda: segment_scan_cuda(lanes, None, ops, True), warmup=10)
+    rows_cumsum_ms.append(event_ms(torch, rows_cumsum, warmup=10))
+    columns, once = rows.T.contiguous(), []
+    columns_cumsum = timed_call(torch, once, lambda: torch.cumsum(columns, 0, dtype=torch.int32))
+    columns_cumsum_ms = events_ms(torch, once)[0]
+    if not torch.equal(columns_cumsum, want_rows.T):
+        raise AssertionError("torch.cumsum of the (N, 2) lanes differs from the lanes' cumsums")
+    del rows, want_rows, columns, columns_cumsum
+
     # the ImageNet path's shape: one class, 50,000 rows, the same two lanes, reverse
     small, _ = sorted_run_lanes(torch, *imagenet_class)
     small_want = _plain_multi_scan(small, None, ops, True)
@@ -950,6 +1001,8 @@ def phase_curve_timing(torch, gpu, batch, imagenet, imagenet_batch, imagenet_cla
     small_ms = event_ms(torch, lambda: segment_scan_cuda(small, None, ops, True), reps=100, warmup=10)
     small_plain_ms = event_ms(torch, lambda: _plain_multi_scan(small, None, ops, True), reps=100, warmup=10)
     small_cumsum_ms = event_ms(torch, lambda: torch.cumsum(small[0], 0, dtype=torch.int32), reps=100, warmup=10)
+    small_rows = torch.stack(small, 0)
+    small_rows_cumsum_ms = event_ms(torch, lambda: torch.cumsum(small_rows, 1, dtype=torch.int32), reps=100, warmup=10)
     m = small[0].numel()
     small_bound_ms = m * k * 2 * small[0].element_size() / HBM_BYTES_PER_S * 1e3
     emit({"phase": "curve_timing", "card": smi, "metrics": timing,
@@ -959,8 +1012,13 @@ def phase_curve_timing(torch, gpu, batch, imagenet, imagenet_batch, imagenet_cla
                            "kernel_share_of_bound": bound_ms / kernel_ms},
           "segment_scan_sum_lane": {"n": n, "kernel_ms": sum_kernel_ms, "torch_cumsum_ms": cumsum_ms,
                                     "back_to_back": back_to_back, "bound_ms": sum_bound_ms},
+          "segment_scan_two_lanes_cumsum": {"n": n, "lanes": k, "torch_cumsum_2_by_n_dim_1_ms": rows_cumsum_ms,
+                                            "kernel_ms_between": pair_kernel_ms,
+                                            "torch_cumsum_n_by_2_dim_0_ms_once": columns_cumsum_ms},
           "segment_scan_imagenet_shape": {"n": m, "lanes": k, "kernel_ms": small_ms, "plain_ms": small_plain_ms,
-                                          "torch_cumsum_ms": small_cumsum_ms, "bound_ms": small_bound_ms}})
+                                          "torch_cumsum_ms": small_cumsum_ms,
+                                          "torch_cumsum_2_by_n_dim_1_ms": small_rows_cumsum_ms,
+                                          "bound_ms": small_bound_ms}})
     return {
         "name": "segment_scan",
         "route": "cuda",
@@ -972,7 +1030,7 @@ def phase_curve_timing(torch, gpu, batch, imagenet, imagenet_batch, imagenet_cla
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": "bytes",
-        "library_ms": statistics.median(cumsum_ms),
+        "library_ms": statistics.median(rows_cumsum_ms),
     }
 
 
@@ -2099,8 +2157,9 @@ def phase_classification_rest(torch, seed: int, smi: str):
 
 # CIFAR-10 FID protocol (Heusel et al. 2017, as torch-fidelity and pytorch-fid run it):
 # 50,000 real against 50,000 generated 3x32x32 uint8 images, resized to 299x299 inside
-# the network, in updates of 500
-CIFAR10 = {"real": 50_000, "fake": 50_000, "batch": 500, "size": 32}
+# the network, in updates of 500; cut to 25,000 each so that the whole run stays within
+# its earlier time with the wrappers and nominal phase added
+CIFAR10 = {"real": 25_000, "fake": 25_000, "batch": 500, "size": 32}
 KID_ARGS = {"subsets": 100, "subset_size": 1000}
 IS_SPLITS = 10
 FID_768_IMAGES = 10_000  # per set: the 768-tap FID of the scipy.linalg.sqrtm cross-check
@@ -4024,6 +4083,478 @@ def phase_regression_audio(torch, seed: int, smi: str):
     }
 
 
+# UCI Adult (census income, train + test): 48,842 rows; its 8 categorical columns with "?"
+# counted as a category: workclass, education, marital-status, occupation, relationship,
+# race, sex, native-country. Skewed marginals, education -> occupation and relationship
+# -> sex dependent, about 1% NaN where Adult has its "?" (workclass, occupation,
+# native-country); the classes stream (education, occupation) in updates of 4,096
+ADULT = {"rows": 48_842, "cardinalities": (9, 16, 7, 15, 6, 5, 2, 42), "skew": 1.2,
+         "dependent": ((1, 3, 0.6), (4, 6, 0.85)), "nan_columns": (0, 3, 7), "nan_rate": 0.01,
+         "class_pair": (1, 3), "batch": 4_096}
+NOMINAL_FORMS = ("cramers_v", "tschuprows_t", "pearsons_contingency_coefficient", "theils_u")
+NOMINAL_CLASSES = {"cramers_v": "CramersV", "tschuprows_t": "TschuprowsT",
+                   "pearsons_contingency_coefficient": "PearsonsContingencyCoefficient", "theils_u": "TheilsU"}
+NOMINAL_ATOL = 1e-6  # the nominal values (float64 on the card, float32 out) against float64 numpy
+# BootStrapper over ImageNet-1k val macro accuracy; ClasswiseWrapper and MinMaxMetric beside it
+IMAGENET_BOOT = {"batch": 256, "num_bootstraps": 100, "quantile": (0.025, 0.975), "cpu_updates": 10,
+                 "minmax_computes": 10, "true_class_shift": 7.5}
+DLRM_BOOT = {"updates": 20, "batch": 65_536, "num_bootstraps": 20}  # DLRM-style rows, BinaryAUROC copies
+AUROC_ATOL = 1e-5  # each copy's AUROC against a float64 Mann-Whitney statistic on its rows
+QM9_NAN_RATE = 0.01  # NaN per target in preds and in target, for MultioutputWrapper(remove_nans)
+TRACKER_STEPS = 3
+
+
+def adult_data(torch, seed: int, device="cuda"):
+    """The (48,842, 8) float32 matrix of Adult's categorical columns, drawn on the card."""
+    g = torch.Generator(device=device).manual_seed(seed + 1200)
+    n = ADULT["rows"]
+    cols = []
+    for c in ADULT["cardinalities"]:
+        weights = torch.arange(1, c + 1, device=device, dtype=torch.float64) ** -ADULT["skew"]
+        weights = weights[torch.randperm(c, generator=g, device=device)]
+        cols.append(torch.multinomial(weights, n, replacement=True, generator=g))
+    for src, dst, share in ADULT["dependent"]:
+        mapping = torch.randint(0, ADULT["cardinalities"][dst], (ADULT["cardinalities"][src],), generator=g,
+                                device=device)
+        follow = torch.rand(n, generator=g, device=device) < share
+        cols[dst] = torch.where(follow, mapping[cols[src]], cols[dst])
+    m = torch.stack(cols, 1).to(torch.float32)
+    for c in ADULT["nan_columns"]:
+        m[:, c] = m[:, c].masked_fill(torch.rand(n, generator=g, device=device) < ADULT["nan_rate"], float("nan"))
+    return m
+
+
+def nominal_value(np, cm, name: str) -> float:
+    """One table's value in float64 numpy by the JAX package's formulas (default bias
+    correction); ``cm`` has no empty row or column."""
+    cm = cm.astype(np.float64)
+    n = cm.sum()
+    if name == "theils_u":
+        p_xy = cm / n
+        p_y = np.broadcast_to(cm.sum(1, keepdims=True) / n, cm.shape)
+        nz = cm > 0
+        s_xy = float(np.sum(p_xy[nz] * np.log(p_y[nz] / p_xy[nz])))
+        p_x = cm.sum(0) / n
+        s_x = float(-np.sum(p_x * np.log(p_x)))
+        return 0.0 if s_x == 0 else (s_x - s_xy) / s_x
+    r, k = cm.shape
+    expected = np.outer(cm.sum(1), cm.sum(0)) / n
+    corrected = name != "pearsons_contingency_coefficient"
+    if (r - 1) * (k - 1) == 0:
+        chi2 = 0.0
+    else:
+        if (r - 1) * (k - 1) == 1 and corrected:
+            diff = expected - cm
+            cm = cm + np.sign(diff) * np.minimum(0.5, np.abs(diff))
+        chi2 = float(np.sum((cm - expected) ** 2 / expected))
+    phi2 = chi2 / n
+    if not corrected:
+        return float(np.clip(np.sqrt(phi2 / (1 + phi2)), 0.0, 1.0))
+    phi2c = max(0.0, phi2 - (r - 1) * (k - 1) / (n - 1))
+    rc, kc = r - (r - 1) ** 2 / (n - 1), k - (k - 1) ** 2 / (n - 1)
+    if min(rc, kc) == 1:
+        return float("nan")
+    denom = min(rc - 1, kc - 1) if name == "cramers_v" else np.sqrt((rc - 1) * (kc - 1))
+    return float(np.clip(np.sqrt(phi2c / denom), 0.0, 1.0))
+
+
+def nominal_reference(np, m, nan_strategy: str) -> tuple:
+    """Each pair's table as the JAX package builds it (its rows' joint labels densified,
+    empty rows and columns dropped), in numpy on the host, and the four forms' (V, V)
+    float64 values from them."""
+    import itertools
+
+    v = m.shape[1]
+    values = {name: np.ones((v, v)) for name in NOMINAL_FORMS}
+    tables = {}
+    for i, j in itertools.combinations(range(v), 2):
+        x, y = m[:, i], m[:, j]
+        if nan_strategy == "drop":
+            keep = ~(np.isnan(x) | np.isnan(y))
+            x, y = x[keep], y[keep]
+        else:
+            x, y = np.nan_to_num(x, nan=0.0), np.nan_to_num(y, nan=0.0)
+        _, inv = np.unique(np.concatenate([x, y]), return_inverse=True)
+        c = int(inv.max()) + 1
+        cm = np.bincount(inv[len(x):] * c + inv[:len(x)], minlength=c * c).reshape(c, c)
+        cm = cm[cm.sum(1) != 0]
+        cm = cm[:, cm.sum(0) != 0]
+        tables[(i, j)] = cm
+        for name in NOMINAL_FORMS:
+            values[name][i, j] = nominal_value(np, cm, name)
+            values[name][j, i] = nominal_value(np, cm.T, name) if name == "theils_u" else values[name][i, j]
+    return tables, values
+
+
+def dropped_table(table):
+    """A padded int64 table without its empty rows and columns, as numpy."""
+    t = table.cpu().numpy()
+    t = t[t.sum(1) != 0]
+    return t[:, t.sum(0) != 0]
+
+
+def wn_adult(torch, seed: int, smi: str) -> int:
+    """UCI Adult through the four ``_matrix`` forms (one histogram launch a call, under
+    both NaN strategies) and the four classes on (education, occupation). Returns the
+    histogram launches."""
+    import itertools
+
+    import numpy as np
+
+    import metrics_tpu_torch.functional.nominal as nominal
+    import metrics_tpu_torch.nominal as nominal_classes
+    from metrics_tpu_torch.functional.nominal.utils import _densify_columns, _pair_tables
+    from metrics_tpu_torch.ops import confmat as ops_confmat
+    from metrics_tpu_torch.ops.histogram import _plain_bincount, histogram_cuda
+
+    m = adult_data(torch, seed)
+    host = m.double().cpu().numpy()
+    cards = ADULT["cardinalities"]
+    pairs = list(itertools.combinations(range(len(cards)), 2))
+    launches, errs, values, tables = 0, {}, {}, {}
+    for strategy in ("replace", "drop"):
+        want_tables, want_values = nominal_reference(np, host, strategy)
+        for name in NOMINAL_FORMS:
+            fn = getattr(nominal, f"{name}_matrix")
+            got, counted, _ = run_counted(torch, lambda: fn(m, nan_strategy=strategy))
+            expect_launches(f"Adult {name}_matrix {strategy}", counted, histogram=1)
+            launches += 1
+            if got.dtype != torch.float32 or got.shape != (len(cards), len(cards)) or not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"Adult {name}_matrix {strategy}: {got}")
+            errs[f"{name}/{strategy}"] = float(np.max(np.abs(got.double().cpu().numpy() - want_values[name])))
+            if not errs[f"{name}/{strategy}"] <= NOMINAL_ATOL:
+                raise AssertionError(f"Adult {name}_matrix {strategy}: off float64 by {errs[f'{name}/{strategy}']}")
+            values[f"{name}/{strategy}"] = got
+        # the counts: the one launch's tables against 28 plain per-pair counts on the card,
+        # a CPU run of the port and the JAX package's per-pair tables (numpy, above)
+        ids, valid, got_cards = _densify_columns(m, strategy, 0.0)
+        if tuple(got_cards) != cards:
+            raise AssertionError(f"Adult {strategy}: cardinalities {got_cards}, drawn {cards}")
+        table, _, _ = _pair_tables(m, strategy, 0.0, None)
+        cpu_table, _, _ = _pair_tables(m.cpu(), strategy, 0.0, None)
+        if not torch.equal(table.cpu(), cpu_table):
+            raise AssertionError(f"Adult {strategy}: the card's pair tables differ from the CPU run's")
+        for p, (i, j) in enumerate(pairs):
+            keep = torch.ones_like(ids[:, i], dtype=torch.bool) if valid is None else valid[:, i] & valid[:, j]
+            pair_ids = torch.where(keep, ids[:, j] * cards[i] + ids[:, i], -1)
+            plain = _plain_bincount(pair_ids, None, cards[i] * cards[j]).long().reshape(cards[j], cards[i])
+            if not torch.equal(table[p, :cards[j], :cards[i]], plain) or int(table[p].sum()) != int(plain.sum()):
+                raise AssertionError(f"Adult {strategy} pair {(i, j)}: batched counts differ from the plain count")
+            if not np.array_equal(dropped_table(table[p]), want_tables[(i, j)]):
+                raise AssertionError(f"Adult {strategy} pair {(i, j)}: counts differ from the per-pair table")
+        tables[strategy] = table
+
+    # the classes on (education, occupation), streamed in updates of 4,096 rows
+    a, b = ADULT["class_pair"]
+    c = max(cards[a], cards[b])
+    classes = {name: getattr(nominal_classes, cls)(num_classes=c, nan_strategy="drop")
+               for name, cls in NOMINAL_CLASSES.items()}
+    batches = [(m[s:s + ADULT["batch"], a], m[s:s + ADULT["batch"], b]) for s in range(0, len(m), ADULT["batch"])]
+
+    def stream():
+        for preds, target in batches:
+            for metric in classes.values():
+                metric.update(preds, target)
+        return {name: metric.compute() for name, metric in classes.items()}
+
+    class_values, counted, class_seconds = run_counted(torch, stream)
+    expect_launches("Adult classes", counted, histogram=len(classes) * len(batches))
+    launches += len(classes) * len(batches)
+    p = pairs.index((a, b))
+    for name, metric in classes.items():
+        if not torch.equal(metric.confmat[:cards[b], :cards[a]], tables["drop"][p, :cards[b], :cards[a]]):
+            raise AssertionError(f"Adult {name}: the class's table differs from the pair launch's")
+        err = abs(float(class_values[name]) - float(values[f"{name}/drop"][a, b]))
+        errs[f"{NOMINAL_CLASSES[name]}/stream"] = err
+        if not err <= NOMINAL_ATOL:
+            raise AssertionError(f"Adult {NOMINAL_CLASSES[name]}: {class_values[name]} vs the matrix's {err}")
+
+    # timings: each form's call; the pair launch alone (recorded from a call) against the
+    # plain version, torch.bincount and the bound; the JAX package's launch pattern, one
+    # count-mode launch per pair on the same ids
+    matrix_ms = {name: event_ms(torch, lambda: getattr(nominal, f"{name}_matrix")(m, nan_strategy="replace"),
+                                reps=10, warmup=2) for name in NOMINAL_FORMS}
+    matrix_device = call_device_ms(torch, lambda: nominal.cramers_v_matrix(m, nan_strategy="replace"), "histogram",
+                                   reps=5)
+    recorded, real = [], ops_confmat._bincount
+    ops_confmat._bincount = lambda ids_, bins_: (recorded.append((ids_, bins_)), real(ids_, bins_))[1]
+    try:
+        nominal.cramers_v_matrix(m, nan_strategy="replace")
+    finally:
+        ops_confmat._bincount = real
+    if len(recorded) != 1:
+        raise AssertionError(f"Adult: {len(recorded)} pair launches recorded, not 1")
+    pair_ids, bins = recorded[0]
+    line = histogram_mode_timing(torch, pair_ids, None, bins, None)
+    ids, _, _ = _densify_columns(m, "replace", 0.0)
+    per_pair = [(torch.where(torch.ones_like(ids[:, i], dtype=torch.bool), ids[:, j] * cards[i] + ids[:, i], -1)
+                 .to(torch.int32).contiguous(), cards[i] * cards[j]) for i, j in pairs]
+    line["per_pair_launches_ms"] = event_ms(torch, lambda: [histogram_cuda(x, None, k) for x, k in per_pair], reps=10)
+    line["per_pair_launches"] = len(per_pair)
+    update_ms = {name: event_ms(torch, lambda: getattr(nominal_classes, NOMINAL_CLASSES[name])(
+        num_classes=c, nan_strategy="drop").update(*batches[0]), reps=10) for name in NOMINAL_FORMS}
+    emit({"phase": "wrappers_nominal", "config": "adult", "nvidia_smi": smi, "rows": len(m), "cardinalities": cards,
+          "pairs": len(pairs), "bins": bins, "ids": pair_ids.numel(),
+          "cramers_v_replace": values["cramers_v/replace"].tolist(),
+          "class_values": {NOMINAL_CLASSES[k]: float(v) for k, v in class_values.items()},
+          "max_abs_err_vs_float64": errs, "atol": NOMINAL_ATOL, "histogram_launches_per_matrix_call": 1,
+          "counts_bit_equal": {"plain_per_pair": True, "cpu": True, "numpy_per_pair_tables": True},
+          "matrix_call_ms": matrix_ms, "cramers_v_matrix_call_device": matrix_device, "class_update_ms": update_ms, "class_stream_seconds": class_seconds,
+          "pair_launch": line, "launches": {"histogram": launches}})
+    return launches
+
+
+def snapshot_copies(boot) -> list:
+    return [{name: getattr(copy, name).clone() for name in copy._defaults} for copy in boot.metrics]
+
+
+def uncached_compute_ms(torch, metric, reps: int = 3) -> float:
+    """Event median of ``metric.compute()`` with its own and its children's cached values cleared."""
+    def run():
+        for module in metric.modules():
+            module._computed = None
+        metric.compute()
+    return event_ms(torch, run, reps=reps, warmup=1)
+
+
+def wn_imagenet(torch, seed: int, smi: str) -> None:
+    """ImageNet-1k val logits through BootStrapper (100 macro-accuracy copies), and
+    ClasswiseWrapper and MinMaxMetric beside it."""
+    from metrics_tpu_torch.classification import MulticlassAccuracy
+    from metrics_tpu_torch.wrappers import BootStrapper, ClasswiseWrapper, MinMaxMetric
+
+    cfg = IMAGENET_BOOT
+    gi = torch.Generator(device="cuda").manual_seed(seed + 3)
+    c, m, b = IMAGENET["classes"], IMAGENET["samples"], cfg["batch"]
+    logits = 2.0 * torch.randn((m, c), generator=gi, device="cuda")
+    labels = torch.randint(0, c, (m,), generator=gi, device="cuda")
+    logits[torch.arange(m, device="cuda"), labels] += cfg["true_class_shift"]  # a top-1 accuracy near 0.7
+    batches = [(logits[s:s + b], labels[s:s + b]) for s in range(0, m, b)]
+
+    def bootstrapper(device="cuda"):
+        return BootStrapper(MulticlassAccuracy(c, average="macro", device=device),
+                            num_bootstraps=cfg["num_bootstraps"], quantile=list(cfg["quantile"]), seed=seed)
+
+    boot, early = bootstrapper(), []
+
+    def drive_boot():
+        for k, batch in enumerate(batches):
+            boot.update(*batch)
+            if k + 1 == cfg["cpu_updates"]:
+                early.extend(snapshot_copies(boot))
+        return boot.compute()
+
+    # a macro accuracy's confusion matrix at 1,000 classes has 10^6 bins, past the kernel's
+    # 2^14: each copy's update takes the plain scatter-add route, no kernel launch
+    boot_value, counted, boot_seconds = run_counted(torch, drive_boot)
+    expect_launches("ImageNet BootStrapper", counted)
+    cpu = bootstrapper("cpu")
+    for batch in batches[:cfg["cpu_updates"]]:
+        cpu.update(*(x.cpu() for x in batch))
+    for k, (state, copy) in enumerate(zip(early, cpu.metrics)):
+        for name, value in state.items():
+            if not torch.equal(value.cpu(), getattr(copy, name)):
+                raise AssertionError(f"ImageNet BootStrapper copy {k} {name}: the card differs from the CPU run")
+    raw = torch.stack([copy.compute() for copy in boot.metrics])
+    q = torch.quantile(raw, torch.tensor(cfg["quantile"], device=raw.device))
+    if not (torch.equal(boot_value["mean"], raw.mean(0)) and torch.equal(boot_value["std"], raw.std(0))
+            and torch.equal(boot_value["quantile"], q) and bool(torch.isfinite(raw).all())
+            and bool(((raw > 0) & (raw < 1)).all())):
+        raise AssertionError(f"ImageNet BootStrapper: {boot_value} against its copies' values {raw}")
+
+    classwise = ClasswiseWrapper(MulticlassAccuracy(c, average=None))
+    minmax = MinMaxMetric(MulticlassAccuracy(c, average="macro"))
+    at = {round((i + 1) * len(batches) / cfg["minmax_computes"]) - 1 for i in range(cfg["minmax_computes"])}
+    seen = []
+
+    def drive_wrappers():
+        for k, batch in enumerate(batches):
+            classwise.update(*batch)
+            minmax.update(*batch)
+            if k in at:
+                seen.append({key: v.clone() for key, v in minmax.compute().items()})
+        return classwise.compute()
+
+    per_class, counted, wrapper_seconds = run_counted(torch, drive_wrappers)
+    expect_launches("ImageNet ClasswiseWrapper and MinMaxMetric", counted)
+    apart_none, apart_macro = MulticlassAccuracy(c, average=None), MulticlassAccuracy(c, average="macro")
+    raws = []
+    for k, batch in enumerate(batches):
+        apart_none.update(*batch)
+        apart_macro.update(*batch)
+        if k in at:
+            raws.append(apart_macro.compute().clone())
+            apart_macro._computed = None
+    want_none = apart_none.compute()
+    if list(per_class) != [f"multiclassaccuracy_{i}" for i in range(c)] or not torch.equal(
+            torch.stack(list(per_class.values())), want_none):
+        raise AssertionError("ImageNet ClasswiseWrapper differs from MulticlassAccuracy(average=None)")
+    if len(seen) != cfg["minmax_computes"]:
+        raise AssertionError(f"ImageNet MinMaxMetric: {len(seen)} computes")
+    for i, (got, raw_i) in enumerate(zip(seen, raws)):
+        so_far = torch.stack(raws[:i + 1])
+        if not (torch.equal(got["raw"], raw_i) and torch.equal(got["max"], so_far.max())
+                and torch.equal(got["min"], so_far.min())):
+            raise AssertionError(f"ImageNet MinMaxMetric compute {i}: {got} vs raw {raws[:i + 1]}")
+    timed = bootstrapper()
+    timing = {"bootstrapper_update_ms": event_ms(torch, lambda: timed.update(*batches[0]), reps=5, warmup=1),
+              "bootstrapper_update_device": call_device_ms(torch, lambda: timed.update(*batches[0]), "histogram",
+                                                           reps=2),
+              "bootstrapper_compute_ms": uncached_compute_ms(torch, boot),
+              "classwise_update_ms": event_ms(torch, lambda: classwise.update(*batches[0]), reps=10),
+              "minmax_compute_ms": uncached_compute_ms(torch, minmax)}
+    emit({"phase": "wrappers_nominal", "config": "imagenet", "nvidia_smi": smi, "rows": m, "classes": c,
+          "updates": len(batches), "num_bootstraps": cfg["num_bootstraps"],
+          "bootstrap": {k: v.tolist() for k, v in boot_value.items()},
+          "histogram_launches_per_bootstrap_update": 0, "confusion_bins": c * c,
+          "first_updates_bit_equal_to_cpu": cfg["cpu_updates"],
+          "minmax": {k: float(v) for k, v in seen[-1].items()}, "timing": timing,
+          "seconds": {"bootstrapper": boot_seconds, "classwise_and_minmax": wrapper_seconds}})
+
+
+def wn_dlrm(torch, seed: int, smi: str) -> int:
+    """DLRM-style rows through BootStrapper(BinaryAUROC(), 20): list-state copies, one scan
+    launch per copy compute. Returns the scan launches."""
+    import numpy as np
+
+    from metrics_tpu_torch.classification import BinaryAUROC
+    from metrics_tpu_torch.wrappers import BootStrapper
+
+    cfg = DLRM_BOOT
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    n, b = cfg["updates"] * cfg["batch"], cfg["batch"]
+    target = (torch.rand(n, generator=g, device="cuda") < DLRM["positive_rate"]).long()
+    z = torch.randn(n, generator=g, device="cuda") + DLRM["positive_shift"] * target
+    scores = torch.sigmoid(z).to(torch.bfloat16).to(torch.float32)
+    batches = [(scores[s:s + b], target[s:s + b]) for s in range(0, n, b)]
+    boot = BootStrapper(BinaryAUROC(), num_bootstraps=cfg["num_bootstraps"], raw=True, seed=seed)
+    _, counted, update_seconds = run_counted(torch, lambda: [boot.update(*batch) for batch in batches])
+    expect_launches("DLRM BootStrapper updates", counted)
+    value, counted, compute_seconds = run_counted(torch, boot.compute)
+    expect_launches("DLRM BootStrapper compute", counted, scan=cfg["num_bootstraps"])
+    # the draws, replayed: per update, per copy, one Poisson(1) count per row
+    rng = np.random.default_rng(seed)
+    rows = np.zeros(cfg["num_bootstraps"], dtype=np.int64)
+    for _ in batches:
+        for k in range(cfg["num_bootstraps"]):
+            rows[k] += int(rng.poisson(1, size=b).sum())
+    errs = []
+    for k, copy in enumerate(boot.metrics):
+        preds, labels = torch.cat(copy.preds), torch.cat(copy.target)
+        if preds.numel() != rows[k]:
+            raise AssertionError(f"DLRM BootStrapper copy {k}: {preds.numel()} rows, the draws give {rows[k]}")
+        errs.append(abs(float(value["raw"][k]) - mann_whitney_auc(torch, preds, labels)))
+    if not max(errs) <= AUROC_ATOL:
+        raise AssertionError(f"DLRM BootStrapper: a copy's AUROC off float64 by {max(errs)}")
+    timed = BootStrapper(BinaryAUROC(), num_bootstraps=cfg["num_bootstraps"], seed=seed)
+    timing = {"update_ms": event_ms(torch, lambda: timed.update(*batches[0]), reps=5, warmup=1),
+              "update_device": call_device_ms(torch, lambda: timed.update(*batches[0]), "segment_scan", reps=2),
+              "compute_ms": uncached_compute_ms(torch, boot)}
+    emit({"phase": "wrappers_nominal", "config": "dlrm_bootstrap", "nvidia_smi": smi, "rows": n,
+          "updates": len(batches), "num_bootstraps": cfg["num_bootstraps"],
+          "values": {k: v.tolist() for k, v in value.items()}, "max_abs_err_vs_float64": max(errs),
+          "atol": AUROC_ATOL, "scan_launches_per_compute": cfg["num_bootstraps"], "timing": timing,
+          "seconds": {"updates": update_seconds, "compute": compute_seconds}})
+    return cfg["num_bootstraps"]
+
+
+def wn_qm9(torch, seed: int, smi: str) -> None:
+    """QM9 with 1% NaN per target through MultioutputWrapper(PearsonCorrCoef(), 12)."""
+    import numpy as np
+
+    from metrics_tpu_torch.regression import PearsonCorrCoef
+    from metrics_tpu_torch.wrappers import MultioutputWrapper
+
+    preds, target = qm9_data(torch, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1300)
+    preds = preds.masked_fill(torch.rand(preds.shape, generator=g, device="cuda") < QM9_NAN_RATE, float("nan"))
+    target = target.masked_fill(torch.rand(target.shape, generator=g, device="cuda") < QM9_NAN_RATE, float("nan"))
+    n, c, b = preds.shape[0], preds.shape[1], QM9["batch"]
+    wrapper = MultioutputWrapper(PearsonCorrCoef(), c)
+
+    def drive():
+        for s in range(0, n, b):
+            wrapper.update(preds[s:s + b], target[s:s + b])
+        return wrapper.compute()
+
+    value, counted, seconds = run_counted(torch, drive)
+    expect_launches("QM9 MultioutputWrapper", counted)
+    apart = [PearsonCorrCoef() for _ in range(c)]
+    for s in range(0, n, b):
+        for i, metric in enumerate(apart):
+            p, t = preds[s:s + b, i], target[s:s + b, i]
+            keep = ~(torch.isnan(p) | torch.isnan(t))
+            metric.update(p[keep], t[keep])
+    want = torch.stack([metric.compute() for metric in apart])
+    if not torch.equal(value, want):
+        raise AssertionError(f"QM9 MultioutputWrapper {value} vs per-column PearsonCorrCoef {want}")
+    p64, t64 = preds.double().cpu().numpy(), target.double().cpu().numpy()
+    ref = []
+    for i in range(c):
+        keep = ~(np.isnan(p64[:, i]) | np.isnan(t64[:, i]))
+        ref.append(np.corrcoef(p64[keep, i], t64[keep, i])[0, 1])
+    err = float(np.max(np.abs(value.double().cpu().numpy() - np.asarray(ref))))
+    if not err <= QM9_ATOL:
+        raise AssertionError(f"QM9 MultioutputWrapper off float64 by {err}")
+    emit({"phase": "wrappers_nominal", "config": "qm9_multioutput", "nvidia_smi": smi, "molecules": n, "targets": c,
+          "nan_rate": QM9_NAN_RATE, "values": value.tolist(), "bit_equal_to_per_column": True,
+          "max_abs_err_vs_float64": err, "atol": QM9_ATOL, "seconds": seconds,
+          "update_ms": event_ms(torch, lambda: wrapper.update(preds[:b], target[:b]), reps=10)})
+
+
+def wn_tracker(torch, seed: int, smi: str) -> int:
+    """MetricTracker over the Cityscapes collection, one batch a step. Returns the histogram launches."""
+    import warnings
+
+    from metrics_tpu_torch.core import MetricCollection
+    from metrics_tpu_torch.wrappers import MetricTracker
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 1400)
+    batches = [cityscapes_batch(torch, g) for _ in range(TRACKER_STEPS)]
+    tracker = MetricTracker(MetricCollection(collection_metrics("cuda")), maximize=True)
+
+    def drive():
+        for batch in batches:
+            tracker.increment()
+            tracker.update(*batch)
+        return tracker.compute_all()
+
+    values, counted, seconds = run_counted(torch, drive)
+    expect_launches("MetricTracker", counted, histogram=len(COLLECTION_GROUPS) * len(batches))
+    for k, batch in enumerate(batches):
+        apart = MetricCollection(collection_metrics("cuda"))
+        apart.update(*batch)
+        for name, value in apart.compute().items():
+            if not torch.equal(values[name][k], value):
+                raise AssertionError(f"MetricTracker step {k} {name}: {values[name][k]} vs {value}")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the confusion matrix has no best value: None, with a warning
+        best, step = tracker.best_metric(return_step=True)
+    for name, value in values.items():
+        if value.dim() == 1:
+            if best[name] != float(value.max()) or step[name] != int(value.argmax()):
+                raise AssertionError(f"MetricTracker best {name}: {best[name]} at {step[name]} vs {value}")
+    emit({"phase": "wrappers_nominal", "config": "tracker", "nvidia_smi": smi, "steps": len(batches),
+          "best": best, "best_step": step, "seconds": seconds, "histogram_launches": counted["histogram"]})
+    return counted["histogram"]
+
+
+def phase_wrappers_nominal(torch, seed: int, smi: str):
+    """Nominal association on UCI Adult and the five wrappers (ImageNet, DLRM-style rows,
+    QM9, the Cityscapes collection). Returns the main path's histogram and scan launches."""
+    t0 = time.perf_counter()
+    launches = {"histogram": wn_adult(torch, seed, smi)}
+    torch.cuda.empty_cache()
+    wn_imagenet(torch, seed, smi)
+    launches["segment_scan"] = wn_dlrm(torch, seed, smi)
+    torch.cuda.empty_cache()
+    wn_qm9(torch, seed, smi)
+    launches["histogram"] += wn_tracker(torch, seed, smi)
+    torch.cuda.empty_cache()
+    emit({"phase": "wrappers_nominal", "config": "all", "launches": launches, "seconds": time.perf_counter() - t0})
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4075,6 +4606,10 @@ def main() -> int:
     regression_audio, kendall = phase_regression_audio(torch, args.seed, smi)
     scan["launches"] += regression_audio["segment_scan"]
     kernels.append(kendall)
+    torch.cuda.empty_cache()
+    wrappers_nominal = phase_wrappers_nominal(torch, args.seed, smi)
+    kernels[0]["launches"] += wrappers_nominal["histogram"]
+    scan["launches"] += wrappers_nominal["segment_scan"]
 
     idle = [k["name"] for k in kernels if k["launches"] < 1]
     if idle:

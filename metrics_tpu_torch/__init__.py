@@ -10,8 +10,9 @@ the aggregators and ``functional``; the retrieval classes through shims that war
 (``FutureWarning``) as the JAX package's do; the image classes as the JAX root does
 (FID, KID, IS and PSNRB directly, the others through warning shims); the detection
 classes as the JAX root does (the panoptic two through warning shims); the regression
-classes, and the audio classes as the JAX root does (PESQ and STOI directly, the other
-five through warning shims). Families not ported yet, and LPIPS, are absent.
+classes, the audio classes as the JAX root does (PESQ and STOI directly, the other
+five through warning shims), the nominal classes and the wrappers. Families not ported
+yet, and LPIPS, are absent.
 """
 from metrics_tpu_torch import functional
 from metrics_tpu_torch.audio import PerceptualEvaluationSpeechQuality, ShortTimeObjectiveIntelligibility
@@ -95,6 +96,7 @@ from metrics_tpu_torch.image import (
     KernelInceptionDistance,
     PeakSignalNoiseRatioWithBlockedEffect,
 )
+from metrics_tpu_torch.nominal import CramersV, PearsonsContingencyCoefficient, TheilsU, TschuprowsT
 from metrics_tpu_torch.image._deprecated import (
     _ErrorRelativeGlobalDimensionlessSynthesis as ErrorRelativeGlobalDimensionlessSynthesis,
     _MultiScaleStructuralSimilarityIndexMeasure as MultiScaleStructuralSimilarityIndexMeasure,
@@ -138,6 +140,7 @@ from metrics_tpu_torch.retrieval._deprecated import (
     _RetrievalRecallAtFixedPrecision as RetrievalRecallAtFixedPrecision,
     _RetrievalRPrecision as RetrievalRPrecision,
 )
+from metrics_tpu_torch.wrappers import BootStrapper, ClasswiseWrapper, MetricTracker, MinMaxMetric, MultioutputWrapper
 
 __all__ = [
     "AUROC", "Accuracy", "AveragePrecision", "BinaryAUROC", "BinaryAccuracy", "BinaryAveragePrecision",
@@ -168,4 +171,7 @@ __all__ = [
     "R2Score", "ScaleInvariantSignalDistortionRatio", "ScaleInvariantSignalNoiseRatio",
     "ShortTimeObjectiveIntelligibility", "SignalDistortionRatio", "SignalNoiseRatio", "SpearmanCorrCoef",
     "SymmetricMeanAbsolutePercentageError", "TweedieDevianceScore", "WeightedMeanAbsolutePercentageError",
+    # nominal and wrappers
+    "CramersV", "PearsonsContingencyCoefficient", "TheilsU", "TschuprowsT",
+    "BootStrapper", "ClasswiseWrapper", "MetricTracker", "MinMaxMetric", "MultioutputWrapper",
 ]

@@ -8,6 +8,10 @@ each state to the port's dtype and device, and refuses float counts that are not
 whole numbers rather than rounding them. A ``CatBuffer`` state comes as the JAX
 package's ``{"data", "count", "overflow"}`` dict and stays a ``CatBuffer``.
 
+A ``BootStrapper`` takes the JAX package's stacked state (``boot_<name>``, ``(N,
+*state)``): row ``k`` loads into the port's copy ``k``. The nominal classes' float32
+``confmat`` becomes int64 like any count.
+
 A ``MetricCollection`` takes a ``metrics_tpu`` collection's ``state_dict()``, whose
 keys are ``"<name>.<state>"``: each compute group's state is loaded once, into its
 leader, and shared with the members again.
@@ -57,6 +61,11 @@ def load_jax_state(metric: Union[Metric, MetricCollection], state: Dict[str, Any
     """
     if isinstance(metric, MetricCollection):
         return _load_collection(metric, state)
+    if hasattr(metric, "_jax_child_states"):  # a wrapper whose states the JAX package stacks
+        for child, child_state in metric._jax_child_states(state):
+            load_jax_state(child, child_state)
+        metric._computed = None
+        return metric
     if hasattr(metric, "_init_states_for_load"):
         metric._init_states_for_load(state)
     missing = sorted(set(metric._defaults) - set(state))

@@ -374,6 +374,9 @@ class Metric(nn.Module, ABC):
         compute_on_cpu = self.compute_on_cpu
         self.compute_on_cpu = False
         cache = {attr: getattr(self, attr) for attr in self._defaults}
+        # a wrapper's reset resets its child metrics: keep their accumulated states too
+        # (the JAX package keeps only the wrapper's own, so its children lose theirs)
+        children = [(m, {a: getattr(m, a) for a in m._defaults}, m._update_count) for m in self._child_metrics()]
 
         self.reset()
         self.update(*args, **kwargs)
@@ -382,8 +385,17 @@ class Metric(nn.Module, ABC):
         for attr, val in cache.items():
             setattr(self, attr, val)
         self._update_count = update_count
+        for child, states, count in children:
+            for attr, val in states.items():
+                setattr(child, attr, val)
+            child._update_count = count
+            child._computed = None
         self._end_forward(compute_on_cpu)
         return batch_val
+
+    def _child_metrics(self) -> List["Metric"]:
+        """The metrics held inside this one (a wrapper's base metric or copies), at any depth."""
+        return [m for m in self.modules() if isinstance(m, Metric) and m is not self]
 
     def _forward_reduce_state_update(self, *args: Any, **kwargs: Any) -> Any:
         global_state = {attr: getattr(self, attr) for attr in self._defaults}
@@ -623,6 +635,8 @@ class Metric(nn.Module, ABC):
             if isinstance(default, (Tensor, CatBuffer)):
                 self._device = default.device
                 break
+        else:  # no state of its own (a wrapper): the device of the metrics it holds
+            self._device = next((m.device for m in self._child_metrics()), self._device)
         self._computed = None
         return self
 

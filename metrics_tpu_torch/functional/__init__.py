@@ -1,5 +1,5 @@
-"""Functional entry points of metrics_tpu_torch: every classification and regression
-functional, the pairwise functions, PSNRB, the four box-IoU functionals, PESQ and STOI,
+"""Functional entry points of metrics_tpu_torch: every classification, regression and
+nominal functional, the pairwise functions, PSNRB, the four box-IoU functionals, PESQ and STOI,
 and the retrieval, the other image, the two panoptic and the other six audio functionals
 through root shims that warn (as in ``metrics_tpu.functional``);
 ``metrics_tpu_torch.functional.retrieval``, ``.image``, ``.detection`` and ``.audio``
@@ -42,6 +42,16 @@ from metrics_tpu_torch.functional.image._deprecated import (
     _structural_similarity_index_measure as structural_similarity_index_measure,
     _total_variation as total_variation,
     _universal_image_quality_index as universal_image_quality_index,
+)
+from metrics_tpu_torch.functional.nominal import (
+    cramers_v,
+    cramers_v_matrix,
+    pearsons_contingency_coefficient,
+    pearsons_contingency_coefficient_matrix,
+    theils_u,
+    theils_u_matrix,
+    tschuprows_t,
+    tschuprows_t_matrix,
 )
 from metrics_tpu_torch.functional.pairwise import (
     pairwise_cosine_similarity,
@@ -105,4 +115,12 @@ __all__ = _classification_all + _regression_all + [
     "retrieval_r_precision",
     "retrieval_recall",
     "retrieval_reciprocal_rank",
+    "cramers_v",
+    "cramers_v_matrix",
+    "pearsons_contingency_coefficient",
+    "pearsons_contingency_coefficient_matrix",
+    "theils_u",
+    "theils_u_matrix",
+    "tschuprows_t",
+    "tschuprows_t_matrix",
 ]

@@ -1,0 +1,19 @@
+"""Nominal-association functionals (counterpart of ``metrics_tpu/functional/nominal``)."""
+from metrics_tpu_torch.functional.nominal.cramers import cramers_v, cramers_v_matrix
+from metrics_tpu_torch.functional.nominal.pearson import (
+    pearsons_contingency_coefficient,
+    pearsons_contingency_coefficient_matrix,
+)
+from metrics_tpu_torch.functional.nominal.theils_u import theils_u, theils_u_matrix
+from metrics_tpu_torch.functional.nominal.tschuprows import tschuprows_t, tschuprows_t_matrix
+
+__all__ = [
+    "cramers_v",
+    "cramers_v_matrix",
+    "pearsons_contingency_coefficient",
+    "pearsons_contingency_coefficient_matrix",
+    "theils_u",
+    "theils_u_matrix",
+    "tschuprows_t",
+    "tschuprows_t_matrix",
+]

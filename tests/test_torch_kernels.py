@@ -422,3 +422,37 @@ def test_average_ranks_on_card_match_cpu(cuda, n, c):
     got = average_ranks(x)
     assert segment.segment_scan_cuda.launches == before + 2
     assert torch.equal(got.cpu(), average_ranks(x.cpu()))
+
+
+# ------------------------------------------------------------ nominal pair counts
+
+PAIR_SETS = {  # column cardinalities: one pair, UCI Adult's 28 pairs (3,982 bins), past 2^14 bins
+    "one_pair": ((9, 16), 1),
+    "adult_28_pairs": ((9, 16, 7, 15, 6, 5, 2, 42), 1),
+    "past_2_14_bins": ((200, 150, 3, 90), 4),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(PAIR_SETS))
+def test_pair_confusion_counts_on_card_match_per_pair_plain_counts(cuda, case):
+    """Every column pair counted in the histogram kernel's count mode (one launch while
+    the bins total at most 2^14), each table equal to the plain count of its pair."""
+    import itertools
+
+    from metrics_tpu_torch.ops.confmat import pair_confusion_counts
+
+    cards, launches = PAIR_SETS[case]
+    g = torch.Generator(device=cuda).manual_seed(len(cards))
+    n = 48_842
+    cols = torch.stack([torch.randint(0, c, (n,), generator=g, device=cuda) for c in cards], 1)
+    valid = torch.rand(n, len(cards), generator=g, device=cuda) > 0.01
+    pairs = list(itertools.combinations(range(len(cards)), 2))
+    before = histogram.histogram_cuda.launches
+    tables = pair_confusion_counts(cols, pairs, cards, valid)
+    assert histogram.histogram_cuda.launches == before + launches
+    for p, (i, j) in enumerate(pairs):
+        ids = torch.where(valid[:, i] & valid[:, j], cols[:, j] * cards[i] + cols[:, i], -1)
+        want = histogram._plain_bincount(ids, None, cards[i] * cards[j]).long().reshape(cards[j], cards[i])
+        assert torch.equal(tables[p, : cards[j], : cards[i]], want), (i, j)
+        assert int(tables[p].sum()) == int(want.sum())

@@ -312,3 +312,37 @@ def test_gloo_ranks_pearson_and_spearman_match_one_jax_run_on_the_union(spawned)
         np.testing.assert_allclose(got["pearson"].numpy(), np.asarray(pearson.compute()), rtol=1e-5, atol=1e-6)
         assert torch.equal(got["spearman/list"], got["spearman/buffer"]), (world, rank)
         np.testing.assert_allclose(got["spearman/list"].numpy(), np.asarray(spearman.compute()), rtol=1e-5, atol=1e-6)
+
+
+def test_gloo_ranks_nominal_and_wrappers_match_one_jax_run_on_the_union(spawned):
+    """The four nominal classes (int64 tables summed across ranks), MinMaxMetric and
+    ClasswiseWrapper over a macro and a per-class accuracy, against one ``metrics_tpu``
+    run on the union: tables bit-equal, values within 1e-6."""
+    import metrics_tpu.nominal as jn
+    import metrics_tpu.wrappers as jw
+
+    world, results = spawned
+    nom = ranks.make_data(SEED)["nom"]
+    preds, target = jnp.asarray(nom["preds"]), jnp.asarray(nom["target"])
+    want = {}
+    for name in ("CramersV", "TschuprowsT", "PearsonsContingencyCoefficient", "TheilsU"):
+        metric = getattr(jn, name)(num_classes=ranks.C)
+        metric.update(preds, target)
+        want[name] = (metric.compute(), np.asarray(metric.confmat).astype(np.int64))
+    minmax = jw.MinMaxMetric(jc.MulticlassAccuracy(num_classes=ranks.C, average="macro"))
+    classwise = jw.ClasswiseWrapper(jc.MulticlassAccuracy(num_classes=ranks.C, average=None))
+    for metric in (minmax, classwise):
+        metric.update(preds, target)
+    minmax_want, classwise_want = minmax.compute(), classwise.compute()
+    for name, (_, confmat) in want.items():  # each rank keeps its own live table; they sum to the union's
+        tables = [got[f"nominal/{name}/confmat"] for got in results]
+        assert all(t.dtype == torch.int64 for t in tables)
+        assert np.array_equal(sum(tables).numpy(), confmat)
+    for rank, got in enumerate(results):
+        for name, (value, _) in want.items():
+            assert_close(got[f"nominal/{name}"], value)
+        assert set(got["minmax"]) == set(minmax_want) and set(got["classwise"]) == set(classwise_want)
+        for key, value in minmax_want.items():
+            assert_close(got["minmax"][key], value)
+        for key, value in classwise_want.items():
+            assert_close(got["classwise"][key], value)

@@ -51,6 +51,9 @@ def make_data(seed: int) -> Dict[str, Dict[str, np.ndarray]]:
     reg_preds = rng.randn(90, REG_OUTPUTS)
     data["reg"] = {"preds": np.round(reg_preds, 1).astype(np.float32),
                    "target": np.round(reg_preds + 0.5 * rng.randn(90, REG_OUTPUTS), 1).astype(np.float32)}
+    # nominal pairs (dependent labels) for the nominal classes and two wrappers
+    nom_target = rng.randint(0, C, 70)
+    data["nom"] = {"preds": np.where(rng.rand(70) < 0.6, nom_target, rng.randint(0, C, 70)), "target": nom_target}
     return data
 
 
@@ -237,6 +240,27 @@ def run_scenarios(world: int, rank: int, device: str, seed: int) -> dict:
         for part in (slice(0, half), slice(half, None)):
             metric.update(tensor(mine["preds"][part]), tensor(mine["target"][part]))
         out[name] = compute_keeping_states(metric).cpu()
+
+    # the nominal classes' summed int64 tables, and MinMaxMetric and ClasswiseWrapper,
+    # whose base metrics sync at their own compute
+    from metrics_tpu_torch.nominal import CramersV, PearsonsContingencyCoefficient, TheilsU, TschuprowsT
+    from metrics_tpu_torch.wrappers import ClasswiseWrapper, MinMaxMetric
+
+    mine = share(data["nom"], world, rank, SHARES)
+    half = len(mine["target"]) // 2
+    for cls in (CramersV, TschuprowsT, PearsonsContingencyCoefficient, TheilsU):
+        metric = cls(num_classes=C, device=device)
+        for part in (slice(0, half), slice(half, None)):
+            metric.update(tensor(mine["preds"][part]), tensor(mine["target"][part]))
+        out[f"nominal/{cls.__name__}"] = compute_keeping_states(metric).cpu()
+        out[f"nominal/{cls.__name__}/confmat"] = metric.confmat.cpu()
+    minmax = MinMaxMetric(MulticlassAccuracy(num_classes=C, average="macro", device=device))
+    classwise = ClasswiseWrapper(MulticlassAccuracy(num_classes=C, average=None, device=device))
+    for metric in (minmax, classwise):
+        for part in (slice(0, half), slice(half, None)):
+            metric.update(tensor(mine["preds"][part]), tensor(mine["target"][part]))
+    out["minmax"] = {k: v.cpu() for k, v in minmax.compute().items()}
+    out["classwise"] = {k: v.cpu() for k, v in classwise.compute().items()}
 
     out["imports_jax"] = any(m == "jax" or m.startswith(("jax.", "metrics_tpu.")) or m == "metrics_tpu"
                              for m in sys.modules)
