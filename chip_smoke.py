@@ -257,6 +257,32 @@ Phases, each printing one JSON line:
     - MetricTracker over the Cityscapes collection, 3 steps of one batch: 2 histogram
       launches a step, each step's values bit-equal to the collection run alone,
       ``best_metric`` the steps' maximum.
+17. engines: the launch engines, every demotion to eager failing the phase:
+    - the histogram kernel's batched mode (``tm_histogram_batched``) bit-equal to its
+      plain version row by row, in count, mask and f32 modes (quarter-step weights; random
+      weights within 1e-5 of each bin's |w| sum), with out-of-range ids and an empty row,
+      at (rows, ids a row, bins a row) = (10,000, 1, 100) (the fleet's routed update),
+      (16, 65,536, 4) and (100, 256, 10^6) (100 bootstrap copies of a 1,000-class
+      confusion matrix); event and device ms, the plain version, ``torch.bincount`` over
+      the row-offset ids and the bound at each;
+    - the JAX package's canonical five-group collection (BinaryAccuracy,
+      BinaryConfusionMatrix, BinaryAUROC(thresholds=11), MeanSquaredError,
+      MeanAbsoluteError) over 200 steps of 65,536 rows (the MLPerf DLRM-v2 global batch,
+      drawn on the card) with ``fused=True`` and without: ``compute()`` bit-identical,
+      200 replays and 0 degrades; wall per step (CUDA events, median), launches and
+      device ms per step from a profiler trace, which also counts the histogram launches
+      inside the replays; the JAX package's mixed collection (2 groups fused, 2 eager)
+      bit-identical to eager;
+    - MulticlassAccuracy(num_classes=10, average=None, fleet_size=16): 20 routed updates
+      of 10,000 rows, stream 15 empty, bit-identical to 16 independent metrics fed each
+      stream's rows, the batched mode launched; the JAX package's canonical fleets
+      (micro accuracy, MeanSquaredError within 1e-6 relative, MaxMetric) after a routed
+      and a broadcast update against independent metrics, and ``reduce_fleet`` against
+      one metric on all rows; wall, launches and device ms per routed update.
+    The sync_ranks phase (11) also runs the pure tier on each of its four ranks:
+    ``evaluate_sharded`` of the Cityscapes collection and of a ``cat_capacity``
+    BinaryAUROC over DLRM-style rows (through ``cat_sync``) against one process on the
+    union, and once more with a capacity that rank 1 overflows: NaN on every rank.
 
 The last three lines are the ``nvidia-smi`` name and power limit, the kernels JSON
 line and ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
@@ -272,6 +298,7 @@ import time
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 KERNEL_WRAPPERS = {  # name in the kernels line: (module, wrapper whose ``launches`` counts its kernel)
     "histogram": ("metrics_tpu_torch.ops.histogram", "histogram_cuda"),
+    "histogram_batched": ("metrics_tpu_torch.ops.histogram", "histogram_batched_cuda"),
     "segment_scan": ("metrics_tpu_torch.ops.segment", "segment_scan_cuda"),
     "greedy_match": ("metrics_tpu_torch.ops.greedy_match", "greedy_match_cuda"),
     "kendall_pairs": ("metrics_tpu_torch.ops.kendall", "kendall_pairs_cuda"),
@@ -297,6 +324,11 @@ SYNC_RANKS = 4
 RANK_BATCHES = 2  # Cityscapes batches per rank
 MSMARCO_RANK_UPDATES = (14, 17, 22, 17)  # of the 70 updates: 20, 24, 31 and 24% of the rows
 RANKS_DEADLINE_S = 420
+# the mapped sync: each rank's DLRM-style binary rows through evaluate_sharded into a
+# cat_capacity BinaryAUROC, once with room for every rank and once where rank 1 overflows
+RANK_AUROC_ROWS = (60_000, 70_000, 50_000, 65_536)
+RANK_AUROC_CAPACITY = 1 << 17
+RANK_AUROC_OVERFLOW_CAPACITY = 65_536
 QM9_RANK_SHARES = (0.3, 0.2, 0.25, 0.25)  # of the QM9 updates, in rank order
 SCAN_SIZES = (1, 1000, 1024, 1025, (1 << 24) + 17, DLRM["samples"])
 SCAN_OPS = {1: ("min",), 2: ("min", "min"), 3: ("sum", "min", "max"), 4: ("max", "sum", "min", "sum")}
@@ -1577,6 +1609,30 @@ def rank_qm9_share(qm9, rank: int):
     return [(qm9[0][i:i + QM9["batch"]], qm9[1][i:i + QM9["batch"]]) for i in starts[bounds[rank]:bounds[rank + 1]]]
 
 
+def rank_auroc_batches(torch, seed: int, rank: int):
+    """Rank ``rank``'s binary rows (DLRM-style scores, 3% positives), in two batches."""
+    g = torch.Generator(device="cuda").manual_seed(seed + 40 + rank)
+    n = RANK_AUROC_ROWS[rank]
+    target = (torch.rand(n, generator=g, device="cuda") < DLRM["positive_rate"]).to(torch.int32)
+    scores = torch.sigmoid(torch.randn(n, generator=g, device="cuda") + DLRM["positive_shift"] * target)
+    return [(scores[: n // 2], target[: n // 2]), (scores[n // 2:], target[n // 2:])]
+
+
+def rank_pure(torch, seed: int, rank: int, cityscapes) -> dict:
+    """This rank's share through the pure tier: ``evaluate_sharded`` of the Cityscapes
+    collection and of a ``cat_capacity`` BinaryAUROC (``cat_sync``), once overflowing on rank 1."""
+    from metrics_tpu_torch.classification import BinaryAUROC
+    from metrics_tpu_torch.core import MetricCollection
+    from metrics_tpu_torch.parallel import evaluate_sharded
+
+    out = {f"collection/{k}": v for k, v in evaluate_sharded(MetricCollection(collection_metrics("cuda")),
+                                                            cityscapes).items()}
+    binary = rank_auroc_batches(torch, seed, rank)
+    out["auroc"] = evaluate_sharded(BinaryAUROC(cat_capacity=RANK_AUROC_CAPACITY), binary)
+    out["auroc/overflow"] = evaluate_sharded(BinaryAUROC(cat_capacity=RANK_AUROC_OVERFLOW_CAPACITY), binary)
+    return out
+
+
 def rank_main(rank: int, world: int, store: str, out_dir: str, seed: int) -> None:
     """One rank of the ``sync_ranks`` phase, in its own process on the one card."""
     import datetime
@@ -1625,7 +1681,10 @@ def rank_main(rank: int, world: int, store: str, out_dir: str, seed: int) -> Non
         # ---- this rank's path ends
         if not all(isinstance(getattr(maps["cat_capacity"], s), CatBuffer) for s in maps["cat_capacity"]._defaults):
             raise AssertionError("unsync did not restore the CatBuffer states")
+        pure, pure_launches, pure_s = run_counted(torch, lambda: rank_pure(torch, seed, rank, batches))
         torch.save({"values": {k: v.cpu() for k, v in values.items()}, "launches": launches,
+                    "pure": {k: v.cpu() for k, v in pure.items()}, "pure_launches": pure_launches,
+                    "pure_s": pure_s,
                     "rows": sum(b[0].numel() for b in share), "update_s": update_s, "compute_s": compute_s},
                    os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
@@ -1640,6 +1699,7 @@ def phase_sync_ranks(torch, seed: int, smi: str):
 
     import torch.multiprocessing as mp
 
+    from metrics_tpu_torch.classification import BinaryAUROC
     from metrics_tpu_torch.core import MetricCollection
     from metrics_tpu_torch.regression import PearsonCorrCoef, SpearmanCorrCoef
     from metrics_tpu_torch.retrieval import RetrievalMAP
@@ -1706,6 +1766,39 @@ def phase_sync_ranks(torch, seed: int, smi: str):
                 raise AssertionError(f"rank {rank}: {name} {mine} vs {value} on the union")
     launches = {k: sum(r["launches"][k] for r in results) for k in results[0]["launches"]}
     expect_launches("the ranks", launches, histogram=SYNC_RANKS * 2 * RANK_BATCHES, scan=SYNC_RANKS * (2 + 2))
+
+    # the mapped sync: each rank's evaluate_sharded against the union
+    auroc = BinaryAUROC()
+    for rank in range(SYNC_RANKS):
+        for scores, target in rank_auroc_batches(torch, seed, rank):
+            auroc.update(scores, target)
+    want_auroc = auroc.compute().cpu()
+    pure_worst = 0.0
+    for rank, result in enumerate(results):
+        pure = result["pure"]
+        for name, value in want.items():
+            if name in ("RetrievalMAP", "PearsonCorrCoef", "SpearmanCorrCoef"):
+                continue
+            mine = pure[f"collection/{name}"]
+            if not value.is_floating_point():
+                if mine.dtype != value.dtype or not torch.equal(mine, value):
+                    raise AssertionError(f"rank {rank}: evaluate_sharded {name} differs from the union")
+                continue
+            pure_worst = max(pure_worst, (mine.double() - value.double()).abs().max().item())
+        pure_worst = max(pure_worst, abs(pure["auroc"].item() - want_auroc.item()))
+        if pure_worst > 1e-6:
+            raise AssertionError(f"rank {rank}: evaluate_sharded off the union by {pure_worst}")
+        if not bool(torch.isnan(pure["auroc/overflow"])):
+            raise AssertionError(f"rank {rank}: rank 1's overflow did not poison the synced AUROC")
+    pure_launches = {k: sum(r["pure_launches"][k] for r in results) for k in results[0]["pure_launches"]}
+    if pure_launches["histogram"] < 1 or pure_launches["segment_scan"] < 1:
+        raise AssertionError(f"evaluate_sharded never reached the kernels: {pure_launches}")
+    emit({"phase": "sync_ranks_pure", "card": smi, "backend": "gloo", "world_size": SYNC_RANKS,
+          "max_abs_err_vs_union": pure_worst, "overflow_poisoned": True, "launches": pure_launches,
+          "auroc_rows_per_rank": list(RANK_AUROC_ROWS), "capacity": RANK_AUROC_CAPACITY,
+          "overflow_capacity": RANK_AUROC_OVERFLOW_CAPACITY, "seconds_per_rank": [r["pure_s"] for r in results]})
+    for key, value in pure_launches.items():
+        launches[key] += value
     emit({"phase": "sync_ranks", "card": smi, "backend": "gloo", "world_size": SYNC_RANKS,
           "msmarco_rows_per_rank": [r["rows"] for r in results], "launches": launches,
           "max_abs_err_vs_union": worst, "bit_equal_to_union": bit_equal, "pearson_max_abs_err_vs_union": pearson_worst,
@@ -1858,8 +1951,9 @@ def run_counted(torch, fn):
 
 
 def expect_launches(label: str, got: dict, histogram: int = 0, scan: int = 0, greedy: int = 0,
-                    kendall: int = 0) -> None:
-    want = {"histogram": histogram, "segment_scan": scan, "greedy_match": greedy, "kendall_pairs": kendall}
+                    kendall: int = 0, batched: int = 0) -> None:
+    want = {"histogram": histogram, "histogram_batched": batched, "segment_scan": scan, "greedy_match": greedy,
+            "kendall_pairs": kendall}
     if got != want:
         raise AssertionError(f"{label}: launches {got}, expected {want}")
 
@@ -4555,6 +4649,258 @@ def phase_wrappers_nominal(torch, seed: int, smi: str):
     return launches
 
 
+# ----------------------------------------------------------------- engines
+
+# the MLPerf DLRM-v2 global batch as the fused step's rows; CIFAR-10's 10 classes for the
+# fleet, with the JAX package's canonical 16 streams (core/fleet.py:547)
+ENGINES = {"rows": 65_536, "steps": 200, "timed_steps": 50, "fleet_size": 16, "classes": 10, "fleet_rows": 10_000,
+           "fleet_updates": 20}
+# (rows, ids a row, bins a row) of the batched mode: the fleet's routed update, 16 long rows
+# of 4 bins, and 100 bootstrap copies of a 1,000-class ImageNet confusion matrix
+BATCHED_SHAPES = ((10_000, 1, 100), (16, 65_536, 4), (100, 256, 1_000_000))
+FLEET_REL = 1e-6  # MeanSquaredError's fleet against independent metrics: the fold reorders float sums
+
+
+def batched_inputs(torch, g, rows: int, k: int, bins: int):
+    ids = torch.randint(-2, bins + 2, (rows, k), generator=g, device="cuda", dtype=torch.int32)
+    ids[0] = -1  # an empty row
+    mask = torch.rand((rows, k), generator=g, device="cuda") < 0.7
+    # quarter steps: every order of the float atomics gives the same sums, so f32 is bit-equal too
+    quarters = torch.randint(-8, 8, (rows, k), generator=g, device="cuda").float() / 4
+    return ids, mask, quarters
+
+
+def check_batched(torch, g) -> list:
+    """The batched mode bit-equal to its plain version row by row (count, mask and
+    quarter-step f32 weights; random f32 weights within 1e-5 of each bin's |w| sum),
+    then timed at each shape beside its bound, its plain version and ``torch.bincount``
+    over the row-offset ids. Returns one record per shape."""
+    from metrics_tpu_torch.ops.histogram import _plain_batched_bincount, histogram_batched_cuda
+
+    records = []
+    for rows, k, bins in BATCHED_SHAPES:
+        ids, mask, quarters = batched_inputs(torch, g, rows, k, bins)
+        for name, weights in (("count", None), ("mask", mask), ("f32", quarters)):
+            got, want = histogram_batched_cuda(ids, weights, bins), _plain_batched_bincount(ids, weights, bins)
+            if got.dtype != want.dtype or not torch.equal(got, want):
+                raise AssertionError(f"batched {name} kernel != plain at ({rows}, {k}, {bins})")
+        noisy = torch.randn((rows, k), generator=g, device="cuda")
+        err = (histogram_batched_cuda(ids, noisy, bins).double() - _plain_batched_bincount(ids, noisy.double(), bins)).abs()
+        if not bool(torch.all(err <= 1e-5 * _plain_batched_bincount(ids, noisy.abs().double(), bins))):
+            raise AssertionError(f"batched f32 kernel off at ({rows}, {k}, {bins})")
+        total = rows * bins
+        offsets = torch.arange(rows, device="cuda").unsqueeze(1) * bins
+        flat = torch.where((ids >= 0) & (ids < bins), ids.long() + offsets, total).reshape(-1)
+        lib = torch.bincount(flat, minlength=total + 1)[:total].reshape(rows, bins)
+        if not torch.equal(lib.int(), histogram_batched_cuda(ids, None, bins)):
+            raise AssertionError(f"torch.bincount disagrees at ({rows}, {k}, {bins})")
+        # device time of one wrapper call: the kernel and the memset that zeroes its
+        # (B, bins) output, whose bytes the bound counts
+        device = call_device_ms(torch, lambda: histogram_batched_cuda(ids, None, bins), "histogram_batched")
+        records.append({
+            "shape": [rows, k, bins],
+            "max_abs_err": 0,
+            "event_ms": event_ms(torch, lambda: histogram_batched_cuda(ids, None, bins)),
+            "device_ms": None if device is None else device["device_ms"],
+            "kernel_ms": None if device is None else device["hand_kernels_ms"],
+            "memset_ms": None if device is None else device["memset_ms"],
+            "plain_ms": event_ms(torch, lambda: _plain_batched_bincount(ids, None, bins)),
+            "library_ms": event_ms(torch, lambda: torch.bincount(flat, minlength=total + 1)),
+            "bound_ms": (ids.numel() * 4 + total * 4) / HBM_BYTES_PER_S * 1e3,
+        })
+    return records
+
+
+def step_profile(torch, fn, reps: int = 10) -> dict:
+    """Kernel (and memset and copy) launches and device ms per ``fn()`` call from a
+    profiler trace, and the histogram kernels' launches among them. The wrappers'
+    counts over the same calls (the trace's window and its warmup step, plus the
+    call before them) must equal the launches that the trace shows, replays included."""
+    torch.cuda.synchronize()
+    zero_launches()
+    launches = device_launches(profile_window(torch, fn, reps))
+    counted = all_launches()
+    out = {"launches_per_step": sum(n for n, _ in launches.values()) / reps,
+           "device_ms_per_step": sum(us for _, us in launches.values()) / reps / 1e3,
+           "histogram_per_step": sum(n for key, (n, _) in launches.items() if "histogram_kernel" in key) / reps,
+           "batched_per_step": sum(n for key, (n, _) in launches.items() if "histogram_batched_kernel" in key) / reps}
+    for name, per_step in (("histogram", out["histogram_per_step"]), ("histogram_batched", out["batched_per_step"])):
+        if counted[name] != (2 * reps + 1) * per_step:
+            raise AssertionError(f"{name}: the wrapper counted {counted[name]} launches over {2 * reps + 1}"
+                                 f" calls, the trace shows {per_step} a call")
+    return out
+
+
+def engines_fused(torch, g, smi: str) -> dict:
+    """The canonical collection fused and eager over the same 200 steps, bit-identical,
+    one replay a step; then step timings and the mixed collection."""
+    import warnings
+
+    from metrics_tpu_torch.classification import BinaryAccuracy, BinaryAUROC
+    from metrics_tpu_torch.core import MetricCollection
+    from metrics_tpu_torch.core.fused import canonical_collection, engine_for
+    from metrics_tpu_torch.regression import MeanSquaredError
+
+    n, steps = ENGINES["rows"], ENGINES["steps"]
+    preds = torch.rand((steps, n), generator=g, device="cuda")
+    target = torch.randint(0, 2, (steps, n), generator=g, device="cuda", dtype=torch.int32)
+    fused, eager = canonical_collection(True), canonical_collection(False)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        _, fused_launches, fused_s = run_counted(torch, lambda: [fused.update(preds[i], target[i]) for i in range(steps)])
+        _, eager_launches, _ = run_counted(torch, lambda: [eager.update(preds[i], target[i]) for i in range(steps)])
+        got, want = fused.compute(), eager.compute()
+    demotions = [str(w.message) for w in caught if issubclass(w.category, RuntimeWarning)]
+    stats = dict(engine_for(fused).stats)
+    if demotions or stats["launches"] != steps or stats["degrades"] or stats["fallback_groups"]:
+        raise AssertionError(f"fused collection: stats {stats}, demotions {demotions}")
+    # the eager step's histogram launches, run once by the capture's warm-up and once by each replay
+    per_step = eager_launches["histogram"] // steps
+    if per_step < 1 or eager_launches["histogram"] != per_step * steps:
+        raise AssertionError(f"eager canonical collection: launches {eager_launches}")
+    expect_launches("fused canonical collection", fused_launches, histogram=per_step * (steps + 1))
+    for name, value in want.items():
+        if value.dtype != got[name].dtype or not torch.equal(value, got[name]):
+            raise AssertionError(f"fused {name} {got[name]} != eager {value}")
+    timed = {"fused": canonical_collection(True), "eager": canonical_collection(False)}
+    p, t = preds[0], target[0]
+    step = {}
+    for kind, coll in timed.items():
+        step[kind] = {"event_ms_median": event_ms(torch, lambda: coll.update(p, t), reps=ENGINES["timed_steps"]),
+                      **step_profile(torch, lambda: coll.update(p, t))}
+    if step["fused"]["histogram_per_step"] != per_step or step["eager"]["histogram_per_step"] != per_step:
+        raise AssertionError(f"histogram launches a step (trace): {step}, the eager wrappers' {per_step}")
+    # the JAX package's mixed collection: 2 groups fused, 2 eager, bit-identical to eager
+    def mixed(fuse):
+        return MetricCollection({"acc": BinaryAccuracy(), "auroc_exact": BinaryAUROC(thresholds=None),
+                                 "mse_cpu": MeanSquaredError(compute_on_cpu=True),
+                                 "auroc_binned": BinaryAUROC(thresholds=11)}, fused=fuse)
+    mf, me = mixed(True), mixed(False)
+    for i in range(4):
+        mf.update(preds[i], target[i])
+        me.update(preds[i], target[i])
+    got, want = mf.compute(), me.compute()
+    if not all(torch.equal(got[k], want[k]) for k in want):
+        raise AssertionError("the mixed fused collection differs from eager")
+    mixed_stats = dict(engine_for(mf).stats)
+    if (mixed_stats["launches"], mixed_stats["fallback_groups"], mixed_stats["degrades"]) != (4, 8, 0):
+        raise AssertionError(f"mixed collection stats {mixed_stats}")
+    record = {"steps": steps, "rows": n, "stats": stats, "mixed_stats": mixed_stats, "bit_identical": True,
+              "host_s_200_fused_steps": fused_s, "launches": fused_launches, "step": step,
+              "speedup_event": step["eager"]["event_ms_median"] / step["fused"]["event_ms_median"]}
+    emit({"phase": "engines_fused", "card": smi, **record})
+    return record
+
+
+def engines_fleet(torch, g, smi: str) -> dict:
+    """The routed fleet at CIFAR-10 width against 16 independent metrics, bit-identical;
+    the JAX package's canonical fleets; broadcast and reduce_fleet. A step demoted to
+    eager anywhere in it (a fleet's ``degrades``) fails the phase."""
+    from metrics_tpu_torch.classification import MulticlassAccuracy
+    from metrics_tpu_torch.core import MaxMetric
+    from metrics_tpu_torch.core.fleet import step_stats
+    from metrics_tpu_torch.regression import MeanSquaredError
+
+    size, c, rows = ENGINES["fleet_size"], ENGINES["classes"], ENGINES["fleet_rows"]
+    updates = [(torch.randint(0, c, (rows,), generator=g, device="cuda"),
+                torch.randint(0, c, (rows,), generator=g, device="cuda"),
+                torch.randint(0, size - 1, (rows,), generator=g, device="cuda"))  # stream 15 stays empty
+               for _ in range(ENGINES["fleet_updates"])]
+    fleet = MulticlassAccuracy(num_classes=c, average=None, fleet_size=size)
+    _, counted, fleet_s = run_counted(torch, lambda: [fleet.update(p, t, stream_ids=i) for p, t, i in updates])
+    # one batched launch a routed update: the capture's warm-up and each of the 20 replays
+    expect_launches("fleet routed updates", counted, batched=len(updates) + 1)
+    if step_stats(fleet)["launches"] != len(updates) or step_stats(fleet)["degrades"]:
+        raise AssertionError(f"fleet steps: {step_stats(fleet)}")
+    refs = [MulticlassAccuracy(num_classes=c, average=None) for _ in range(size)]
+    for p, t, i in updates:
+        for s in range(size - 1):
+            refs[s].update(p[i == s], t[i == s])
+    out = fleet.compute()
+    for s in range(size):
+        want = refs[s].compute() if s < size - 1 else torch.zeros(c, device="cuda")
+        if not torch.equal(out[s], want) or not torch.equal(fleet.compute(stream=s), want):
+            raise AssertionError(f"fleet stream {s}: {out[s]} != {want}")
+    p, t, i = updates[0]
+    per_update = {"event_ms_median": event_ms(torch, lambda: fleet.update(p, t, stream_ids=i), reps=20),
+                  **step_profile(torch, lambda: fleet.update(p, t, stream_ids=i))}
+    if per_update["batched_per_step"] != 1 or per_update["histogram_per_step"] != 0:
+        raise AssertionError(f"a routed fleet replay (trace): {per_update}")
+    # the JAX package's canonical fleets, each against independent metrics
+    canon = {"micro": (MulticlassAccuracy(num_classes=5, average="micro", fleet_size=size),
+                       lambda: MulticlassAccuracy(num_classes=5, average="micro")),
+             "mse": (MeanSquaredError(fleet_size=size), MeanSquaredError),
+             "max": (MaxMetric(fleet_size=size), MaxMetric)}
+    x = torch.rand(rows, generator=g, device="cuda")
+    y = torch.rand(rows, generator=g, device="cuda")
+    lab = torch.randint(0, 5, (rows,), generator=g, device="cuda")
+    pred = torch.randint(0, 5, (rows,), generator=g, device="cuda")
+    ids = torch.randint(0, size, (rows,), generator=g, device="cuda")
+    args = {"micro": (pred, lab), "mse": (x, y), "max": (x,)}
+    worst_rel = 0.0
+    for name, (metric, make) in canon.items():
+        metric.update(*args[name], stream_ids=ids)
+        metric.update(*args[name])  # a broadcast update: every stream
+        whole = make()
+        for _ in range(size + 1):
+            whole.update(*args[name])
+        value = metric.compute()
+        for s in range(size):
+            ref = make()
+            ref.update(*(a[ids == s] for a in args[name]))
+            ref.update(*args[name])
+            if name == "mse":
+                worst_rel = max(worst_rel, ((value[s] - ref.compute()).abs() / ref.compute().abs()).item())
+            elif not torch.equal(value[s], ref.compute()):
+                raise AssertionError(f"canonical fleet {name} stream {s}: {value[s]} != {ref.compute()}")
+        reduced = metric.reduce_fleet()
+        if name == "mse":
+            worst_rel = max(worst_rel, ((reduced - whole.compute()).abs() / whole.compute().abs()).item())
+        elif not torch.equal(reduced, whole.compute()):
+            raise AssertionError(f"reduce_fleet {name}: {reduced} != {whole.compute()}")
+    if worst_rel > FLEET_REL:
+        raise AssertionError(f"MeanSquaredError fleet off by {worst_rel} relative")
+    degraded = {name: step_stats(metric) for name, (metric, _) in canon.items() if step_stats(metric)["degrades"]}
+    if degraded or step_stats(fleet)["degrades"]:
+        raise AssertionError(f"fleet steps demoted: {degraded or step_stats(fleet)}")
+    record = {"fleet_size": size, "classes": c, "rows": rows, "updates": ENGINES["fleet_updates"],
+              "bit_identical": True, "host_s_20_updates": fleet_s, "launches": counted,
+              "steps": step_stats(fleet), "per_update": per_update, "mse_worst_rel": worst_rel}
+    emit({"phase": "engines_fleet", "card": smi, **record})
+    return record
+
+
+def phase_engines(torch, seed: int, smi: str):
+    """The batched mode against its plain version, the fused collection and the fleet.
+    Returns the batched mode's line of the kernels JSON (its launches: the fleet's 20
+    routed updates, one in each replay and one in the capture's warm-up) and the
+    histogram kernel's launches on the fused collection's path (its 200 replays and
+    the warm-up)."""
+    g = torch.Generator(device="cuda").manual_seed(seed + 13)
+    t0 = time.perf_counter()
+    batched = check_batched(torch, g)
+    emit({"phase": "engines_batched", "card": smi, "shapes": batched})
+    fused = engines_fused(torch, g, smi)
+    fleet = engines_fleet(torch, g, smi)
+    replays = {"histogram_per_fused_step": fused["step"]["fused"]["histogram_per_step"],
+               "batched_per_fleet_update": fleet["per_update"]["batched_per_step"]}
+    emit({"phase": "engines", "seconds": time.perf_counter() - t0, "launches_per_replay": replays})
+    main = batched[0]  # the fleet's routed update: (10,000, 1, 100)
+    return {
+        "name": "histogram_batched",
+        "route": "cuda",
+        "source": "metrics_tpu_torch/csrc/histogram.cu",
+        "replaces": "metrics_tpu/ops/histogram.py:87",
+        "launches": fleet["launches"]["histogram_batched"],
+        "max_abs_err": main["max_abs_err"],
+        "ms": main["event_ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": main["library_ms"],
+    }, fused["launches"]["histogram"]
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4610,6 +4956,10 @@ def main() -> int:
     wrappers_nominal = phase_wrappers_nominal(torch, args.seed, smi)
     kernels[0]["launches"] += wrappers_nominal["histogram"]
     scan["launches"] += wrappers_nominal["segment_scan"]
+    torch.cuda.empty_cache()
+    batched, fused_histogram = phase_engines(torch, args.seed, smi)
+    kernels[0]["launches"] += fused_histogram
+    kernels.insert(1, batched)
 
     idle = [k["name"] for k in kernels if k["launches"] < 1]
     if idle:

@@ -33,6 +33,7 @@ _PTR, _INT, _LONG = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "histogram": {
         "tm_histogram": ([_PTR, _PTR, _INT, _LONG, _INT, _PTR, _PTR], _INT),
+        "tm_histogram_batched": ([_PTR, _PTR, _INT, _LONG, _LONG, _LONG, _INT, _PTR, _PTR], _INT),
     },
     "segment_scan": {
         "tm_segment_scan": (
@@ -52,6 +53,18 @@ SIGNATURES = {
         "tm_kendall_count": ([_PTR, _LONG, _INT, _PTR, _PTR, _LONG, _PTR, _PTR, _PTR], _INT),
     },
 }
+
+#: every kernel wrapper, registered where it is made (:func:`counted`). Each keeps a
+#: ``launches`` count; a replayed CUDA graph adds to it the launches that its capture
+#: recorded (``core/fused.py:CapturedStep``), since a replay bypasses the wrapper
+LAUNCH_COUNTERS: List[object] = []
+
+
+def counted(wrapper):
+    """Register ``wrapper``, a kernel wrapper with a ``launches`` count; returns it."""
+    LAUNCH_COUNTERS.append(wrapper)
+    return wrapper
+
 
 _LOCK = threading.Lock()
 _LOADED: Dict[str, ctypes.CDLL] = {}

@@ -13,8 +13,13 @@ A ``BootStrapper`` takes the JAX package's stacked state (``boot_<name>``, ``(N,
 ``confmat`` becomes int64 like any count.
 
 A ``MetricCollection`` takes a ``metrics_tpu`` collection's ``state_dict()``, whose
-keys are ``"<name>.<state>"``: each compute group's state is loaded once, into its
+keys are ``"<name>.<state>"``, or the nested ``{name: {state: value}}`` dict of its
+pure tier (``init_state``/``local_update``), whose ``CatBuffer`` leaves are the JAX
+package's own buffer objects: each compute group's state is loaded once, into its
 leader, and shared with the members again.
+
+A fleet metric (``fleet_size=N``) takes a JAX fleet's ``(N, *base)`` states and its
+``_fleet_rows`` like any other state.
 
 A state with ``dist_reduce_fx=None`` may come stacked, as a sync leaves it (a leading
 process axis, e.g. FID's ``(k, D)`` means, or Pearson's six ``(k, num_outputs)``
@@ -72,7 +77,7 @@ def load_jax_state(metric: Union[Metric, MetricCollection], state: Dict[str, Any
     if missing:
         raise KeyError(f"load_jax_state: state dict lacks {missing} (call persistent(True) before state_dict())")
     for name, default in metric._defaults.items():
-        value = state[name]
+        value = _as_plain(state[name])
         if isinstance(value, dict):
             if not {"data", "count"} <= set(value):
                 raise ValueError(f"load_jax_state: state `{name}` is a dict without `data` and `count`")
@@ -129,7 +134,19 @@ def inception_state_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return state
 
 
+def _as_plain(value: Any) -> Any:
+    """A JAX ``CatBuffer`` object as the ``{"data", "count", "overflow"}`` dict of its
+    state dict; anything else as it is."""
+    if all(hasattr(value, a) for a in ("data", "count", "overflow")) and not isinstance(value, (np.ndarray, dict)):
+        return {"data": np.asarray(value.data), "count": np.asarray(value.count), "overflow": np.asarray(value.overflow)}
+    return value
+
+
 def _load_collection(collection: MetricCollection, state: Dict[str, Any]) -> MetricCollection:
+    names = set(collection.keys(keep_base=True))
+    if state and set(state) <= names and all(isinstance(v, dict) for v in state.values()):
+        # the pure tier's nested {name: {state: value}}: flattened to state-dict keys
+        state = {f"{name}.{key}": value for name, states in state.items() for key, value in states.items()}
     grouped = {name for group in collection.compute_groups.values() for name in group[1:]}
     for name, metric in collection.items(keep_base=True, copy_state=False):
         if name in grouped:

@@ -3,8 +3,10 @@
 
 ``nan_strategy`` is ``"error"`` (raise on a NaN), ``"warn"`` (warn and drop the
 NaNs), ``"ignore"`` (drop them) or a float that takes their place. PyTorch runs
-eagerly, so NaNs are always removed as the JAX package removes them on concrete
-inputs; finding one reads a flag from the device.
+On concrete inputs NaNs are removed as the JAX package removes them (finding one
+reads a flag from the device); inside a traced step (a captured CUDA graph, the
+fleet's ``vmap``, :func:`~metrics_tpu_torch.utils.checks.tracing`) they are replaced
+by the reduction's identity instead, as under ``jit``.
 """
 from typing import Any, Callable, List, Union
 
@@ -12,6 +14,7 @@ import torch
 from torch import Tensor
 
 from metrics_tpu_torch.core.metric import Metric
+from metrics_tpu_torch.utils.checks import _is_concrete
 from metrics_tpu_torch.utils.data import dim_zero_cat
 from metrics_tpu_torch.utils.prints import rank_zero_warn
 
@@ -40,23 +43,26 @@ class BaseAggregator(Metric):
         self.nan_strategy = nan_strategy
         self.add_state("value", default=default_value, dist_reduce_fx=fn, cat_dtype=torch.float32)
 
-    def _cast_and_nan_check_input(self, x: Union[float, Tensor]) -> Tensor:
+    def _cast_and_nan_check_input(self, x: Union[float, Tensor], nan_identity: float = 0.0) -> Tensor:
         """``x`` as a float tensor on the metric's device (the ``value`` state's float
-        dtype, else float32), with the NaN strategy applied."""
+        dtype, else float32), with the NaN strategy applied; in a traced step NaNs
+        become ``nan_identity``."""
         state = getattr(self, "value", None)
         dtype = state.dtype if isinstance(state, Tensor) and state.is_floating_point() else torch.float32
         x = self._check_device(x) if isinstance(x, Tensor) else torch.as_tensor(x, device=self._device)
         x = x.to(dtype)
         if self.nan_strategy in ("error", "warn", "ignore"):
             nans = torch.isnan(x)
-            if bool(nans.any()):
+            if not _is_concrete(x):
+                x = torch.where(nans, torch.full((), nan_identity, dtype=dtype, device=x.device), x)
+            elif bool(nans.any()):
                 if self.nan_strategy == "error":
                     raise RuntimeError("Encounted `nan` values in tensor")
                 if self.nan_strategy == "warn":
                     rank_zero_warn("Encounted `nan` values in tensor. Will be removed.", UserWarning)
                 x = x[~nans]
         else:  # float imputation
-            x = torch.where(torch.isnan(x), torch.tensor(self.nan_strategy, dtype=dtype, device=x.device), x)
+            x = torch.where(torch.isnan(x), torch.full((), self.nan_strategy, dtype=dtype, device=x.device), x)
         return x
 
     def update(self, value: Union[float, Tensor]) -> None:
@@ -75,7 +81,7 @@ class MaxMetric(BaseAggregator):
         super().__init__("max", torch.tensor(-float("inf")), nan_strategy, **kwargs)
 
     def update(self, value: Union[float, Tensor]) -> None:
-        value = self._cast_and_nan_check_input(value)
+        value = self._cast_and_nan_check_input(value, nan_identity=-float("inf"))
         if value.numel():
             self.value = torch.maximum(self.value, value.max())
 
@@ -89,7 +95,7 @@ class MinMetric(BaseAggregator):
         super().__init__("min", torch.tensor(float("inf")), nan_strategy, **kwargs)
 
     def update(self, value: Union[float, Tensor]) -> None:
-        value = self._cast_and_nan_check_input(value)
+        value = self._cast_and_nan_check_input(value, nan_identity=float("inf"))
         if value.numel():
             self.value = torch.minimum(self.value, value.min())
 

@@ -17,8 +17,13 @@ was rebound elsewhere (a direct update or ``reset``) leaves its group. ``items``
 ``values`` and ``[]`` hand out copies of the shared state unless
 ``copy_state=False``.
 
-Not ported: ``fused=True`` (the one-launch engine), ``save_checkpoint`` /
-``restore_checkpoint`` and ``plot`` raise ``NotImplementedError``.
+``fused=True`` routes ``update`` and ``forward`` through the fused engine
+(:mod:`~metrics_tpu_torch.core.fused`): one CUDA-graph replay a step for every
+group that can fuse. The pure tier (``init_state``, ``local_update``,
+``sync_state``, ``compute_from``) carries one state dict per metric, keyed by name.
+
+Not ported: ``save_checkpoint`` / ``restore_checkpoint`` and ``plot`` raise
+``NotImplementedError``.
 """
 import os
 from collections import OrderedDict
@@ -45,7 +50,8 @@ class MetricCollection(nn.ModuleDict):
         prefix / postfix: added to every name in the results.
         compute_groups: True to derive the groups, False for none, or a list of
             lists of names.
-        fused: not ported; True raises ``NotImplementedError``.
+        fused: run ``update`` and ``forward`` as one captured step for every group
+            that can fuse (:class:`~metrics_tpu_torch.core.fused.FusedCollectionUpdate`).
     """
 
     _groups: Dict[int, List[str]]
@@ -73,8 +79,7 @@ class MetricCollection(nn.ModuleDict):
         self._enable_compute_groups = compute_groups
         if not isinstance(fused, bool):
             raise ValueError(f"Expected keyword argument `fused` to be a `bool` but got {fused}")
-        if fused:
-            raise NotImplementedError("MetricCollection(fused=True): the fused one-launch engine is not ported yet")
+        self.fused = fused
         self._groups = {}
         self._groups_checked = False
         self._state_is_copy = False
@@ -134,6 +139,10 @@ class MetricCollection(nn.ModuleDict):
         """One update of each leader on the batch alone and one on its global state;
         groups with a ``dist_sync_on_step`` member forward each member (and split)."""
         self._split_diverged_members()
+        if self.fused:
+            from metrics_tpu_torch.core.fused import engine_for
+
+            return engine_for(self).forward(self, *args, **kwargs)
         res: Dict[str, Any] = {}
         for cg in self._groups.values():
             m0 = self._modules[cg[0]]
@@ -162,6 +171,11 @@ class MetricCollection(nn.ModuleDict):
                 self._validate_groups_against_runtime(*args, **kwargs)
                 return
             self._split_diverged_members()
+            if self.fused:
+                from metrics_tpu_torch.core.fused import engine_for
+
+                engine_for(self).update(self, *args, **kwargs)
+                return
             for cg in self._groups.values():
                 m0 = self._modules[cg[0]]
                 m0.update(*args, **m0._filter_kwargs(**kwargs))
@@ -393,6 +407,36 @@ class MetricCollection(nn.ModuleDict):
     def compute(self) -> Dict[str, Any]:
         """Every metric's value (each syncs across processes first), renamed."""
         res = {k: m.compute() for k, m in self.items(keep_base=True, copy_state=False)}
+        res = _flatten_dict(res)
+        return {self._set_name(k): v for k, v in res.items()}
+
+    # ------------------------------------------------------- pure-functional tier
+
+    def init_state(self) -> Dict[str, Dict[str, Any]]:
+        """Each metric's fresh state dict, keyed by its name in the collection. Each
+        metric owns its state here: compute groups share nothing in the pure tier."""
+        return {k: m.init_state() for k, m in self.items(keep_base=True, copy_state=False)}
+
+    def local_update(self, state: Dict[str, Dict[str, Any]], *args: Any, **kwargs: Any) -> Dict[str, Dict[str, Any]]:
+        """Pure state transition of every metric. Keyword arguments are filtered per
+        metric, positional ones go to all: a metric that cannot take them raises a
+        :class:`MetricsUserError` naming it."""
+        from metrics_tpu_torch.core.fused import _check_update_arity
+
+        for k, m in self.items(keep_base=True, copy_state=False):
+            _check_update_arity(k, m, args)
+        return {
+            k: m.local_update(state[k], *args, **m._filter_kwargs(**kwargs))
+            for k, m in self.items(keep_base=True, copy_state=False)
+        }
+
+    def sync_state(self, state: Dict[str, Dict[str, Any]], group: Optional[Any] = None) -> Dict[str, Dict[str, Any]]:
+        """Every metric's state dict reduced over the process ``group`` (identity for None)."""
+        return {k: m.sync_state(state[k], group) for k, m in self.items(keep_base=True, copy_state=False)}
+
+    def compute_from(self, state: Dict[str, Dict[str, Any]], group: Optional[Any] = None) -> Dict[str, Any]:
+        """The renamed result dict computed from a state of :meth:`local_update`."""
+        res = {k: m.compute_from(state[k], group) for k, m in self.items(keep_base=True, copy_state=False)}
         res = _flatten_dict(res)
         return {self._set_name(k): v for k, v in res.items()}
 

@@ -22,13 +22,23 @@ same state contract:
   gather, a ``CatBuffer`` goes across as its valid rows, and ``unsync`` restores
   the live states. ``dist_sync_on_step`` syncs ``forward``'s batch value too.
 - Operators on metrics build a :class:`CompositionalMetric` (:1247-1365).
+- The pure tier (:330-540): ``init_state`` gives fresh state dicts,
+  ``local_update(state, ...)`` runs ``update`` on a state dict and returns the new
+  one without touching the live state, ``sync_state(state, group)`` reduces a state
+  dict over a ``torch.distributed`` process group (:mod:`~metrics_tpu_torch.parallel.collective`;
+  the group takes the place of the JAX mesh axis, ``None`` is the identity) and
+  ``compute_from(state, group)`` computes from one, NaN-poisoning float outputs
+  when a ``CatBuffer`` overflowed on any rank.
+- The fleet axis (:mod:`~metrics_tpu_torch.core.fleet`): ``fleet_size=N`` gives
+  every state a leading ``(N, ...)`` stream axis, ``update(..., stream_ids=ids)``
+  routes each row to its stream in one step, ``compute(stream=i)``, ``as_fleet``
+  and ``reduce_fleet``.
 
 Device: states live on ``device`` (``cuda`` unless the caller names another, and
 constructing on ``cuda`` without a card raises). An update input on another device
 raises; array-likes that are not tensors are copied to the metric's device.
 
-Not ported: the fleet axis, the pure ``local_update``/``sync_state`` tier and the
-fused engine, observability, fault injection and checkpointing.
+Not ported: observability, fault injection, ``nan_policy`` and checkpointing.
 """
 import functools
 import inspect
@@ -105,6 +115,8 @@ class Metric(nn.Module, ABC):
         sync_on_compute: sync before ``compute``.
         cat_capacity: keep each ``cat`` state as a ``CatBuffer`` of this many rows
             instead of a list.
+        fleet_size: give every state a leading axis of this many streams
+            (:mod:`~metrics_tpu_torch.core.fleet`); exclusive with ``cat_capacity``.
     """
 
     is_differentiable: Optional[bool] = None
@@ -116,6 +128,13 @@ class Metric(nn.Module, ABC):
     # the constructor arguments that shape ``update``'s state transition, for a
     # collection's compute groups (None: compare every constructor attribute)
     _update_signature_attrs: Optional[Tuple[str, ...]] = None
+    # fleet axis: streams of the fleet, None for a plain metric
+    fleet_size: Optional[int] = None
+    # classes whose state shapes follow the first batch cannot take a fleet axis
+    _lazy_state_shapes: bool = False
+    # depth of running pure-tier calls (local_update): the fleet's eager dispatch
+    # must not hand the caller's state to a captured graph's buffers
+    _pure_call_depth: int = 0
 
     def __init__(self, **kwargs: Any) -> None:
         super().__init__()
@@ -147,6 +166,22 @@ class Metric(nn.Module, ABC):
         if self.cat_capacity is not None and (not isinstance(self.cat_capacity, int) or self.cat_capacity < 1):
             raise ValueError(
                 f"Expected keyword argument `cat_capacity` to be a positive int or None but got {self.cat_capacity}"
+            )
+        from metrics_tpu_torch.core import fleet as _fleet
+
+        self.fleet_size = _fleet.validate_fleet_size(kwargs.pop("fleet_size", None))
+        self._fleet_base_defaults: Dict[str, Tensor] = {}
+        if self.fleet_size is not None and self.cat_capacity is not None:
+            raise MetricsUserError(
+                "fleet_size and cat_capacity are mutually exclusive: CatBuffer"
+                " states have no per-stream segment fold"
+            )
+        if self.fleet_size is not None and type(self)._lazy_state_shapes:
+            raise MetricsUserError(
+                f"{type(self).__name__} initializes data-shaped state lazily on the"
+                " first update (scalar placeholder -> map-shaped array), but the fleet"
+                " axis requires every stream's state to keep the registered shape so"
+                " rows can fold through one segment reduction"
             )
         if kwargs:
             kwargs_ = [f"`{a}`" for a in sorted(kwargs)]
@@ -198,6 +233,12 @@ class Metric(nn.Module, ABC):
             raise ValueError("Unexpected type of `default` value: list states must start empty")
         if dist_reduce_fx is not None and not (dist_reduce_fx in _REDUCE_KIND_TO_FN or callable(dist_reduce_fx)):
             raise ValueError("`dist_reduce_fx` must be callable or one of ['mean', 'sum', 'cat', 'min', 'max', None]")
+        if is_list and self.fleet_size is not None:
+            raise MetricsUserError(
+                f"Fleet metrics cannot register list/cat state `{name}`: cat states are"
+                " host-ragged or fixed-capacity buffers with no per-stream segment fold."
+                " Use per-stream instances (or a sketch state) for cat-style metrics."
+            )
         if is_list:
             self._cat_meta[name] = (tuple(cat_item_shape), cat_dtype, cat_fill_value)
         if is_list and self.cat_capacity is not None and dist_reduce_fx == "cat":
@@ -211,6 +252,11 @@ class Metric(nn.Module, ABC):
             self._defaults[name] = []
         else:
             default = torch.as_tensor(default).to(self._device)
+            if self.fleet_size is not None:
+                from metrics_tpu_torch.core import fleet as _fleet
+
+                # the (N, *base) default; registers the _fleet_rows bookkeeping state
+                default = _fleet.register_state(self, name, default, dist_reduce_fx)
             self.register_buffer(name, default.clone(), persistent=False)
             self._defaults[name] = default
         self._persistent[name] = persistent
@@ -226,6 +272,106 @@ class Metric(nn.Module, ABC):
         """Device of the metric states."""
         return self._device
 
+    def state_pytree(self) -> Dict[str, Any]:
+        """The live states as a dict: tensors as they are, lists copied, and each
+        ``CatBuffer`` as a new buffer object over the same data."""
+        out: Dict[str, Any] = {}
+        for name, value in self.metric_state.items():
+            if isinstance(value, CatBuffer):
+                out[name] = value.copy()
+            elif isinstance(value, list):
+                out[name] = list(value)
+            else:
+                out[name] = value
+        return out
+
+    def _load_state(self, state: Dict[str, Any], copy_buffers: bool = True) -> None:
+        for name, value in state.items():
+            if isinstance(value, CatBuffer):
+                # a copy for an update: appends write into the buffer in place, and
+                # the caller's state must stay as it was (the pure contract)
+                setattr(self, name, value.clone() if copy_buffers else value.copy())
+            else:
+                setattr(self, name, list(value) if isinstance(value, (list, tuple)) else value)
+
+    # ------------------------------------------------- pure-functional tier
+
+    def init_state(self) -> Dict[str, Any]:
+        """The default state dict, pure: fresh tensors and buffers, never the
+        registered defaults themselves."""
+        out: Dict[str, Any] = {}
+        for name, default in self._defaults.items():
+            if isinstance(default, list):
+                out[name] = []
+            else:
+                out[name] = default.clone()  # a CatBuffer's clone copies its data
+        return out
+
+    def local_update(self, state: Dict[str, Any], *args: Any, **kwargs: Any) -> Dict[str, Any]:
+        """Pure state transition: ``update`` run on ``state``, returning the new state
+        dict; the live state, ``_update_count`` and the compute cache of ``self`` are
+        left as they were, and so is ``state``."""
+        saved = {attr: getattr(self, attr) for attr in self._defaults}
+        saved_count, saved_computed = self._update_count, self._computed
+        self._pure_call_depth = self._pure_call_depth + 1
+        try:
+            self._load_state(state)
+            self.update(*args, **kwargs)
+            new_state = self.state_pytree()
+        finally:
+            self._pure_call_depth = self._pure_call_depth - 1
+            for attr, val in saved.items():
+                setattr(self, attr, val)
+            self._update_count, self._computed = saved_count, saved_computed
+        return new_state
+
+    def sync_state(self, state: Dict[str, Any], group: Optional[Any] = None) -> Dict[str, Any]:
+        """``state`` reduced over the ``torch.distributed`` process ``group`` by each
+        state's ``dist_reduce_fx`` (all-reduce for sum/mean/max/min, a gather for the
+        rest, ``cat_sync`` for a ``CatBuffer``); the identity for ``group=None``. Every
+        rank of the group must call it."""
+        from metrics_tpu_torch.parallel import collective
+
+        return collective.sync_pytree(state, self._reductions, group, self._cat_meta, self._device)
+
+    def compute_from(self, state: Dict[str, Any], group: Optional[Any] = None) -> Any:
+        """Pure compute: ``state`` synced over ``group`` (unless None), then the value.
+
+        Float outputs become NaN when a ``CatBuffer`` state overflowed on any rank."""
+        if group is not None:
+            state = self.sync_state(state, group)
+        saved = {attr: getattr(self, attr) for attr in self._defaults}
+        saved_computed, saved_count = self._computed, self._update_count
+        try:
+            self._load_state(state, copy_buffers=False)  # a compute appends nothing
+            self._computed = None
+            self._update_count = max(saved_count, 1)  # no not-updated warning
+            value = self._compute_raw()
+        finally:
+            for attr, val in saved.items():
+                setattr(self, attr, val)
+            self._computed, self._update_count = saved_computed, saved_count
+        return self._poison_if_overflowed(state, value)
+
+    @staticmethod
+    def _poison_if_overflowed(state: Dict[str, Any], value: Any) -> Any:
+        """NaN in every float output when a ``CatBuffer`` state lost rows: a plausible
+        but wrong number is worse. Integer outputs stay as they are."""
+        if not any(v.overflowed() for v in state.values() if isinstance(v, CatBuffer)):
+            return value
+        return apply_to_collection(
+            value, Tensor, lambda x: torch.full_like(x, float("nan")) if x.is_floating_point() else x
+        )
+
+    def _compute_raw(self) -> Any:
+        """The subclass's compute, without cache or sync; a fleet's gives the
+        per-stream value."""
+        if self.fleet_size is not None:
+            from metrics_tpu_torch.core import fleet as _fleet
+
+            return _fleet.fleet_compute_value(self)
+        return type(self).compute(self)
+
     def merge_state(self, other: Union["Metric", Dict[str, Any]]) -> None:
         """Merge another instance's state (or a state dict) into the live state, in place.
 
@@ -234,6 +380,14 @@ class Metric(nn.Module, ABC):
         :class:`MetricsUserError`.
         """
         if isinstance(other, Metric):
+            if other.fleet_size != self.fleet_size:
+                # before the per-state merge: two fleets of different size share
+                # state names, and the sum would broadcast (N,) + (M,)
+                raise MetricsUserError(
+                    f"Cannot merge state of {type(other).__name__} into {type(self).__name__}:"
+                    f" fleet sizes differ (fleet_size={other.fleet_size} vs"
+                    f" fleet_size={self.fleet_size}); reduce_fleet() one side first"
+                )
             if set(other._defaults) != set(self._defaults):
                 raise MetricsUserError(
                     f"Cannot merge state of {type(other).__name__} into {type(self).__name__}:"
@@ -303,7 +457,13 @@ class Metric(nn.Module, ABC):
             kwargs = {k: self._check_device(v) for k, v in kwargs.items()}
             self._computed = None
             self._update_count += 1
-            update(*args, **kwargs)
+            if self.fleet_size is not None:
+                from metrics_tpu_torch.core import fleet as _fleet
+
+                # route or broadcast the batch to the streams through the raw update
+                _fleet.apply_update(self, update, args, kwargs)
+            else:
+                update(*args, **kwargs)
             if self.compute_on_cpu:
                 self._move_list_states_to_cpu()
 
@@ -318,6 +478,14 @@ class Metric(nn.Module, ABC):
     def _wrap_compute(self, compute: Callable) -> Callable:
         @functools.wraps(compute)
         def wrapped_func(*args: Any, **kwargs: Any) -> Any:
+            stream = kwargs.pop("stream", None)
+            if stream is not None and self.fleet_size is None:
+                raise MetricsUserError(
+                    f"compute(stream={stream}) requires a fleet metric; construct with"
+                    " Metric(fleet_size=N) or convert via .as_fleet(N)"
+                )
+            if stream is not None and not (0 <= stream < self.fleet_size):
+                raise MetricsUserError(f"compute(stream={stream}) out of range for fleet_size={self.fleet_size}")
             if self._update_count == 0:
                 rank_zero_warn(
                     f"The ``compute`` method of metric {self.__class__.__name__}"
@@ -326,7 +494,7 @@ class Metric(nn.Module, ABC):
                     MetricsUserWarning,
                 )
             if self._computed is not None:
-                return self._computed
+                return self._computed if stream is None else _stream_of(self._computed, stream)
             for attr in self._defaults:
                 val = getattr(self, attr)
                 if isinstance(val, CatBuffer) and val.overflowed():
@@ -341,8 +509,12 @@ class Metric(nn.Module, ABC):
             with self.sync_context(
                 dist_sync_fn=self.dist_sync_fn, should_sync=self._to_sync, should_unsync=self._should_unsync
             ):
-                self._computed = _squeeze_if_scalar(compute(*args, **kwargs))
-            return self._computed
+                if self.fleet_size is not None:
+                    # (N, ...) leaves stay unsqueezed, so compute(stream=0) indexes
+                    self._computed = self._compute_raw()
+                else:
+                    self._computed = _squeeze_if_scalar(compute(*args, **kwargs))
+            return self._computed if stream is None else _stream_of(self._computed, stream)
 
         return wrapped_func
 
@@ -570,6 +742,30 @@ class Metric(nn.Module, ABC):
         """Deep copy of the metric."""
         return deepcopy(self)
 
+    # ----------------------------------------------------------------- fleet
+
+    def as_fleet(self, fleet_size: int) -> "Metric":
+        """A fleet copy of this metric: every state gains a leading ``(fleet_size,
+        ...)`` stream axis holding the live value in every stream, and ``update``
+        takes ``stream_ids``. Raises :class:`MetricsUserError` for a list/cat state or
+        a reduction other than sum/max/min."""
+        from metrics_tpu_torch.core import fleet as _fleet
+
+        if self.fleet_size is not None:
+            raise MetricsUserError(f"{type(self).__name__} is already a fleet (fleet_size={self.fleet_size})")
+        out = deepcopy(self)
+        _fleet.convert_to_fleet(out, fleet_size)
+        return out
+
+    def reduce_fleet(self) -> Any:
+        """The value over all streams: the fleet axis collapsed by each state's
+        reduction (the ``merge_state`` algebra), then computed."""
+        from metrics_tpu_torch.core import fleet as _fleet
+
+        if self.fleet_size is None:
+            raise MetricsUserError(f"reduce_fleet() requires a fleet metric; {type(self).__name__} has no fleet axis")
+        return _fleet.reduce_fleet_value(self)
+
     # ------------------------------------------------------------ persistence
 
     def persistent(self, mode: bool = False) -> None:
@@ -628,6 +824,7 @@ class Metric(nn.Module, ABC):
             return v.apply(fn) if isinstance(v, CatBuffer) else fn(v)
 
         self._defaults = {k: move(v) for k, v in self._defaults.items()}
+        self._fleet_base_defaults = {k: fn(v) for k, v in self._fleet_base_defaults.items()}
         for key, default in self._defaults.items():
             if not isinstance(default, Tensor):
                 setattr(self, key, move(getattr(self, key)))
@@ -680,7 +877,11 @@ class Metric(nn.Module, ABC):
         if any(p.kind == inspect.Parameter.VAR_KEYWORD for p in params.values()):
             return kwargs
         skip = (inspect.Parameter.VAR_POSITIONAL, inspect.Parameter.VAR_KEYWORD)
-        return {k: v for k, v in kwargs.items() if k in params and params[k].kind not in skip}
+        filtered = {k: v for k, v in kwargs.items() if k in params and params[k].kind not in skip}
+        if self.fleet_size is not None and "stream_ids" in kwargs:
+            # the fleet's routing argument, taken by the wrapped update itself
+            filtered["stream_ids"] = kwargs["stream_ids"]
+        return filtered
 
     def __hash__(self) -> int:
         # identity, as for any module: ``__eq__`` below builds a metric, not a bool
@@ -792,6 +993,12 @@ class Metric(nn.Module, ABC):
 
     def __iter__(self):
         raise NotImplementedError("Metrics does not support iteration.")
+
+
+def _stream_of(value: Any, stream: int) -> Any:
+    from metrics_tpu_torch.core import fleet as _fleet
+
+    return _fleet.index_stream(value, stream)
 
 
 @functools.lru_cache(maxsize=None)

@@ -16,8 +16,9 @@ as host integers: ``append``, ``valid_count`` and ``overflowed`` never wait for 
 card. ``count`` and ``overflow`` also read as 0-d tensors on the buffer's device,
 the form of the JAX package's state dict.
 
-Not in this slice: ``cat_sync`` (the cross-process gather, with the
-``torch.distributed`` sync) and the checkpoint helpers.
+:func:`cat_sync` gathers a buffer from every rank of a process group into one of
+``world * capacity`` rows, the valid rows first. The checkpoint helpers are not
+ported.
 """
 from typing import Any, Sequence, Union
 
@@ -93,6 +94,11 @@ class CatBuffer:
         """A buffer of its own: appends to one do not show in the other."""
         return CatBuffer(self.data.clone(), self._count, self._overflow)
 
+    def copy(self) -> "CatBuffer":
+        """A new buffer object over the same data (the JAX package's ``copy``): its
+        count and flag are its own, its appends write into the shared rows."""
+        return CatBuffer(self.data, self._count, self._overflow)
+
     def apply(self, fn: Any) -> "CatBuffer":
         """The buffer with ``fn`` applied to its data (``Module._apply``: ``.to``, ``.cuda``)."""
         return CatBuffer(fn(self.data), self._count, self._overflow)
@@ -147,6 +153,26 @@ class CatBuffer:
         for v in value_list:
             self.append(v)
         return self
+
+
+def cat_sync(buf: CatBuffer, group: Any) -> CatBuffer:
+    """``buf`` gathered from every rank of the process ``group``, the valid rows
+    packed to the front in rank order (the JAX package's stable front-pack).
+
+    Every rank's buffer has the same capacity; the result has ``world * capacity``
+    rows, a count of the valid rows in all, and the overflow flag OR-ed across the
+    ranks. Each rank's valid count and flag travel with one small gather and are read
+    on the host once (the buffer keeps its count there).
+    """
+    from metrics_tpu_torch.parallel.collective import pad_gather
+
+    header = torch.tensor([buf.valid_count(), int(buf.overflowed())], dtype=torch.int64, device=buf.device)
+    data, headers = pad_gather(buf.data, header, group)
+    counts, flags = headers.reshape(-1, 2).t().tolist()
+    capacity = buf.capacity
+    valid = [data[r * capacity:r * capacity + c] for r, c in enumerate(counts)]
+    unused = [data[r * capacity + c:(r + 1) * capacity] for r, c in enumerate(counts)]
+    return CatBuffer(torch.cat(valid + unused, dim=0), sum(counts), any(flags))
 
 
 def cat_merge(global_buf: CatBuffer, local_buf: CatBuffer) -> CatBuffer:

@@ -36,6 +36,28 @@
 //   - the last, ragged run, and ids, masks or weights whose base is not 16-byte
 //     aligned (a view such as buf[1:]), take scalar loads inside the same kernel.
 //
+// Batched mode (tm_histogram_batched): B independent histograms in one launch, the
+// counterpart of the Pallas kernel's batching rule (one more grid axis), which the
+// fleet's per-row vmap reaches through the custom op's batching rule. Ids (B, k)
+// give out (B, num_bins): out[r][b] sums the weights of row r's ids equal to b,
+// ids outside [0, num_bins) dropping per row. Count, mask and float32 modes, as above.
+//   - The function reads B*k ids (and masks or weights) once and writes B*num_bins
+//     outputs once; the output dominates when bins are many (100 rows of 10^6 bins:
+//     400 MB, 0.12 ms at 3.35 TB/s), the ids when rows are long.
+//   - Rows are independent and B*num_bins may be far above the shared-memory
+//     kernel's 2^14 bins (a 1,000-class confusion matrix has 10^6 bins a row), so
+//     when B*num_bins > 8,192 each id goes to the output with one global atomic.
+//     At most 8,192 bins in all, each block counts into a private shared-memory copy
+//     (32 KB, under the 48 KB default) and adds each non-zero bin once at the end.
+//   - Neighbouring threads read neighbouring ids (coalesced 128-byte warp loads). In
+//     the count and mask modes the lanes of a warp that hit one bin are merged with
+//     __match_any_sync and one lane adds their number, so a row of few bins (16 rows
+//     of 4) costs a few atomics a warp instead of 32 on one address.
+//   - The grid is capped at a few blocks per SM (the SM count is read once per
+//     device), so nothing is asked of the runtime per launch but the current device;
+//     the output is zeroed with one memset on the same stream. Both are captured by a
+//     CUDA graph once a first eager call has filled the cache.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libtm_histogram.so histogram.cu
 #include <cuda_runtime.h>
@@ -177,7 +199,114 @@ cudaError_t launch(const int32_t* ids, const void* weights, long long n, int num
   return cudaGetLastError();
 }
 
+constexpr int kBatchedSmemBins = 1 << 13;  // 32 KB: no opt-in to more shared memory
+
+template <int MODE, bool SMEM>
+__global__ void __launch_bounds__(kThreads)
+histogram_batched_kernel(const int32_t* __restrict__ ids, const void* __restrict__ weights, long long n,
+                         unsigned row_len, int num_bins, int total_bins, void* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  using Acc = typename std::conditional<MODE == kWeight, float, int>::type;
+  Acc* hist = SMEM ? reinterpret_cast<Acc*>(smem_raw) : reinterpret_cast<Acc*>(out);
+  if (SMEM) {
+    for (int b = threadIdx.x; b < total_bins; b += blockDim.x) hist[b] = Acc(0);
+    __syncthreads();
+  }
+  const uint8_t* mask = reinterpret_cast<const uint8_t*>(weights);
+  const float* wf = reinterpret_cast<const float*>(weights);
+  const unsigned lane = threadIdx.x & 31u;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  // the loop bound depends on the warp's first index only: all 32 lanes take every turn
+  for (long long base = (long long)blockIdx.x * blockDim.x + (threadIdx.x & ~31u); base < n; base += stride) {
+    const long long i = base + lane;
+    int key = -1;
+    Acc w = Acc(0);
+    if (i < n) {
+      const int id = __ldg(ids + i);
+      bool keep = (unsigned)id < (unsigned)num_bins;
+      if (MODE == kMask) keep = keep && __ldg(mask + i) != 0;
+      if (MODE == kWeight) w = __ldg(wf + i);
+      // n < 2^31, so 32-bit division; row * num_bins + id < total_bins < 2^31
+      if (keep) key = (int)((unsigned)i / row_len) * num_bins + id;
+    }
+    if (MODE == kWeight) {
+      if (key >= 0 && w != 0.0f) atomicAdd(hist + key, w);
+    } else {
+      const unsigned peers = __match_any_sync(0xffffffffu, key);
+      if (key >= 0 && lane == (unsigned)(__ffs(peers) - 1)) atomicAdd(hist + key, (Acc)__popc(peers));
+    }
+  }
+  if (SMEM) {
+    __syncthreads();
+    Acc* gout = reinterpret_cast<Acc*>(out);
+    for (int b = threadIdx.x; b < total_bins; b += blockDim.x) {
+      const Acc v = hist[b];
+      if (v != Acc(0)) atomicAdd(gout + b, v);
+    }
+  }
+}
+
+std::unordered_map<int, int> g_sms;  // device -> SM count, under g_grid_mutex
+
+cudaError_t sm_count(int device, int* sms) {
+  std::lock_guard<std::mutex> lock(g_grid_mutex);
+  auto it = g_sms.find(device);
+  if (it != g_sms.end()) {
+    *sms = it->second;
+    return cudaSuccess;
+  }
+  const cudaError_t err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess) g_sms.emplace(device, *sms);
+  return err;
+}
+
+template <int MODE>
+cudaError_t launch_batched(const int32_t* ids, const void* weights, long long n, unsigned row_len, int num_bins,
+                           int total_bins, void* out, cudaStream_t stream) {
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if ((err = sm_count(device, &sms)) != cudaSuccess) return err;
+  if ((err = cudaMemsetAsync(out, 0, (size_t)total_bins * 4, stream)) != cudaSuccess) return err;
+  if (n <= 0) return cudaSuccess;
+  const long long warps_needed = (n + 31) / 32;
+  if (total_bins <= kBatchedSmemBins) {
+    // each thread takes at least 16 ids, so the per-block flush stays small beside them
+    long long grid = (n + (long long)kThreads * 16 - 1) / ((long long)kThreads * 16);
+    if (grid > 2LL * sms) grid = 2LL * sms;
+    histogram_batched_kernel<MODE, true><<<(int)grid, kThreads, (size_t)total_bins * 4, stream>>>(
+        ids, weights, n, row_len, num_bins, total_bins, out);
+  } else {
+    long long grid = (warps_needed * 32 + kThreads - 1) / kThreads;
+    if (grid > 8LL * sms) grid = 8LL * sms;
+    histogram_batched_kernel<MODE, false><<<(int)grid, kThreads, 0, stream>>>(ids, weights, n, row_len, num_bins,
+                                                                              total_bins, out);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+// Batched mode: ids (rows, row_len), row-major and contiguous, n = rows * row_len
+// ids in all; out (rows, num_bins), zeroed here. mode as for tm_histogram. rows *
+// num_bins and n must each be below 2^31. Returns the CUDA error code (0 on success).
+extern "C" int tm_histogram_batched(const void* ids, const void* weights, int mode, long long n, long long row_len,
+                                    long long rows, int num_bins, void* out, void* stream) {
+  if (rows <= 0 || num_bins <= 0) return (int)cudaSuccess;
+  const long long total = rows * (long long)num_bins;
+  if (total > 0x7fffffffLL || n > 0x7fffffffLL || n != rows * row_len) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const int32_t* x = reinterpret_cast<const int32_t*>(ids);
+  const unsigned len = row_len > 0 ? (unsigned)row_len : 1u;
+  cudaError_t err;
+  switch (mode) {
+    case kCount: err = launch_batched<kCount>(x, weights, n, len, num_bins, (int)total, out, s); break;
+    case kMask: err = launch_batched<kMask>(x, weights, n, len, num_bins, (int)total, out, s); break;
+    case kWeight: err = launch_batched<kWeight>(x, weights, n, len, num_bins, (int)total, out, s); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return (int)err;
+}
 
 // mode: 0 count (weights unused, int32 out), 1 byte mask (int32 out), 2 float32
 // weights (float32 out). Zeroes `out` (num_bins values, at most 2^14) and adds into

@@ -39,6 +39,7 @@ from metrics_tpu_torch.ops.clf_curve import (
     multiclass_auroc_exact,
     multilabel_auroc_exact,
 )
+from metrics_tpu_torch.utils.checks import _is_concrete
 from metrics_tpu_torch.utils.compute import _auc_compute_without_check, _safe_divide
 from metrics_tpu_torch.utils.enums import ClassificationTask
 from metrics_tpu_torch.utils.prints import rank_zero_warn
@@ -49,7 +50,7 @@ def _reduce_scores(res: Tensor, average: Optional[str], weights: Optional[Tensor
     if average is None or average == "none":
         return res
     nan = torch.isnan(res)
-    if bool(nan.any()):
+    if _is_concrete(res) and bool(nan.any()):
         rank_zero_warn(
             f"Average precision score for one or more classes was `nan`. Ignoring these classes in {average}-average",
             UserWarning,

@@ -27,6 +27,7 @@ from metrics_tpu_torch.functional.classification.stat_scores import (
     _sigmoid_if_logits,
     _softmax_if_logits,
 )
+from metrics_tpu_torch.utils.checks import _is_concrete
 from metrics_tpu_torch.utils.compute import _safe_divide
 from metrics_tpu_torch.utils.data import _one_hot, to_tensor
 from metrics_tpu_torch.utils.enums import ClassificationTask
@@ -127,6 +128,8 @@ def _binary_precision_recall_curve_tensor_validation(
             "Expected argument `preds` to be an floating tensor with probability/logit scores,"
             f" but got tensor with dtype {preds.dtype}"
         )
+    if not _is_concrete(preds, target):
+        return
     unique_values = torch.unique(target)
     allowed = (unique_values == 0) | (unique_values == 1)
     if ignore_index is not None:
@@ -255,6 +258,8 @@ def _multiclass_precision_recall_curve_tensor_validation(
             "Expected the shape of `preds` should be (N, C, ...) and the shape of `target` should be (N, ...)"
             f" but got {tuple(preds.shape)} and {tuple(target.shape)}"
         )
+    if not _is_concrete(preds, target):
+        return
     num_unique_values = torch.unique(target).numel()
     check = num_unique_values > num_classes if ignore_index is None else num_unique_values > num_classes + 1
     if check:

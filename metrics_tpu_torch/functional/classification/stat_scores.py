@@ -24,7 +24,7 @@ from torch import Tensor
 
 from metrics_tpu_torch.ops.confmat import confusion_counts
 from metrics_tpu_torch.ops.streaming import argmax_correct_count, eq_count
-from metrics_tpu_torch.utils.checks import _check_same_shape
+from metrics_tpu_torch.utils.checks import _check_same_shape, _is_concrete
 from metrics_tpu_torch.utils.data import _count_dtype, _one_hot, select_topk, to_tensor
 from metrics_tpu_torch.utils.enums import ClassificationTask
 
@@ -47,6 +47,8 @@ def _as_inputs(preds, target, device) -> Tuple[Tensor, Tensor]:
 
 
 def _check_binary_values(preds: Tensor, target: Tensor, ignore_index: Optional[int], what: str) -> None:
+    if not _is_concrete(preds, target):
+        return
     unique_values = torch.unique(target)
     allowed = (unique_values == 0) | (unique_values == 1)
     if ignore_index is not None:
@@ -225,6 +227,8 @@ def _multiclass_stat_scores_tensor_validation(
 
 
 def _check_multiclass_values(preds: Tensor, target: Tensor, num_classes: int, ignore_index: Optional[int]) -> None:
+    if not _is_concrete(preds, target):
+        return
     num_unique_values = torch.unique(target).numel()
     check = num_unique_values > num_classes if ignore_index is None else num_unique_values > num_classes + 1
     if check:
@@ -319,7 +323,7 @@ def _multiclass_stat_scores_update(
     if average == "micro":
         if ignore_index is None:
             tp = eq_count(preds, target)
-            n_valid = torch.tensor(target.numel(), dtype=_count_dtype(), device=target.device)
+            n_valid = torch.full((), target.numel(), dtype=_count_dtype(), device=target.device)
             return _micro_counts_from_tp(tp, n_valid, num_classes)
         valid = target != ignore_index
         tp = ((preds == target) & valid).sum()
@@ -359,7 +363,7 @@ def _multiclass_stat_scores_format_update(
         flat_t = target.reshape(-1)
         if ignore_index is None:
             tp = argmax_correct_count(probs, flat_t)
-            n_valid = torch.tensor(flat_t.numel(), dtype=_count_dtype(), device=flat_t.device)
+            n_valid = torch.full((), flat_t.numel(), dtype=_count_dtype(), device=flat_t.device)
             return _micro_counts_from_tp(tp, n_valid, num_classes)
         valid = flat_t != ignore_index
         tp = argmax_correct_count(probs, flat_t, valid)

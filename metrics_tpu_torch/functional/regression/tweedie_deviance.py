@@ -8,12 +8,14 @@ from typing import Tuple
 import torch
 from torch import Tensor
 
-from metrics_tpu_torch.utils.checks import _as_float, _check_same_shape
+from metrics_tpu_torch.utils.checks import _as_float, _check_same_shape, _is_concrete
 from metrics_tpu_torch.utils.compute import _safe_xlogy
 from metrics_tpu_torch.utils.data import to_tensor
 
 
 def _domain_check(preds: Tensor, targets: Tensor, power: float) -> None:
+    if not _is_concrete(preds, targets):
+        return
     flags = torch.stack([(preds <= 0).any(), (targets < 0).any(), (targets <= 0).any()])
     p_nonpos, t_neg, t_nonpos = flags.tolist()
     if power == 1 and (p_nonpos or t_neg):

@@ -135,7 +135,7 @@ class GreedyMatchKernel:
         return matched, ignored, npig
 
 
-greedy_match_cuda = GreedyMatchKernel()
+greedy_match_cuda = _build.counted(GreedyMatchKernel())
 
 
 def greedy_match(iou, d_area, g_area, det_valid, gt_valid, thresholds, area_ranges):

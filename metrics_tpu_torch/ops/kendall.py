@@ -293,7 +293,7 @@ class KendallPairsKernel:
             raise RuntimeError(f"kendall merge-count kernels launch failed with CUDA error {err}")
 
 
-kendall_pairs_cuda = KendallPairsKernel()
+kendall_pairs_cuda = _build.counted(KendallPairsKernel())
 
 
 def pair_counts(x: Tensor, y: Tensor) -> Tensor:

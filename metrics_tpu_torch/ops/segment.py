@@ -165,7 +165,7 @@ class SegmentScanKernel:
         return outs
 
 
-segment_scan_cuda = SegmentScanKernel()
+segment_scan_cuda = _build.counted(SegmentScanKernel())
 
 
 def _kernel_dtype(dtypes: Sequence[torch.dtype]) -> torch.dtype:

@@ -1,13 +1,49 @@
 """Input validation helpers (counterpart of ``metrics_tpu/utils/checks.py``).
 
-PyTorch runs eagerly, so the data-dependent checks that the JAX package skips under
-tracing always run here when ``validate_args`` is on; they read values through
-``torch.unique`` or a reduction and so synchronise with the device.
+The data-dependent checks read values through ``torch.unique`` or a reduction and
+so synchronise with the device. As in the JAX package, they run on concrete values
+only: :func:`_is_concrete` is False while a CUDA graph is being captured, inside a
+``torch.func`` transform (the fleet's ``vmap``) and inside :func:`tracing` (the
+engines' chained pure steps, which run eagerly on the CPU), and the checks are then
+skipped. Shape and dtype checks read no data and always run.
 """
-from typing import Optional, Tuple
+import threading
+from contextlib import contextmanager
+from typing import Iterator, Optional, Tuple
 
 import torch
 from torch import Tensor
+
+_TRACE = threading.local()
+
+
+@contextmanager
+def tracing() -> Iterator[None]:
+    """Run the body as a traced step: :func:`_is_concrete` is False inside it, on
+    this thread. The engines wrap their pure steps in it, so that a step skips the
+    same value checks on the CPU as its captured CUDA graph does on the card."""
+    _TRACE.depth = getattr(_TRACE, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _TRACE.depth -= 1
+
+
+def _is_concrete(*tensors: Tensor) -> bool:
+    """True iff the values of ``tensors`` may be read on the host now: no CUDA
+    stream is capturing, no ``torch.func`` transform is active (and no argument is
+    a batched tensor), and no :func:`tracing` step is running.
+
+    Counterpart of ``metrics_tpu/utils/checks.py:_is_concrete``, which is False for
+    jit/vmap tracers.
+    """
+    if getattr(_TRACE, "depth", 0):
+        return False
+    if torch.cuda.is_initialized() and torch.cuda.is_current_stream_capturing():
+        return False
+    if torch._C._are_functorch_transforms_active():
+        return False
+    return not any(isinstance(t, Tensor) and torch._C._functorch.is_batchedtensor(t) for t in tensors)
 
 
 def _check_same_shape(preds: Tensor, target: Tensor) -> None:

@@ -216,8 +216,10 @@ def test_cityscapes_shaped_path_at_small_size():
 
 
 def test_metric_device_rules():
+    fleet = tc.MulticlassAccuracy(num_classes=3, average=None, device="cpu", fleet_size=2)
+    assert fleet.fleet_size == 2 and tuple(fleet.tp.shape) == (2, 3) and tuple(fleet._fleet_rows.shape) == (2,)
     with pytest.raises(ValueError, match="Unexpected keyword"):
-        tc.MulticlassAccuracy(num_classes=3, device="cpu", fleet_size=2)  # the fleet axis is not ported
+        tc.MulticlassAccuracy(num_classes=3, device="cpu", stream_count=2)
     assert tc.MulticlassAccuracy(num_classes=3, device="cpu", dist_sync_on_step=True).dist_sync_on_step
     tm = tc.MulticlassAccuracy(num_classes=3, device="cpu")
     assert tm.device == torch.device("cpu")

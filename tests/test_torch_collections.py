@@ -8,7 +8,7 @@ values with compute groups, without them, and of the JAX collection must agree
 (counts by value, floats within rtol 1e-6, atol 1e-6). Also covered: prefix and
 postfix, nesting, ``forward``, ``items(copy_state=True)``, a member's ``reset``,
 ``state_dict``/``load_state_dict``, ``load_jax_state`` of a collection, the device
-rule of the groups, and what is not ported (``fused=True``, checkpoints, ``plot``).
+rule of the groups, ``fused=True`` against eager, and what is not ported (checkpoints, ``plot``).
 """
 import warnings
 
@@ -285,8 +285,12 @@ def test_load_jax_state_of_a_collection_continues_a_jax_run():
 
 
 def test_not_ported_parts_raise():
-    with pytest.raises(NotImplementedError, match="fused"):
-        MetricCollection([MeanMetric(device="cpu")], fused=True)
+    fused = MetricCollection([MeanMetric(device="cpu")], fused=True)  # the fused engine is ported
+    eager = MetricCollection([MeanMetric(device="cpu")])
+    for values in (torch.arange(4.0), torch.ones(3)):
+        fused.update(values)
+        eager.update(values)
+    assert fused.fused and torch.equal(fused.compute()["MeanMetric"], eager.compute()["MeanMetric"])
     mc = MetricCollection([MeanMetric(device="cpu")])
     with pytest.raises(NotImplementedError):
         mc.save_checkpoint("unused")

@@ -456,3 +456,165 @@ def test_pair_confusion_counts_on_card_match_per_pair_plain_counts(cuda, case):
         want = histogram._plain_bincount(ids, None, cards[i] * cards[j]).long().reshape(cards[j], cards[i])
         assert torch.equal(tables[p, : cards[j], : cards[i]], want), (i, j)
         assert int(tables[p].sum()) == int(want.sum())
+
+
+# ------------------------------------------------- the batched mode and the engines
+
+BATCHED_SHAPES = [(10_000, 1, 100), (16, 65_536, 4), (100, 256, 1_000_000), (3, 0, 5), (7, 33, 1), (5, 1_000, 8_192)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,k,bins", BATCHED_SHAPES)
+def test_batched_kernel_matches_plain_on_card(cuda, rows, k, bins):
+    g = torch.Generator(device=cuda).manual_seed(rows + k + bins)
+    ids = torch.randint(-2, bins + 2, (rows, k), generator=g, device=cuda, dtype=torch.int32)
+    ids[0] = -1  # an empty row
+    mask = torch.rand((rows, k), generator=g, device=cuda) < 0.7
+    # quarter steps: every order of the float atomics gives the same sums
+    w = torch.randint(-8, 8, (rows, k), generator=g, device=cuda).float() / 4
+    for weights in (None, mask, w):
+        got = histogram.histogram_batched_cuda(ids, weights, bins)
+        assert torch.equal(got, histogram._plain_batched_bincount(ids, weights, bins))
+    noisy = torch.randn((rows, k), generator=g, device=cuda)
+    got = histogram.histogram_batched_cuda(ids, noisy, bins).double()
+    want = histogram._plain_batched_bincount(ids, noisy.double(), bins)
+    scale = histogram._plain_batched_bincount(ids, noisy.abs().double(), bins)
+    assert bool(torch.all((got - want).abs() <= 1e-5 * scale))
+
+
+@pytest.mark.cuda
+def test_vmap_rule_launches_the_batched_kernel(cuda):
+    ids = torch.randint(0, 12, (64, 3), device=cuda)
+    before = (histogram.histogram_batched_cuda.launches, histogram.histogram_cuda.launches)
+    out = torch.func.vmap(lambda r: histogram.bincount(r, 10))(ids)
+    assert (histogram.histogram_batched_cuda.launches, histogram.histogram_cuda.launches) == (
+        before[0] + 1, before[1])
+    assert torch.equal(out, histogram._plain_batched_bincount(ids, None, 10))
+    with pytest.raises(ValueError):
+        histogram.histogram_batched_cuda(ids.long(), None, 10)
+    with pytest.raises(TypeError):
+        histogram.histogram_batched_cuda(ids.int(), torch.ones(64, 3, device=cuda, dtype=torch.float64), 10)
+
+
+@pytest.mark.cuda
+def test_fused_collection_replays_and_matches_eager_on_card(cuda):
+    from metrics_tpu_torch.core.fused import CapturedStep, canonical_collection, engine_for
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    fused, eager = canonical_collection(True), canonical_collection(False)
+    for _ in range(4):
+        p = torch.rand(4096, generator=g, device=cuda)
+        t = torch.randint(0, 2, (4096,), generator=g, device=cuda, dtype=torch.int32)
+        fused.update(p, t)
+        eager.update(p, t)
+    got, want = fused.compute(), eager.compute()
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    stats = engine_for(fused).stats
+    assert (stats["launches"], stats["cache_misses"], stats["degrades"], stats["fallback_groups"]) == (4, 1, 0, 0)
+    leader = fused._modules["BinaryAccuracy"]
+    assert all(isinstance(step, CapturedStep) for step in engine_for(fused)._steps.steps.values())
+    fused.reset()  # the live state leaves its static buffer: copied in at the next replay
+    eager.reset()
+    fused.update(p, t)
+    eager.update(p, t)
+    assert torch.equal(fused.compute()["BinaryConfusionMatrix"], eager.compute()["BinaryConfusionMatrix"])
+    assert leader.tp.device.type == "cuda"
+
+
+@pytest.mark.cuda
+def test_host_read_in_an_update_demotes_only_its_group_on_card(cuda):
+    import warnings
+
+    from metrics_tpu_torch.classification import BinaryAccuracy
+    from metrics_tpu_torch.core import MetricCollection
+    from metrics_tpu_torch.core.fused import engine_for
+    from metrics_tpu_torch.regression import MeanSquaredError
+
+    class HostRead(MeanSquaredError):
+        def update(self, preds, target):
+            if float(preds.sum()) > -1:  # a host read: a capture cannot take it
+                super().update(preds, target)
+
+    coll = MetricCollection({"acc": BinaryAccuracy(), "bad": HostRead()}, fused=True)
+    p = torch.rand(256, device=cuda)
+    t = torch.randint(0, 2, (256,), device=cuda)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        coll.update(p, t)
+        coll.update(p, t)
+    assert any("cannot fuse" in str(w.message) for w in caught)
+    eng = engine_for(coll)
+    assert eng.stats["launches"] == 2 and "bad" in eng._trace_fallbacks and eng.stats["degrades"] == 0
+
+
+@pytest.mark.cuda
+def test_fleet_routed_update_replays_on_card(cuda):
+    from metrics_tpu_torch.classification import MulticlassAccuracy
+    from metrics_tpu_torch.core import fleet
+
+    g = torch.Generator(device=cuda).manual_seed(1)
+    metric = MulticlassAccuracy(num_classes=10, average=None, fleet_size=16)
+    refs = [MulticlassAccuracy(num_classes=10, average=None) for _ in range(16)]
+    for _ in range(3):
+        p = torch.randint(0, 10, (2000,), generator=g, device=cuda)
+        t = torch.randint(0, 10, (2000,), generator=g, device=cuda)
+        ids = torch.randint(0, 15, (2000,), generator=g, device=cuda)
+        metric.update(p, t, stream_ids=ids)
+        for s in range(15):
+            refs[s].update(p[ids == s], t[ids == s])
+    out = metric.compute()
+    assert all(torch.equal(out[s], refs[s].compute()) for s in range(15))
+    assert len(fleet._steps_for(metric).steps) == 1
+    assert fleet.step_stats(metric)["launches"] == 3 and fleet.step_stats(metric)["degrades"] == 0
+    assert torch.equal(metric.tp[15], torch.zeros_like(metric.tp[15]))
+
+
+@pytest.mark.cuda
+def test_replays_count_the_launches_their_capture_recorded(cuda):
+    from metrics_tpu_torch.classification import MulticlassAccuracy
+    from metrics_tpu_torch.core import fleet
+    from metrics_tpu_torch.core.fused import canonical_collection
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    p = torch.rand(4096, generator=g, device=cuda)
+    t = torch.randint(0, 2, (4096,), generator=g, device=cuda, dtype=torch.int32)
+    eager = canonical_collection(False)
+    before = histogram.histogram_cuda.launches
+    eager.update(p, t)
+    per_step = histogram.histogram_cuda.launches - before
+    fused = canonical_collection(True)
+    before = histogram.histogram_cuda.launches
+    for _ in range(5):
+        fused.update(p, t)
+    # the warm-up's launches ran; the capture's were only recorded; each of 5 replays ran them
+    assert per_step >= 1 and histogram.histogram_cuda.launches - before == 6 * per_step
+    metric = MulticlassAccuracy(num_classes=10, average=None, fleet_size=16)
+    x = torch.randint(0, 10, (2000,), generator=g, device=cuda)
+    ids = torch.randint(0, 16, (2000,), generator=g, device=cuda)
+    before = histogram.histogram_batched_cuda.launches
+    for _ in range(4):
+        metric.update(x, x, stream_ids=ids)
+    assert histogram.histogram_batched_cuda.launches - before == 5
+    assert fleet.step_stats(metric)["launches"] == 4
+
+
+@pytest.mark.cuda
+def test_fused_forward_matches_eager_on_card(cuda):
+    import warnings
+
+    from metrics_tpu_torch.core.fused import canonical_collection, engine_for
+
+    g = torch.Generator(device=cuda).manual_seed(2)
+    fused, eager = canonical_collection(True), canonical_collection(False)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for _ in range(3):
+            p = torch.rand(4096, generator=g, device=cuda)
+            t = torch.randint(0, 2, (4096,), generator=g, device=cuda, dtype=torch.int32)
+            got, want = fused(p, t), eager(p, t)
+            for k in want:  # batch values computed inside the graph
+                assert torch.allclose(got[k].double(), want[k].double(), rtol=1e-6, atol=1e-7)
+    assert not [w for w in caught if "cannot fuse" in str(w.message) or "degraded" in str(w.message)]
+    assert engine_for(fused).stats["launches"] == 3 and engine_for(fused).stats["fallback_groups"] == 0
+    got, want = fused.compute(), eager.compute()
+    assert all(torch.equal(got[k], want[k]) for k in want)
