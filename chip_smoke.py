@@ -329,6 +329,7 @@ RANKS_DEADLINE_S = 420
 RANK_AUROC_ROWS = (60_000, 70_000, 50_000, 65_536)
 RANK_AUROC_CAPACITY = 1 << 17
 RANK_AUROC_OVERFLOW_CAPACITY = 65_536
+RANK_BOOTSTRAPS = 20  # copies of the stacked BootStrapper(BinaryAccuracy) each rank syncs
 QM9_RANK_SHARES = (0.3, 0.2, 0.25, 0.25)  # of the QM9 updates, in rank order
 SCAN_SIZES = (1, 1000, 1024, 1025, (1 << 24) + 17, DLRM["samples"])
 SCAN_OPS = {1: ("min",), 2: ("min", "min"), 3: ("sum", "min", "max"), 4: ("max", "sum", "min", "sum")}
@@ -1620,16 +1621,30 @@ def rank_auroc_batches(torch, seed: int, rank: int):
 
 def rank_pure(torch, seed: int, rank: int, cityscapes) -> dict:
     """This rank's share through the pure tier: ``evaluate_sharded`` of the Cityscapes
-    collection and of a ``cat_capacity`` BinaryAUROC (``cat_sync``), once overflowing on rank 1."""
-    from metrics_tpu_torch.classification import BinaryAUROC
+    collection and of a ``cat_capacity`` BinaryAUROC (``cat_sync``), once overflowing on
+    rank 1, and a stacked BootStrapper's ``sync_state`` and ``evaluate_sharded``."""
+    import torch.distributed as dist
+
+    from metrics_tpu_torch.classification import BinaryAccuracy, BinaryAUROC
     from metrics_tpu_torch.core import MetricCollection
     from metrics_tpu_torch.parallel import evaluate_sharded
+    from metrics_tpu_torch.wrappers import BootStrapper
 
     out = {f"collection/{k}": v for k, v in evaluate_sharded(MetricCollection(collection_metrics("cuda")),
                                                             cityscapes).items()}
     binary = rank_auroc_batches(torch, seed, rank)
     out["auroc"] = evaluate_sharded(BinaryAUROC(cat_capacity=RANK_AUROC_CAPACITY), binary)
     out["auroc/overflow"] = evaluate_sharded(BinaryAUROC(cat_capacity=RANK_AUROC_OVERFLOW_CAPACITY), binary)
+    # a stacked BootStrapper's pure tier: rank r takes 2 + r steps, so the seeds differ until the sync
+    boot = BootStrapper(BinaryAccuracy(), RANK_BOOTSTRAPS, seed=seed, raw=True)
+    state = boot.init_state()
+    for i in range(2 + rank):
+        state = boot.local_update(state, *binary[i % 2])
+    synced = boot.sync_state(state, dist.group.WORLD)
+    out["boot/seed_local"], out["boot/seed"] = state["seed"], synced["seed"]
+    for name, value in state["metrics"].items():
+        out[f"boot/local/{name}"], out[f"boot/synced/{name}"] = value, synced["metrics"][name]
+    out.update({f"boot/value/{k}": v for k, v in evaluate_sharded(boot, binary).items()})
     return out
 
 
@@ -1790,6 +1805,23 @@ def phase_sync_ranks(torch, seed: int, smi: str):
             raise AssertionError(f"rank {rank}: evaluate_sharded off the union by {pure_worst}")
         if not bool(torch.isnan(pure["auroc/overflow"])):
             raise AssertionError(f"rank {rank}: rank 1's overflow did not poison the synced AUROC")
+    # the stacked BootStrapper: every rank's synced stack is the sum of the ranks' stacks, one seed
+    seeds = [int(r["pure"]["boot/seed_local"]) for r in results]
+    names = [k[len("boot/local/"):] for k in results[0]["pure"] if k.startswith("boot/local/")]
+    for rank, result in enumerate(results):
+        pure = result["pure"]
+        for name in names:
+            if not torch.equal(pure[f"boot/synced/{name}"], sum(r["pure"][f"boot/local/{name}"] for r in results)):
+                raise AssertionError(f"rank {rank}: the synced BootStrapper {name} is not the sum of the ranks'")
+        if int(pure["boot/seed"]) != max(seeds) or not torch.equal(pure["boot/value/raw"],
+                                                                   results[0]["pure"]["boot/value/raw"]):
+            raise AssertionError(f"rank {rank}: BootStrapper seed {int(pure['boot/seed'])} of {seeds}, or its"
+                                 " evaluate_sharded value differs between ranks")
+    if len(set(seeds)) != SYNC_RANKS:
+        raise AssertionError(f"the ranks' BootStrapper seeds before the sync: {seeds}")
+    emit({"phase": "sync_ranks_bootstrapper", "card": smi, "backend": "gloo", "world_size": SYNC_RANKS,
+          "num_bootstraps": RANK_BOOTSTRAPS, "synced_equals_sum_of_ranks": True, "seeds_before_sync": seeds,
+          "seed_after_sync": max(seeds), "mean": float(results[0]["pure"]["boot/value/mean"])})
     pure_launches = {k: sum(r["pure_launches"][k] for r in results) for k in results[0]["pure_launches"]}
     if pure_launches["histogram"] < 1 or pure_launches["segment_scan"] < 1:
         raise AssertionError(f"evaluate_sharded never reached the kernels: {pure_launches}")
@@ -4190,7 +4222,7 @@ NOMINAL_CLASSES = {"cramers_v": "CramersV", "tschuprows_t": "TschuprowsT",
                    "pearsons_contingency_coefficient": "PearsonsContingencyCoefficient", "theils_u": "TheilsU"}
 NOMINAL_ATOL = 1e-6  # the nominal values (float64 on the card, float32 out) against float64 numpy
 # BootStrapper over ImageNet-1k val macro accuracy; ClasswiseWrapper and MinMaxMetric beside it
-IMAGENET_BOOT = {"batch": 256, "num_bootstraps": 100, "quantile": (0.025, 0.975), "cpu_updates": 10,
+IMAGENET_BOOT = {"batch": 256, "num_bootstraps": 100, "quantile": (0.025, 0.975), "checked_updates": 3,
                  "minmax_computes": 10, "true_class_shift": 7.5}
 DLRM_BOOT = {"updates": 20, "batch": 65_536, "num_bootstraps": 20}  # DLRM-style rows, BinaryAUROC copies
 AUROC_ATOL = 1e-5  # each copy's AUROC against a float64 Mann-Whitney statistic on its rows
@@ -4398,10 +4430,6 @@ def wn_adult(torch, seed: int, smi: str) -> int:
     return launches
 
 
-def snapshot_copies(boot) -> list:
-    return [{name: getattr(copy, name).clone() for name in copy._defaults} for copy in boot.metrics]
-
-
 def uncached_compute_ms(torch, metric, reps: int = 3) -> float:
     """Event median of ``metric.compute()`` with its own and its children's cached values cleared."""
     def run():
@@ -4411,51 +4439,26 @@ def uncached_compute_ms(torch, metric, reps: int = 3) -> float:
     return event_ms(torch, run, reps=reps, warmup=1)
 
 
-def wn_imagenet(torch, seed: int, smi: str) -> None:
-    """ImageNet-1k val logits through BootStrapper (100 macro-accuracy copies), and
-    ClasswiseWrapper and MinMaxMetric beside it."""
-    from metrics_tpu_torch.classification import MulticlassAccuracy
-    from metrics_tpu_torch.wrappers import BootStrapper, ClasswiseWrapper, MinMaxMetric
-
-    cfg = IMAGENET_BOOT
+def imagenet_batches(torch, seed: int, batch: int):
+    """ImageNet-1k val logits (a top-1 accuracy near 0.7) and labels, drawn on the card,
+    in batches of ``batch`` rows."""
     gi = torch.Generator(device="cuda").manual_seed(seed + 3)
-    c, m, b = IMAGENET["classes"], IMAGENET["samples"], cfg["batch"]
+    c, m = IMAGENET["classes"], IMAGENET["samples"]
     logits = 2.0 * torch.randn((m, c), generator=gi, device="cuda")
     labels = torch.randint(0, c, (m,), generator=gi, device="cuda")
-    logits[torch.arange(m, device="cuda"), labels] += cfg["true_class_shift"]  # a top-1 accuracy near 0.7
-    batches = [(logits[s:s + b], labels[s:s + b]) for s in range(0, m, b)]
+    logits[torch.arange(m, device="cuda"), labels] += IMAGENET_BOOT["true_class_shift"]
+    return [(logits[s:s + batch], labels[s:s + batch]) for s in range(0, m, batch)]
 
-    def bootstrapper(device="cuda"):
-        return BootStrapper(MulticlassAccuracy(c, average="macro", device=device),
-                            num_bootstraps=cfg["num_bootstraps"], quantile=list(cfg["quantile"]), seed=seed)
 
-    boot, early = bootstrapper(), []
+def wn_imagenet(torch, seed: int, smi: str) -> None:
+    """ImageNet-1k val logits through ClasswiseWrapper and MinMaxMetric (the stacked
+    BootStrapper over the same logits is ``phase_wrappers_stacked``'s)."""
+    from metrics_tpu_torch.classification import MulticlassAccuracy
+    from metrics_tpu_torch.wrappers import ClasswiseWrapper, MinMaxMetric
 
-    def drive_boot():
-        for k, batch in enumerate(batches):
-            boot.update(*batch)
-            if k + 1 == cfg["cpu_updates"]:
-                early.extend(snapshot_copies(boot))
-        return boot.compute()
-
-    # a macro accuracy's confusion matrix at 1,000 classes has 10^6 bins, past the kernel's
-    # 2^14: each copy's update takes the plain scatter-add route, no kernel launch
-    boot_value, counted, boot_seconds = run_counted(torch, drive_boot)
-    expect_launches("ImageNet BootStrapper", counted)
-    cpu = bootstrapper("cpu")
-    for batch in batches[:cfg["cpu_updates"]]:
-        cpu.update(*(x.cpu() for x in batch))
-    for k, (state, copy) in enumerate(zip(early, cpu.metrics)):
-        for name, value in state.items():
-            if not torch.equal(value.cpu(), getattr(copy, name)):
-                raise AssertionError(f"ImageNet BootStrapper copy {k} {name}: the card differs from the CPU run")
-    raw = torch.stack([copy.compute() for copy in boot.metrics])
-    q = torch.quantile(raw, torch.tensor(cfg["quantile"], device=raw.device))
-    if not (torch.equal(boot_value["mean"], raw.mean(0)) and torch.equal(boot_value["std"], raw.std(0))
-            and torch.equal(boot_value["quantile"], q) and bool(torch.isfinite(raw).all())
-            and bool(((raw > 0) & (raw < 1)).all())):
-        raise AssertionError(f"ImageNet BootStrapper: {boot_value} against its copies' values {raw}")
-
+    cfg = IMAGENET_BOOT
+    c, m = IMAGENET["classes"], IMAGENET["samples"]
+    batches = imagenet_batches(torch, seed, cfg["batch"])
     classwise = ClasswiseWrapper(MulticlassAccuracy(c, average=None))
     minmax = MinMaxMetric(MulticlassAccuracy(c, average="macro"))
     at = {round((i + 1) * len(batches) / cfg["minmax_computes"]) - 1 for i in range(cfg["minmax_computes"])}
@@ -4490,20 +4493,21 @@ def wn_imagenet(torch, seed: int, smi: str) -> None:
         if not (torch.equal(got["raw"], raw_i) and torch.equal(got["max"], so_far.max())
                 and torch.equal(got["min"], so_far.min())):
             raise AssertionError(f"ImageNet MinMaxMetric compute {i}: {got} vs raw {raws[:i + 1]}")
-    timed = bootstrapper()
-    timing = {"bootstrapper_update_ms": event_ms(torch, lambda: timed.update(*batches[0]), reps=5, warmup=1),
-              "bootstrapper_update_device": call_device_ms(torch, lambda: timed.update(*batches[0]), "histogram",
-                                                           reps=2),
-              "bootstrapper_compute_ms": uncached_compute_ms(torch, boot),
-              "classwise_update_ms": event_ms(torch, lambda: classwise.update(*batches[0]), reps=10),
+    timing = {"classwise_update_ms": event_ms(torch, lambda: classwise.update(*batches[0]), reps=10),
               "minmax_compute_ms": uncached_compute_ms(torch, minmax)}
     emit({"phase": "wrappers_nominal", "config": "imagenet", "nvidia_smi": smi, "rows": m, "classes": c,
-          "updates": len(batches), "num_bootstraps": cfg["num_bootstraps"],
-          "bootstrap": {k: v.tolist() for k, v in boot_value.items()},
-          "histogram_launches_per_bootstrap_update": 0, "confusion_bins": c * c,
-          "first_updates_bit_equal_to_cpu": cfg["cpu_updates"],
-          "minmax": {k: float(v) for k, v in seen[-1].items()}, "timing": timing,
-          "seconds": {"bootstrapper": boot_seconds, "classwise_and_minmax": wrapper_seconds}})
+          "updates": len(batches), "minmax": {k: float(v) for k, v in seen[-1].items()}, "timing": timing,
+          "seconds": {"classwise_and_minmax": wrapper_seconds}})
+
+
+def dlrm_style_batches(torch, seed: int, updates: int, batch: int):
+    """``updates`` batches of DLRM-style rows (3% positives, bf16 click scores), drawn on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n = updates * batch
+    target = (torch.rand(n, generator=g, device="cuda") < DLRM["positive_rate"]).long()
+    z = torch.randn(n, generator=g, device="cuda") + DLRM["positive_shift"] * target
+    scores = torch.sigmoid(z).to(torch.bfloat16).to(torch.float32)
+    return [(scores[s:s + batch], target[s:s + batch]) for s in range(0, n, batch)]
 
 
 def wn_dlrm(torch, seed: int, smi: str) -> int:
@@ -4515,12 +4519,8 @@ def wn_dlrm(torch, seed: int, smi: str) -> int:
     from metrics_tpu_torch.wrappers import BootStrapper
 
     cfg = DLRM_BOOT
-    g = torch.Generator(device="cuda").manual_seed(seed + 1)
-    n, b = cfg["updates"] * cfg["batch"], cfg["batch"]
-    target = (torch.rand(n, generator=g, device="cuda") < DLRM["positive_rate"]).long()
-    z = torch.randn(n, generator=g, device="cuda") + DLRM["positive_shift"] * target
-    scores = torch.sigmoid(z).to(torch.bfloat16).to(torch.float32)
-    batches = [(scores[s:s + b], target[s:s + b]) for s in range(0, n, b)]
+    b = cfg["batch"]
+    batches = dlrm_style_batches(torch, seed + 1, cfg["updates"], b)
     boot = BootStrapper(BinaryAUROC(), num_bootstraps=cfg["num_bootstraps"], raw=True, seed=seed)
     _, counted, update_seconds = run_counted(torch, lambda: [boot.update(*batch) for batch in batches])
     expect_launches("DLRM BootStrapper updates", counted)
@@ -4544,7 +4544,7 @@ def wn_dlrm(torch, seed: int, smi: str) -> int:
     timing = {"update_ms": event_ms(torch, lambda: timed.update(*batches[0]), reps=5, warmup=1),
               "update_device": call_device_ms(torch, lambda: timed.update(*batches[0]), "segment_scan", reps=2),
               "compute_ms": uncached_compute_ms(torch, boot)}
-    emit({"phase": "wrappers_nominal", "config": "dlrm_bootstrap", "nvidia_smi": smi, "rows": n,
+    emit({"phase": "wrappers_nominal", "config": "dlrm_bootstrap", "nvidia_smi": smi, "rows": cfg["updates"] * b,
           "updates": len(batches), "num_bootstraps": cfg["num_bootstraps"],
           "values": {k: v.tolist() for k, v in value.items()}, "max_abs_err_vs_float64": max(errs),
           "atol": AUROC_ATOL, "scan_launches_per_compute": cfg["num_bootstraps"], "timing": timing,
@@ -4901,6 +4901,325 @@ def phase_engines(torch, seed: int, smi: str):
     }, fused["launches"]["histogram"]
 
 
+# ----------------------------------------------------------------- wrappers_stacked
+
+# DLRM-style rows through a pure-tier BootStrapper of exact AUROC: 16 updates of the MLPerf
+# DLRM-v2 batch fill 2^20 rows a copy (Criteo day 23 holds 89,137,319: cut to fit 20 copies)
+DLRM_PURE = {"updates": 16, "batch": 65_536, "num_bootstraps": 20, "capacity": 1 << 20, "curve_copies": 4}
+PURE_AUROC_RTOL = 1e-6  # a copy's traced AUROC (batched sums) against its own eager compute
+# the BootStrapper copies path on the same ImageNet updates, as measured before the stacked path (PERF.md §5)
+COPIES_PATH_MEASURED = {"wall_ms_per_update": 93.5, "device_ms_per_update": 10.3, "launches_per_update": 3_701}
+
+
+def ws_imagenet(torch, seed: int, smi: str) -> dict:
+    """BootStrapper(MulticlassAccuracy(1000, "macro"), 100) over ImageNet-1k val in
+    updates of 256: one replay a step, one batched histogram launch in it. The first
+    updates are held bit for bit against 100 base metrics fed the same indices."""
+    import numpy as np
+
+    from metrics_tpu_torch.classification import MulticlassAccuracy
+    from metrics_tpu_torch.core.fleet import step_stats
+    from metrics_tpu_torch.wrappers import BootStrapper
+
+    cfg = IMAGENET_BOOT
+    c, n_boot = IMAGENET["classes"], cfg["num_bootstraps"]
+    batches = imagenet_batches(torch, seed, cfg["batch"])
+    names = ("tp", "fp", "tn", "fn")
+
+    def bootstrapper():
+        return BootStrapper(MulticlassAccuracy(c, average="macro"), num_bootstraps=n_boot,
+                            quantile=list(cfg["quantile"]), raw=True, seed=seed)
+
+    boot, early = bootstrapper(), {}
+    if not boot._eager_stacked:
+        raise AssertionError("ImageNet BootStrapper did not take the stacked path")
+
+    def drive():
+        for k, batch in enumerate(batches):
+            boot.update(*batch)
+            if k + 1 == cfg["checked_updates"]:
+                early.update({name: getattr(boot, f"boot_{name}").clone() for name in names})
+        return boot.compute()
+
+    value, counted, seconds = run_counted(torch, drive)
+    shapes = len({tuple(b[0].shape) for b in batches})  # a last, shorter batch is a second capture
+    expect_launches("ImageNet stacked BootStrapper", counted, batched=len(batches) + shapes)
+    stats = step_stats(boot)
+    if stats["degrades"] or stats["launches"] != len(batches):
+        raise AssertionError(f"ImageNet stacked BootStrapper steps: {stats}")
+    # the same indices, replayed: the host seed stream and the draws' generator on the card
+    rng = np.random.default_rng(seed)
+    bases = [MulticlassAccuracy(c, average="macro") for _ in range(n_boot)]
+    for batch in batches[:cfg["checked_updates"]]:
+        size = batch[0].shape[0]
+        idx = boot._indices(boot._device_draws(int(rng.integers(0, 2**63 - 1)), size), size)
+        for base, rows in zip(bases, idx):
+            base.update(batch[0][rows], batch[1][rows])
+    for name in names:
+        if not torch.equal(early[name], torch.stack([getattr(b, name) for b in bases])):
+            raise AssertionError(f"ImageNet stacked BootStrapper: {name} after {cfg['checked_updates']} updates"
+                                 " differs from 100 base metrics fed the same indices")
+    template = boot.metrics[0]
+    raw = torch.stack([template.compute_from({name: getattr(boot, f"boot_{name}")[k] for name in names})
+                       for k in range(n_boot)])
+    raw_err = (value["raw"] - raw).abs().max().item()
+    stat_err = max((value["mean"] - raw.mean()).abs().item(), (value["std"] - raw.std()).abs().item())
+    if not (raw_err <= 1e-6 and stat_err <= 1e-6 and bool(((raw > 0) & (raw < 1)).all())):
+        raise AssertionError(f"ImageNet stacked BootStrapper: raw off its copies' computes by {raw_err},"
+                             f" mean/std by {stat_err}")
+    timed = bootstrapper()
+    timed.update(*batches[0])  # the capture, outside the windows
+    timing = {"wall_ms_per_update": event_ms(torch, lambda: timed.update(*batches[0]), reps=20, warmup=2),
+              "device_per_update": call_device_ms(torch, lambda: timed.update(*batches[0]), "histogram_batched",
+                                                  reps=5),
+              "compute_ms": uncached_compute_ms(torch, boot)}
+    by_kernel = device_ms(torch, lambda: timed.update(*batches[0]), reps=5)
+    timing["device_ms_by_kernel_top"] = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8])
+    if timing["device_per_update"] is None:
+        raise AssertionError("ImageNet stacked BootStrapper: no profiler window held every launch")
+    per_update = timing["device_per_update"]["launches_per_call"]
+    if sum(n for k, n in per_update.items() if "histogram_batched" in k) != 1:
+        raise AssertionError(f"ImageNet stacked BootStrapper: launches per update {per_update}")
+    record = {"rows": IMAGENET["samples"], "classes": c, "updates": len(batches), "num_bootstraps": n_boot,
+              "batched_launches": counted["histogram_batched"], "captures": shapes, "steps": stats,
+              "first_updates_bit_equal_to_base_metrics": cfg["checked_updates"], "raw_err_vs_copies": raw_err,
+              "mean_std_err_vs_copies": stat_err,
+              "values": {k: v.tolist() for k, v in value.items() if k != "raw"}, "timing": timing,
+              "launches_per_update": sum(per_update.values()), "copies_path_measured": COPIES_PATH_MEASURED,
+              "seconds": seconds}
+    emit({"phase": "wrappers_stacked", "config": "imagenet", "nvidia_smi": smi, **record})
+    return record
+
+
+def batched_scan_timing(torch, n: int, row: int) -> dict:
+    """The scan launch of a vmapped exact curve, alone: two int32 ``min`` lanes of ``n``
+    rows, reverse, a segment flag at the end of each ``row`` (the batching rule's flags),
+    against its plain version. Bound: lanes read and written once, flags read once.
+    Library yardstick: the same function in one call, ``torch.cummin`` along the last
+    dim of the two lanes as one ``(2, n / row, row)`` tensor, flipped beforehand (as the
+    DLRM row's ``torch.cummin``)."""
+    from metrics_tpu_torch.ops.segment import _plain_multi_scan, segment_scan_cuda
+
+    g = torch.Generator(device="cuda").manual_seed(n)
+    lanes = [torch.randint(0, 1 << 30, (n,), generator=g, device="cuda", dtype=torch.int32) for _ in range(2)]
+    flags = (torch.arange(n, device="cuda") % row) == row - 1
+    ops = ("min", "min")
+    got = segment_scan_cuda(lanes, flags, ops, True)
+    want = _plain_multi_scan(lanes, flags, ops, True)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("the batched scan launch differs from its plain version")
+    flipped = torch.stack(lanes).view(2, n // row, row).flip(-1).contiguous()
+    library = torch.cummin(flipped, -1).values.flip(-1).reshape(2, n)
+    if not all(torch.equal(a, b) for a, b in zip(got, library)):
+        raise AssertionError("torch.cummin of the flipped rows differs from the batched scan")
+    del library
+    return {"rows": n, "segment_rows": row, "event_ms": event_ms(torch, lambda: segment_scan_cuda(lanes, flags, ops, True)),
+            "device_ms": kernel_device_ms(torch, lambda: segment_scan_cuda(lanes, flags, ops, True), "segment_scan"),
+            "plain_ms": event_ms(torch, lambda: _plain_multi_scan(lanes, flags, ops, True), reps=3, warmup=1),
+            "bound_ms": n * (4 * 2 * 2 + 1) / HBM_BYTES_PER_S * 1e3,
+            "library_ms": event_ms(torch, lambda: torch.cummin(flipped, -1))}
+
+
+def ws_dlrm_pure(torch, seed: int, smi: str) -> dict:
+    """BootStrapper(BinaryAUROC(cat_capacity=2^20), 20) through the pure tier: 16 updates
+    of 65,536 rows fill each copy's buffer, and ``compute_from`` is one batched sort and
+    one scan launch. Then the traced PR curve and ROC of the first copies' buffers."""
+    from metrics_tpu_torch.classification import BinaryAUROC, BinaryPrecisionRecallCurve, BinaryROC
+    from metrics_tpu_torch.core.state import CatBuffer
+    from metrics_tpu_torch.ops import rank
+    from metrics_tpu_torch.wrappers import BootStrapper
+
+    cfg = DLRM_PURE
+    batches = dlrm_style_batches(torch, seed + 1500, cfg["updates"], cfg["batch"])
+    boot = BootStrapper(BinaryAUROC(cat_capacity=cfg["capacity"]), num_bootstraps=cfg["num_bootstraps"],
+                        raw=True, seed=seed)
+
+    def updates():
+        state = boot.init_state()
+        for batch in batches:
+            state = boot.local_update(state, *batch)
+        return state
+
+    state, counted, update_s = run_counted(torch, updates)
+    expect_launches("DLRM pure BootStrapper updates", counted)
+    preds, target = state["metrics"]["preds"], state["metrics"]["target"]
+    if preds._count != cfg["capacity"] or preds.overflowed() or preds.data.shape != (cfg["num_bootstraps"],
+                                                                                     cfg["capacity"]):
+        raise AssertionError(f"DLRM pure BootStrapper buffers: {preds} holding {preds._count}")
+    value, counted, compute_s = run_counted(torch, lambda: boot.compute_from(state))
+    expect_launches("DLRM pure BootStrapper compute_from", counted, scan=1)
+    scan_launches = counted["segment_scan"]
+    tiers = {}
+    for tier in ("rank", "sort"):
+        with rank.force_tier(tier):
+            tiers[tier] = boot.compute_from(state)["raw"]
+    if not (torch.equal(tiers["rank"], tiers["sort"]) and torch.equal(tiers["rank"], value["raw"])):
+        raise AssertionError(f"DLRM pure BootStrapper: the rank and sort tiers differ {tiers}")
+    eager_err, f64_err = 0.0, 0.0
+    for k in range(cfg["num_bootstraps"]):
+        one = BinaryAUROC()
+        one.update(preds.data[k], target.data[k])
+        eager_err = max(eager_err, abs(value["raw"][k].item() - one.compute().item()))
+        f64_err = max(f64_err, abs(value["raw"][k].item() - mann_whitney_auc(torch, preds.data[k], target.data[k])))
+    if not (eager_err <= PURE_AUROC_RTOL and f64_err <= AUROC_ATOL):
+        raise AssertionError(f"DLRM pure BootStrapper: off its copies' eager computes by {eager_err},"
+                             f" off float64 by {f64_err}")
+    timing = {"local_update_ms": event_ms(torch, lambda: boot.local_update(state, *batches[0]), reps=5, warmup=1),
+              "compute_from_ms": event_ms(torch, lambda: boot.compute_from(state), reps=5, warmup=1),
+              "compute_from_device": call_device_ms(torch, lambda: boot.compute_from(state), "segment_scan", reps=3)}
+    timing["scan_batched"] = batched_scan_timing(torch, cfg["num_bootstraps"] * preds._count, preds._count)
+    # the traced curves over the first copies' buffers, one vmap each, against the eager curves
+    count, copies = preds._count, cfg["curve_copies"]
+    curves = {}
+    for cls in (BinaryPrecisionRecallCurve, BinaryROC):
+        metric = cls(cat_capacity=cfg["capacity"])
+
+        def traced(p, t, metric=metric):
+            return metric.compute_from({"preds": CatBuffer(p, count), "target": CatBuffer(t, count)})
+
+        got, counted, _ = run_counted(torch, lambda: torch.func.vmap(traced)(preds.data[:copies],
+                                                                             target.data[:copies]))
+        expect_launches(f"traced {cls.__name__} of {copies} copies", counted, scan=1)
+        scan_launches += counted["segment_scan"]
+        ks = []
+        for k in range(copies):
+            eager = cls()
+            eager.update(preds.data[k], target.data[k])
+            want = eager.compute()
+            kk = int((~torch.isnan(got[2][k])).sum())
+            if kk != want[2].numel() or not all(torch.equal(g[k][:kk], w[:kk]) for g, w in zip(got, want)):
+                raise AssertionError(f"traced {cls.__name__} copy {k}: the first {kk} entries differ from the"
+                                     f" eager curve of {want[2].numel()} points")
+            ks.append(kk)
+        curves[cls.__name__] = {"points": ks, "padded_length": int(got[0].shape[1])}
+    record = {"rows_per_copy": count, "updates": len(batches), "num_bootstraps": cfg["num_bootstraps"],
+              "scan_launches_per_compute_from": 1, "tiers_equal": True, "max_abs_err_vs_eager": eager_err,
+              "eager_tol": PURE_AUROC_RTOL, "max_abs_err_vs_float64": f64_err, "atol": AUROC_ATOL,
+              "values": {k: v.tolist() for k, v in value.items()}, "traced_curves": curves, "timing": timing,
+              "scan_launches": scan_launches, "seconds": {"updates": update_s, "compute_from": compute_s}}
+    emit({"phase": "wrappers_stacked", "config": "dlrm_pure", "nvidia_smi": smi, **record})
+    return record
+
+
+def ws_qm9(torch, seed: int, smi: str) -> None:
+    """MultioutputWrapper(PearsonCorrCoef(), 12, remove_nans=False) through the pure tier
+    over QM9 in updates of 32, against the eager wrapper."""
+    from metrics_tpu_torch.regression import PearsonCorrCoef
+    from metrics_tpu_torch.wrappers import MultioutputWrapper
+
+    preds, target = qm9_data(torch, seed)
+    n, c, b = preds.shape[0], preds.shape[1], QM9["batch"]
+    batches = [(preds[s:s + b], target[s:s + b]) for s in range(0, n, b)]
+    pure = MultioutputWrapper(PearsonCorrCoef(), c, remove_nans=False)
+
+    def drive():
+        state = pure.init_state()
+        for batch in batches:
+            state = pure.local_update(state, *batch)
+        return state, pure.compute_from(state)
+
+    (state, value), counted, seconds = run_counted(torch, drive)
+    expect_launches("QM9 pure MultioutputWrapper", counted)
+    eager = MultioutputWrapper(PearsonCorrCoef(), c, remove_nans=False)
+    for batch in batches:
+        eager.update(*batch)
+    err = (value.double() - eager.compute().double()).abs().max().item()
+    if not err <= QM9_ATOL:
+        raise AssertionError(f"QM9 pure MultioutputWrapper off the eager wrapper by {err}")
+    emit({"phase": "wrappers_stacked", "config": "qm9_multioutput_pure", "nvidia_smi": smi, "molecules": n,
+          "targets": c, "updates": len(batches), "max_abs_err_vs_eager": err, "atol": QM9_ATOL, "seconds": seconds,
+          "local_update_ms": event_ms(torch, lambda: pure.local_update(state, *batches[0]), reps=20)})
+
+
+def ws_cifar_fleet(torch, seed: int, smi: str) -> int:
+    """ClasswiseWrapper over a 16-stream MulticlassAccuracy(10, None) fleet: 20 routed
+    updates of 10,000 rows, bit-equal to 16 plain metrics. Returns the batched launches."""
+    from metrics_tpu_torch.classification import MulticlassAccuracy
+    from metrics_tpu_torch.core.fleet import step_stats
+    from metrics_tpu_torch.wrappers import ClasswiseWrapper
+
+    size, c, rows = ENGINES["fleet_size"], ENGINES["classes"], ENGINES["fleet_rows"]
+    g = torch.Generator(device="cuda").manual_seed(seed + 1600)
+    updates = [tuple(torch.randint(0, k, (rows,), generator=g, device="cuda") for k in (c, c, size))
+               for _ in range(ENGINES["fleet_updates"])]
+    wrapper = ClasswiseWrapper(MulticlassAccuracy(num_classes=c, average=None, fleet_size=size))
+    def drive():
+        for p, t, i in updates:
+            wrapper.update(p, t, stream_ids=i)
+        return wrapper.compute()
+
+    out, counted, seconds = run_counted(torch, drive)
+    expect_launches("CIFAR-10 fleet ClasswiseWrapper", counted, batched=len(updates) + 1)
+    if step_stats(wrapper.metric)["degrades"]:
+        raise AssertionError(f"CIFAR-10 fleet ClasswiseWrapper steps: {step_stats(wrapper.metric)}")
+    refs = [MulticlassAccuracy(num_classes=c, average=None) for _ in range(size)]
+    for p, t, i in updates:
+        for s in range(size):
+            refs[s].update(p[i == s], t[i == s])
+    if list(out) != [f"multiclassaccuracy_{j}" for j in range(c)]:
+        raise AssertionError(f"CIFAR-10 fleet ClasswiseWrapper keys {list(out)}")
+    for s, ref in enumerate(refs):
+        want = ref.compute()
+        if not all(torch.equal(out[f"multiclassaccuracy_{j}"][s], want[j]) for j in range(c)):
+            raise AssertionError(f"CIFAR-10 fleet ClasswiseWrapper stream {s} differs from its plain metric")
+    p, t, i = updates[0]
+    emit({"phase": "wrappers_stacked", "config": "cifar10_fleet_classwise", "nvidia_smi": smi, "fleet_size": size,
+          "classes": c, "rows": rows, "updates": len(updates), "bit_equal_to_plain_metrics": True,
+          "batched_launches": counted["histogram_batched"], "steps": step_stats(wrapper.metric), "seconds": seconds,
+          "update_ms": event_ms(torch, lambda: wrapper.update(p, t, stream_ids=i), reps=20)})
+    return counted["histogram_batched"]
+
+
+def ws_minmax_fleet(torch, seed: int, smi: str) -> int:
+    """MinMaxMetric over a MulticlassAccuracy(10) base with ``fleet_size=16``: its steps
+    update the shared base eagerly, once per batch. 5 updates of 10,000 rows, each
+    compute held against a plain base fed the same batches. Returns the histogram's
+    launches."""
+    from metrics_tpu_torch.classification import MulticlassAccuracy
+    from metrics_tpu_torch.wrappers import MinMaxMetric
+
+    size, c, rows = ENGINES["fleet_size"], ENGINES["classes"], ENGINES["fleet_rows"]
+    g = torch.Generator(device="cuda").manual_seed(seed + 1700)
+    updates = [tuple(torch.randint(0, c, (rows,), generator=g, device="cuda") for _ in range(2)) for _ in range(5)]
+    wrapper, base = MinMaxMetric(MulticlassAccuracy(num_classes=c), fleet_size=size), MulticlassAccuracy(num_classes=c)
+
+    def drive():
+        return [(wrapper.update(p, t), wrapper.compute())[1] for p, t in updates]
+
+    outs, counted, seconds = run_counted(torch, drive)
+    expect_launches("MinMaxMetric fleet", counted, histogram=len(updates))
+    values = []
+    for (p, t), out in zip(updates, outs):
+        base.update(p, t)
+        values.append(base.compute())
+        want = {"raw": values[-1], "max": torch.stack(values).max(), "min": torch.stack(values).min()}
+        if not all(torch.equal(out[k], v.expand(size)) for k, v in want.items()):
+            raise AssertionError(f"MinMaxMetric fleet: {out} differs from its plain base's {want}")
+    emit({"phase": "wrappers_stacked", "config": "minmax_fleet", "nvidia_smi": smi, "fleet_size": size,
+          "classes": c, "rows": rows, "updates": len(updates), "equal_to_plain_base": True, "seconds": seconds})
+    return counted["histogram"]
+
+
+def phase_wrappers_stacked(torch, seed: int, smi: str):
+    """The wrappers' stacked paths and pure tier: the stacked BootStrapper on ImageNet,
+    the pure tier of exact-AUROC copies on DLRM-style rows with the traced curves, the
+    pure MultioutputWrapper on QM9, the fleet ClasswiseWrapper on CIFAR-10 and a fleet
+    MinMaxMetric. Returns the histogram's, the batched histogram's and the scan's
+    launches on this path."""
+    t0 = time.perf_counter()
+    imagenet = ws_imagenet(torch, seed, smi)
+    torch.cuda.empty_cache()
+    dlrm = ws_dlrm_pure(torch, seed, smi)
+    torch.cuda.empty_cache()
+    ws_qm9(torch, seed, smi)
+    fleet = ws_cifar_fleet(torch, seed, smi)
+    minmax = ws_minmax_fleet(torch, seed, smi)
+    launches = {"histogram": minmax, "histogram_batched": imagenet["batched_launches"] + fleet,
+                "segment_scan": dlrm["scan_launches"]}
+    emit({"phase": "wrappers_stacked", "config": "all", "launches": launches, "seconds": time.perf_counter() - t0})
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4960,6 +5279,11 @@ def main() -> int:
     batched, fused_histogram = phase_engines(torch, args.seed, smi)
     kernels[0]["launches"] += fused_histogram
     kernels.insert(1, batched)
+    torch.cuda.empty_cache()
+    stacked = phase_wrappers_stacked(torch, args.seed, smi)
+    kernels[0]["launches"] += stacked["histogram"]
+    batched["launches"] += stacked["histogram_batched"]
+    scan["launches"] += stacked["segment_scan"]
 
     idle = [k["name"] for k in kernels if k["launches"] < 1]
     if idle:

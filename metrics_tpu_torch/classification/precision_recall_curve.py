@@ -14,6 +14,7 @@ import torch
 from torch import Tensor
 
 from metrics_tpu_torch.core.metric import Metric
+from metrics_tpu_torch.core.state import CatBuffer
 from metrics_tpu_torch.functional.classification.precision_recall_curve import (
     Thresholds,
     _adjust_threshold_arg,
@@ -33,8 +34,24 @@ from metrics_tpu_torch.functional.classification.precision_recall_curve import (
     _multilabel_precision_recall_curve_tensor_validation,
     _multilabel_precision_recall_curve_update,
 )
+from metrics_tpu_torch.utils.checks import _is_concrete
 from metrics_tpu_torch.utils.data import _count_dtype, dim_zero_cat
 from metrics_tpu_torch.utils.enums import ClassificationTask
+
+
+def _exact_cat_state(preds_state: Any, target_state: Any) -> Tuple[Tensor, Tensor]:
+    """The exact-mode (preds, target) of cat states, concatenated.
+
+    Under a trace (``torch.func.vmap`` over bootstrap copies, a capture) ``CatBuffer``
+    states give their whole ``data``, the targets of the rows past the count set to
+    -1, which the device curves mask: the shapes stay the buffer's, as under the JAX
+    package's ``jit``. Eagerly the valid rows alone, as in the JAX package.
+    """
+    if isinstance(preds_state, CatBuffer) and not _is_concrete(preds_state.data, target_state.data):
+        mask = target_state.mask()
+        mask = mask.reshape(mask.shape + (1,) * (target_state.data.dim() - 1))
+        return preds_state.data, torch.where(mask, target_state.data, -1)
+    return dim_zero_cat(preds_state), dim_zero_cat(target_state)
 
 
 class _PrecisionRecallCurveBase(Metric):
@@ -97,9 +114,10 @@ class _PrecisionRecallCurveBase(Metric):
             self.confmat = self.confmat + state
 
     def _curve_state(self) -> Union[Tensor, Tuple[Tensor, Tensor]]:
-        """The binned confusion tensor, or the concatenated exact (preds, target)."""
+        """The binned confusion tensor, or the exact (preds, target) of
+        :func:`_exact_cat_state`."""
         if self.thresholds is None:
-            return dim_zero_cat(self.preds), dim_zero_cat(self.target)
+            return _exact_cat_state(self.preds, self.target)
         return self.confmat
 
 

@@ -9,8 +9,11 @@ whole numbers rather than rounding them. A ``CatBuffer`` state comes as the JAX
 package's ``{"data", "count", "overflow"}`` dict and stays a ``CatBuffer``.
 
 A ``BootStrapper`` takes the JAX package's stacked state (``boot_<name>``, ``(N,
-*state)``): row ``k`` loads into the port's copy ``k``. The nominal classes' float32
-``confmat`` becomes int64 like any count.
+*state)``): a base that the port stacks too loads it into its own ``boot_<name>``
+states, and on the copies path row ``k`` loads into copy ``k``. A JAX pure-tier
+BootStrapper state (``{"key", "metrics"}``) is refused: its ``jax.random`` key has no
+use in the port. The nominal classes' float32 ``confmat`` becomes int64 like any
+count.
 
 A ``MetricCollection`` takes a ``metrics_tpu`` collection's ``state_dict()``, whose
 keys are ``"<name>.<state>"``, or the nested ``{name: {state: value}}`` dict of its
@@ -66,8 +69,9 @@ def load_jax_state(metric: Union[Metric, MetricCollection], state: Dict[str, Any
     """
     if isinstance(metric, MetricCollection):
         return _load_collection(metric, state)
-    if hasattr(metric, "_jax_child_states"):  # a wrapper whose states the JAX package stacks
-        for child, child_state in metric._jax_child_states(state):
+    children = metric._jax_child_states(state) if hasattr(metric, "_jax_child_states") else None
+    if children is not None:  # a wrapper whose copies the JAX package stacks
+        for child, child_state in children:
             load_jax_state(child, child_state)
         metric._computed = None
         return metric

@@ -183,7 +183,8 @@ def routed_new_state(
         return _base_apply(metric, raw_update, row_state, a, k)
 
     in_dims = (0, [0 if b else None for b in batched])
-    units = torch.func.vmap(unit, in_dims=in_dims)(unit_defaults, dyn) if rows else {}
+    # an update that draws (BootStrapper's resample) draws once for the rows alike
+    units = torch.func.vmap(unit, in_dims=in_dims, randomness="same")(unit_defaults, dyn) if rows else {}
 
     idx = stream_ids.to(torch.int64)
     new: Dict[str, Tensor] = {}
@@ -217,7 +218,8 @@ def broadcast_new_state(
         a, k = _fused._merge_inputs(dyn, spec)
         return _base_apply(metric, raw_update, row_state, a, k)
 
-    new = torch.func.vmap(one)({name: state[name] for name in base_state_names(metric)})
+    # every stream sees the batch, and an update's draws (BootStrapper's resample) alike
+    new = torch.func.vmap(one, randomness="same")({name: state[name] for name in base_state_names(metric)})
     new[ROWS_STATE] = state[ROWS_STATE] + rows
     return {name: new[name] for name in state}  # the state's own order: a captured step keeps its structure
 
@@ -307,19 +309,29 @@ def step_stats(metric: Any) -> Dict[str, int]:
     return dict(_steps_for(metric).stats)
 
 
-def run_step(metric: Any, tag: str, step: Callable, state: Dict[str, Tensor], *extras: Any, static_key: Tuple = ()):
+def run_step(
+    metric: Any,
+    tag: str,
+    step: Callable,
+    state: Dict[str, Tensor],
+    *extras: Any,
+    static_key: Tuple = (),
+    eager: bool = False,
+):
     """Run a pure ``step(state, *extras) -> new_state``.
 
     On a CUDA device, through a CUDA graph captured once per key and replayed, its
     new state in the graph's static buffers. Eagerly on the CPU, inside another
-    capture or transform, and inside ``local_update`` (whose caller owns the state
-    it gets back, where a graph's buffers are overwritten by its next replay).
+    capture or transform, inside ``local_update`` (whose caller owns the state it
+    gets back, where a graph's buffers are overwritten by its next replay), and with
+    ``eager`` (a step with effects outside its state, which a replay would not redo).
     """
     from metrics_tpu_torch.core import fused as _fused
 
     device = _fused._step_device(state)
     nested = (
-        metric._pure_call_depth > 0
+        eager
+        or metric._pure_call_depth > 0
         or torch._C._are_functorch_transforms_active()
         or (device is not None and device.type == "cuda" and torch.cuda.is_current_stream_capturing())
     )
@@ -350,15 +362,24 @@ def apply_update(metric: Any, raw_update: Callable, args: Tuple, kwargs: Dict) -
 
     kwargs = dict(kwargs)
     stream_ids = kwargs.pop("stream_ids", None)
+    if stream_ids is not None and not getattr(type(metric), "_fleet_routes_rows", True):
+        raise MetricsUserError(
+            f"{type(metric).__name__} takes no stream_ids: its streams share one base metric, so every"
+            " update goes to all of them; update without stream_ids"
+        )
     state = {name: getattr(metric, name) for name in metric._defaults}
     dyn, spec = _fused._split_inputs(args, kwargs)
+    # a wrapper's update is not pure over its registered state (it updates its child
+    # metrics, or draws as BootStrapper's resample does): a graph would replay the
+    # capture's effects, so its step runs eagerly (as the fused engine demotes it)
+    eager = bool(metric._child_metrics())
     if stream_ids is None:
 
         def bcast(st, dl):
             a, k = _fused._merge_inputs(dl, spec)
             return broadcast_new_state(metric, raw_update, st, a, k)
 
-        new = run_step(metric, "fleet.bcast", bcast, state, dyn, static_key=_fused._static_key(spec))
+        new = run_step(metric, "fleet.bcast", bcast, state, dyn, static_key=_fused._static_key(spec), eager=eager)
     else:
         ids = stream_ids if isinstance(stream_ids, Tensor) else torch.as_tensor(stream_ids, device=metric.device)
         _check_stream_ids(ids, _batch_rows(dyn))
@@ -372,5 +393,5 @@ def apply_update(metric: Any, raw_update: Callable, args: Tuple, kwargs: Dict) -
             a, k = _fused._merge_inputs(dl, spec)
             return routed_new_state(metric, raw_update, st, a, k, i_)
 
-        new = run_step(metric, "fleet.route", route, state, dyn, ids, static_key=_fused._static_key(spec))
+        new = run_step(metric, "fleet.route", route, state, dyn, ids, static_key=_fused._static_key(spec), eager=eager)
     metric._load_state(new)

@@ -225,6 +225,8 @@ class CapturedStep:
         state_leaves, self._state_spec = pytree.tree_flatten(states)
         extra_leaves, self._extra_spec = pytree.tree_flatten(list(extras))
         self._states = [t.clone() for t in state_leaves]
+        for buf in self._states:
+            buf._step_buffer = True  # the live state is this buffer after a replay
         self._extras = [t.clone() for t in extra_leaves]
         static_states = pytree.tree_unflatten(self._states, self._state_spec)
         static_extras = pytree.tree_unflatten(self._extras, self._extra_spec)
@@ -271,6 +273,12 @@ class CapturedStep:
             wrapper.launches += n
         outputs = pytree.tree_map(lambda t: t.clone() if isinstance(t, Tensor) else t, self._outputs)
         return pytree.tree_unflatten(self._states, self._state_spec), outputs
+
+
+def is_step_buffer(value: Any) -> bool:
+    """Is ``value`` a captured step's static state buffer, which the step's next
+    replay overwrites in place?"""
+    return isinstance(value, Tensor) and getattr(value, "_step_buffer", False)
 
 
 class _EagerStep:

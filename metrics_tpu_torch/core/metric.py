@@ -545,10 +545,10 @@ class Metric(nn.Module, ABC):
         self._should_unsync = False
         compute_on_cpu = self.compute_on_cpu
         self.compute_on_cpu = False
-        cache = {attr: getattr(self, attr) for attr in self._defaults}
+        cache = _held_states(self)
         # a wrapper's reset resets its child metrics: keep their accumulated states too
         # (the JAX package keeps only the wrapper's own, so its children lose theirs)
-        children = [(m, {a: getattr(m, a) for a in m._defaults}, m._update_count) for m in self._child_metrics()]
+        children = [(m, _held_states(m), m._update_count) for m in self._child_metrics()]
 
         self.reset()
         self.update(*args, **kwargs)
@@ -570,7 +570,7 @@ class Metric(nn.Module, ABC):
         return [m for m in self.modules() if isinstance(m, Metric) and m is not self]
 
     def _forward_reduce_state_update(self, *args: Any, **kwargs: Any) -> Any:
-        global_state = {attr: getattr(self, attr) for attr in self._defaults}
+        global_state = _held_states(self)
         update_count = self._update_count
         self.reset()
         self._to_sync = self.dist_sync_on_step
@@ -993,6 +993,15 @@ class Metric(nn.Module, ABC):
 
     def __iter__(self):
         raise NotImplementedError("Metrics does not support iteration.")
+
+
+def _held_states(metric: Metric) -> Dict[str, Any]:
+    """The live states that ``forward`` keeps across its batch step. A captured step's
+    static buffer (a fleet's, a stacked BootStrapper's, a fused collection's state after
+    a replay) is copied: the batch's own replay writes into it."""
+    from metrics_tpu_torch.core.fused import is_step_buffer
+
+    return {attr: v.clone() if is_step_buffer(v) else v for attr, v in metric.metric_state.items()}
 
 
 def _stream_of(value: Any, stream: int) -> Any:

@@ -12,11 +12,17 @@ Two state modes:
 - ``thresholds`` an int, list or tensor (binned): a ``(T, ..., 2, 2)`` confusion
   tensor from broadcast compares summed over the samples.
 
+Under a trace (a capture, ``torch.func.vmap``, an engine's step) the exact curve
+cannot have a data-dependent length: it is the static-shape padded curve of
+:mod:`metrics_tpu_torch.ops.clf_curve`, the first ``K = (~isnan(thresholds)).sum()``
+entries the eager curve, as the JAX package's traced branch; multiclass and
+multilabel curves are one ``vmap`` of it over the columns.
+
 Ignored targets become -1 and drop out of both modes. Public functions take
 ``device``: a tensor input stays on its device, any other array-like goes to
 ``device`` (``cuda`` by default).
 """
-from typing import List, Optional, Tuple, Union
+from typing import Callable, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -178,6 +184,24 @@ def _is_confmat_state(state) -> bool:
     return isinstance(state, Tensor)
 
 
+def _one_vs_rest(target: Tensor, label: Union[int, Tensor]) -> Tensor:
+    """Binary targets of class ``label`` (1) against the rest (0); ignored rows stay -1."""
+    return torch.where(target >= 0, (target == label).to(torch.int32), -1)
+
+
+def _traced_per_column(curve: Callable, preds: Tensor, target: Tensor, multiclass: bool) -> Tuple[Tensor, Tensor, Tensor]:
+    """A padded device curve of every column under a trace, in one ``torch.func.vmap``
+    over the columns: one batched sort and one scan launch for all of them. A
+    multiclass target is binarized one-vs-rest per class, a multilabel one is a
+    column per label."""
+    if multiclass:
+        classes = torch.arange(preds.shape[1], device=preds.device)
+        out = torch.func.vmap(lambda p, c: curve(p, _one_vs_rest(target, c)), in_dims=(1, 0))(preds, classes)
+    else:
+        out = torch.func.vmap(curve, in_dims=(1, 1))(preds, target)
+    return out[0], out[1], out[2]
+
+
 def _binary_precision_recall_curve_compute(
     state: Union[Tensor, Tuple[Tensor, Tensor]],
     thresholds: Optional[Tensor],
@@ -192,6 +216,15 @@ def _binary_precision_recall_curve_compute(
         recall = _safe_divide(tps, tps + fns)
         precision = torch.cat([precision, torch.ones(1, dtype=precision.dtype, device=precision.device)])
         recall = torch.cat([recall, torch.zeros(1, dtype=recall.dtype, device=recall.device)])
+        return precision, recall, thresholds
+
+    if not _is_concrete(state[0], state[1]):
+        # under a trace: the static-shape device curve; its first K = (~isnan(thresholds)).sum()
+        # entries are the eager curve, the precision/recall pads repeat the final (1, 0) point
+        from metrics_tpu_torch.ops.clf_curve import binary_precision_recall_curve_padded
+
+        target = state[1] if pos_label == 1 else _one_vs_rest(state[1], pos_label)
+        precision, recall, thresholds, _ = binary_precision_recall_curve_padded(state[0], target)
         return precision, recall, thresholds
 
     preds, target = state
@@ -321,6 +354,11 @@ def _multiclass_precision_recall_curve_compute(
         recall = torch.cat([recall, torch.zeros((1, num_classes), dtype=recall.dtype, device=recall.device)])
         return precision.t(), recall.t(), thresholds
 
+    if not _is_concrete(state[0], state[1]):
+        from metrics_tpu_torch.ops.clf_curve import binary_precision_recall_curve_padded
+
+        return _traced_per_column(binary_precision_recall_curve_padded, state[0], state[1], multiclass=True)
+
     precision, recall, thresholds_out = [], [], []
     for i in range(num_classes):
         res = _binary_precision_recall_curve_compute((state[0][:, i], state[1]), thresholds=None, pos_label=i)
@@ -425,6 +463,11 @@ def _multilabel_precision_recall_curve_compute(
         precision = torch.cat([precision, torch.ones((1, num_labels), dtype=precision.dtype, device=precision.device)])
         recall = torch.cat([recall, torch.zeros((1, num_labels), dtype=recall.dtype, device=recall.device)])
         return precision.t(), recall.t(), thresholds
+
+    if not _is_concrete(state[0], state[1]):
+        from metrics_tpu_torch.ops.clf_curve import binary_precision_recall_curve_padded
+
+        return _traced_per_column(binary_precision_recall_curve_padded, state[0], state[1], multiclass=False)
 
     precision, recall, thresholds_out = [], [], []
     for i in range(num_labels):

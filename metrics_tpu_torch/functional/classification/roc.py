@@ -24,8 +24,11 @@ from metrics_tpu_torch.functional.classification.precision_recall_curve import (
     _multilabel_precision_recall_curve_format,
     _multilabel_precision_recall_curve_tensor_validation,
     _multilabel_precision_recall_curve_update,
+    _one_vs_rest,
+    _traced_per_column,
 )
 from metrics_tpu_torch.functional.classification.stat_scores import _as_inputs
+from metrics_tpu_torch.utils.checks import _is_concrete
 from metrics_tpu_torch.utils.compute import _safe_divide
 from metrics_tpu_torch.utils.enums import ClassificationTask
 from metrics_tpu_torch.utils.prints import rank_zero_warn
@@ -45,6 +48,15 @@ def _binary_roc_compute(
         tpr = _safe_divide(tps, tps + fns).flip(0)
         fpr = _safe_divide(fps, fps + tns).flip(0)
         return fpr, tpr, thresholds.flip(0)
+
+    if not _is_concrete(state[0], state[1]):
+        # under a trace: the static-shape device ROC; the first K rows are the eager
+        # curve, the pads carry NaN thresholds
+        from metrics_tpu_torch.ops.clf_curve import binary_roc_curve_padded
+
+        target = state[1] if pos_label == 1 else _one_vs_rest(state[1], pos_label)
+        fpr, tpr, thresholds, _ = binary_roc_curve_padded(state[0], target)
+        return fpr, tpr, thresholds
 
     preds, target = state
     keep = target >= 0
@@ -106,6 +118,10 @@ def _multiclass_roc_compute(
         tpr = _safe_divide(tps, tps + fns).flip(0).t()
         fpr = _safe_divide(fps, fps + tns).flip(0).t()
         return fpr, tpr, thresholds.flip(0)
+    if not _is_concrete(state[0], state[1]):
+        from metrics_tpu_torch.ops.clf_curve import binary_roc_curve_padded
+
+        return _traced_per_column(binary_roc_curve_padded, state[0], state[1], multiclass=True)
 
     fpr, tpr, thresholds_out = [], [], []
     for i in range(num_classes):
@@ -151,6 +167,10 @@ def _multilabel_roc_compute(
         tpr = _safe_divide(tps, tps + fns).flip(0).t()
         fpr = _safe_divide(fps, fps + tns).flip(0).t()
         return fpr, tpr, thresholds.flip(0)
+    if not _is_concrete(state[0], state[1]):
+        from metrics_tpu_torch.ops.clf_curve import binary_roc_curve_padded
+
+        return _traced_per_column(binary_roc_curve_padded, state[0], state[1], multiclass=False)
 
     fpr, tpr, thresholds_out = [], [], []
     for i in range(num_labels):

@@ -7,6 +7,9 @@ K)`` stack, each table padded with zeros. The JAX package drops a table's empty 
 and columns on the host (``_drop_empty_rows_and_cols``); here they are masked on the
 device instead, which gives the same value: an empty row or column adds nothing to a
 sum, and the statistics count only the rows and columns that are kept.
+
+Under a trace (a capture, ``torch.func.vmap``) the label check is skipped and
+``nan_strategy="drop"`` raises ``ValueError``, as the JAX package's traced branches do.
 """
 import itertools
 from typing import Callable, List, Optional, Tuple, Union
@@ -15,6 +18,7 @@ import torch
 from torch import Tensor
 
 from metrics_tpu_torch.ops.confmat import confusion_counts, pair_confusion_counts
+from metrics_tpu_torch.utils.checks import _is_concrete
 from metrics_tpu_torch.utils.data import to_tensor
 from metrics_tpu_torch.utils.prints import rank_zero_warn
 
@@ -143,6 +147,13 @@ def _handle_nan_in_data(
     either input is NaN, which the callers drop. Nothing leaves the device."""
     if nan_strategy == "replace":
         return torch.nan_to_num(preds, nan=nan_replace_value), torch.nan_to_num(target, nan=nan_replace_value), None
+    if not _is_concrete(preds, target):
+        # the JAX package's traced branch: dropping rows by content has no static shape
+        raise ValueError(
+            "`nan_strategy='drop'` removes rows by data content and cannot run under"
+            " jit/shard_map; use nan_strategy='replace' or drop NaN rows on host"
+            " before updating."
+        )
     keep = ~(torch.isnan(preds) | torch.isnan(target))
     return preds, target, keep
 
@@ -221,8 +232,8 @@ def _nominal_confmat(
 
 def _validate_dense_labels(preds: Tensor, target: Tensor, num_classes: int) -> None:
     """Raise on labels outside ``[0, num_classes)``: one ``aminmax`` over both inputs and
-    one read of its two values."""
-    if preds.numel() == 0 or target.numel() == 0:
+    one read of its two values; skipped under a trace, as in the JAX package."""
+    if preds.numel() == 0 or target.numel() == 0 or not _is_concrete(preds, target):
         return
     both = torch.cat([preds.reshape(-1), target.reshape(-1)])
     if both.dtype == torch.bool:

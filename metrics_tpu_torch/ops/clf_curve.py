@@ -22,9 +22,18 @@ the JAX package runs them with numpy on the host.
 
 The JAX package pads each input to a power of two (``_pad_binary``, ``_pad_rows``)
 only to bound its recompiles; padded rows are invalid and change no result, so the
-port does not pad. One-vs-rest and per-label variants run the binary kernel once
-per column. Not ported: the ``*_padded`` curve kernels (reached only under a JAX
-trace) and the ``tolerance > 0`` sketch tier, which raises ``NotImplementedError``.
+port does not pad the scalar summaries. One-vs-rest and per-label variants run the
+binary kernel once per column.
+
+The static-shape curves (:func:`binary_precision_recall_curve_padded`,
+:func:`binary_roc_curve_padded`, JAX ``ops/clf_curve.py:254-365``) serve the curve
+computes under a trace (a capture, ``torch.func.vmap``, the engines' steps), where
+the eager curves' data-dependent length cannot be: the same sort and scan, the
+curve's points front-packed into arrays of the padded input's length. They keep the
+JAX package's power-of-two padding, so their shapes are its shapes. The whole
+post-sort tail reads nothing on the host and runs under ``vmap``, where a stack of
+curves is one batched sort and one scan launch. Not ported: the ``tolerance > 0``
+sketch tier, which raises ``NotImplementedError``.
 """
 from typing import Optional, Tuple
 
@@ -47,8 +56,9 @@ def _run_end_lanes(sorted_keys: Tensor, is_pos: Tensor) -> Tuple[Tuple[Tensor, T
     """
     n = sorted_keys.shape[0]
     tps_all = torch.cumsum(is_pos, 0, dtype=torch.int32)
-    boundary = torch.ones(n, dtype=torch.bool, device=sorted_keys.device)
-    boundary[:-1] = sorted_keys[1:] != sorted_keys[:-1]
+    # a concatenation, not a write into a fresh tensor: it runs under torch.func.vmap
+    last = torch.ones(1, dtype=torch.bool, device=sorted_keys.device)
+    boundary = torch.cat([sorted_keys[1:] != sorted_keys[:-1], last])
     pos = torch.arange(n, dtype=torch.int32, device=sorted_keys.device)
     return (torch.where(boundary, tps_all, _INT32_MAX), torch.where(boundary, pos, n - 1)), boundary
 
@@ -70,7 +80,7 @@ def _fps_tps_from_sorted(sorted_keys: Tensor, is_pos: Tensor, n_valid: Tensor) -
 def _canonical_zero(key: Tensor) -> Tensor:
     """f32 keys with the zero-exponent class (±0.0, ±denormals) mapped to +0.0,
     tested on the raw bits so that no float compare can flush or split it."""
-    bits = key.contiguous().view(torch.int32)
+    bits = _rank.f32_bits(key)
     return torch.where((bits & _rank._EXP_FIELD) == 0, torch.zeros((), dtype=key.dtype, device=key.device), key)
 
 
@@ -155,6 +165,92 @@ def _pad_binary(preds: Tensor, target: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
     """Flattened preds, int32 targets and the valid mask (no padding: see the module note)."""
     target = target.reshape(-1).to(torch.int32)  # signed: -1 marks ignored rows
     return preds.reshape(-1), target, target >= 0
+
+
+def _next_pow2(n: int, floor: int = 1) -> int:
+    p = floor
+    while p < n:
+        p *= 2
+    return p
+
+
+def _pad_pow2(preds: Tensor, target: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """:func:`_pad_binary` padded to the next power of two with invalid rows (target
+    -1), as the JAX package pads: the padded curves' length is its length."""
+    preds, target, _ = _pad_binary(preds, target)
+    pad = _next_pow2(preds.shape[0]) - preds.shape[0]
+    if pad:
+        preds = torch.cat([preds, preds.new_zeros(pad)])
+        target = torch.cat([target, target.new_full((pad,), -1)])
+    return preds, target, target >= 0
+
+
+def _binary_curve_padded_kernel(
+    preds: Tensor, target: Tensor, valid: Tensor, tier: str = "sort"
+) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Static-shape exact PR curve: precision ``(N+1,)``, recall ``(N+1,)``, thresholds
+    ``(N,)`` and the point count K.
+
+    The first K entries are the eager curve (ascending thresholds); precision and
+    recall pads repeat the final point (1, 0), zero-width segments under integration,
+    and threshold pads are NaN. No positives give NaN recall, as the eager curve does.
+    """
+    n = preds.shape[0]
+    fps, tps, sk, run_boundary = _run_end_counts(preds, target, valid, tier)
+    boundary = run_boundary & (sk != float("-inf"))  # the invalid rows' terminal run is no point
+    pos = tps[-1]
+    precision_all = tps.to(torch.float32) / torch.clamp(tps + fps, min=1)
+    recall_all = torch.where(pos > 0, tps.to(torch.float32) / torch.clamp(pos, min=1), float("nan"))
+    # ascending thresholds: flip, then front-pack the run ends
+    prec, rec, thr = _rank.stable_front_pack(boundary.flip(0), precision_all.flip(0), recall_all.flip(0), sk.flip(0))
+    k = boundary.sum(dtype=torch.int32)
+    head = torch.arange(n, device=preds.device) < k
+    one = torch.ones(1, dtype=torch.float32, device=preds.device)
+    precision = torch.cat([torch.where(head, prec, 1.0), one])
+    recall = torch.cat([torch.where(head, rec, 0.0), torch.zeros_like(one)])
+    return precision, recall, torch.where(head, thr, float("nan")), k
+
+
+def binary_precision_recall_curve_padded(preds: Tensor, target: Tensor) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Exact (``thresholds=None``) PR curve on the device with static shapes:
+    ``(precision, recall, thresholds, K)``, ``target`` entries < 0 excluded (see
+    :func:`_binary_curve_padded_kernel` for the padding contract). One sort and one
+    scan launch; a stack under ``torch.func.vmap`` is one of each."""
+    preds, target, valid = _pad_pow2(preds, target)
+    return _binary_curve_padded_kernel(preds, target, valid, _rank.select_tier(preds))
+
+
+def _binary_roc_padded_kernel(
+    preds: Tensor, target: Tensor, valid: Tensor, tier: str = "sort"
+) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Static-shape exact ROC: fpr, tpr and thresholds ``(N+1,)`` and K.
+
+    The eager layout: descending thresholds after a prepended (0, 0, 1.0) origin;
+    the first K entries are exact, pads repeat the terminal point with NaN
+    thresholds, and single-class data zeroes the missing rate, as eagerly.
+    """
+    n = preds.shape[0]
+    fps, tps, sk, run_boundary = _run_end_counts(preds, target, valid, tier)
+    boundary = run_boundary & (sk != float("-inf"))
+    pos, neg = tps[-1], fps[-1]
+    tpr_all = torch.where(pos > 0, tps.to(torch.float32) / torch.clamp(pos, min=1), 0.0)
+    fpr_all = torch.where(neg > 0, fps.to(torch.float32) / torch.clamp(neg, min=1), 0.0)
+    tprp, fprp, thrp = _rank.stable_front_pack(boundary, tpr_all, fpr_all, sk)
+    k = boundary.sum(dtype=torch.int32)
+    head = torch.arange(n, device=preds.device) < k
+    zero = torch.zeros(1, dtype=torch.float32, device=preds.device)
+    fpr = torch.cat([zero, torch.where(head, fprp, (neg > 0).to(torch.float32))])
+    tpr = torch.cat([zero, torch.where(head, tprp, (pos > 0).to(torch.float32))])
+    thresholds = torch.cat([torch.ones_like(zero), torch.where(head, thrp, float("nan"))])
+    return fpr, tpr, thresholds, k + 1
+
+
+def binary_roc_curve_padded(preds: Tensor, target: Tensor) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Exact ROC on the device with static shapes: ``(fpr, tpr, thresholds, K)``,
+    ``target`` entries < 0 excluded; the sibling of
+    :func:`binary_precision_recall_curve_padded`."""
+    preds, target, valid = _pad_pow2(preds, target)
+    return _binary_roc_padded_kernel(preds, target, valid, _rank.select_tier(preds))
 
 
 def _check_tolerance(tolerance: float) -> None:

@@ -46,9 +46,57 @@ NEG_INF_KEY = 0xFF800000
 _FORCED_TIER: Optional[str] = None
 
 
+@torch.library.custom_op("metrics_tpu_torch::f32_bits", mutates_args=())
+def _f32_bits_op(x: Tensor) -> Tensor:
+    return x.contiguous().view(torch.int32).clone()
+
+
+@_f32_bits_op.register_fake
+def _f32_bits_fake(x: Tensor) -> Tensor:
+    return torch.empty_like(x, dtype=torch.int32)
+
+
+@torch.library.custom_op("metrics_tpu_torch::bits_f32", mutates_args=())
+def _bits_f32_op(x: Tensor) -> Tensor:
+    return x.contiguous().view(torch.float32).clone()
+
+
+@_bits_f32_op.register_fake
+def _bits_f32_fake(x: Tensor) -> Tensor:
+    return torch.empty_like(x, dtype=torch.float32)
+
+
+def _reinterpret_vmap(op):
+    def rule(info, in_dims: Tuple, x: Tensor):
+        return op(x.movedim(in_dims[0], 0) if in_dims[0] is not None else x), (0 if in_dims[0] is not None else None)
+
+    return rule
+
+
+torch.library.register_vmap("metrics_tpu_torch::f32_bits", _reinterpret_vmap(_f32_bits_op))
+torch.library.register_vmap("metrics_tpu_torch::bits_f32", _reinterpret_vmap(_bits_f32_op))
+
+
+def f32_bits(x: Tensor) -> Tensor:
+    """The int32 bits of float32 ``x``. Under a ``torch.func`` transform through a custom
+    op (a copy), since some PyTorch versions have no batching rule for ``view(dtype)``."""
+    x = x.to(torch.float32)
+    if torch._C._are_functorch_transforms_active():
+        return torch.ops.metrics_tpu_torch.f32_bits(x)
+    return x.contiguous().view(torch.int32)
+
+
+def bits_f32(bits: Tensor) -> Tensor:
+    """The float32 whose bits are int32 ``bits``: the inverse of :func:`f32_bits`."""
+    bits = bits.to(torch.int32)
+    if torch._C._are_functorch_transforms_active():
+        return torch.ops.metrics_tpu_torch.bits_f32(bits)
+    return bits.contiguous().view(torch.float32)
+
+
 def _sortable_key(preds: Tensor, valid: Optional[Tensor] = None) -> Tensor:
     """int32 keys whose ascending order is descending score order (uint32 key XOR 2^31)."""
-    bits = preds.to(torch.float32).contiguous().view(torch.int32)
+    bits = f32_bits(preds)
     # zero exponent field == zero or denormal: one tie class, keyed as +0.0
     bits = torch.where((bits & _EXP_FIELD) == 0, 0, bits)
     # sign clear: ~bits (bigger floats -> more negative keys); sign set: the magnitude bits
@@ -61,7 +109,7 @@ def _sortable_key(preds: Tensor, valid: Optional[Tensor] = None) -> Tensor:
 def _sortable_key_to_f32(key: Tensor) -> Tensor:
     """Exact inverse of :func:`_sortable_key` (modulo the zero-class canonicalization)."""
     bits = torch.where(key < 0, ~key, key | _INT32_MIN)
-    return bits.to(torch.int32).view(torch.float32)
+    return bits_f32(bits)
 
 
 def monotone_key_descending(preds: Tensor, valid: Optional[Tensor] = None) -> Tensor:
@@ -104,7 +152,10 @@ def forced_tier() -> Optional[str]:
 
 
 def select_tier(x: Tensor) -> str:
-    """A CUDA tensor of at least ``RANK_MIN_SIZE`` elements -> "rank", else "sort"."""
+    """A CUDA tensor of at least ``RANK_MIN_SIZE`` elements -> "rank", else "sort".
+
+    Under ``torch.func.vmap`` ``numel`` is one sample's: a stack of copies takes the
+    tier that each copy alone would."""
     if _FORCED_TIER is not None:
         return _FORCED_TIER
     if x.numel() >= RANK_MIN_SIZE and x.device.type == "cuda":
@@ -153,16 +204,18 @@ def ranked_targets(preds: Tensor, target: Tensor) -> Tensor:
 
 
 def stable_front_pack(mask: Tensor, *cols: Tensor) -> Tuple[Tensor, ...]:
-    """Rows where ``mask`` is True first, then the others, each group in its order.
+    """Entries where ``mask`` is True first, then the others, each group in its order,
+    along the last axis (``cols`` have ``mask``'s shape).
 
-    A stable partition needs no sort: each row's destination is its rank among the
-    rows of its group (a cumulative sum), and one scatter per column puts it there.
+    A stable partition needs no sort: each entry's destination is its rank among the
+    entries of its group (a cumulative sum), and one scatter per column puts it there.
+    It reads nothing on the host and runs under ``torch.func.vmap``.
     """
-    mask = mask.reshape(-1).to(torch.bool)
-    kept = torch.cumsum(mask, 0)
-    dropped = torch.cumsum(~mask, 0)
-    dest = torch.where(mask, kept - 1, kept[-1:] + dropped - 1)
-    return tuple(torch.empty_like(c).index_copy_(0, dest, c) for c in cols)
+    mask = mask.to(torch.bool)
+    kept = torch.cumsum(mask, -1)
+    dropped = torch.cumsum(~mask, -1)
+    dest = torch.where(mask, kept - 1, kept[..., -1:] + dropped - 1)
+    return tuple(torch.zeros_like(c).scatter(-1, dest, c) for c in cols)
 
 
 # --------------------------------------------------------- tie-averaged ranks
@@ -173,7 +226,7 @@ def _ascending_total_key(x: Tensor) -> Tensor:
     sort comparator orders it (``lax._float_to_int_for_sort``): ±0.0 share 0's key and
     every NaN takes the largest key, after +inf. Denormals keep keys of their own."""
     x = x.to(torch.float32).contiguous()
-    bits = x.view(torch.int32)
+    bits = f32_bits(x)
     key = torch.where(bits < 0, bits ^ _INT32_MAX, bits)  # negatives: flip the magnitude bits
     key = torch.where(x == 0, 0, key)
     return torch.where(torch.isnan(x), _INT32_MAX, key)

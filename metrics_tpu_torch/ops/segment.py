@@ -15,6 +15,13 @@ by where the lanes lie:
 Integer lanes only: int add/min/max are exact under any association, so the kernel,
 the plain version and every tier of the JAX package agree bit for bit. Sums wrap.
 
+Under a ``torch.func`` transform (``vmap`` of an exact curve over bootstrap copies or
+classes) the scan goes through the custom op ``metrics_tpu_torch::segment_scan``,
+whose batching rule is the counterpart of the JAX package's batched scan: ``B`` scans
+of ``N`` rows are one scan of ``B * N`` rows whose segment flags also mark each
+row's first element (its last with ``reverse``), so no segment crosses a row. On the
+card that is one kernel launch for the whole batch; on the CPU the plain version.
+
 The retrieval half (``_segment_cumsum_*`` :58-147, ``_scan_retrieval_scores``
 :451-608, ``grouped_retrieval_scores`` :611) follows the scan. Its integer passes
 all go through :func:`segment_multi_scan`, so on the card every one is a kernel
@@ -25,7 +32,7 @@ segment-last flags and its gated pass. Its float running sums stay block-local
 to XLA.
 """
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import Tensor
@@ -34,6 +41,7 @@ from metrics_tpu_torch import _build
 from metrics_tpu_torch.ops.rank import _INT32_MIN, _sortable_key_to_f32, descending_sort_key
 
 _OP_CODES = {"sum": 0, "min": 1, "max": 2}  # the kernel's op codes
+_INT32_MAX = (1 << 31) - 1
 _SCAN_OPS = tuple(_OP_CODES)
 #: integer lane dtypes the entry point takes; the kernel itself runs int32 or int64
 _INT_DTYPES = (torch.int8, torch.int16, torch.int32, torch.int64, torch.uint8)
@@ -94,7 +102,12 @@ def _plain_multi_scan(
 class SegmentScanKernel:
     """Wrapper of the CUDA segmented multi-scan kernel: checks, launch, and a count.
 
-    ``launches`` grows by one each time the kernel is launched, and nowhere else.
+    ``launches`` grows by one each time the kernel is launched, and nowhere else: a
+    call inside a CUDA-graph capture only records the launch, and each replay counts
+    it (``core/fused.py:CapturedStep``).
+
+    A launch takes at most :meth:`max_rows` rows: one CTA a tile, and a grid of at
+    most 2^31 - 1 tiles.
     """
 
     def __init__(self) -> None:
@@ -110,6 +123,10 @@ class SegmentScanKernel:
     def tile_rows(self, k: int, dtype: torch.dtype) -> int:
         """Rows of one kernel tile for ``k`` lanes of ``dtype`` (builds the kernel if needed)."""
         return self._functions()[2](k, int(dtype == torch.int64))
+
+    def max_rows(self, k: int, dtype: torch.dtype) -> int:
+        """The most rows one launch of ``k`` lanes of ``dtype`` takes (2^31 - 1 tiles)."""
+        return _INT32_MAX * self.tile_rows(k, dtype)
 
     def __call__(
         self, values: Sequence[Tensor], flags: Optional[Tensor], ops: Sequence[str], reverse: bool = False
@@ -147,6 +164,8 @@ class SegmentScanKernel:
             return outs
         fn, scratch_bytes, _ = self._functions()
         k, is64 = len(values), int(first.dtype == torch.int64)
+        if n > self.max_rows(k, first.dtype):
+            raise ValueError(f"segment scan kernel: at most {self.max_rows(k, first.dtype)} rows per launch, got {n}")
         # tile counter, status words and tile values; the call zeroes what must start at 0
         scratch = torch.empty(scratch_bytes(k, is64, n), dtype=torch.uint8, device=first.device)
         in_ptrs = (ctypes.c_void_p * k)(*[v.data_ptr() for v in values])
@@ -215,7 +234,17 @@ def segment_multi_scan(
             raise ValueError("segment_multi_scan: lanes must be 1-D, of one length and on one device")
     if new_seg is not None and (new_seg.device != device or new_seg.shape != n):
         raise ValueError("segment_multi_scan: new_seg must have the lanes' length and device")
-    if device.type != "cuda":
+    if torch._C._are_functorch_transforms_active():
+        codes = [_OP_CODES[op] for op in ops]
+        return tuple(torch.ops.metrics_tpu_torch.segment_scan(list(values), new_seg, codes, reverse))
+    return _scan_direct(values, new_seg, ops, reverse)
+
+
+def _scan_direct(
+    values: Sequence[Tensor], new_seg: Optional[Tensor], ops: Sequence[str], reverse: bool
+) -> Tuple[Tensor, ...]:
+    """The scan of 1-D lanes: the kernel for CUDA lanes, the plain version for CPU lanes."""
+    if values[0].device.type != "cuda":
         return _plain_multi_scan(values, new_seg, ops, reverse)
 
     dtype = _kernel_dtype([v.dtype for v in values])
@@ -225,6 +254,43 @@ def segment_multi_scan(
         lanes = [v.to(dtype).contiguous() for v in values[start:start + KERNEL_MAX_LANES]]
         outs.extend(segment_scan_cuda(lanes, flags, ops[start:start + KERNEL_MAX_LANES], reverse))
     return tuple(o.to(v.dtype) for o, v in zip(outs, values))
+
+
+@torch.library.custom_op("metrics_tpu_torch::segment_scan", mutates_args=())
+def _segment_scan_op(values: List[Tensor], flags: Optional[Tensor], ops: List[int], reverse: bool) -> List[Tensor]:
+    """The scan as a custom op (:func:`_scan_direct` of 1-D lanes, ``ops`` as the
+    kernel's op codes); its outputs never alias its inputs."""
+    outs = _scan_direct(values, flags, [_SCAN_OPS[op] for op in ops], reverse)
+    return [o.clone() if o is v else o for o, v in zip(outs, values)]
+
+
+@_segment_scan_op.register_fake
+def _segment_scan_fake(values: List[Tensor], flags: Optional[Tensor], ops: List[int], reverse: bool) -> List[Tensor]:
+    return [torch.empty_like(v) for v in values]
+
+
+def _segment_scan_vmap(info, in_dims: Tuple, values: List[Tensor], flags: Optional[Tensor], ops: List[int],
+                       reverse: bool):
+    """Batching rule: ``B`` scans of ``N`` rows are one scan of ``B * N`` rows, each row
+    a segment of its own (its first element flagged, its last with ``reverse``) within
+    which the caller's flags still cut."""
+    batch = info.batch_size
+    value_dims, flag_dim = in_dims[0], in_dims[1]
+
+    def rows(x: Tensor, dim: Optional[int]) -> Tensor:
+        return x.movedim(dim, 0) if dim is not None else x.unsqueeze(0).expand(batch, *x.shape)
+
+    lanes = [rows(v, d) for v, d in zip(values, value_dims)]
+    n = lanes[0].shape[1]
+    edge = torch.zeros((batch, n), dtype=torch.bool, device=lanes[0].device)
+    edge[:, -1 if reverse else 0] = True
+    if flags is not None:
+        edge = edge | rows(flags, flag_dim).to(torch.bool)
+    outs = _segment_scan_op([lane.reshape(-1) for lane in lanes], edge.reshape(-1), ops, reverse)
+    return [o.reshape(batch, n) for o in outs], [0] * len(outs)
+
+
+torch.library.register_vmap("metrics_tpu_torch::segment_scan", _segment_scan_vmap)
 
 
 # ------------------------------------------------------------------ retrieval half

@@ -10,7 +10,8 @@ an invalid query: a full buffer goes to the kernel as it is. The JAX package pad
 every compute to a power of two, so that a growing state compiles at most log2(N)
 programs, and takes the whole buffer once it is at least half full; eager PyTorch
 compiles nothing, so the port pads nothing and takes the whole buffer only when it
-is full, where it is the valid rows themselves.
+is full, where it is the valid rows themselves, or under a trace (the JAX package's
+traced branch).
 
 Host syncs: ``empty_target_action="error"`` reads one flag; nothing else in
 ``compute`` does (a ``CatBuffer`` knows its count on the host).
@@ -24,7 +25,7 @@ from torch import Tensor
 from metrics_tpu_torch.core.metric import Metric
 from metrics_tpu_torch.core.state import CatBuffer
 from metrics_tpu_torch.ops.segment import grouped_retrieval_scores
-from metrics_tpu_torch.utils.checks import _check_retrieval_inputs
+from metrics_tpu_torch.utils.checks import _check_retrieval_inputs, _is_concrete
 from metrics_tpu_torch.utils.data import dim_zero_cat
 
 
@@ -89,8 +90,11 @@ class RetrievalMetric(Metric, ABC):
         return {}
 
     def compute(self) -> Tensor:
-        if isinstance(self.indexes, CatBuffer) and self.indexes.valid_count() == self.indexes.capacity:
-            # a full buffer is its own valid rows (its overflow warned in the wrapper)
+        if isinstance(self.indexes, CatBuffer) and (
+            self.indexes.valid_count() == self.indexes.capacity or not _is_concrete(self.indexes.data)
+        ):
+            # a full buffer is its own valid rows (its overflow warned in the wrapper); under a
+            # trace the whole buffer goes, as in the JAX package: unused rows are invalid queries
             indexes, preds, target = self.indexes.data, self.preds.data, self.target.data
         else:
             indexes, preds, target = dim_zero_cat(self.indexes), dim_zero_cat(self.preds), dim_zero_cat(self.target)

@@ -1,8 +1,9 @@
 """The device rule of the wrappers: a wrapper lives on its base metric's device.
 
-The wrappers refuse ``fleet_size``: their stacked fleet paths (BootStrapper's
-stacked launch, MultioutputWrapper's vmapped outputs, ClasswiseWrapper's fleet
-branch) are not ported yet, where the JAX ``BootStrapper`` accepts it.
+``fleet_size`` passes through as the JAX package's wrappers take it: BootStrapper
+stacks its copies under the fleet axis, MinMaxMetric keeps a running min and max per
+stream, ClasswiseWrapper reads a fleet inner metric's per-stream values, and
+MultioutputWrapper refuses it with the JAX package's message.
 """
 from typing import Any, Dict
 
@@ -14,9 +15,7 @@ from metrics_tpu_torch.utils.data import _same_device
 
 def base_device_kwargs(wrapper: str, base_metric: Metric, kwargs: Dict[str, Any]) -> Dict[str, Any]:
     """``kwargs`` with ``device`` set to ``base_metric``'s; a ``device`` that names
-    another raises, and so does ``fleet_size``."""
-    if "fleet_size" in kwargs:
-        raise ValueError(f"{wrapper}: `fleet_size` is not supported by the port's wrappers yet")
+    another raises."""
     device = kwargs.pop("device", None)
     if device is not None and not _same_device(torch.device(device), base_metric.device):
         raise ValueError(

@@ -1,6 +1,7 @@
 """ClasswiseWrapper (counterpart of ``metrics_tpu/wrappers/classwise.py``): a per-class
-output tensor as a ``{name_label: value}`` dict. It lives on its metric's device and
-has no fleet branch (``fleet_size`` is not ported)."""
+output tensor as a ``{name_label: value}`` dict. It lives on its metric's device. For a
+fleet inner metric (``fleet_size``) the value is ``(fleet_size, num_classes)`` and each
+dict value is a class's column, keeping the per-stream leading axis (JAX :37-42)."""
 from typing import Any, Dict, List, Optional
 
 from torch import Tensor
@@ -25,6 +26,10 @@ class ClasswiseWrapper(Metric):
 
     def _convert(self, x: Tensor) -> Dict[str, Tensor]:
         name = self.metric.__class__.__name__.lower()
+        if self.metric.fleet_size is not None:
+            if self.labels is None:
+                return {f"{name}_{i}": x[..., i] for i in range(x.shape[-1])}
+            return {f"{name}_{lab}": x[..., i] for i, lab in enumerate(self.labels)}
         if self.labels is None:
             return {f"{name}_{i}": val for i, val in enumerate(x)}
         return {f"{name}_{lab}": val for lab, val in zip(self.labels, x)}

@@ -2,15 +2,26 @@
 of a base metric per output, registered as an ``nn.ModuleList``, each fed its slice of
 the inputs along ``output_dim``. With ``remove_nans`` the rows where any input of an
 output holds a NaN are dropped; the mask is built on the inputs' device (the JAX
-package goes through numpy)."""
+package goes through numpy), and under a trace it raises the JAX package's
+``ValueError``.
+
+The pure tier (``init_state``/``local_update``/``sync_state``/``compute_from``, JAX
+:160-206) carries one stacked ``(num_outputs, ...)`` base state and runs the base's
+``local_update`` of every output under one ``torch.func.vmap``. ``remove_nans`` has no
+static shape and raises ``NotImplementedError`` there. ``fleet_size`` on the wrapper
+raises :class:`MetricsUserError`, as in the JAX package.
+"""
 from copy import deepcopy
-from typing import Any, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import Tensor, nn
 
 from metrics_tpu_torch.core.metric import Metric
+from metrics_tpu_torch.utils.checks import _is_concrete
 from metrics_tpu_torch.utils.data import apply_to_collection
+from metrics_tpu_torch.utils.exceptions import MetricsUserError
+from metrics_tpu_torch.wrappers import _stack
 from metrics_tpu_torch.wrappers._device import base_device_kwargs
 
 
@@ -41,6 +52,13 @@ class MultioutputWrapper(Metric):
         **kwargs: Any,
     ) -> None:
         super().__init__(**base_device_kwargs("MultioutputWrapper", base_metric, kwargs))
+        if self.fleet_size is not None:
+            raise MetricsUserError(
+                "MultioutputWrapper holds its state in per-output child metrics,"
+                " so fleet_size on the wrapper registers nothing to route; make"
+                " the underlying metric the fleet instead (base_metric with"
+                " fleet_size=N, updated with stream_ids)"
+            )
         self.metrics = nn.ModuleList([deepcopy(base_metric) for _ in range(num_outputs)])
         self.output_dim = output_dim
         self.remove_nans = remove_nans
@@ -62,6 +80,12 @@ class MultioutputWrapper(Metric):
                     v for v in selected_kwargs.values() if isinstance(v, Tensor)
                 ]
                 if tensors:
+                    if not _is_concrete(*tensors):
+                        raise ValueError(
+                            "MultioutputWrapper(remove_nans=True) filters rows by NaN"
+                            " content and cannot run under jit/shard_map; use"
+                            " remove_nans=False or filter rows on host first."
+                        )
                     keep = ~_get_nan_indices(*tensors)
                     selected_args = tuple(a[keep] if isinstance(a, Tensor) else a for a in selected_args)
                     selected_kwargs = {k: v[keep] if isinstance(v, Tensor) else v for k, v in selected_kwargs.items()}
@@ -90,3 +114,49 @@ class MultioutputWrapper(Metric):
         for metric in self.metrics:
             metric.reset()
         super().reset()
+
+    # --------------------------------------------------- pure-functional tier
+
+    def init_state(self) -> Dict[str, Any]:
+        """One stacked ``(num_outputs, ...)`` base state."""
+        base = self.metrics[0].init_state()
+        _stack.check_static("MultioutputWrapper", base)
+        return _stack.stack_state(base, len(self.metrics))
+
+    def local_update(self, state: Dict[str, Any], *args: Any, **kwargs: Any) -> Dict[str, Any]:
+        """Every output column in one ``vmap``: output ``i`` takes index ``i`` of each
+        tensor input along ``output_dim`` (kept as an axis of one without
+        ``squeeze_outputs``)."""
+        if self.remove_nans:
+            raise NotImplementedError(
+                "remove_nans drops a data-dependent number of rows and cannot run under"
+                " jit; construct MultioutputWrapper(remove_nans=False) for the pure tier"
+            )
+        from metrics_tpu_torch.core import fused as _fused
+
+        args = tuple(self._check_device(a) for a in args)
+        kwargs = {k: self._check_device(v) for k, v in kwargs.items()}
+        dyn, spec = _fused._split_inputs(args, kwargs)
+        columns = [x.movedim(self.output_dim, 0) for x in dyn]  # (num_outputs, ...) each
+
+        def one_inputs(cols: List[Tensor]) -> Tuple[Tuple, Dict]:
+            if not self.squeeze_outputs:
+                cols = [c.unsqueeze(self.output_dim) for c in cols]
+            return _fused._merge_inputs(cols, spec)
+
+        return _stack.vmap_local_update(self.metrics[0], state, one_inputs, columns)
+
+    def sync_state(self, state: Dict[str, Any], group: Optional[Any] = None) -> Dict[str, Any]:
+        """Per-output sync: the base reductions apply elementwise over the stack."""
+        base = self.metrics[0]
+        if any(kind == "cat" for kind in base._reductions.values()):
+            raise NotImplementedError(
+                "MultioutputWrapper's pure tier cannot sync cat-reduction base states"
+                " over a mesh axis; evaluate per shard and combine computes instead"
+            )
+        return base.sync_state(state, group)
+
+    def compute_from(self, state: Dict[str, Any], group: Optional[Any] = None) -> Tensor:
+        if group is not None:
+            state = self.sync_state(state, group)
+        return _stack.vmap_compute(self.metrics[0], state)

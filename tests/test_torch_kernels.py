@@ -618,3 +618,126 @@ def test_fused_forward_matches_eager_on_card(cuda):
     assert engine_for(fused).stats["launches"] == 3 and engine_for(fused).stats["fallback_groups"] == 0
     got, want = fused.compute(), eager.compute()
     assert all(torch.equal(got[k], want[k]) for k in want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+def test_scan_vmap_rule_is_one_launch_on_card(cuda, reverse):
+    g = torch.Generator(device=cuda).manual_seed(7 + reverse)
+    lanes = [torch.randint(-9, 9, (6, 5000), generator=g, device=cuda, dtype=torch.int32) for _ in range(3)]
+    flags = torch.rand((6, 5000), generator=g, device=cuda) < 0.01
+    ops = ("sum", "min", "max")
+    before = segment.segment_scan_cuda.launches
+    got = torch.func.vmap(lambda f, *ls: segment.segment_multi_scan(ls, f, ops=ops, reverse=reverse))(flags, *lanes)
+    assert segment.segment_scan_cuda.launches - before == 1
+    for i in range(6):
+        want = segment._plain_multi_scan([lane[i] for lane in lanes], flags[i], ops, reverse)
+        assert all(torch.equal(a[i], b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_padded_curves_on_card_equal_the_cpu(cuda):
+    from metrics_tpu_torch.ops import clf_curve
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    preds = torch.round(torch.rand((4, 3000), generator=g, device=cuda) * 100) / 100
+    target = torch.randint(-1, 2, (4, 3000), generator=g, device=cuda)
+    for curve in (clf_curve.binary_precision_recall_curve_padded, clf_curve.binary_roc_curve_padded):
+        before = segment.segment_scan_cuda.launches
+        got = torch.func.vmap(curve)(preds, target)
+        assert segment.segment_scan_cuda.launches - before == 1  # one scan for the stack
+        for i in range(4):
+            want = curve(preds[i].cpu(), target[i].cpu())
+            assert all(torch.equal(a[i].cpu(), b) or torch.allclose(a[i].cpu(), b, equal_nan=True, rtol=0, atol=0)
+                       for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_stacked_bootstrapper_is_one_replay_on_card(cuda):
+    import numpy as np
+
+    from metrics_tpu_torch.classification import MulticlassAccuracy
+    from metrics_tpu_torch.core import fleet
+    from metrics_tpu_torch.wrappers import BootStrapper
+
+    g = torch.Generator(device=cuda).manual_seed(11)
+    boot = BootStrapper(MulticlassAccuracy(10, average="macro"), 8, seed=3, raw=True)
+    bases = [MulticlassAccuracy(10, average="macro") for _ in range(8)]
+    rng = np.random.default_rng(3)
+    before = histogram.histogram_batched_cuda.launches
+    for _ in range(4):
+        p = torch.randint(0, 10, (512,), generator=g, device=cuda)
+        t = torch.randint(0, 10, (512,), generator=g, device=cuda)
+        boot.update(p, t)
+        idx = boot._indices(boot._device_draws(int(rng.integers(0, 2**63 - 1)), 512), 512)
+        for base, rows in zip(bases, idx):
+            base.update(p[rows], t[rows])
+    assert histogram.histogram_batched_cuda.launches - before == 5  # warm-up + 4 replays
+    assert fleet.step_stats(boot)["launches"] == 4 and fleet.step_stats(boot)["degrades"] == 0
+    for name in ("tp", "fp", "tn", "fn"):
+        assert torch.equal(getattr(boot, f"boot_{name}"), torch.stack([getattr(b, name) for b in bases]))
+    assert torch.equal(boot.compute()["raw"], torch.stack([b.compute() for b in bases]))
+
+
+@pytest.mark.cuda
+def test_minmax_fleet_updates_its_base_once_per_batch_on_card(cuda):
+    from metrics_tpu_torch.classification import MulticlassAccuracy
+    from metrics_tpu_torch.wrappers import MinMaxMetric
+
+    g = torch.Generator(device=cuda).manual_seed(13)
+    wrapper = MinMaxMetric(MulticlassAccuracy(3), fleet_size=2)
+    base, values = MulticlassAccuracy(3), []
+    for _ in range(4):
+        p, t = (torch.randint(0, 3, (64,), generator=g, device=cuda) for _ in range(2))
+        wrapper.update(p, t)
+        base.update(p, t)
+        out, want = wrapper.compute(), base.compute()
+        values.append(want)
+        assert torch.equal(out["raw"], want.expand(2))
+        assert torch.equal(out["max"], torch.stack(values).max().expand(2))
+        assert torch.equal(out["min"], torch.stack(values).min().expand(2))
+    for name in ("tp", "fp", "tn", "fn"):
+        assert torch.equal(getattr(wrapper._base_metric, name), getattr(base, name))
+
+
+@pytest.mark.cuda
+def test_forward_keeps_the_state_a_replay_left_on_card(cuda):
+    from metrics_tpu_torch.classification import MulticlassAccuracy
+    from metrics_tpu_torch.core import fleet
+    from metrics_tpu_torch.wrappers import BootStrapper
+
+    g = torch.Generator(device=cuda).manual_seed(17)
+    batches = [tuple(torch.randint(0, k, (256,), generator=g, device=cuda) for k in (5, 5, 2)) for _ in range(3)]
+    routed = MulticlassAccuracy(5, average=None, fleet_size=2)
+    twin = MulticlassAccuracy(5, average=None, fleet_size=2)
+    boot = BootStrapper(MulticlassAccuracy(5, average="macro"), 4, seed=2)
+    for p, t, i in batches:
+        routed(p, t, stream_ids=i)
+        twin.update(p, t, stream_ids=i)
+        boot(p, t)
+    assert fleet.step_stats(routed)["launches"] >= 3 and fleet.step_stats(boot)["launches"] >= 3
+    for name in ("tp", "fp", "tn", "fn"):
+        assert torch.equal(getattr(routed, name), getattr(twin, name))
+    # every copy's resample of a batch has its 256 rows: the forwards' batches all stayed
+    assert torch.equal((boot.boot_tp + boot.boot_fn).sum(-1), torch.full((4,), 3 * 256, device=cuda))
+
+
+@pytest.mark.cuda
+def test_fleet_bootstrapper_draws_once_for_every_stream_on_card(cuda):
+    from metrics_tpu_torch.classification import MulticlassAccuracy
+    from metrics_tpu_torch.core import fleet
+    from metrics_tpu_torch.wrappers import BootStrapper
+
+    g = torch.Generator(device=cuda).manual_seed(19)
+    boot = BootStrapper(MulticlassAccuracy(5, average="macro"), 4, fleet_size=3, seed=1)
+    for _ in range(2):
+        p, t = (torch.randint(0, 5, (128,), generator=g, device=cuda) for _ in range(2))
+        boot.update(p, t)
+    assert torch.equal(boot.boot_tp[0], boot.boot_tp[1]) and torch.equal(boot.boot_tp[0], boot.boot_tp[2])
+    ids = torch.randint(0, 3, (128,), generator=g, device=cuda)
+    boot.update(p, t, stream_ids=ids)
+    rows = 2 * 128 + torch.bincount(ids, minlength=3)
+    # every copy of a stream holds each of its rows' resamples: 128 a broadcast batch, 1 a routed row
+    assert torch.equal((boot.boot_tp + boot.boot_fn).sum(-1), rows.unsqueeze(-1).expand(3, 4))
+    assert fleet.step_stats(boot)["launches"] == 0  # eager: the draws stay out of graphs
+    assert boot.compute()["mean"].shape == (3,)

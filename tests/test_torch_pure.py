@@ -12,7 +12,9 @@ Then a real ``gloo`` group of 2 CPU ranks (``tests/torch_pure_ranks.py``, which
 imports no JAX): ``evaluate_sharded`` of a collection and of ``BinaryAUROC`` with list,
 ``cat_capacity`` and binned states, ``sync_state`` of the aggregators and ``cat_sync``
 itself, each rank's values against one ``metrics_tpu`` run on the union; one rank's
-overflowing buffer poisons the float values to NaN on every rank.
+overflowing buffer poisons the float values to NaN on every rank. A stacked
+``BootStrapper``'s pure tier fed known indices syncs to the JAX copies fed the same
+rows on the union, and its drawn seeds agree on every rank after ``sync_state``.
 """
 import time
 
@@ -247,3 +249,28 @@ def test_sync_state_of_the_aggregators_matches_the_union(spawned):
         ref.update(values)
         for result in results:
             _close(result[f"agg/{name}"], ref.compute())
+
+
+def test_bootstrapper_pure_sync_matches_the_union(spawned):
+    world, results = spawned
+    pairs = ranks.make_data(SEED)["nom"]
+    bases = [jc.MulticlassAccuracy(num_classes=ranks.C, average="macro") for _ in range(pure_ranks.BOOT)]
+    for rank in range(world):
+        mine = ranks.share(pairs, world, rank, ranks.SHARES)
+        p, t = mine["preds"], mine["target"]
+        for i, part in enumerate((slice(0, len(p) // 2), slice(len(p) // 2, None))):
+            idx = pure_ranks.boot_indices(SEED, rank, i, len(p[part]))
+            for base, rows in zip(bases, idx):
+                base.update(jnp.asarray(p[part][rows]), jnp.asarray(t[part][rows]))
+    for name in ("tp", "fp", "tn", "fn"):
+        want = np.stack([np.asarray(getattr(base, name)) for base in bases]).astype(np.int64)
+        assert np.array_equal(sum(r["boot/local"][name] for r in results).numpy(), want)
+        for result in results:
+            assert np.array_equal(result["boot/synced"][name].numpy(), want)
+    raw = jnp.stack([base.compute() for base in bases])
+    seeds = [int(r["boot/seed_local"]) for r in results]
+    assert len(set(seeds)) == world  # each rank advanced its own seed
+    for result in results:
+        _close(result["boot/value"]["raw"], raw)
+        assert int(result["boot/seed_synced"]) == max(seeds)
+        _close(result["boot/evaluate_sharded"]["mean"], results[0]["boot/evaluate_sharded"]["mean"])

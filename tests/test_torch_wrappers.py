@@ -5,10 +5,11 @@ Seeded numpy inputs go through the JAX package's wrappers and the port's
 ``compute``, within 1e-6.
 
 - BootStrapper on a list-state base (``BinaryAUROC``, the JAX copies path): each
-  copy's states are bit-equal to the JAX copy's under the same seed. On a base the
-  JAX package stacks (``MulticlassAccuracy``, indices from ``jax.random``) the port is
-  held against N JAX base metrics fed the port's indices, and a JAX stacked state
-  loads through ``load_jax_state``.
+  copy's states are bit-equal to the JAX copy's under the same seed. On a base both
+  packages stack (``MulticlassAccuracy``) the JAX stacked path's ``jax.random``
+  indices are replayed and fed through the port's seam
+  (``_stacked_update_with_indices``): the stacked counts are bit-equal; a JAX stacked
+  state loads into the port's ``boot_<name>`` states, and a pure-tier state is refused.
 - ``forward`` of BootStrapper and MinMaxMetric keeps the children's accumulated
   state: the accumulated ``compute`` equals a JAX wrapper fed both batches through
   ``update`` and the batch value equals the JAX ``forward``'s (the JAX wrappers'
@@ -101,24 +102,35 @@ def test_bootstrapper_list_state_copies_bit_equal_to_jax_copies_path():
     assert_close(port.compute(), jax_boot.compute())
 
 
+def jax_stacked_indices(jax_boot, rng, size: int):
+    """The indices of one JAX stacked update, replayed: the seed it takes from its host
+    stream, the keys it splits, and ``_device_sample`` of each key."""
+    import jax
+
+    seed = int(rng.integers(0, 2**63 - 1))
+    keys = jax.random.split(jax.random.PRNGKey(seed), jax_boot.num_bootstraps)
+    return np.stack([np.asarray(jax_boot._device_sample(k, size)) for k in keys])
+
+
 @pytest.mark.parametrize("strategy", ["poisson", "multinomial"])
 def test_bootstrapper_stackable_base_against_jax_bases_fed_the_same_indices(strategy):
+    """The JAX stacked path's indices, replayed and fed through the port's seam: the
+    stacked counts are bit-equal to the JAX wrapper's."""
     kwargs = dict(num_bootstraps=N_BOOT, quantile=0.5, raw=True, sampling_strategy=strategy, seed=5)
+    jax_boot = jw.BootStrapper(jc.MulticlassAccuracy(3, average="macro"), **kwargs)
     port = tw.BootStrapper(tc.MulticlassAccuracy(3, average="macro", device="cpu"), **kwargs)
-    bases = [jc.MulticlassAccuracy(3, average="macro") for _ in range(N_BOOT)]
+    assert jax_boot._eager_stacked and port._eager_stacked and len(port.metrics) == 1
     rng = np.random.default_rng(5)
     for batch in multiclass_batches(2)[:3]:
-        port.update(*port_args(batch))
-        for base in bases:
-            idx = np.asarray(jax_bootstrap_sampler(len(batch[0]), strategy, rng))
-            base.update(*(jnp.asarray(x[idx]) for x in batch))
-    values = jnp.stack([base.compute() for base in bases])
-    want = {"mean": values.mean(0), "std": values.std(0, ddof=1), "quantile": jnp.quantile(values, 0.5, axis=0),
-            "raw": values}
-    assert_close(port.compute(), want)
-    for base, copy in zip(bases, port.metrics):
-        for name in ("tp", "fp", "tn", "fn"):
-            assert np.array_equal(getattr(copy, name).numpy(), np.asarray(getattr(base, name)).astype(np.int64))
+        indices = jax_stacked_indices(jax_boot, rng, len(batch[0]))
+        jax_boot.update(*jax_args(batch))
+        port._stacked_update_with_indices(torch.from_numpy(indices), *port_args(batch))
+    for name in ("tp", "fp", "tn", "fn"):
+        want = np.asarray(getattr(jax_boot, f"boot_{name}"))
+        got = getattr(port, f"boot_{name}").numpy()
+        assert got.shape == want.shape == (N_BOOT, 3)
+        assert np.array_equal(got, want.astype(np.int64))
+    assert_close(port.compute(), jax_boot.compute())
 
 
 def test_bootstrapper_loads_a_jax_stacked_state():
@@ -133,14 +145,19 @@ def test_bootstrapper_loads_a_jax_stacked_state():
     assert set(state) == {"boot_tp", "boot_fp", "boot_tn", "boot_fn"}
     port = load_jax_state(tw.BootStrapper(tc.MulticlassAccuracy(3, average="macro", device="cpu"),
                                           num_bootstraps=N_BOOT, quantile=quantile), state)
-    for k, copy in enumerate(port.metrics):
-        assert np.array_equal(copy.tp.numpy(), np.asarray(state["boot_tp"][k]).astype(np.int64))
+    for name in ("tp", "fp", "tn", "fn"):  # into the port's own stacked states
+        assert np.array_equal(getattr(port, f"boot_{name}").numpy(), np.asarray(state[f"boot_{name}"]).astype(np.int64))
     assert_close(port.compute(), jax_boot.compute())
     with pytest.raises(ValueError, match="rows"):
         load_jax_state(tw.BootStrapper(tc.MulticlassAccuracy(3, average="macro", device="cpu"), num_bootstraps=3),
                        state)
     with pytest.raises(KeyError, match="boot_"):
         load_jax_state(tw.BootStrapper(tc.MulticlassAccuracy(3, average="macro", device="cpu")), {})
+    # a pure-tier state carries a jax.random key: refused with the reason
+    pure = jax_boot.init_state()
+    with pytest.raises(ValueError, match="jax.random key"):
+        load_jax_state(tw.BootStrapper(tc.MulticlassAccuracy(3, average="macro", device="cpu"),
+                                       num_bootstraps=N_BOOT), pure)
 
 
 def test_bootstrapper_forward_keeps_the_copies_state_list_base():
@@ -162,12 +179,17 @@ def test_bootstrapper_forward_keeps_the_copies_state_list_base():
 
 
 def test_bootstrapper_forward_keeps_the_copies_state_stackable_base():
+    """Stacked base: update(b1), forward(b2). The port's own draws (one seed a step from
+    its host stream) are replayed into JAX bases: the batch value and the accumulated
+    value equal theirs, so forward kept the stacked state."""
     b1, b2 = multiclass_batches(5)[:2]
     port = tw.BootStrapper(tc.MulticlassAccuracy(3, average="macro", device="cpu"), num_bootstraps=N_BOOT,
                            raw=True, seed=13)
+    replay = tw.BootStrapper(tc.MulticlassAccuracy(3, average="macro", device="cpu"), num_bootstraps=N_BOOT)
     rng = np.random.default_rng(13)
     size = len(b1[0])
-    d1, d2, d3 = ([np.asarray(jax_bootstrap_sampler(size, "poisson", rng)) for _ in range(N_BOOT)] for _ in range(3))
+    d1, d2, d3 = (replay._indices(replay._device_draws(int(rng.integers(0, 2**63 - 1)), size), size).numpy()
+                  for _ in range(3))
 
     def jax_values(draws_and_batches):
         bases = [jc.MulticlassAccuracy(3, average="macro") for _ in range(N_BOOT)]
@@ -186,14 +208,17 @@ def test_bootstrapper_reset_compute_and_arguments():
     port = tw.BootStrapper(tc.MulticlassAccuracy(3, device="cpu"), num_bootstraps=N_BOOT, seed=0)
     for batch in multiclass_batches(6)[:3]:
         port.update(*port_args(batch))
+    assert int(port.boot_tp.sum()) > 0
     port.reset()
-    assert all(int(m.tp.sum()) == 0 for m in port.metrics)
+    assert all(int(getattr(port, f"boot_{name}").sum()) == 0 for name in ("tp", "fp", "tn", "fn"))
     with pytest.raises(ValueError, match="instance of metrics_tpu_torch.Metric"):
         tw.BootStrapper(object())
     with pytest.raises(ValueError, match="sampling_strategy"):
         tw.BootStrapper(tc.MulticlassAccuracy(3, device="cpu"), sampling_strategy="jackknife")
-    with pytest.raises(ValueError, match="fleet_size"):
-        tw.BootStrapper(tc.MulticlassAccuracy(3, device="cpu"), fleet_size=2)
+    # fleet_size is taken as the JAX wrapper takes it: the stack under the stream axis
+    fleet = tw.BootStrapper(tc.MulticlassAccuracy(3, device="cpu"), num_bootstraps=N_BOOT, fleet_size=2)
+    want = jw.BootStrapper(jc.MulticlassAccuracy(3), num_bootstraps=N_BOOT, fleet_size=2)
+    assert {k: tuple(v.shape) for k, v in fleet._defaults.items()} == {k: v.shape for k, v in want._defaults.items()}
     with pytest.raises(ValueError, match="could not determine the sampling size"):
         port.update(3)
 

@@ -8,13 +8,48 @@ against one ``metrics_tpu`` run on the union.
 """
 import datetime
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
-from tests.torch_sync_ranks import SHARES, collection_metrics, make_data, share
+from tests.torch_sync_ranks import SHARES, C, collection_metrics, make_data, share
 
 OVERFLOW_CAPACITY = 48  # fits rank 0's binary rows at two ranks, not rank 1's
 CAT_BUFFER = 8  # capacity of the direct cat_sync buffers
+BOOT = 4  # BootStrapper copies of the stacked pure-tier sync
+
+
+def boot_indices(seed: int, rank: int, batch: int, size: int) -> np.ndarray:
+    """The ``(BOOT, size)`` resample indices of one rank's batch, fed through the seam."""
+    return np.random.default_rng([seed, rank, batch]).integers(0, size, (BOOT, size))
+
+
+def run_boot(world: int, rank: int, seed: int) -> dict:
+    """BootStrapper's pure tier over this rank's nominal pairs: a stack fed known
+    indices and synced, and one drawing its own, whose seeds differ before the sync
+    (rank r updates r + 2 times) and agree after it."""
+    from metrics_tpu_torch.classification import MulticlassAccuracy
+    from metrics_tpu_torch.parallel import evaluate_sharded
+    from metrics_tpu_torch.wrappers import BootStrapper
+
+    group = dist.group.WORLD
+    parts = halves(share(make_data(seed)["nom"], world, rank, SHARES))
+
+    def boot():
+        return BootStrapper(MulticlassAccuracy(num_classes=C, average="macro", device="cpu"), BOOT, seed=seed, raw=True)
+
+    known = boot()
+    state = known.init_state()
+    for i, (p, t) in enumerate(parts):
+        state = known._local_update_with_indices(state, torch.as_tensor(boot_indices(seed, rank, i, len(p))), p, t)
+    drawn = boot()
+    own = drawn.init_state()
+    for i in range(rank + 2):
+        own = drawn.local_update(own, *parts[i % 2])
+    return {"boot/local": state["metrics"], "boot/synced": known.sync_state(state, group)["metrics"],
+            "boot/value": known.compute_from(state, group), "boot/seed_local": own["seed"],
+            "boot/seed_synced": drawn.sync_state(own, group)["seed"],
+            "boot/evaluate_sharded": evaluate_sharded(drawn, parts)}
 
 
 def halves(arrays, device="cpu"):
@@ -57,6 +92,7 @@ def rank_main(rank: int, world: int, store: str, results: str, seed: int) -> Non
                             timeout=datetime.timedelta(seconds=60))
     try:
         out = run_pure(world, rank, seed)
+        out.update(run_boot(world, rank, seed))
         out["rows"] = {k: len(v) for k, v in share(make_data(seed)["bin"], world, rank, SHARES).items()}
         torch.save(out, f"{results}.{rank}.pt")
     finally:
