@@ -279,6 +279,31 @@ Phases, each printing one JSON line:
       (micro accuracy, MeanSquaredError within 1e-6 relative, MaxMetric) after a routed
       and a broadcast update against independent metrics, and ``reduce_fleet`` against
       one metric on all rows; wall, launches and device ms per routed update.
+18. sketches: the sketch family and the ``tolerance > 0`` tier, data drawn on the card,
+    every path's launches counted with the counts at 0 just before it:
+    - Criteo 1TB day 23 (the DLRM stream of phase 6, 1,361 updates of 65,536) through
+      BinaryAUROC and BinaryAveragePrecision with ``tolerance=1e-3, tolerance_bits=14``,
+      StreamingAUROCBound(bits=14), QuantileSketch() and HistogramDrift(num_bins=64)
+      (reference the first half, live the second): 9 mask-mode histogram launches an
+      update; every state bit-equal to the plain histogram of the whole stream; the exact
+      AUROC and AP (the exact tier with ``cat_capacity=2**27``) inside the certified
+      brackets and within width/2 of the served midpoints (1e-6 for float32 rounding);
+      each quantile within ``relative_error`` (+1e-5) of the exact order statistic at rank
+      ``floor(q(n-1))`` of one ``torch.sort``; update and compute ms, state bytes against
+      the exact tier's buffers; the mask mode at (65,536 ids, 2^14 bins) against its plain
+      version, ``torch.bincount`` and the bound;
+    - 89,137,319 ids uniform in [0, 40,000,000) through DistinctCount(p=12) and (p=14):
+      the estimate within 3·1.04/sqrt(m) of ``torch.unique``'s count, the uint8 registers
+      bit-equal to a CPU run of the port, no kernel launch;
+    - ImageNet-1k one-vs-rest (the curve phase's 50,000 x 1,000 softmax) in 196 updates of
+      256 through MulticlassAUROC and MulticlassAveragePrecision (``average=None,
+      tolerance=1e-2``): 2 batched-mode launches an update each, the first 3 updates'
+      (1,000, 4,096) histograms bit-equal to the per-lane loop of 2,000 single launches,
+      every class's exact value inside its bracket; the batched mode at (1,000, 256, 4,096)
+      timed as above;
+    - the three DLRM sketch-tier metrics as one ``MetricCollection(fused=True)`` over 200
+      updates, bit-equal to eager, one replay an update; DistinctCount(fleet_size=16) over
+      20 routed updates of 10,000 ids, bit-equal to 16 separate sketches.
     The sync_ranks phase (11) also runs the pure tier on each of its four ranks:
     ``evaluate_sharded`` of the Cityscapes collection and of a ``cat_capacity``
     BinaryAUROC over DLRM-style rows (through ``cat_sync``) against one process on the
@@ -289,6 +314,7 @@ line and ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zer
 """
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -5220,6 +5246,426 @@ def phase_wrappers_stacked(torch, seed: int, smi: str):
     return launches
 
 
+# ----------------------------------------------------------------- sketches
+
+# the DLRM stream and Criteo's categorical ids (MLPerf DLRM's --max-ind-range cap), updates of 65,536
+SKETCH_DLRM = {"tolerance": 1e-3, "tolerance_bits": 14, "drift_bins": 64, "exact_capacity": 1 << 27}
+SKETCH_IDS = {"id_range": 40_000_000, "p": (12, 14), "cpu_chunk": 1 << 23}
+SKETCH_IMAGENET = {"batch": 256, "tolerance": 1e-2, "checked_updates": 3}
+SKETCH_ENGINES = {"fused_steps": 200, "fleet_size": 16, "fleet_rows": 10_000, "fleet_updates": 20}
+BRACKET_ATOL = 1e-6  # the brackets' float32 pair arithmetic (the JAX package's) against the exact values
+QUANTILE_SLACK = 1e-5  # relative, beyond the certified α: float32 bucket edges and midpoints
+
+
+def timed_updates(torch, metric, batches, *extra) -> list:
+    """``metric.update`` over ``batches``, each bracketed by CUDA events (no sync in
+    between); returns the device ms of each update."""
+    pairs = []
+    for batch in batches:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        metric.update(*batch, *extra)
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return [s.elapsed_time(e) for s, e in pairs]
+
+
+def update_profile(torch, fn, reps: int = 10) -> dict:
+    """Device launches and device ms per ``fn()`` call from a profiler trace, and the
+    call's event ms: its device share says how far the host holds the card back."""
+    launches = device_launches(profile_window(torch, fn, reps))
+    device = sum(us for _, us in launches.values()) / reps / 1e3
+    event = event_ms(torch, fn)
+    return {"launches_per_call": sum(n for n, _ in launches.values()) / reps, "device_ms": device,
+            "event_ms": event, "device_share": device / event}
+
+
+def bracket_check(label: str, lo, hi, mid, exact) -> dict:
+    """``exact`` inside [lo, hi] and ``mid`` within width/2 of it, within BRACKET_ATOL."""
+    lo, hi, mid, exact = (float(v) for v in (lo, hi, mid, exact))
+    if not (lo - BRACKET_ATOL <= exact <= hi + BRACKET_ATOL and abs(mid - exact) <= (hi - lo) / 2 + BRACKET_ATOL):
+        raise AssertionError(f"{label}: exact {exact} outside [{lo}, {hi}] or mid {mid} too far")
+    return {"lower": lo, "upper": hi, "mid": mid, "exact": exact, "width": hi - lo, "abs_err": abs(mid - exact)}
+
+
+def sketch_plain_states(torch, scores, target, half_rows: int, qs, drift) -> dict:
+    """The DLRM sketch states from the plain histogram over the whole stream at once."""
+    from metrics_tpu_torch.ops.histogram import _plain_bincount
+    from metrics_tpu_torch.ops.rank import monotone_key_descending
+    from metrics_tpu_torch.ops.sketch import log_bucket_index
+
+    nb_auc = 1 << SKETCH_DLRM["tolerance_bits"]
+    ids = (monotone_key_descending(scores) >> (32 - SKETCH_DLRM["tolerance_bits"])).to(torch.int32)
+    pos = _plain_bincount(ids, target == 1, nb_auc)
+    out = {"pos_hist": pos, "neg_hist": _plain_bincount(ids, None, nb_auc) - pos}
+    del ids
+    nb = 1 << qs.bits
+    idx = log_bucket_index(scores.abs(), qs._log_gamma, qs.min_value, nb)
+    in_range = (idx >= 0) & (idx < nb)
+    out["pos_buckets"] = _plain_bincount(idx, (scores > 0) & in_range, nb)
+    out["neg_buckets"] = _plain_bincount(idx, (scores < 0) & in_range, nb)
+    del idx, in_range
+    scale = torch.tensor(drift.num_bins / (drift.high - drift.low), dtype=torch.float32)
+    slot = torch.clamp(torch.floor((scores - drift.low) * scale), -1.0, float(drift.num_bins)).to(torch.int32) + 1
+    out["ref_hist"] = _plain_bincount(slot[:half_rows], None, drift.num_bins + 2)
+    out["live_hist"] = _plain_bincount(slot[half_rows:], None, drift.num_bins + 2)
+    return out
+
+
+def sk_dlrm(torch, seed: int, smi: str) -> dict:
+    """Criteo day 23 through the tolerance-routed AUROC and AP, StreamingAUROCBound,
+    QuantileSketch and HistogramDrift; the exact tier on the same stream."""
+    import warnings
+
+    from metrics_tpu_torch.classification import BinaryAUROC, BinaryAveragePrecision
+    from metrics_tpu_torch.ops.rank import hist_ap_bounds, hist_auroc_bounds
+    from metrics_tpu_torch.sketches import HistogramDrift, QuantileSketch, StreamingAUROCBound
+
+    scores, target = dlrm_data(torch, seed)
+    n = scores.numel()
+    batches = dlrm_batches(scores, target, n)
+    half = len(batches) // 2
+    half_rows = half * DLRM["batch"]
+    tol, bits = SKETCH_DLRM["tolerance"], SKETCH_DLRM["tolerance_bits"]
+    routed = {"BinaryAUROC": BinaryAUROC(tolerance=tol, tolerance_bits=bits),
+              "BinaryAveragePrecision": BinaryAveragePrecision(tolerance=tol, tolerance_bits=bits),
+              "StreamingAUROCBound": StreamingAUROCBound(bits=bits)}
+    qs = QuantileSketch()
+    drift = HistogramDrift(num_bins=SKETCH_DLRM["drift_bins"])
+
+    def stream():
+        times = {name: timed_updates(torch, m, batches) for name, m in routed.items()}
+        times["QuantileSketch"] = timed_updates(torch, qs, [(p,) for p, _ in batches])
+        times["HistogramDrift"] = (timed_updates(torch, drift, [(p,) for p, _ in batches[:half]], True)
+                                   + timed_updates(torch, drift, [(p,) for p, _ in batches[half:]]))
+        return times
+
+    times, counted, stream_s = run_counted(torch, stream)
+    # two mask-mode launches an update for each class-histogram metric and QuantileSketch, one for drift
+    expect_launches("DLRM sketch updates", counted, histogram=9 * len(batches))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        values, counted_compute, _ = run_counted(
+            torch, lambda: {**{k: m.compute() for k, m in routed.items()}, "QuantileSketch": qs.compute(),
+                            "HistogramDrift": drift.compute()})
+    expect_launches("DLRM sketch computes", counted_compute)
+    width_warnings = [str(w.message) for w in caught if "exceeds tolerance" in str(w.message)]
+
+    # bit-equal to the plain histogram of the whole stream
+    plain = sketch_plain_states(torch, scores, target, half_rows, qs, drift)
+    states = {"pos_hist": [m.pos_hist for m in routed.values()], "neg_hist": [m.neg_hist for m in routed.values()],
+              "pos_buckets": [qs.pos_buckets], "neg_buckets": [qs.neg_buckets],
+              "ref_hist": [drift.ref_hist], "live_hist": [drift.live_hist]}
+    for name, got in states.items():
+        if not all(g.dtype == torch.int32 and torch.equal(g, plain[name]) for g in got):
+            raise AssertionError(f"DLRM sketch state {name} differs from the plain histogram")
+    del plain
+    edges = qs.edge_counts.tolist()
+    if edges != [0, 0, int((scores == 0).sum()), 0, 0] or int(qs.nan_count) != 0:
+        raise AssertionError(f"QuantileSketch edge counts {edges}, NaN count {int(qs.nan_count)}")
+
+    # the exact tier on the same stream
+    exact = {"BinaryAUROC": BinaryAUROC(cat_capacity=SKETCH_DLRM["exact_capacity"]),
+             "BinaryAveragePrecision": BinaryAveragePrecision(cat_capacity=SKETCH_DLRM["exact_capacity"])}
+    for preds, labels in batches:
+        for m in exact.values():
+            m.update(preds, labels)
+    exact_values, exact_counted, _ = run_counted(torch, lambda: {k: m.compute() for k, m in exact.items()})
+    expect_launches("DLRM exact computes", exact_counted, scan=2)
+    pos, neg = routed["BinaryAUROC"].pos_hist, routed["BinaryAUROC"].neg_hist
+    au_lo, au_hi = hist_auroc_bounds(pos, neg)
+    ap_lo, ap_hi = hist_ap_bounds(pos, neg)
+    brackets = {
+        "BinaryAUROC": bracket_check("BinaryAUROC", au_lo, au_hi, values["BinaryAUROC"], exact_values["BinaryAUROC"]),
+        "BinaryAveragePrecision": bracket_check("BinaryAveragePrecision", ap_lo, ap_hi,
+                                                values["BinaryAveragePrecision"],
+                                                exact_values["BinaryAveragePrecision"]),
+    }
+    bound = values["StreamingAUROCBound"]
+    for key, lo, hi in (("auroc", au_lo, au_hi), ("ap", ap_lo, ap_hi)):
+        if not (torch.equal(bound[f"{key}_lower"], lo) and torch.equal(bound[f"{key}_upper"], hi)):
+            raise AssertionError(f"StreamingAUROCBound's {key} bracket differs from the routed class's")
+
+    # quantiles against the exact order statistics of one sort
+    ordered = torch.sort(scores).values
+    quantiles = {}
+    for level, got, certified in zip(qs.quantiles, values["QuantileSketch"]["quantiles"].tolist(),
+                                     values["QuantileSketch"]["certified"].tolist()):
+        want = ordered[int(level * (n - 1))].item()
+        rel = abs(got - want) / abs(want)
+        quantiles[str(level)] = {"sketch": got, "exact": want, "rel_err": rel, "certified": certified}
+        if not certified or rel > qs.relative_error + QUANTILE_SLACK:
+            raise AssertionError(f"quantile {level}: {got} vs exact {want} (relative {rel})")
+    del ordered
+
+    def median(xs):
+        return statistics.median(xs)
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the width warning, recorded above, at every timed compute
+        compute_ms = {name: uncached_compute_ms(torch, m, reps=10)
+                      for name, m in {**routed, "QuantileSketch": qs, "HistogramDrift": drift}.items()}
+    exact_compute_ms = {name: uncached_compute_ms(torch, m, reps=3) for name, m in exact.items()}
+    state_bytes = {name: sum(getattr(m, s).numel() * getattr(m, s).element_size() for s in m._defaults)
+                   for name, m in {**routed, "QuantileSketch": qs, "HistogramDrift": drift}.items()}
+    exact_bytes = {name: sum(getattr(m, s).data.numel() * getattr(m, s).data.element_size() for s in m._defaults)
+                   for name, m in exact.items()}
+    record = {
+        "samples": n, "updates": len(batches), "reference_updates": half,
+        "update_ms_median": {k: median(v) for k, v in times.items()},
+        "launches_per_update": {"histogram": counted["histogram"] / len(batches)},
+        "stream_s": stream_s, "compute_ms": compute_ms, "exact_compute_ms": exact_compute_ms,
+        "brackets": brackets, "tolerance": tol, "tolerance_bits": bits, "width_warnings": width_warnings,
+        "quantiles": quantiles, "drift": {k: v.item() for k, v in values["HistogramDrift"].items()},
+        "state_bytes": state_bytes, "exact_state_bytes": exact_bytes, "states_bit_equal_to_plain": True,
+    }
+    # where an update's time goes: fresh metrics, one update of the first batch
+    fresh = {"BinaryAUROC": BinaryAUROC(tolerance=tol, tolerance_bits=bits),
+             "StreamingAUROCBound": StreamingAUROCBound(bits=bits), "QuantileSketch": QuantileSketch(),
+             "HistogramDrift": HistogramDrift(num_bins=SKETCH_DLRM["drift_bins"])}
+    first = {name: batches[0] if name in routed else (batches[0][0],) for name in fresh}
+    record["update_profile"] = {name: update_profile(torch, lambda m=m, a=first[name]: m.update(*a))
+                                for name, m in fresh.items()}
+    record["update_profile"]["BinaryAUROC(validate_args=False)"] = update_profile(
+        torch, lambda m=BinaryAUROC(tolerance=tol, tolerance_bits=bits, validate_args=False): m.update(*batches[0]))
+    emit({"phase": "sketches_dlrm", "card": smi, **record})
+    # the mask mode at this path's shape: the positive histogram of one update, 2^14 bins
+    from metrics_tpu_torch.ops.rank import monotone_key_descending
+
+    ids = (monotone_key_descending(batches[0][0]) >> (32 - bits)).to(torch.int32)
+    mask = batches[0][1] == 1
+    record["mask_mode"] = histogram_mode_timing(torch, ids, mask, 1 << bits, mask.float())
+    emit({"phase": "sketches_mask_mode", "card": smi, **record["mask_mode"]})
+    record["scan_launches"] = exact_counted["segment_scan"]
+    record["histogram_launches"] = counted["histogram"]
+    record["fused_batches"] = batches[:SKETCH_ENGINES["fused_steps"]]
+    return record
+
+
+def sk_ids(torch, seed: int, smi: str) -> None:
+    """Criteo-range categorical ids through DistinctCount at p = 12 and 14, against the
+    true distinct count and a CPU run of the port."""
+    from metrics_tpu_torch.sketches import DistinctCount
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 31)
+    n = DLRM["samples"]
+    ids = torch.randint(0, SKETCH_IDS["id_range"], (n,), generator=g, device="cuda")
+    batches = [(ids[s:s + DLRM["batch"]],) for s in range(0, n, DLRM["batch"])]
+    true = torch.unique(ids).numel()
+    out = {}
+    for p in SKETCH_IDS["p"]:
+        metric = DistinctCount(p=p)
+        times, counted, _ = run_counted(torch, lambda: timed_updates(torch, metric, batches))
+        expect_launches(f"DistinctCount(p={p}) updates", counted)
+        estimate = metric.compute().item()
+        limit = 3 * 1.04 / math.sqrt(1 << p)
+        rel = abs(estimate - true) / true
+        if metric.registers.dtype != torch.uint8 or rel > limit:
+            raise AssertionError(f"DistinctCount(p={p}): {estimate} vs {true} distinct ids (relative {rel} > {limit})")
+        cpu = DistinctCount(p=p, device="cpu")
+        t0 = time.perf_counter()
+        for s in range(0, n, SKETCH_IDS["cpu_chunk"]):
+            cpu.update(ids[s:s + SKETCH_IDS["cpu_chunk"]].cpu())
+        cpu_s = time.perf_counter() - t0
+        if not torch.equal(metric.registers.cpu(), cpu.registers):
+            raise AssertionError(f"DistinctCount(p={p}): registers differ from the CPU run's")
+        profile = update_profile(torch, lambda m=DistinctCount(p=p): m.update(*batches[0]))
+        out[p] = {"estimate": estimate, "true": true, "rel_err": rel, "limit_3_sigma": limit, "profile": profile,
+                  "update_ms_median": statistics.median(times), "launches_per_update": 0,
+                  "state_bytes": metric.state_bytes(), "cpu_run_s": cpu_s, "registers_equal_cpu": True}
+    emit({"phase": "sketches_ids", "card": smi, "ids": n, "id_range": SKETCH_IDS["id_range"], "p": out})
+
+
+def sk_imagenet(torch, seed: int, smi: str) -> dict:
+    """ImageNet-1k one-vs-rest through the tolerance-routed AUROC and AP: two batched
+    launches an update, the lanes bit-equal to the per-lane loop, every class's exact
+    value inside its bracket."""
+    import warnings
+
+    from metrics_tpu_torch.classification import MulticlassAUROC, MulticlassAveragePrecision
+    from metrics_tpu_torch.ops.histogram import _plain_batched_bincount, histogram_batched_cuda
+    from metrics_tpu_torch.ops.rank import (
+        _bucket_ids, hist_ap_bounds, hist_auroc_bounds, hist_class_counts, monotone_key_descending,
+    )
+
+    gi = torch.Generator(device="cuda").manual_seed(seed + 3)  # the curve phase's ImageNet data
+    c, m = IMAGENET["classes"], IMAGENET["samples"]
+    probs = torch.softmax(2.0 * torch.randn((m, c), generator=gi, device="cuda"), dim=1)
+    labels = torch.randint(0, c, (m,), generator=gi, device="cuda")
+    b = SKETCH_IMAGENET["batch"]
+    batches = [(probs[s:s + b], labels[s:s + b]) for s in range(0, m, b)]
+    tol = SKETCH_IMAGENET["tolerance"]
+    routed = {"MulticlassAUROC": MulticlassAUROC(c, average=None, tolerance=tol),
+              "MulticlassAveragePrecision": MulticlassAveragePrecision(c, average=None, tolerance=tol)}
+    bits = routed["MulticlassAUROC"].tolerance_bits
+    checked = SKETCH_IMAGENET["checked_updates"]
+
+    times, counted, _ = run_counted(torch, lambda: {k: timed_updates(torch, mt, batches[:checked])
+                                                    for k, mt in routed.items()})
+    expect_launches("ImageNet routed updates (first 3)", counted, batched=2 * len(routed) * checked)
+    # the per-lane loop of the JAX package: 2 single launches a class (comparison launches, not counted)
+    saved = all_launches()
+    lanes_pos = torch.zeros((c, 1 << bits), dtype=torch.int32, device="cuda")
+    lanes_neg = torch.zeros_like(lanes_pos)
+    for preds, target in batches[:checked]:
+        for k in range(c):
+            p, q = hist_class_counts(preds[:, k], target == k, target >= 0, bits)
+            lanes_pos[k] += p
+            lanes_neg[k] += q
+    for wrapper_name, wrapper in kernel_wrappers().items():
+        wrapper.launches = saved[wrapper_name]
+    for name, mt in routed.items():
+        if not (torch.equal(mt.pos_hist, lanes_pos) and torch.equal(mt.neg_hist, lanes_neg)):
+            raise AssertionError(f"{name}: the batched lanes differ from the per-lane loop after {checked} updates")
+    more, counted_rest, _ = run_counted(torch, lambda: {k: timed_updates(torch, mt, batches[checked:])
+                                                        for k, mt in routed.items()})
+    expect_launches("ImageNet routed updates", counted_rest, batched=2 * len(routed) * (len(batches) - checked))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        values = {k: mt.compute() for k, mt in routed.items()}
+    width_warnings = [str(w.message) for w in caught if "exceeds tolerance" in str(w.message)]
+
+    exact = {"MulticlassAUROC": MulticlassAUROC(c, average=None),
+             "MulticlassAveragePrecision": MulticlassAveragePrecision(c, average=None)}
+    for preds, target in batches:
+        for mt in exact.values():
+            mt.update(preds, target)
+    exact_values, exact_counted, _ = run_counted(torch, lambda: {k: mt.compute() for k, mt in exact.items()})
+    expect_launches("ImageNet exact computes", exact_counted, scan=2 * c)
+    worst = {}
+    for name, bounds in (("MulticlassAUROC", hist_auroc_bounds), ("MulticlassAveragePrecision", hist_ap_bounds)):
+        lo, hi = bounds(routed[name].pos_hist, routed[name].neg_hist)
+        want, got = exact_values[name], values[name]
+        inside = (want >= lo - BRACKET_ATOL) & (want <= hi + BRACKET_ATOL)
+        near = (got - want).abs() <= (hi - lo) / 2 + BRACKET_ATOL
+        if not bool((inside & near).all()):
+            raise AssertionError(f"{name}: {int((~(inside & near)).sum())} classes outside their brackets")
+        worst[name] = {"max_width": (hi - lo).max().item(), "mean_width": (hi - lo).mean().item(),
+                       "max_abs_err": (got - want).abs().max().item()}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the width warning, counted above, at every timed compute
+        compute_ms = {k: uncached_compute_ms(torch, mt, reps=5) for k, mt in routed.items()}
+    # the batched mode at this path's shape: one update's (1,000, 256) bucket ids, 4,096 bins
+    preds, target = batches[0]
+    ids = _bucket_ids(monotone_key_descending(preds).t(), bits).contiguous()
+    mask = (target.unsqueeze(0) == torch.arange(c, device="cuda").unsqueeze(1)).contiguous()
+    got = histogram_batched_cuda(ids, mask, 1 << bits)
+    if not torch.equal(got, _plain_batched_bincount(ids, mask, 1 << bits)):
+        raise AssertionError("batched mask mode != plain at the one-vs-rest shape")
+    total = c << bits
+    flat = (ids.long() + torch.arange(c, device="cuda").unsqueeze(1) * (1 << bits)).reshape(-1)
+    device = call_device_ms(torch, lambda: histogram_batched_cuda(ids, mask, 1 << bits), "histogram_batched")
+    batched = {
+        "shape": [c, ids.shape[1], 1 << bits], "max_abs_err": 0,
+        "event_ms": event_ms(torch, lambda: histogram_batched_cuda(ids, mask, 1 << bits)),
+        "device_ms": None if device is None else device["device_ms"],
+        "kernel_ms": None if device is None else device["hand_kernels_ms"],
+        "memset_ms": None if device is None else device["memset_ms"],
+        "plain_ms": event_ms(torch, lambda: _plain_batched_bincount(ids, mask, 1 << bits)),
+        "library_ms": event_ms(torch, lambda: torch.bincount(flat, weights=mask.reshape(-1).float(),
+                                                             minlength=total)),
+        "bound_ms": (ids.numel() * 5 + total * 4) / HBM_BYTES_PER_S * 1e3,
+    }
+    record = {
+        "samples": m, "classes": c, "updates": len(batches), "tolerance": tol, "tolerance_bits": bits,
+        "update_ms_median": {k: statistics.median(times[k] + more[k]) for k in routed},
+        "batched_launches_per_update": 2, "lanes_equal_per_lane_loop_updates": checked,
+        "compute_ms": compute_ms,
+        "exact_compute_ms_pr4_pr6": {"MulticlassAUROC": 984.9811401367188,
+                                     "MulticlassAveragePrecision": 1082.26416015625},
+        "state_bytes": {k: sum(getattr(mt, s).numel() * getattr(mt, s).element_size() for s in mt._defaults)
+                        for k, mt in routed.items()},
+        "exact_state_bytes": sum(x.numel() * x.element_size() for x in exact["MulticlassAUROC"].preds)
+        + sum(x.numel() * x.element_size() for x in exact["MulticlassAUROC"].target),
+        "brackets": worst, "width_warnings": len(width_warnings), "batched_mode": batched,
+    }
+    emit({"phase": "sketches_imagenet", "card": smi, **record})
+    record["batched_launches"] = counted["histogram_batched"] + counted_rest["histogram_batched"]
+    record["scan_launches"] = exact_counted["segment_scan"]
+    return record
+
+
+def sk_engines(torch, seed: int, smi: str, batches) -> dict:
+    """The three DLRM sketch-tier metrics fused over 200 updates, bit-equal to eager; a
+    16-stream DistinctCount fleet bit-equal to 16 sketches."""
+    from metrics_tpu_torch.classification import BinaryAUROC, BinaryAveragePrecision
+    from metrics_tpu_torch.core import MetricCollection
+    from metrics_tpu_torch.core.fleet import step_stats
+    from metrics_tpu_torch.core.fused import engine_for
+    from metrics_tpu_torch.sketches import DistinctCount, StreamingAUROCBound
+
+    tol, bits = SKETCH_DLRM["tolerance"], SKETCH_DLRM["tolerance_bits"]
+
+    def three():
+        return {"auroc": BinaryAUROC(tolerance=tol, tolerance_bits=bits),
+                "ap": BinaryAveragePrecision(tolerance=tol, tolerance_bits=bits),
+                "bound": StreamingAUROCBound(bits=bits)}
+
+    fused, eager = MetricCollection(three(), fused=True), three()
+    _, fused_counted, fused_s = run_counted(torch, lambda: [fused.update(p, t) for p, t in batches])
+    _, eager_counted, _ = run_counted(torch, lambda: [mt.update(p, t) for p, t in batches for mt in eager.values()])
+    # the eager step's launches, run once by the capture's warm-up and once by each replay
+    per_step = fused_counted["histogram"] // (len(batches) + 1)
+    expect_launches("fused sketch collection", fused_counted, histogram=per_step * (len(batches) + 1))
+    expect_launches("eager sketch metrics", eager_counted, histogram=6 * len(batches))
+    stats = dict(engine_for(fused).stats)
+    if stats["launches"] != len(batches) or stats["degrades"] or stats["fallback_groups"]:
+        raise AssertionError(f"fused sketch collection: stats {stats}")
+    for name, mt in eager.items():
+        for state in mt._defaults:
+            if not torch.equal(getattr(fused[name], state), getattr(mt, state)):
+                raise AssertionError(f"fused {name}.{state} differs from eager")
+    step_ms = event_ms(torch, lambda: fused.update(*batches[0]), reps=50)
+    eager_ms = event_ms(torch, lambda: [mt.update(*batches[0]) for mt in eager.values()], reps=50)
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 37)
+    size, rows = SKETCH_ENGINES["fleet_size"], SKETCH_ENGINES["fleet_rows"]
+    updates = [(torch.randint(0, SKETCH_IDS["id_range"], (rows,), generator=g, device="cuda"),
+                torch.randint(0, size, (rows,), generator=g, device="cuda"))
+               for _ in range(SKETCH_ENGINES["fleet_updates"])]
+    fleet = DistinctCount(p=12, fleet_size=size)
+    _, fleet_counted, _ = run_counted(torch, lambda: [fleet.update(x, stream_ids=i) for x, i in updates])
+    expect_launches("DistinctCount fleet", fleet_counted)
+    apart = [DistinctCount(p=12) for _ in range(size)]
+    for x, i in updates:
+        for s in range(size):
+            apart[s].update(x[i == s])
+    if step_stats(fleet)["launches"] != len(updates) or step_stats(fleet)["degrades"]:
+        raise AssertionError(f"DistinctCount fleet steps: {step_stats(fleet)}")
+    if not all(torch.equal(fleet.registers[s], apart[s].registers) for s in range(size)):
+        raise AssertionError("the DistinctCount fleet differs from 16 separate sketches")
+    x, i = updates[0]
+    record = {"fused_steps": len(batches), "fused_stats": stats, "fused_launches": fused_counted,
+              "fused_update_ms": step_ms, "eager_three_updates_ms": eager_ms, "fused_host_s": fused_s,
+              "fleet": {"size": size, "rows": rows, "updates": len(updates), "steps": step_stats(fleet),
+                        "update_ms": event_ms(torch, lambda: fleet.update(x, stream_ids=i), reps=20),
+                        "bit_equal_to_separate": True}}
+    emit({"phase": "sketches_engines", "card": smi, **record})
+    return record
+
+
+def phase_sketches(torch, seed: int, smi: str):
+    """The sketch family and the tolerance tier: the DLRM stream, Criteo ids, ImageNet
+    one-vs-rest and the engines. Returns the mask-mode and batched-mode timing records
+    and the histogram's, the batched histogram's and the scan's launches on this path."""
+    t0 = time.perf_counter()
+    dlrm = sk_dlrm(torch, seed, smi)
+    fused_batches = dlrm.pop("fused_batches")
+    engines = sk_engines(torch, seed, smi, fused_batches)
+    del fused_batches
+    torch.cuda.empty_cache()
+    sk_ids(torch, seed, smi)
+    torch.cuda.empty_cache()
+    imagenet = sk_imagenet(torch, seed, smi)
+    torch.cuda.empty_cache()
+    launches = {"histogram": dlrm["histogram_launches"] + engines["fused_launches"]["histogram"],
+                "histogram_batched": imagenet["batched_launches"],
+                "segment_scan": dlrm["scan_launches"] + imagenet["scan_launches"]}
+    emit({"phase": "sketches", "launches": launches, "seconds": time.perf_counter() - t0})
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5284,6 +5730,11 @@ def main() -> int:
     kernels[0]["launches"] += stacked["histogram"]
     batched["launches"] += stacked["histogram_batched"]
     scan["launches"] += stacked["segment_scan"]
+    torch.cuda.empty_cache()
+    sketches = phase_sketches(torch, args.seed, smi)
+    kernels[0]["launches"] += sketches["histogram"]
+    batched["launches"] += sketches["histogram_batched"]
+    scan["launches"] += sketches["segment_scan"]
 
     idle = [k["name"] for k in kernels if k["launches"] < 1]
     if idle:

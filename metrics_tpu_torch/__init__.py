@@ -11,8 +11,8 @@ the aggregators and ``functional``; the retrieval classes through shims that war
 (FID, KID, IS and PSNRB directly, the others through warning shims); the detection
 classes as the JAX root does (the panoptic two through warning shims); the regression
 classes, the audio classes as the JAX root does (PESQ and STOI directly, the other
-five through warning shims), the nominal classes and the wrappers. Families not ported
-yet, and LPIPS, are absent.
+five through warning shims), the nominal classes, the wrappers and the four sketches.
+Families not ported yet, and LPIPS, are absent.
 """
 from metrics_tpu_torch import functional
 from metrics_tpu_torch.audio import PerceptualEvaluationSpeechQuality, ShortTimeObjectiveIntelligibility
@@ -140,6 +140,7 @@ from metrics_tpu_torch.retrieval._deprecated import (
     _RetrievalRecallAtFixedPrecision as RetrievalRecallAtFixedPrecision,
     _RetrievalRPrecision as RetrievalRPrecision,
 )
+from metrics_tpu_torch.sketches import DistinctCount, HistogramDrift, QuantileSketch, StreamingAUROCBound
 from metrics_tpu_torch.wrappers import BootStrapper, ClasswiseWrapper, MetricTracker, MinMaxMetric, MultioutputWrapper
 
 __all__ = [
@@ -174,4 +175,6 @@ __all__ = [
     # nominal and wrappers
     "CramersV", "PearsonsContingencyCoefficient", "TheilsU", "TschuprowsT",
     "BootStrapper", "ClasswiseWrapper", "MetricTracker", "MinMaxMetric", "MultioutputWrapper",
+    # sketches
+    "DistinctCount", "HistogramDrift", "QuantileSketch", "StreamingAUROCBound",
 ]

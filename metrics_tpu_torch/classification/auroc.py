@@ -2,7 +2,9 @@
 
 In exact mode each ``compute`` runs the device kernels of
 :mod:`metrics_tpu_torch.ops.clf_curve`: one segmented-scan kernel launch per binary
-run (per class or label in the one-vs-rest and per-label classes).
+run (per class or label in the one-vs-rest and per-label classes). With
+``tolerance > 0`` (JAX :55-64, 108-109, 144-148) ``compute`` serves the certified
+bracket midpoint of the sketch tier's histogram states instead.
 """
 from typing import Any, Optional
 
@@ -21,6 +23,7 @@ from metrics_tpu_torch.functional.classification.auroc import (
     _multiclass_auroc_compute,
     _multilabel_auroc_arg_validation,
     _multilabel_auroc_compute,
+    _reduce_scores,
 )
 from metrics_tpu_torch.functional.classification.precision_recall_curve import Thresholds
 from metrics_tpu_torch.utils.enums import ClassificationTask
@@ -47,10 +50,16 @@ class BinaryAUROC(BinaryPrecisionRecallCurve):
         super().__init__(thresholds=thresholds, ignore_index=ignore_index, validate_args=False, **kwargs)
         if validate_args:
             _binary_auroc_arg_validation(max_fpr, thresholds, ignore_index)
+        if self.tolerance > 0 and max_fpr is not None and max_fpr != 1:
+            raise ValueError(
+                "`tolerance > 0` certifies full-range AUROC only; partial-AUC `max_fpr` needs the exact tier."
+            )
         self.max_fpr = max_fpr
         self.validate_args = validate_args
 
     def compute(self) -> Tensor:
+        if self.tolerance > 0:
+            return self._sketch_scores("auroc", "binary_auroc")[0]
         return _binary_auroc_compute(self._curve_state(), self.thresholds, self.max_fpr)
 
 
@@ -83,6 +92,9 @@ class MulticlassAUROC(MulticlassPrecisionRecallCurve):
         self.validate_args = validate_args
 
     def compute(self) -> Tensor:
+        if self.tolerance > 0:
+            res, pos = self._sketch_scores("auroc", "multiclass_auroc")
+            return _reduce_scores(res, self.average, weights=pos)
         return _multiclass_auroc_compute(self._curve_state(), self.num_classes, self.average, self.thresholds)
 
 
@@ -115,6 +127,11 @@ class MultilabelAUROC(MultilabelPrecisionRecallCurve):
         self.validate_args = validate_args
 
     def compute(self) -> Tensor:
+        if self.tolerance > 0:
+            if self.average == "micro":  # the summed lanes are the micro flatten
+                return self._sketch_scores("auroc", "multilabel_auroc", micro=True)[0]
+            res, pos = self._sketch_scores("auroc", "multilabel_auroc")
+            return _reduce_scores(res, self.average, weights=pos)
         return _multilabel_auroc_compute(
             self._curve_state(), self.num_labels, self.average, self.thresholds, self.ignore_index
         )

@@ -2,11 +2,15 @@
 ``metrics_tpu/classification/precision_recall_curve.py``).
 
 State: ``preds``/``target`` cat lists of the formatted scores and targets
-(``thresholds=None``, exact mode), or one summed ``(T, ..., 2, 2)`` int64
-``confmat`` (binned mode). The JAX package's third mode, per-class bucket
-histograms behind ``tolerance > 0`` (its sketch tier), is not ported: the knobs
-keep their defaults and validation, and a scalar AUROC/AP class asked for
-``tolerance > 0`` raises ``NotImplementedError``.
+(``thresholds=None``, exact mode), one summed ``(T, ..., 2, 2)`` int64 ``confmat``
+(binned mode), or, for the scalar AUROC/AP subclasses with ``tolerance > 0`` (the
+sketch tier, JAX :61-175), int32 ``pos_hist``/``neg_hist`` bucket histograms of the
+top ``tolerance_bits`` score-key bits, ``(2^bits,)`` or ``(C, 2^bits)`` one-vs-rest
+or per label: fixed-size state, no cat buffer and no sort; ``compute`` serves the
+certified bracket's midpoint (``ops/rank.py``). An update counts a binary metric in
+two mask-mode launches of the histogram kernel, and all C lanes of a multiclass or
+multilabel one in two launches of its batched mode over the ``(C, N)`` bucket ids
+(the JAX package launches twice a lane); the counts are the same.
 """
 from typing import Any, List, Optional, Tuple, Union
 
@@ -15,6 +19,7 @@ from torch import Tensor
 
 from metrics_tpu_torch.core.metric import Metric
 from metrics_tpu_torch.core.state import CatBuffer
+from metrics_tpu_torch.ops import rank as _rank
 from metrics_tpu_torch.functional.classification.precision_recall_curve import (
     Thresholds,
     _adjust_threshold_arg,
@@ -37,6 +42,7 @@ from metrics_tpu_torch.functional.classification.precision_recall_curve import (
 from metrics_tpu_torch.utils.checks import _is_concrete
 from metrics_tpu_torch.utils.data import _count_dtype, dim_zero_cat
 from metrics_tpu_torch.utils.enums import ClassificationTask
+from metrics_tpu_torch.utils.prints import rank_zero_warn
 
 
 def _exact_cat_state(preds_state: Any, target_state: Any) -> Tuple[Tensor, Tensor]:
@@ -55,9 +61,11 @@ def _exact_cat_state(preds_state: Any, target_state: Any) -> Tuple[Tensor, Tenso
 
 
 class _PrecisionRecallCurveBase(Metric):
-    """Shared state handling of the curve family: exact cat lists or a binned confmat."""
+    """Shared state handling of the curve family: exact cat lists, a binned confmat or
+    the sketch tier's bucket histograms."""
 
-    # the scalar AUROC/AP subclasses are the ones the JAX package's sketch tier serves
+    # the scalar AUROC/AP subclasses take the sketch tier; curve-shaped outputs need
+    # the exact state
     _sketch_computable: bool = False
 
     def _init_curve_state(
@@ -71,8 +79,10 @@ class _PrecisionRecallCurveBase(Metric):
         """Validate the tolerance knobs as the JAX package does, then register the states.
 
         ``confmat_shape`` is the per-threshold shape of the binned confusion tensor; its
-        leading axes are the shape of one exact ``preds`` row, and ``target_item_shape``
-        that of one ``target`` row (for ``cat_capacity`` buffers).
+        leading axes are the shape of one exact ``preds`` row (and the lanes of the
+        sketch histograms), and ``target_item_shape`` that of one ``target`` row (for
+        ``cat_capacity`` buffers). The checks are structural and run even with
+        ``validate_args=False``.
         """
         self.tolerance = float(tolerance)
         self.tolerance_bits = int(tolerance_bits)
@@ -91,10 +101,13 @@ class _PrecisionRecallCurveBase(Metric):
                     "`tolerance > 0` applies to exact mode only — binned mode (`thresholds` set) "
                     "is already constant-memory."
                 )
-            raise NotImplementedError("tolerance > 0 routes to the sketch tier, which is not ported yet")
         thresholds = _adjust_threshold_arg(thresholds, self.device)
         self.register_buffer("thresholds", thresholds, persistent=False)
-        if thresholds is None:
+        if self.tolerance > 0:
+            shape = (*confmat_shape[:-2], 1 << self.tolerance_bits)
+            self.add_state("pos_hist", torch.zeros(shape, dtype=torch.int32), dist_reduce_fx="sum")
+            self.add_state("neg_hist", torch.zeros(shape, dtype=torch.int32), dist_reduce_fx="sum")
+        elif thresholds is None:
             self.add_state(
                 "preds", [], dist_reduce_fx="cat", cat_item_shape=confmat_shape[:-2], cat_dtype=torch.float32
             )
@@ -112,6 +125,51 @@ class _PrecisionRecallCurveBase(Metric):
             self.target.append(state[1])
         else:
             self.confmat = self.confmat + state
+
+    def _sketch_update(self, preds: Tensor, target: Tensor) -> None:
+        """Accumulate the class bucket histograms of formatted inputs (ignored targets
+        -1). 2-D ``preds`` are one-vs-rest lanes: beside a 1-D label vector
+        (multiclass) or per-label targets whose validity is per lane (multilabel)."""
+        bits = self.tolerance_bits
+        if preds.dim() == 1:
+            pos, neg = _rank.hist_class_counts(preds, target == 1, target >= 0, bits)
+        else:
+            if target.dim() == 1:  # multiclass one-vs-rest
+                lanes = torch.arange(preds.shape[1], device=preds.device)
+                valid = (target >= 0).unsqueeze(1).expand(preds.shape)
+                pos_mask = target.unsqueeze(1) == lanes
+            else:  # multilabel
+                valid, pos_mask = target >= 0, target == 1
+            keys = _rank.monotone_key_descending(preds, valid)
+            pos, neg = _rank.class_bucket_counts_lanes(keys.t(), pos_mask.t(), valid.t(), bits)
+        self.pos_hist = self.pos_hist + pos
+        self.neg_hist = self.neg_hist + neg
+
+    def _sketch_scores(self, kind: str, op: str, micro: bool = False) -> Tuple[Tensor, Tensor]:
+        """(bracket midpoint, positive totals) from the histogram states, as float32.
+
+        ``micro`` sums the lanes first (they share one key space: the micro flatten).
+        Warns when the realized bracket is wider than ``tolerance`` (scores packed into
+        few binades defeat the exponent-keyed buckets); the midpoint is still inside it.
+        """
+        pos, neg = self.pos_hist, self.neg_hist
+        if micro:
+            pos, neg = pos.sum(0), neg.sum(0)
+        lo, hi = (_rank.hist_auroc_bounds if kind == "auroc" else _rank.hist_ap_bounds)(pos, neg)
+        pos_tot = torch.sum(pos, -1)
+        _rank.record_dispatch("sketch", op)
+        width = torch.max(hi - lo)
+        if _is_concrete(width) and float(width) > self.tolerance:
+            rank_zero_warn(
+                f"Certified bound width {float(width):.3g} exceeds tolerance={self.tolerance} at "
+                f"tolerance_bits={self.tolerance_bits}. The served midpoint still lies inside the "
+                "certificate; raise `tolerance_bits` or use `tolerance=0` (exact tier) if needed.",
+                UserWarning,
+            )
+        mid = 0.5 * (lo + hi)
+        if kind == "ap":
+            mid = torch.where(pos_tot > 0, mid, float("nan"))  # the exact tier's no-positives NaN
+        return mid.to(torch.float32), pos_tot.to(torch.float32)
 
     def _curve_state(self) -> Union[Tensor, Tuple[Tensor, Tensor]]:
         """The binned confusion tensor, or the exact (preds, target) of
@@ -151,6 +209,9 @@ class BinaryPrecisionRecallCurve(_PrecisionRecallCurveBase):
         if self.validate_args:
             _binary_precision_recall_curve_tensor_validation(preds, target, self.ignore_index)
         preds, target, _ = _binary_precision_recall_curve_format(preds, target, None, self.ignore_index)
+        if self.tolerance > 0:
+            self._sketch_update(preds, target)
+            return
         self._accumulate(_binary_precision_recall_curve_update(preds, target, self.thresholds))
 
     def compute(self) -> Tuple[Tensor, Tensor, Tensor]:
@@ -191,6 +252,9 @@ class MulticlassPrecisionRecallCurve(_PrecisionRecallCurveBase):
         preds, target, _ = _multiclass_precision_recall_curve_format(
             preds, target, self.num_classes, None, self.ignore_index
         )
+        if self.tolerance > 0:
+            self._sketch_update(preds, target)
+            return
         self._accumulate(_multiclass_precision_recall_curve_update(preds, target, self.num_classes, self.thresholds))
 
     def compute(self) -> Union[Tuple[Tensor, Tensor, Tensor], Tuple[List[Tensor], List[Tensor], List[Tensor]]]:
@@ -231,6 +295,9 @@ class MultilabelPrecisionRecallCurve(_PrecisionRecallCurveBase):
         preds, target, _ = _multilabel_precision_recall_curve_format(
             preds, target, self.num_labels, None, self.ignore_index
         )
+        if self.tolerance > 0:
+            self._sketch_update(preds, target)
+            return
         self._accumulate(_multilabel_precision_recall_curve_update(preds, target, self.num_labels, self.thresholds))
 
     def compute(self) -> Union[Tuple[Tensor, Tensor, Tensor], Tuple[List[Tensor], List[Tensor], List[Tensor]]]:

@@ -24,6 +24,11 @@ leader, and shared with the members again.
 A fleet metric (``fleet_size=N``) takes a JAX fleet's ``(N, *base)`` states and its
 ``_fleet_rows`` like any other state.
 
+The sketch states load bit for bit in the JAX package's dtypes: the int32 histograms
+of the sketches and of the ``tolerance > 0`` AUROC/AP classes (``pos_hist``,
+``neg_hist``, ``pos_buckets``, ``neg_buckets``, ``edge_counts``, ``nan_count``,
+``ref_hist``, ``live_hist``) and ``DistinctCount``'s uint8 ``registers``.
+
 A state with ``dist_reduce_fx=None`` may come stacked, as a sync leaves it (a leading
 process axis, e.g. FID's ``(k, D)`` means, or Pearson's six ``(k, num_outputs)``
 moments, which ``compute`` merges); FID's lazily sized moments are sized from

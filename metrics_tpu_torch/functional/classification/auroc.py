@@ -3,8 +3,8 @@
 Exact mode (``thresholds=None``) runs the fixed-shape device kernels of
 :mod:`metrics_tpu_torch.ops.clf_curve` (sort, cumsum, and the segmented-scan kernel
 on the card); binned mode integrates the ROC of the confusion tensor.
-``tolerance > 0`` asks for the JAX package's sketch tier, which is not ported yet,
-and raises ``NotImplementedError``.
+``tolerance > 0`` lets the binary exact mode serve the sketch tier's certified
+bracket midpoint when the bracket fits (``ops/clf_curve.py:_sketch_dispatch``).
 """
 from typing import List, Optional, Tuple, Union
 

@@ -3,7 +3,8 @@
 
 Exact mode runs the device kernels of :mod:`metrics_tpu_torch.ops.clf_curve`;
 binned mode takes the Riemann sum over the precision-recall curve of the confusion
-tensor. ``tolerance > 0`` raises ``NotImplementedError`` (sketch tier not ported).
+tensor. ``tolerance > 0`` lets the binary exact mode serve the sketch tier's
+certified bracket midpoint when the bracket fits (``ops/clf_curve.py:_sketch_dispatch``).
 """
 from typing import List, Optional, Tuple, Union
 

@@ -32,8 +32,17 @@ the eager curves' data-dependent length cannot be: the same sort and scan, the
 curve's points front-packed into arrays of the padded input's length. They keep the
 JAX package's power-of-two padding, so their shapes are its shapes. The whole
 post-sort tail reads nothing on the host and runs under ``vmap``, where a stack of
-curves is one batched sort and one scan launch. Not ported: the ``tolerance > 0``
-sketch tier, which raises ``NotImplementedError``.
+curves is one batched sort and one scan launch.
+
+``tolerance > 0`` on the scalar entry points (:func:`_sketch_dispatch`, JAX
+``ops/clf_curve.py:205-250``) probes the bucket-histogram bracket of
+:mod:`metrics_tpu_torch.ops.rank` (two mask-mode histogram launches, no sort) and
+serves its midpoint when its width fits the tolerance (a host read, as in the JAX
+package), falling back to the exact tier otherwise; inside a trace (a ``torch.func``
+transform, a CUDA-graph capture, an engine's step) the width cannot be read and the
+exact tier serves. The JAX package's serve-side executable cache (``_warm_record``)
+has no counterpart in the port yet. Each entry point counts its tier with
+``ops/rank.py:record_dispatch`` and runs inside ``rank_scope``.
 """
 from typing import Optional, Tuple
 
@@ -42,6 +51,7 @@ from torch import Tensor
 
 from metrics_tpu_torch.ops import rank as _rank
 from metrics_tpu_torch.ops.segment import segment_multi_scan
+from metrics_tpu_torch.utils.checks import _is_concrete
 
 _INT32_MAX = (1 << 31) - 1
 
@@ -253,9 +263,33 @@ def binary_roc_curve_padded(preds: Tensor, target: Tensor) -> Tuple[Tensor, Tens
     return _binary_roc_padded_kernel(preds, target, valid, _rank.select_tier(preds))
 
 
-def _check_tolerance(tolerance: float) -> None:
-    if tolerance and tolerance > 0:
-        raise NotImplementedError("tolerance > 0 routes to the sketch tier, which is not ported yet")
+def _sketch_dispatch(
+    op: str, preds: Tensor, target: Tensor, valid: Tensor, tolerance: float, bits: int, kind: str
+) -> Optional[Tensor]:
+    """The tolerance route of the scalar AUROC/AP entry points: the certified bracket
+    midpoint, or None when the exact tier must serve.
+
+    Taken when the tier is forced to ``"sketch"`` (no width check), or when
+    ``tolerance > 0``, the inputs may be read on the host, and the bracket at ``bits``
+    is at most ``tolerance`` wide. The midpoint is within width/2 of the exact value;
+    AUROC keeps the exact tier's 0.0 and AP its NaN when a class is absent.
+    """
+    forced = _rank.forced_tier()
+    if forced not in (None, "sketch"):
+        return None
+    if forced != "sketch" and (not tolerance or tolerance <= 0 or not _is_concrete(preds, target)):
+        return None
+    if kind == "auroc":
+        lo, hi = _rank.sketch_auroc_bracket(preds, target, valid, bits=bits)
+        pos_tot = None
+    else:
+        lo, hi, pos_tot = _rank.sketch_ap_bracket(preds, target, valid, bits=bits)
+    if forced != "sketch" and float(hi - lo) > tolerance:
+        return None
+    _rank.record_dispatch("sketch", op)
+    with _rank.rank_scope("sketch"):
+        mid = 0.5 * (lo + hi)
+        return mid if pos_tot is None else torch.where(pos_tot > 0, mid, float("nan"))
 
 
 def binary_auroc_exact(
@@ -269,23 +303,38 @@ def binary_auroc_exact(
 
     ``max_fpr`` in (0, 1) gives the McClish-standardized partial AUC; None or 1 the
     full area (0.0 on single-class data, as the reference's safe division gives).
+    ``tolerance > 0`` lets the full area take the sketch tier when its certified
+    bracket at ``tolerance_bits`` fits (:func:`_sketch_dispatch`); a partial AUC has
+    no certificate and always takes the exact tier.
     """
-    _check_tolerance(tolerance)
     preds, target, valid = _pad_binary(preds, target)
+    full = max_fpr is None or max_fpr == 1
+    if full:
+        routed = _sketch_dispatch("binary_auroc", preds, target, valid, tolerance, tolerance_bits, "auroc")
+        if routed is not None:
+            return routed
     tier = _rank.select_tier(preds)
-    if max_fpr is None or max_fpr == 1:
-        return _binary_auroc_kernel(preds, target, valid, None, tier)
-    bound = torch.tensor(max_fpr, dtype=torch.float32, device=preds.device)
-    return _binary_auroc_kernel(preds, target, valid, bound, tier)
+    _rank.record_dispatch(tier, "binary_auroc")
+    with _rank.rank_scope(tier):
+        if full:
+            return _binary_auroc_kernel(preds, target, valid, None, tier)
+        bound = torch.tensor(max_fpr, dtype=torch.float32, device=preds.device)
+        return _binary_auroc_kernel(preds, target, valid, bound, tier)
 
 
 def binary_average_precision_exact(
     preds: Tensor, target: Tensor, tolerance: float = 0.0, tolerance_bits: int = 12
 ) -> Tensor:
-    """Exact binary average precision on the inputs' device; NaN with no positives."""
-    _check_tolerance(tolerance)
+    """Exact binary average precision on the inputs' device; NaN with no positives.
+    ``tolerance > 0`` as for :func:`binary_auroc_exact`."""
     preds, target, valid = _pad_binary(preds, target)
-    return _binary_ap_kernel(preds, target, valid, _rank.select_tier(preds))[0]
+    routed = _sketch_dispatch("binary_ap", preds, target, valid, tolerance, tolerance_bits, "ap")
+    if routed is not None:
+        return routed
+    tier = _rank.select_tier(preds)
+    _rank.record_dispatch(tier, "binary_ap")
+    with _rank.rank_scope(tier):
+        return _binary_ap_kernel(preds, target, valid, tier)[0]
 
 
 # ------------------------------------------------------------- one-vs-rest tiers
@@ -297,46 +346,50 @@ def _binary_auroc_with_pos(preds: Tensor, target: Tensor, valid: Tensor, tier: s
     return _trapz(tpr0, fpr0), pos
 
 
-def _per_column(kernel, preds2d: Tensor, targets) -> Tuple[Tensor, Tensor]:
-    """Run ``kernel(column, target, valid, tier)`` over the columns and stack."""
+def _per_column(kernel, preds2d: Tensor, targets, op: Optional[str] = None) -> Tuple[Tensor, Tensor]:
+    """Run ``kernel(column, target, valid, tier)`` over the columns and stack; ``op``
+    names the call for :func:`~metrics_tpu_torch.ops.rank.record_dispatch`."""
     tier = _rank.select_tier(preds2d[:, 0])
+    if op is not None:
+        _rank.record_dispatch(tier, op)
     cols = preds2d.t().contiguous()
     scores, pos = [], []
-    for c in range(cols.shape[0]):
-        t = targets(c)
-        s, p = kernel(cols[c], t, t >= 0, tier)
-        scores.append(s)
-        pos.append(p)
+    with _rank.rank_scope(tier):
+        for c in range(cols.shape[0]):
+            t = targets(c)
+            s, p = kernel(cols[c], t, t >= 0, tier)
+            scores.append(s)
+            pos.append(p)
     return torch.stack(scores), torch.stack(pos)
 
 
-def _ovr(kernel, preds2d: Tensor, target: Tensor) -> Tuple[Tensor, Tensor]:
+def _ovr(kernel, preds2d: Tensor, target: Tensor, op: Optional[str] = None) -> Tuple[Tensor, Tensor]:
     """Multiclass: binarize a shared label vector one-vs-rest per class."""
     target = target.reshape(-1).to(torch.int32)
-    return _per_column(kernel, preds2d, lambda c: torch.where(target >= 0, (target == c).to(torch.int32), -1))
+    return _per_column(kernel, preds2d, lambda c: torch.where(target >= 0, (target == c).to(torch.int32), -1), op)
 
 
-def _perlabel(kernel, preds2d: Tensor, target2d: Tensor) -> Tuple[Tensor, Tensor]:
+def _perlabel(kernel, preds2d: Tensor, target2d: Tensor, op: Optional[str] = None) -> Tuple[Tensor, Tensor]:
     """Multilabel: an independent target column (and ignore mask) per label."""
     cols = target2d.to(torch.int32).t().contiguous()
-    return _per_column(kernel, preds2d, lambda c: cols[c])
+    return _per_column(kernel, preds2d, lambda c: cols[c], op)
 
 
 def multiclass_auroc_exact(preds2d: Tensor, target: Tensor) -> Tuple[Tensor, Tensor]:
     """Per-class exact AUROC and positive counts; rows with target < 0 excluded."""
-    return _ovr(_binary_auroc_with_pos, preds2d, target)
+    return _ovr(_binary_auroc_with_pos, preds2d, target, "multiclass_auroc")
 
 
 def multiclass_average_precision_exact(preds2d: Tensor, target: Tensor) -> Tuple[Tensor, Tensor]:
-    return _ovr(_binary_ap_kernel, preds2d, target)
+    return _ovr(_binary_ap_kernel, preds2d, target, "multiclass_ap")
 
 
 def multilabel_auroc_exact(preds2d: Tensor, target2d: Tensor) -> Tuple[Tensor, Tensor]:
-    return _perlabel(_binary_auroc_with_pos, preds2d, target2d)
+    return _perlabel(_binary_auroc_with_pos, preds2d, target2d, "multilabel_auroc")
 
 
 def multilabel_average_precision_exact(preds2d: Tensor, target2d: Tensor) -> Tuple[Tensor, Tensor]:
-    return _perlabel(_binary_ap_kernel, preds2d, target2d)
+    return _perlabel(_binary_ap_kernel, preds2d, target2d, "multilabel_ap")
 
 
 # ---------------------------------------------------------------- fixed points

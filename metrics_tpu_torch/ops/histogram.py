@@ -291,3 +291,16 @@ def bincount(x: Tensor, num_bins: int) -> Tensor:
 def bincount_weighted(x: Tensor, weights: Tensor, num_bins: int) -> Tensor:
     """Weighted histogram with drop semantics (int32 for a bool/uint8 mask)."""
     return _dispatch(x, weights, num_bins)
+
+
+def bincount_batched(x: Tensor, weights: Optional[Tensor], num_bins: int) -> Tensor:
+    """``(B, k)`` ids -> ``(B, num_bins)`` histograms, one per row, with drop semantics
+    (int32 for counts and bool/uint8 masks): one launch of the kernel's batched mode on
+    the card, through the custom op under a ``torch.func`` transform."""
+    rows = x.shape[0]
+    if x.numel() == 0:
+        return torch.zeros((rows, num_bins), dtype=_out_dtype(weights), device=x.device)
+    if torch._C._are_functorch_transforms_active():
+        flat_weights = None if weights is None else weights.reshape(-1)
+        return torch.ops.metrics_tpu_torch.bincount(x.reshape(-1), flat_weights, num_bins, rows).reshape(rows, num_bins)
+    return _batched_dispatch(x, weights, num_bins)

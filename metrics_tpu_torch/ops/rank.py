@@ -23,11 +23,24 @@ Since the regression slice, also :func:`average_ranks`, the tie-averaged ranks o
 Spearman's correlation (``metrics_tpu/functional/regression/spearman.py:_rank_data``)
 for every column at once, on the segmented scan.
 
-Not in this slice: the bucket-histogram machinery and the sketch tier (:235-451),
-``record_dispatch`` and ``rank_scope``.
+Since the sketch slice, also ``record_dispatch`` and ``rank_scope`` (:172-195) and
+the bucket-histogram machinery and sketch tier (:235-451): per-bucket class counts of
+the top ``bits`` key bits on the histogram kernel (:func:`class_bucket_counts`, two
+mask-mode launches; :func:`class_bucket_counts_lanes`, the one-vs-rest lanes in two
+launches of the kernel's batched mode), the certified AUROC and average-precision
+brackets from them, and the tolerance route's bracket functions. The JAX package
+counts in float32 pair arithmetic; so does the port, so its AUROC bounds match within
+rounding. Its AP bounds do not: the JAX package's ψ expansion has a sign error
+(:func:`_psi_diff`) and its upper bound leaves out runs of tied positives
+(:func:`average_precision_bounds_from_hists`), so its bracket can miss the exact value;
+the port does not copy either fault. Its 2-D ``hist_*_bounds`` vmap over lanes; the port's are batched tensor
+ops along the last dimension of ``(C, 2^bits)``. ``record_dispatch`` counts into a
+module-level counter under the JAX registry's names (the port has no ``obs`` yet):
+:func:`dispatch_counts` reads it, :func:`reset_dispatch_counts` clears it.
 """
+from collections import Counter
 from contextlib import contextmanager
-from typing import Iterator, Optional, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 from torch import Tensor
@@ -129,14 +142,14 @@ def key_to_f32_descending(keys: Tensor) -> Tensor:
 
 @contextmanager
 def force_tier(tier: Optional[str]) -> Iterator[None]:
-    """Pin the exact-curve tier to ``"rank"`` or ``"sort"`` (None restores auto).
+    """Pin the tier to ``"rank"``, ``"sort"`` or ``"sketch"`` (None restores auto).
 
-    The JAX package's ``"sketch"`` tier is not ported: pinning it raises.
+    ``"sketch"`` applies to the scalar AUROC/AP entry points (``ops/clf_curve.py``),
+    which then serve the bracket midpoint without the width check; every other op
+    sees :func:`select_tier` take it as ``"sort"``.
     """
     global _FORCED_TIER
-    if tier == "sketch":
-        raise NotImplementedError("the sketch tier of the exact curve kernels is not ported yet")
-    if tier not in (None, "rank", "sort"):
+    if tier not in (None, "rank", "sort", "sketch"):
         raise ValueError(f"unknown rank tier: {tier!r}")
     prev = _FORCED_TIER
     _FORCED_TIER = tier
@@ -157,10 +170,34 @@ def select_tier(x: Tensor) -> str:
     Under ``torch.func.vmap`` ``numel`` is one sample's: a stack of copies takes the
     tier that each copy alone would."""
     if _FORCED_TIER is not None:
-        return _FORCED_TIER
+        return "sort" if _FORCED_TIER == "sketch" else _FORCED_TIER
     if x.numel() >= RANK_MIN_SIZE and x.device.type == "cuda":
         return "rank"
     return "sort"
+
+
+_DISPATCH_COUNTS: Counter = Counter()
+
+
+def record_dispatch(tier: str, op: str) -> None:
+    """Count which tier served a call of ``op``: ``rank/dispatch/<tier>`` and
+    ``rank/op/<op>``, the JAX package's registry names."""
+    _DISPATCH_COUNTS[f"rank/dispatch/{tier}"] += 1
+    _DISPATCH_COUNTS[f"rank/op/{op}"] += 1
+
+
+def dispatch_counts() -> Dict[str, int]:
+    """The counts :func:`record_dispatch` has kept since the last reset."""
+    return dict(_DISPATCH_COUNTS)
+
+
+def reset_dispatch_counts() -> None:
+    _DISPATCH_COUNTS.clear()
+
+
+def rank_scope(tier: str):
+    """A ``tm.rank/<tier>`` range in a ``torch.profiler`` trace."""
+    return torch.profiler.record_function(f"tm.rank/{tier}")
 
 
 def rank_run_end_counts(preds: Tensor, target: Tensor, valid: Tensor) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
@@ -180,6 +217,161 @@ def rank_run_end_counts(preds: Tensor, target: Tensor, valid: Tensor) -> Tuple[T
     slab = lab[order]
     fps, tps, boundary = _fps_tps_from_sorted(skey, slab == 1, (slab != 2).sum(dtype=torch.int32))
     return fps, tps, _sortable_key_to_f32(skey), boundary
+
+
+# ------------------------------------------------- bucket histogram machinery
+
+
+def _bucket_ids(keys: Tensor, bits: int) -> Tensor:
+    """int32 bucket of each uint32 key (held in int64): its top ``bits`` bits."""
+    if not 1 <= bits <= 32:
+        raise ValueError(f"bits must be in [1, 32], got {bits}")
+    return (keys >> (32 - bits)).to(torch.int32)
+
+
+def bucket_counts(keys: Tensor, bits: int, weights: Optional[Tensor] = None) -> Tensor:
+    """Histogram of the top ``bits`` bits of uint32 keys (held in int64) over ``2^bits``
+    bins: int32 for counts and bool masks (the kernel's count and mask modes on the
+    card up to 2^14 bins, the scatter-add path above), float32 for float32 weights."""
+    from metrics_tpu_torch.ops.histogram import bincount, bincount_weighted
+
+    buckets = _bucket_ids(keys, bits)
+    if weights is None:
+        return bincount(buckets, 1 << bits)
+    return bincount_weighted(buckets, weights, 1 << bits)
+
+
+def class_bucket_counts(keys: Tensor, pos_mask: Tensor, valid: Tensor, bits: int) -> Tuple[Tensor, Tensor]:
+    """(pos_hist, neg_hist) over the top ``bits`` key bits; invalid rows drop out. Two
+    mask-mode launches on the card, as the JAX package's two histograms."""
+    pos_hist = bucket_counts(keys, bits, pos_mask & valid)
+    all_hist = bucket_counts(keys, bits, valid)
+    return pos_hist, all_hist - pos_hist
+
+
+def class_bucket_counts_lanes(keys: Tensor, pos_mask: Tensor, valid: Tensor, bits: int) -> Tuple[Tensor, Tensor]:
+    """:func:`class_bucket_counts` of every lane of ``(C, N)`` keys and masks at once:
+    ``(C, 2^bits)`` histograms from two launches of the kernel's batched mode, bit-equal
+    to a loop of the one-lane form (the JAX package's two launches a lane)."""
+    from metrics_tpu_torch.ops.histogram import bincount_batched
+
+    buckets = _bucket_ids(keys, bits).contiguous()
+    pos_hist = bincount_batched(buckets, (pos_mask & valid).contiguous(), 1 << bits)
+    all_hist = bincount_batched(buckets, valid.contiguous(), 1 << bits)
+    return pos_hist, all_hist - pos_hist
+
+
+def cross_bucket_pair_stats(pos_hist: Tensor, neg_hist: Tensor) -> Tuple[Tensor, Tensor]:
+    """Exact-bucket (cross_gt_pairs, same_bucket_pairs) of the last dimension's buckets.
+
+    Buckets are in descending score order, so a positive outscores every negative in a
+    higher bucket: ``cross_gt = sum_b pos[b] * sum_{b' > b} neg[b']``. In float32, as
+    in the JAX package (pair counts reach N^2; relative error ~1e-7).
+    """
+    neg_f = neg_hist.to(torch.float32)
+    neg_above = torch.flip(torch.cumsum(torch.flip(neg_f, [-1]), -1), [-1]) - neg_f
+    pos_f = pos_hist.to(torch.float32)
+    return torch.sum(pos_f * neg_above, -1), torch.sum(pos_f * neg_f, -1)
+
+
+def auroc_bounds_from_hists(pos_hist: Tensor, neg_hist: Tensor) -> Tuple[Tensor, Tensor]:
+    """Certified [lower, upper] AUROC bounds from per-class bucket histograms (along the
+    last dimension); both 0 when a class is absent, the exact tier's degenerate 0.0."""
+    cross, same = cross_bucket_pair_stats(pos_hist, neg_hist)
+    p = torch.sum(pos_hist, -1).to(torch.float32)
+    q = torch.sum(neg_hist, -1).to(torch.float32)
+    denom = torch.clamp(p * q, min=1.0)
+    both = (p > 0) & (q > 0)
+    return torch.where(both, cross / denom, 0.0), torch.where(both, (cross + same) / denom, 0.0)
+
+
+def bucketed_auroc_bounds(
+    preds: Tensor, target: Tensor, valid: Optional[Tensor] = None, bits: int = 12
+) -> Tuple[Tensor, Tensor]:
+    """[lower, upper] AUROC bounds from one histogram pass over the scores (no sort)."""
+    if valid is None:
+        valid = torch.ones(preds.shape, dtype=torch.bool, device=preds.device)
+    keys = monotone_key_descending(preds, valid)
+    return auroc_bounds_from_hists(*class_bucket_counts(keys, target == 1, valid, bits))
+
+
+def _psi_diff(a: Tensor, p: Tensor) -> Tensor:
+    """``ψ(a+p) − ψ(a)`` without cancellation: the asymptotic expansion's small-difference
+    form for ``a >= 8`` (truncation below 1/(120 a^4)), the digamma difference below.
+
+    From ``ψ(x) ~ ln x − 1/(2x) − 1/(12x²)`` the difference is ``log1p(p/a) + p/(2ab) +
+    p(a+b)/(12a²b²)``. The JAX package subtracts the last term, an error of ``p/(3a³)``
+    (2e-3 at a = 8, p = 10) that can move its AP bracket off the exact value; the port
+    adds it (a deliberate deviation).
+    """
+    b = a + p
+    stable = torch.log1p(p / a) + p / (2.0 * a * b) + p * (a + b) / (12.0 * a * a * b * b)
+    exact = torch.special.digamma(b) - torch.special.digamma(a)
+    return torch.where(a < 8.0, exact, stable)
+
+
+def average_precision_bounds_from_hists(pos_hist: Tensor, neg_hist: Tensor) -> Tuple[Tensor, Tensor]:
+    """Certified [lower, upper] bounds of the exact tier's tie-collapsed average precision
+    from per-class bucket histograms (along the last dimension).
+
+    A bucket's ``p`` positives follow ``P`` positives and ``N`` negatives of higher
+    buckets, and each is credited the precision at the end of its tie run. The least
+    credit is the arrangement with the bucket's ``n`` negatives first and no ties,
+    ``Σ_{i=1..p} (P+i)/(P+N+n+i) = p − (N+n)·(ψ(P+N+n+p+1) − ψ(P+N+n+1))``; the most is
+    one tie run of the ``p`` positives first, ``p·(P+p)/(P+N+p)``, as no positive's run can
+    end with more positives or fewer negatives above it. The JAX package's upper bound is
+    the positives-first arrangement without ties, ``p − N·(ψ(P+N+p+1) − ψ(P+N+1))``,
+    which a run of tied positives exceeds (eight negatives then three tied positives: AP
+    3/11 against its 0.1946); the port does not copy that fault.
+    """
+    pos_f = pos_hist.to(torch.float32)
+    neg_f = neg_hist.to(torch.float32)
+    p_prev = torch.cumsum(pos_f, -1) - pos_f
+    n_prev = torch.cumsum(neg_f, -1) - neg_f
+    t_prev = p_prev + n_prev
+    best = pos_f * (p_prev + pos_f) / torch.clamp(t_prev + pos_f, min=1.0)
+    worst = pos_f - (n_prev + neg_f) * _psi_diff(t_prev + neg_f + 1.0, pos_f)
+    p_total = torch.sum(pos_f, -1)
+    denom = torch.clamp(p_total, min=1.0)
+    any_pos = p_total > 0
+    return (torch.where(any_pos, torch.sum(worst, -1) / denom, 0.0),
+            torch.where(any_pos, torch.sum(best, -1) / denom, 0.0))
+
+
+# ------------------------------------------------- sketch tier (tolerance route)
+
+#: Default histogram bit depth of the tolerance route, as ``StreamingAUROCBound``'s.
+SKETCH_DEFAULT_BITS = 12
+
+
+def hist_class_counts(
+    preds: Tensor, pos_mask: Tensor, valid: Tensor, bits: int = SKETCH_DEFAULT_BITS
+) -> Tuple[Tensor, Tensor]:
+    """One lane of sketch-tier accumulation: scores -> (pos_hist, neg_hist)."""
+    return class_bucket_counts(monotone_key_descending(preds, valid), pos_mask, valid, bits)
+
+
+def sketch_auroc_bracket(
+    preds: Tensor, target: Tensor, valid: Tensor, bits: int = SKETCH_DEFAULT_BITS
+) -> Tuple[Tensor, Tensor]:
+    """Certified [lower, upper] AUROC bracket in one histogram pass (no sort)."""
+    return auroc_bounds_from_hists(*hist_class_counts(preds, target == 1, valid, bits))
+
+
+def sketch_ap_bracket(
+    preds: Tensor, target: Tensor, valid: Tensor, bits: int = SKETCH_DEFAULT_BITS
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """Certified [lower, upper] average-precision bracket and the positive count
+    (callers map no positives to the exact tier's NaN)."""
+    pos_hist, neg_hist = hist_class_counts(preds, target == 1, valid, bits)
+    lo, hi = average_precision_bounds_from_hists(pos_hist, neg_hist)
+    return lo, hi, torch.sum(pos_hist)
+
+
+#: the JAX package's names of the compute half; ``(C, 2^bits)`` histograms give one
+#: pair of bounds per lane
+hist_auroc_bounds = auroc_bounds_from_hists
+hist_ap_bounds = average_precision_bounds_from_hists
 
 
 # --------------------------------------------------------- sort-slim helpers

@@ -402,18 +402,15 @@ def test_task_dispatchers(name, fn_name):
 
 
 def test_sketch_tier_is_not_ported():
+    # the sketch tier is ported since the sketch slice: each of these serves a value
+    # (its parity with the JAX package is in tests/test_torch_tolerance.py)
     p, t = torch.rand(10), torch.randint(0, 2, (10,))
-    with pytest.raises(NotImplementedError):
-        tc.BinaryAUROC(tolerance=0.01, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tc.MulticlassAveragePrecision(num_classes=3, tolerance=0.01, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tf.binary_auroc(p, t, tolerance=0.01, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tcc.binary_average_precision_exact(p, t, tolerance=0.01)
-    with pytest.raises(NotImplementedError):
-        with trank.force_tier("sketch"):
-            pass
+    assert tc.BinaryAUROC(tolerance=0.01, device="cpu").pos_hist.shape == (1 << 12,)
+    assert tc.MulticlassAveragePrecision(num_classes=3, tolerance=0.01, device="cpu").neg_hist.shape == (3, 1 << 12)
+    assert 0.0 <= float(tf.binary_auroc(p, t, tolerance=0.5, device="cpu")) <= 1.0
+    assert 0.0 <= float(tcc.binary_average_precision_exact(p, t, tolerance=0.5)) <= 1.0
+    with trank.force_tier("sketch"):
+        assert trank.select_tier(p) == "sort"
 
 
 def test_dispatch_cpu_is_sort_tier_and_plain_scan():

@@ -741,3 +741,80 @@ def test_fleet_bootstrapper_draws_once_for_every_stream_on_card(cuda):
     assert torch.equal((boot.boot_tp + boot.boot_fn).sum(-1), rows.unsqueeze(-1).expand(3, 4))
     assert fleet.step_stats(boot)["launches"] == 0  # eager: the draws stay out of graphs
     assert boot.compute()["mean"].shape == (3,)
+
+
+# ------------------------------------------------ the sketch family and the tolerance tier
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [11, 14])
+def test_sketch_bucket_counts_take_the_mask_mode_on_card(cuda, bits):
+    from metrics_tpu_torch.ops import rank
+
+    g = torch.Generator(device=cuda).manual_seed(bits)
+    scores = torch.sigmoid(torch.randn(65_536, generator=g, device=cuda)).to(torch.bfloat16).float()
+    target = (torch.rand(65_536, generator=g, device=cuda) < 0.03).long()
+    valid = torch.rand(65_536, generator=g, device=cuda) < 0.9
+    keys = rank.monotone_key_descending(scores, valid)
+    before = histogram.histogram_cuda.launches
+    pos, neg = rank.class_bucket_counts(keys, target == 1, valid, bits)
+    assert histogram.histogram_cuda.launches == before + 2
+    ids = (keys >> (32 - bits)).to(torch.int32)
+    assert torch.equal(pos, histogram._plain_bincount(ids, (target == 1) & valid, 1 << bits))
+    assert torch.equal(pos + neg, histogram._plain_bincount(ids, valid, 1 << bits))
+
+
+@pytest.mark.cuda
+def test_one_vs_rest_sketch_update_is_two_batched_launches_on_card(cuda):
+    from metrics_tpu_torch.classification import MulticlassAUROC, MultilabelAveragePrecision
+    from metrics_tpu_torch.ops import rank
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    preds = torch.softmax(2.0 * torch.randn((256, 1000), generator=g, device=cuda), dim=1)
+    target = torch.randint(0, 1000, (256,), generator=g, device=cuda)
+    metric = MulticlassAUROC(1000, average=None, tolerance=1e-2)
+    before = (histogram.histogram_batched_cuda.launches, histogram.histogram_cuda.launches)
+    metric.update(preds, target)
+    assert (histogram.histogram_batched_cuda.launches, histogram.histogram_cuda.launches) == (
+        before[0] + 2, before[1])
+    lanes = [rank.hist_class_counts(preds[:, c], target == c, target >= 0, 12) for c in range(1000)]
+    assert torch.equal(metric.pos_hist, torch.stack([p for p, _ in lanes]))
+    assert torch.equal(metric.neg_hist, torch.stack([n for _, n in lanes]))
+    ml_preds = torch.rand((512, 7), generator=g, device=cuda)
+    ml_target = torch.randint(-1, 2, (512, 7), generator=g, device=cuda)
+    ml = MultilabelAveragePrecision(7, average=None, tolerance=1e-2, ignore_index=-1)
+    ml_cpu = MultilabelAveragePrecision(7, average=None, tolerance=1e-2, ignore_index=-1, device="cpu")
+    ml.update(ml_preds, ml_target)
+    ml_cpu.update(ml_preds.cpu(), ml_target.cpu())
+    assert torch.equal(ml.pos_hist.cpu(), ml_cpu.pos_hist) and torch.equal(ml.neg_hist.cpu(), ml_cpu.neg_hist)
+
+
+@pytest.mark.cuda
+def test_distinct_count_uint8_scatter_max_on_card(cuda):
+    from metrics_tpu_torch.core import fleet
+    from metrics_tpu_torch.core.collections import MetricCollection
+    from metrics_tpu_torch.core.fused import engine_for
+    from metrics_tpu_torch.sketches import DistinctCount
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    batches = [torch.randint(0, 40_000_000, (65_536,), generator=g, device=cuda) for _ in range(3)]
+    card, cpu = DistinctCount(p=14), DistinctCount(p=14, device="cpu")
+    fused = MetricCollection({"dc": DistinctCount(p=14)}, fused=True)
+    for ids in batches:
+        card.update(ids)
+        cpu.update(ids.cpu())
+        fused.update(ids)
+    assert card.registers.dtype == torch.uint8
+    assert torch.equal(card.registers.cpu(), cpu.registers)
+    assert torch.equal(fused["dc"].registers.cpu(), cpu.registers)
+    assert engine_for(fused).stats["launches"] == 3 and engine_for(fused).stats["degrades"] == 0
+    streams = DistinctCount(p=12, fleet_size=4)
+    apart = [DistinctCount(p=12) for _ in range(4)]
+    for ids in batches:
+        rows = ids[:10_000]
+        sid = torch.randint(0, 4, (10_000,), generator=g, device=cuda)
+        streams.update(rows, stream_ids=sid)
+        for s in range(4):
+            apart[s].update(rows[sid == s])
+    assert fleet.step_stats(streams)["degrades"] == 0
+    assert all(torch.equal(streams.registers[s], apart[s].registers) for s in range(4))
