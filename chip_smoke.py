@@ -304,6 +304,30 @@ Phases, each printing one JSON line:
     - the three DLRM sketch-tier metrics as one ``MetricCollection(fused=True)`` over 200
       updates, bit-equal to eager, one replay an update; DistinctCount(fleet_size=16) over
       20 routed updates of 10,000 ids, bit-equal to 16 separate sketches.
+19. text: the string metrics and Perplexity, no hand kernel (every launch count 0); the
+    string metrics' states on the card bit-equal to the port's CPU run on the same strings,
+    which runs at the same time in four worker processes (``spawn``), values within 1e-6:
+    - LibriSpeech test-clean's count: 2,620 utterances of 5-35 words from a seeded
+      10,000-word vocabulary (one word in 20 with punctuation, a number or a capital),
+      each hypothesis its reference with ~10% substitutions, insertions and deletions,
+      through WER, CER, MER, WIL and WIP in updates of 64, and each functional once on
+      the whole set (equal to its class);
+    - WMT14 newstest2014 en-de's count: 3,003 sentences of 5-40 words, one reference each,
+      ~15% edits, through BLEU, SacreBLEU (13a, intl, char), chrF, chrF++ and TER in
+      updates of 64 (intl twice: by the ``regex`` rules where ``regex`` is installed and by
+      the ``unicodedata`` fallback, their counts equal), and EED on the first 300 (a cut:
+      its host DP takes ~20 ms a sentence);
+    - CNN/DailyMail test's summary shape (3-4 sentences of 12-18 words, ~52 tokens), the
+      count cut from 11,490 to 3,000 articles, through ROUGE-1, -2, -L and -Lsum (the
+      regex sentence split); without nltk, ``use_stemmer=True`` raises the JAX package's
+      ``ModuleNotFoundError``;
+    - SQuAD v1.1 dev's count: 10,570 questions with 1-3 gold answers, in updates of 1,000;
+    - Perplexity at GPT-2 small's evaluation shape: batch 8 x context 1,024 x vocabulary
+      50,257 float32 logits (1.65 GB) drawn on the card, ``ignore_index=-100`` on a seeded
+      10%: within a relative 1e-5 of the port's CPU run on the same logits; the event and
+      device ms of one update against the bound (the logits and targets read once at 3.35
+      TB/s) and one ``cross_entropy(reduction="sum")`` call; the update through
+      ``MetricCollection(fused=True)``, one replay, equal to eager.
     The sync_ranks phase (11) also runs the pure tier on each of its four ranks:
     ``evaluate_sharded`` of the Cityscapes collection and of a ``cat_capacity``
     BinaryAUROC over DLRM-style rows (through ``cat_sync``) against one process on the
@@ -313,6 +337,7 @@ The last three lines are the ``nvidia-smi`` name and power limit, the kernels JS
 line and ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
 """
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -5666,6 +5691,331 @@ def phase_sketches(torch, seed: int, smi: str):
     return launches
 
 
+LIBRISPEECH = {"utterances": 2_620, "words": (5, 35), "vocab": 10_000, "noise": 0.1, "batch": 64}
+WMT14 = {"sentences": 3_003, "words": (5, 40), "noise": 0.15, "batch": 64, "eed_sentences": 300}
+CNNDM = {"articles": 3_000, "sentences": (3, 4), "words": (12, 18), "noise": 0.3, "batch": 64}
+SQUAD = {"questions": 10_570, "answers": (1, 3), "words": (1, 5), "batch": 1_000}
+GPT2 = {"batch": 8, "context": 1_024, "vocab": 50_257, "ignore_rate": 0.1, "ignore_index": -100, "scale": 2.0,
+        "target_boost": 10.0}  # logits N(0, 2^2), the target's raised by 10: a perplexity of tens, as a trained LM
+TEXT_ATOL = 1e-6  # a string metric's value on the card against the port's CPU run on the same strings
+PPL_REL = 1e-5  # Perplexity on the card against the port's CPU run on the same logits, relative
+TEXT_TASKS = {  # the CPU check's groups of string metrics, one worker process each
+    "wer": ("WordErrorRate", "CharErrorRate", "MatchErrorRate", "WordInfoLost", "WordInfoPreserved"),
+    "bleu": ("BLEUScore", "SacreBLEUScore-13a", "SacreBLEUScore-intl", "SacreBLEUScore-intl_fallback",
+             "SacreBLEUScore-char"),
+    "chrf_ter": ("CHRFScore-chrF", "CHRFScore-chrF++", "TranslationEditRate"),
+    "eed": ("ExtendedEditDistance",),
+    "rouge": ("ROUGEScore",),
+    "squad": ("SQuAD",),
+}
+
+
+def text_vocab(rng, size: int) -> list:
+    """``size`` seeded words of 2-10 lowercase letters, one in 20 with punctuation, a
+    number or a capital, so that the 13a and intl tokenizers have work to do."""
+    import numpy as np
+
+    lengths = rng.integers(2, 11, size)
+    letters = rng.integers(0, 26, int(lengths.sum())).astype(np.uint8) + ord("a")
+    words = [chunk.tobytes().decode() for chunk in np.split(letters, np.cumsum(lengths)[:-1])]
+    marks = ("{},", "{}.", "{}!", "{}?", "({})", '"{}"', "{}'s", "{}-{}", "{}%", "${}", "{} 1,000", "{} 3.5")
+    for i in rng.choice(size, size // 20, replace=False):
+        words[i] = marks[i % len(marks)].format(words[i], words[(i + 1) % size]).capitalize()
+    return words
+
+
+def noisy_copy(rng, words: list, vocab: list, rate: float) -> list:
+    """``words`` with seeded substitutions, insertions and deletions, each at ``rate`` / 3."""
+    out = []
+    draws = rng.random(len(words))
+    picks = rng.integers(0, len(vocab), len(words))
+    for word, r, pick in zip(words, draws, picks):
+        if r < rate / 3:
+            continue
+        if r < 2 * rate / 3:
+            out.append(vocab[pick])
+            continue
+        out.append(word)
+        if r < rate:
+            out.append(vocab[(pick * 7 + 1) % len(vocab)])
+    return out
+
+
+def text_corpora(seed: int) -> dict:
+    """Every string input of phase_text, drawn from one seeded numpy generator: the same
+    strings in the card's run and in the CPU check's worker processes."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 61)
+    vocab = text_vocab(rng, LIBRISPEECH["vocab"])
+
+    def sentences(n, lo, hi):
+        return [[vocab[i] for i in rng.integers(0, len(vocab), rng.integers(lo, hi + 1))] for _ in range(n)]
+
+    out = {}
+    refs = sentences(LIBRISPEECH["utterances"], *LIBRISPEECH["words"])
+    out["librispeech"] = ([" ".join(noisy_copy(rng, r, vocab, LIBRISPEECH["noise"])) for r in refs],
+                          [" ".join(r) for r in refs])
+    refs = sentences(WMT14["sentences"], *WMT14["words"])
+    out["wmt14"] = ([" ".join(noisy_copy(rng, r, vocab, WMT14["noise"])) for r in refs], [[" ".join(r)] for r in refs])
+    summaries = []
+    for _ in range(CNNDM["articles"]):
+        parts = sentences(int(rng.integers(CNNDM["sentences"][0], CNNDM["sentences"][1] + 1)), *CNNDM["words"])
+        summaries.append(parts)
+    out["cnndm"] = (
+        [" ".join(" ".join(noisy_copy(rng, s, vocab, CNNDM["noise"])) + "." for s in parts) for parts in summaries],
+        [[" ".join(" ".join(s) + "." for s in parts)] for parts in summaries],
+    )
+    preds, targets = [], []
+    for q in range(SQUAD["questions"]):
+        answers = [" ".join(s) for s in sentences(int(rng.integers(SQUAD["answers"][0], SQUAD["answers"][1] + 1)),
+                                                  *SQUAD["words"])]
+        r = rng.random()
+        text = answers[0] if r < 0.6 else " ".join(noisy_copy(rng, answers[-1].split(), vocab, 0.5)) if r < 0.85 \
+            else vocab[int(rng.integers(len(vocab)))]
+        preds.append({"prediction_text": text, "id": str(q)})
+        targets.append({"answers": {"answer_start": [0] * len(answers), "text": answers}, "id": str(q)})
+    out["squad"] = (preds, targets)
+    return out
+
+
+def text_metric(name: str, device: str):
+    """The string metric that phase_text runs under ``name``, and its corpus."""
+    from metrics_tpu_torch import text
+
+    base, _, variant = name.partition("-")
+    if base == "SacreBLEUScore":
+        return text.SacreBLEUScore(tokenize=variant.split("_")[0], device=device), "wmt14"
+    if base == "CHRFScore":
+        return text.CHRFScore(n_word_order=0 if variant == "chrF" else 2, device=device), "wmt14"
+    if base == "ROUGEScore":
+        return text.ROUGEScore(rouge_keys=("rouge1", "rouge2", "rougeL", "rougeLsum"), device=device), "cnndm"
+    corpus = {"SQuAD": "squad", "BLEUScore": "wmt14", "TranslationEditRate": "wmt14",
+              "ExtendedEditDistance": "wmt14"}.get(base, "librispeech")
+    return getattr(text, base)(device=device), corpus
+
+
+@contextlib.contextmanager
+def intl_fallback(active: bool):
+    """The ``intl`` tokenizer's ``unicodedata`` fallback while ``active``, whether or not
+    ``regex`` is installed."""
+    from metrics_tpu_torch.functional.text import sacre_bleu
+
+    saved = sacre_bleu._REGEX_AVAILABLE
+    sacre_bleu._REGEX_AVAILABLE = saved and not active
+    try:
+        yield
+    finally:
+        sacre_bleu._REGEX_AVAILABLE = saved
+
+
+def text_run(torch, name: str, corpora: dict, device: str) -> dict:
+    """One string metric over its corpus in updates of its batch: the host ms of each
+    update (the device's work included), the states as numpy and the value."""
+    import numpy as np
+
+    metric, corpus = text_metric(name, device)
+    preds, targets = corpora[corpus]
+    size = {"librispeech": LIBRISPEECH, "wmt14": WMT14, "cnndm": CNNDM, "squad": SQUAD}[corpus]["batch"]
+    n = WMT14["eed_sentences"] if name == "ExtendedEditDistance" else len(preds)
+    update_ms = []
+    with intl_fallback(name.endswith("_fallback")):
+        for i in range(0, n, size):
+            t0 = time.perf_counter()
+            metric.update(preds[i : min(i + size, n)], targets[i : min(i + size, n)])
+            if device != "cpu":
+                torch.cuda.synchronize()
+            update_ms.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    value = metric.compute()
+    compute_ms = (time.perf_counter() - t0) * 1e3
+
+    def host(x):
+        return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else {k: host(v) for k, v in x.items()} \
+            if isinstance(x, dict) else [host(v) for v in x]
+
+    states = {}
+    for state in metric._defaults:
+        v = getattr(metric, state)
+        states[state] = host(torch.cat([t.reshape(-1) for t in v]) if isinstance(v, list) and v else v)
+    return {"rows": n, "updates": len(update_ms), "update_ms_median": float(np.median(update_ms)),
+            "update_ms_total": float(np.sum(update_ms)), "compute_ms": compute_ms, "states": states,
+            "value": host(value), "device": str(metric.device)}
+
+
+def text_cpu_task(task: str, seed: int) -> dict:
+    """One group of TEXT_TASKS on the CPU, in a worker process of phase_text."""
+    import torch
+
+    torch.set_num_threads(1)
+    corpora = text_corpora(seed)
+    return {name: text_run(torch, name, corpora, "cpu") for name in TEXT_TASKS[task]}
+
+
+def text_compare(np, name: str, card: dict, cpu: dict) -> float:
+    """The card run's states bit-equal to the CPU run's; the largest value difference."""
+    for state, want in cpu["states"].items():
+        got = card["states"][state]
+        if got.dtype != want.dtype or got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"{name}: state `{state}` on the card differs from the CPU run")
+
+    def flat(v):
+        return np.concatenate([flat(v[k]) for k in sorted(v)]) if isinstance(v, dict) else \
+            np.concatenate([flat(x) for x in v]) if isinstance(v, list) else np.atleast_1d(v).astype(np.float64)
+
+    err = float(np.max(np.abs(flat(card["value"]) - flat(cpu["value"]))))
+    if not err <= TEXT_ATOL:
+        raise AssertionError(f"{name}: value on the card {card['value']} against the CPU run's {cpu['value']}")
+    return err
+
+
+def text_strings(torch, seed: int, smi: str) -> dict:
+    """The string metrics on the card, held against the port's CPU run in worker
+    processes that run at the same time; the WER family's functionals on the whole set."""
+    import concurrent.futures
+    import importlib.util
+    import multiprocessing
+
+    import numpy as np
+
+    from metrics_tpu_torch.functional import text as ftext
+
+    t0 = time.perf_counter()
+    corpora = text_corpora(seed)
+    corpora_s = time.perf_counter() - t0
+    pool = concurrent.futures.ProcessPoolExecutor(max_workers=4, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        futures = {task: pool.submit(text_cpu_task, task, seed) for task in TEXT_TASKS}
+        card = {name: text_run(torch, name, corpora, "cuda") for names in TEXT_TASKS.values() for name in names}
+        functionals = {}
+        preds, refs = corpora["librispeech"]
+        for fn, cls in (("word_error_rate", "WordErrorRate"), ("char_error_rate", "CharErrorRate"),
+                        ("match_error_rate", "MatchErrorRate"), ("word_information_lost", "WordInfoLost"),
+                        ("word_information_preserved", "WordInfoPreserved")):
+            t1 = time.perf_counter()
+            value = getattr(ftext, fn)(preds, refs)
+            if value.device.type != "cuda" or not np.array_equal(value.cpu().numpy(), card[cls]["value"]):
+                raise AssertionError(f"{fn} on the whole set differs from {cls} over updates")
+            functionals[fn] = {"ms": (time.perf_counter() - t1) * 1e3, "value": float(value)}
+        cpu = {}
+        for task, future in futures.items():
+            cpu.update(future.result(timeout=600))
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+    from metrics_tpu_torch.text import ROUGEScore
+
+    modules = {m: importlib.util.find_spec(m) is not None for m in ("nltk", "regex", "sacrebleu")}
+    if not modules["nltk"]:
+        try:
+            ROUGEScore(use_stemmer=True)
+        except ModuleNotFoundError as err:
+            if str(err) != "Stemmer requires that `nltk` is installed. Use `pip install nltk`.":
+                raise
+        else:
+            raise AssertionError("ROUGEScore(use_stemmer=True) without nltk did not raise")
+    fallback, regex_run = card["SacreBLEUScore-intl_fallback"], card["SacreBLEUScore-intl"]
+    if any(not np.array_equal(fallback["states"][k], v) for k, v in regex_run["states"].items()):
+        raise AssertionError("SacreBLEU intl: the unicodedata fallback's counts differ from the regex rules'")
+    record = {}
+    for name, run in card.items():
+        err = text_compare(np, name, run, cpu[name])
+        if not run["device"].startswith("cuda"):
+            raise AssertionError(f"{name} ran on {run['device']}")
+        value = run["value"]
+        record[name] = {"rows": run["rows"], "updates": run["updates"],
+                        "host_ms_per_update": run["update_ms_median"], "host_ms_total": run["update_ms_total"],
+                        "cpu_host_ms_per_update": cpu[name]["update_ms_median"], "compute_ms": run["compute_ms"],
+                        "value": {k: float(v) for k, v in value.items()} if isinstance(value, dict)
+                        else [float(np.asarray(v)) for v in value] if isinstance(value, list) else float(value),
+                        "max_abs_err_vs_cpu": err, "states_bit_equal": True}
+    emit({"phase": "text_strings", "card": smi, "optional_modules": modules, "corpora_s": corpora_s,
+          "stemmer_error_checked": not modules["nltk"], "metrics": record, "functionals": functionals})
+    return record
+
+
+def perplexity_inputs(torch, seed: int):
+    g = torch.Generator(device="cuda").manual_seed(seed + 67)
+    shape = (GPT2["batch"], GPT2["context"], GPT2["vocab"])
+    logits = torch.randn(shape, generator=g, device="cuda") * GPT2["scale"]
+    target = torch.randint(0, GPT2["vocab"], shape[:2], generator=g, device="cuda")
+    boost = torch.full(target.shape + (1,), GPT2["target_boost"], device="cuda")
+    logits.scatter_add_(2, target[..., None], boost)
+    target[torch.rand(shape[:2], generator=g, device="cuda") < GPT2["ignore_rate"]] = GPT2["ignore_index"]
+    return logits, target
+
+
+def text_perplexity(torch, seed: int, smi: str) -> dict:
+    """Perplexity at GPT-2 small's evaluation shape: the card against the port's CPU run
+    on the same logits, event and device ms of one update against the bound and one
+    ``cross_entropy`` call, and the update as one fused replay."""
+    from metrics_tpu_torch.core import MetricCollection
+    from metrics_tpu_torch.core.fused import engine_for
+    from metrics_tpu_torch.text import Perplexity
+
+    logits, target = perplexity_inputs(torch, seed)
+    ignore = GPT2["ignore_index"]
+    metric = Perplexity(ignore_index=ignore)
+    metric.update(logits, target)
+    value = metric.compute()
+    t0 = time.perf_counter()
+    cpu_metric = Perplexity(ignore_index=ignore, device="cpu")
+    cpu_metric.update(logits.cpu(), target.cpu())
+    cpu_value, cpu_s = cpu_metric.compute(), time.perf_counter() - t0
+    rel = abs(float(value) - float(cpu_value)) / abs(float(cpu_value))
+    if not rel <= PPL_REL or int(metric.count) != int(cpu_metric.count):
+        raise AssertionError(f"Perplexity on the card {float(value)} against the CPU's {float(cpu_value)}")
+
+    def update():
+        metric.update(logits, target)
+
+    ms = event_ms(torch, update, reps=20)
+    launches = device_launches(profile_window(torch, update, 10))
+    device_ms_ = sum(us for _, us in launches.values()) / 10 / 1e3
+    kernels = {k[:70]: {"launches": n / 10, "ms": us / 10 / 1e3} for k, (n, us) in launches.items()}
+    library_ms = event_ms(torch, lambda: torch.nn.functional.cross_entropy(
+        logits.view(-1, GPT2["vocab"]), target.view(-1), ignore_index=ignore, reduction="sum"), reps=20)
+    nbytes = logits.numel() * logits.element_size() + target.numel() * target.element_size()
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+
+    eager = Perplexity(ignore_index=ignore)
+    fused = MetricCollection({"ppl": Perplexity(ignore_index=ignore)}, fused=True)
+    for _ in range(3):
+        eager.update(logits, target)
+        fused.update(logits, target)
+    stats = dict(engine_for(fused).stats)
+    if stats["launches"] != 3 or stats["degrades"] or stats["fallback_groups"]:
+        raise AssertionError(f"fused Perplexity: stats {stats}")
+    fused_value = fused.compute()["ppl"]
+    if not torch.equal(fused_value, eager.compute()) or not torch.equal(fused["ppl"].count, eager.count):
+        raise AssertionError(f"fused Perplexity {float(fused_value)} differs from eager {float(eager.compute())}")
+    fused_ms = event_ms(torch, lambda: fused.update(logits, target), reps=20)
+    record = {"shape": list(logits.shape), "dtype": str(logits.dtype).replace("torch.", ""),
+              "counted_tokens": int(cpu_metric.count), "value": float(value), "cpu_value": float(cpu_value),
+              "rel_err_vs_cpu": rel, "cpu_s": cpu_s, "update_event_ms": ms, "update_device_ms": device_ms_,
+              "device_kernels": kernels, "bound_bytes": nbytes, "bound_ms": bound_ms, "bound_by": "bytes",
+              "share_of_bound": bound_ms / device_ms_ if device_ms_ else None,
+              "cross_entropy_sum_ms": library_ms, "fused_update_ms": fused_ms, "fused_stats": stats,
+              "fused_equal_to_eager": True}
+    emit({"phase": "text_perplexity", "card": smi, **record})
+    del logits, target
+    return record
+
+
+def phase_text(torch, seed: int, smi: str) -> dict:
+    """The string metrics (host code, states on the card) and Perplexity (plain
+    PyTorch on the card). No hand kernel runs here: every launch count must stay 0."""
+    t0 = time.perf_counter()
+    strings, strings_counted, strings_s = run_counted(torch, lambda: text_strings(torch, seed, smi))
+    expect_launches("text strings", strings_counted)
+    perplexity, ppl_counted, ppl_s = run_counted(torch, lambda: text_perplexity(torch, seed, smi))
+    expect_launches("text perplexity", ppl_counted)
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    emit({"phase": "text", "card": smi, "strings_s": strings_s, "perplexity_s": ppl_s, "seconds": seconds})
+    return {"strings": strings, "perplexity": perplexity}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5735,6 +6085,8 @@ def main() -> int:
     kernels[0]["launches"] += sketches["histogram"]
     batched["launches"] += sketches["histogram_batched"]
     scan["launches"] += sketches["segment_scan"]
+    torch.cuda.empty_cache()
+    phase_text(torch, args.seed, smi)
 
     idle = [k["name"] for k in kernels if k["launches"] < 1]
     if idle:

@@ -11,8 +11,9 @@ the aggregators and ``functional``; the retrieval classes through shims that war
 (FID, KID, IS and PSNRB directly, the others through warning shims); the detection
 classes as the JAX root does (the panoptic two through warning shims); the regression
 classes, the audio classes as the JAX root does (PESQ and STOI directly, the other
-five through warning shims), the nominal classes, the wrappers and the four sketches.
-Families not ported yet, and LPIPS, are absent.
+five through warning shims), the nominal classes, the wrappers, the four sketches, and
+the text classes as the JAX root does (ROUGEScore directly, the other twelve through
+warning shims). Families not ported yet, BERTScore, InfoLM and LPIPS are absent.
 """
 from metrics_tpu_torch import functional
 from metrics_tpu_torch.audio import PerceptualEvaluationSpeechQuality, ShortTimeObjectiveIntelligibility
@@ -141,6 +142,21 @@ from metrics_tpu_torch.retrieval._deprecated import (
     _RetrievalRPrecision as RetrievalRPrecision,
 )
 from metrics_tpu_torch.sketches import DistinctCount, HistogramDrift, QuantileSketch, StreamingAUROCBound
+from metrics_tpu_torch.text import ROUGEScore
+from metrics_tpu_torch.text._deprecated import (
+    _BLEUScore as BLEUScore,
+    _CharErrorRate as CharErrorRate,
+    _CHRFScore as CHRFScore,
+    _ExtendedEditDistance as ExtendedEditDistance,
+    _MatchErrorRate as MatchErrorRate,
+    _Perplexity as Perplexity,
+    _SacreBLEUScore as SacreBLEUScore,
+    _SQuAD as SQuAD,
+    _TranslationEditRate as TranslationEditRate,
+    _WordErrorRate as WordErrorRate,
+    _WordInfoLost as WordInfoLost,
+    _WordInfoPreserved as WordInfoPreserved,
+)
 from metrics_tpu_torch.wrappers import BootStrapper, ClasswiseWrapper, MetricTracker, MinMaxMetric, MultioutputWrapper
 
 __all__ = [
@@ -177,4 +193,7 @@ __all__ = [
     "BootStrapper", "ClasswiseWrapper", "MetricTracker", "MinMaxMetric", "MultioutputWrapper",
     # sketches
     "DistinctCount", "HistogramDrift", "QuantileSketch", "StreamingAUROCBound",
+    # text
+    "BLEUScore", "CHRFScore", "CharErrorRate", "ExtendedEditDistance", "MatchErrorRate", "Perplexity", "ROUGEScore",
+    "SQuAD", "SacreBLEUScore", "TranslationEditRate", "WordErrorRate", "WordInfoLost", "WordInfoPreserved",
 ]

@@ -29,6 +29,14 @@ of the sketches and of the ``tolerance > 0`` AUROC/AP classes (``pos_hist``,
 ``neg_hist``, ``pos_buckets``, ``neg_buckets``, ``edge_counts``, ``nan_count``,
 ``ref_hist``, ``live_hist``) and ``DistinctCount``'s uint8 ``registers``.
 
+The text classes load the same way: their whole-number float32 counts (WER's
+``errors``/``total``, BLEU's ``numerator``/``denominator`` and lengths, chrF's six
+n-gram vectors, TER's ``total_num_edits``, SQuAD's ``exact_match``/``total``,
+Perplexity's ``count``) become int64 and are refused when not whole; their float sums
+(SQuAD's ``f1_score``, TER's ``total_tgt_len``, Perplexity's ``total_log_probs``) stay
+float32; their list states (EED's sentence scores, ROUGE's per-sample scores, the
+chrF and TER sentence scores) load as lists of float32 tensors, scalars or vectors.
+
 A state with ``dist_reduce_fx=None`` may come stacked, as a sync leaves it (a leading
 process axis, e.g. FID's ``(k, D)`` means, or Pearson's six ``(k, num_outputs)``
 moments, which ``compute`` merges); FID's lazily sized moments are sized from

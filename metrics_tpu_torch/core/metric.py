@@ -135,6 +135,9 @@ class Metric(nn.Module, ABC):
     # depth of running pure-tier calls (local_update): the fleet's eager dispatch
     # must not hand the caller's state to a captured graph's buffers
     _pure_call_depth: int = 0
+    # update's inputs are host data (strings, dicts: the text metrics): the update
+    # wrapper passes them on as they are, and the engines keep the class eager
+    _host_side_update: bool = False
 
     def __init__(self, **kwargs: Any) -> None:
         super().__init__()
@@ -453,8 +456,9 @@ class Metric(nn.Module, ABC):
     def _wrap_update(self, update: Callable) -> Callable:
         @functools.wraps(update)
         def wrapped_func(*args: Any, **kwargs: Any) -> None:
-            args = tuple(self._check_device(a) for a in args)
-            kwargs = {k: self._check_device(v) for k, v in kwargs.items()}
+            if not self._host_side_update:
+                args = tuple(self._check_device(a) for a in args)
+                kwargs = {k: self._check_device(v) for k, v in kwargs.items()}
             self._computed = None
             self._update_count += 1
             if self.fleet_size is not None:

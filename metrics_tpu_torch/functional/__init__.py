@@ -1,9 +1,9 @@
 """Functional entry points of metrics_tpu_torch: every classification, regression and
 nominal functional, the pairwise functions, PSNRB, the four box-IoU functionals, PESQ and STOI,
-and the retrieval, the other image, the two panoptic and the other six audio functionals
-through root shims that warn (as in ``metrics_tpu.functional``);
-``metrics_tpu_torch.functional.retrieval``, ``.image``, ``.detection`` and ``.audio``
-give them silently.
+and the retrieval, the other image, the two panoptic, the other six audio and the text
+functionals through root shims that warn (as in ``metrics_tpu.functional``);
+``metrics_tpu_torch.functional.retrieval``, ``.image``, ``.detection``, ``.audio`` and
+``.text`` give them silently.
 """
 from metrics_tpu_torch.functional.classification import *  # noqa: F401,F403
 from metrics_tpu_torch.functional.classification import __all__ as _classification_all
@@ -62,6 +62,21 @@ from metrics_tpu_torch.functional.pairwise import (
 )
 from metrics_tpu_torch.functional.regression import *  # noqa: F401,F403
 from metrics_tpu_torch.functional.regression import __all__ as _regression_all
+from metrics_tpu_torch.functional.text._deprecated import (
+    _bleu_score as bleu_score,
+    _char_error_rate as char_error_rate,
+    _chrf_score as chrf_score,
+    _extended_edit_distance as extended_edit_distance,
+    _match_error_rate as match_error_rate,
+    _perplexity as perplexity,
+    _rouge_score as rouge_score,
+    _sacre_bleu_score as sacre_bleu_score,
+    _squad as squad,
+    _translation_edit_rate as translation_edit_rate,
+    _word_error_rate as word_error_rate,
+    _word_information_lost as word_information_lost,
+    _word_information_preserved as word_information_preserved,
+)
 from metrics_tpu_torch.functional.retrieval._deprecated import (
     _retrieval_average_precision as retrieval_average_precision,
     _retrieval_fall_out as retrieval_fall_out,
@@ -123,4 +138,17 @@ __all__ = _classification_all + _regression_all + [
     "theils_u_matrix",
     "tschuprows_t",
     "tschuprows_t_matrix",
+    "bleu_score",
+    "char_error_rate",
+    "chrf_score",
+    "extended_edit_distance",
+    "match_error_rate",
+    "perplexity",
+    "rouge_score",
+    "sacre_bleu_score",
+    "squad",
+    "translation_edit_rate",
+    "word_error_rate",
+    "word_information_lost",
+    "word_information_preserved",
 ]

@@ -13,3 +13,5 @@ def _module_available(name: str) -> bool:
 _SCIPY_AVAILABLE = _module_available("scipy")
 _PESQ_AVAILABLE = _module_available("pesq")
 _PYSTOI_AVAILABLE = _module_available("pystoi")
+_NLTK_AVAILABLE = _module_available("nltk")
+_REGEX_AVAILABLE = _module_available("regex")

@@ -35,6 +35,7 @@ from metrics_tpu_torch.utils.checks import _is_concrete
 from metrics_tpu_torch.utils.exceptions import MetricsUserError
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__)))
+from unittests.bases import test_contract_sweep as _sweep  # noqa: E402
 from unittests.bases.test_contract_sweep import _FULL, _case_for  # noqa: E402
 
 CPU = "cpu"
@@ -313,28 +314,60 @@ def test_value_checks_are_skipped_inside_a_fused_step():
 _FUSED_TESTED = []
 
 
+def _sweep_case(name):
+    """(class, kwargs, generator, update kwargs of each update) of a registry case that the
+    fusion rules accept, or the reason the sweep skips it."""
+    kwargs, gen, upd_kwargs = _case_for(name)
+    cls = getattr(metrics_tpu_torch, name, None)
+    if cls is None:
+        return "not in the port"
+    if any(isinstance(v, metrics_tpu.Metric) or callable(v) for v in kwargs.values()):
+        return "takes a JAX metric or a JAX callable in its constructor"
+    kwargs = dict(copy.deepcopy(kwargs), device=CPU)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the root exports' FutureWarning shims
+        reason = fusion_fallback_reason(cls(**copy.deepcopy(kwargs)))
+    if reason is not None:
+        return f"not fusable by contract: {reason}"
+    return cls, kwargs, gen, (list(upd_kwargs) if upd_kwargs else [{}]) * 2
+
+
+# The registry's generators draw from one RandomState (``test_contract_sweep._rng``),
+# which the JAX package's sweeps (``tests/unittests/bases/test_fused.py``,
+# ``test_contract_sweep.py``, ``tests/unittests/ckpt/test_roundtrip_sweep.py``) read too
+# when they run in the same process; whether the fused sweep's SignalNoiseRatio,
+# ScaleInvariantSignalNoiseRatio and TotalVariation cases meet bit-equality depends on
+# the inputs they draw. So this file draws its cases' inputs when it is imported, in
+# registry order: every process that collects it leaves the stream at the same place,
+# whichever files it then runs. Classes ported after this sweep was written
+# (``_OWN_STREAM``) draw from a copy of the stream, so that porting a class moves no
+# other file's inputs.
+_OWN_STREAM = {"Perplexity"}
+_SWEEP_INPUTS = {}
+for _name in _FULL:
+    _case = _sweep_case(_name)
+    if isinstance(_case, str):
+        continue
+    _stream = _sweep._rng.get_state()
+    _SWEEP_INPUTS[_name] = [_case[2]() for _ in _case[3]]
+    if _name in _OWN_STREAM:
+        _sweep._rng.set_state(_stream)
+
+
 @pytest.mark.parametrize("name", _FULL, ids=_FULL)
 def test_fused_matches_eager_sweep(name):
     """Every port class of the registry that fusion accepts: a one-metric fused
     collection against the eager metric on identical inputs, bit for bit."""
-    kwargs, gen, upd_kwargs = _case_for(name)
-    cls = getattr(metrics_tpu_torch, name, None)
-    if cls is None:
-        pytest.skip("not in the port")
-    if any(isinstance(v, metrics_tpu.Metric) or callable(v) for v in kwargs.values()):
-        pytest.skip("takes a JAX metric or a JAX callable in its constructor")
-    kwargs = dict(copy.deepcopy(kwargs), device=CPU)
+    case = _sweep_case(name)
+    if isinstance(case, str):
+        pytest.skip(case)
+    cls, kwargs, _, updates = case
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")  # the root exports' FutureWarning shims
-        probe = cls(**copy.deepcopy(kwargs))
-        reason = fusion_fallback_reason(probe)
-        if reason is not None:
-            pytest.skip(f"not fusable by contract: {reason}")
         m_eager = cls(**copy.deepcopy(kwargs))
         coll = MetricCollection({name: cls(**copy.deepcopy(kwargs))}, fused=True)
-        cycles = list(upd_kwargs) if upd_kwargs else [{}]
-        for uk in cycles * 2:
-            args = tuple(torch.as_tensor(np.asarray(a)) if isinstance(a, np.ndarray) else a for a in gen())
+        for uk, inputs in zip(updates, _SWEEP_INPUTS[name]):
+            args = tuple(torch.as_tensor(np.asarray(a)) if isinstance(a, np.ndarray) else a for a in inputs)
             m_eager.update(*args, **uk)
             coll.update(*args, **uk)
         eager_out = m_eager.compute()

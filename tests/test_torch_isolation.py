@@ -28,7 +28,11 @@
   ``audio/``, ``functional/audio/``, ``ops/kendall.py``, ``utils/imports.py``) is in
   both scans; its classes and its functionals given numpy inputs raise without a card
   unless given ``device=``, and a CPU Spearman and Kendall compute leaves every
-  kernel's launch count at 0 without ``nvcc``.
+  kernel's launch count at 0 without ``nvcc``;
+- the text slice (``text/``, ``functional/text/``) is in both scans; a fresh import of
+  every module loads neither ``nltk`` nor ``transformers``, ``tokenizers`` or
+  ``sacrebleu``; its classes, and its functionals given strings (Perplexity's given
+  numpy logits), raise without a card unless given ``device=``.
 """
 import ast
 import os
@@ -91,6 +95,11 @@ REQUIRED_MODULES = (
       for m in ("pesq", "pit", "sdr", "snr", "stoi", "_deprecated")),
     "metrics_tpu_torch.regression", "metrics_tpu_torch.functional.regression", "metrics_tpu_torch.audio",
     "metrics_tpu_torch.functional.audio", "metrics_tpu_torch.ops.kendall", "metrics_tpu_torch.utils.imports",
+    # the string metrics, perplexity and their shims
+    *(f"metrics_tpu_torch.{kind}.{m}" for kind in ("text", "functional.text")
+      for m in ("bleu", "cer", "chrf", "eed", "mer", "perplexity", "rouge", "sacre_bleu", "squad", "ter", "wer",
+                "wil", "wip", "_deprecated")),
+    "metrics_tpu_torch.text", "metrics_tpu_torch.functional.text", "metrics_tpu_torch.functional.text.helper",
 )
 
 
@@ -108,7 +117,8 @@ def test_import_loads_no_jax_and_no_metrics_tpu():
         f"for name in {list(_module_names())!r}:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'metrics_tpu' or m.startswith('metrics_tpu.'))\n"
+        " or m == 'metrics_tpu' or m.startswith('metrics_tpu.')"
+        " or m.split('.')[0] in ('nltk', 'transformers', 'tokenizers', 'sacrebleu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
@@ -386,3 +396,19 @@ def test_cpu_spearman_and_kendall_compute_launch_no_kernel():
     )
     assert result.returncode == 0, result.stderr
     assert result.stdout.strip() == "ok"
+
+
+def test_text_without_device_raises_when_cuda_is_absent(monkeypatch):
+    from metrics_tpu_torch import text as tt
+    from metrics_tpu_torch.functional import text as tft
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for name in tt.__all__:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            getattr(tt, name)()
+    squad_args = ([{"prediction_text": "a", "id": "1"}], [{"answers": {"text": ["a"]}, "id": "1"}])
+    logits = np.random.RandomState(0).rand(2, 3, 5).astype(np.float32)
+    inputs = {"squad": squad_args, "perplexity": (logits, np.zeros((2, 3), np.int64))}
+    for name in tft.__all__:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            getattr(tft, name)(*inputs.get(name, (["a b"], [["a b"]])))
