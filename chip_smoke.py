@@ -328,6 +328,29 @@ Phases, each printing one JSON line:
       device ms of one update against the bound (the logits and targets read once at 3.35
       TB/s) and one ``cross_entropy(reduction="sum")`` call; the update through
       ``MetricCollection(fused=True)``, one replay, equal to eager.
+20. model_metrics: BERTScore, InfoLM, CLIPScore and LPIPS at published widths with seeded
+    weights drawn on the card (a listed cut: no published checkpoint is in the repository),
+    no hand kernel (every launch count 0), texts through a seeded word-level tokenizer of
+    this script (the card's machine has no ``transformers``):
+    - BERTScore on roberta-large's shape (24 layers, 1,024 wide, 16 heads, FFN 4,096,
+      vocabulary 50,265, 514 positions; N(0, 0.02) weights, LayerNorm 1 and 0) over the
+      3,003 WMT14 pairs of the text phase, one ``compute`` with and one without idf;
+    - InfoLM on bert-base-uncased's shape with its MLM head, 64 of those pairs at
+      ``max_length=64`` (a cut: 512 costs 512 forwards of 512 tokens a side), the nine
+      measures, one ``compute`` each;
+    - CLIPScore on openai/clip-vit-large-patch14's shape over 1,000 uint8 480x640 images
+      (MS-COCO 2017 val's shape; 1,000 of its 5,000, a cut) with a caption of 8-20 words
+      each, in updates of 50;
+    - LPIPS (He-scaled convs, lin heads |N(0, 1)|/C, written to files under ``build/`` and
+      read by the metric) on 64x64 patch pairs (BAPPS's size): AlexNet and VGG16 on 10,000
+      pairs, SqueezeNet-1.1 on 1,000, in updates of 100.
+    Checks against the port's CPU run on the same weights and a few sentences, images or
+    pairs: encoder outputs within 1e-3, BERTScore within 1e-4, InfoLM's distributions within
+    1e-5 and its values within 1e-4 of max(|value|, 1) (Fisher-Rao as cos(d/2)), CLIPScore
+    within 1e-2 on its 0-100 scale, ``preprocess`` within 1e-4, LPIPS within 1e-4 relative;
+    counts exact (int64), an identical LPIPS pair under 1e-6. Printed: compute and update
+    ms, sentences/images/pairs per second of each forward, its device ms split into GEMMs
+    and convolutions, softmax and the rest, peak memory and each part's seconds.
     The sync_ranks phase (11) also runs the pure tier on each of its four ranks:
     ``evaluate_sharded`` of the Cityscapes collection and of a ``cat_capacity``
     BinaryAUROC over DLRM-style rows (through ``cat_sync``) against one process on the
@@ -6016,6 +6039,414 @@ def phase_text(torch, seed: int, smi: str) -> dict:
     return {"strings": strings, "perplexity": perplexity}
 
 
+ROBERTA_LARGE = {"vocab": 50_265, "width": 1_024, "layers": 24, "heads": 16, "ffn": 4_096, "positions": 514,
+                 "type_vocab": 1, "eps": 1e-5}
+BERT_BASE = {"vocab": 30_522, "width": 768, "layers": 12, "heads": 12, "ffn": 3_072, "positions": 512,
+             "type_vocab": 2, "eps": 1e-12}
+CLIP_L14 = {}  # CLIPModel's defaults: openai/clip-vit-large-patch14's shape
+INFOLM_RUN = {"pairs": 64, "max_length": 64, "check_pairs": 2, "check_max_length": 16, "check_words": 10}
+COCO_CLIP = {"images": 1_000, "batch": 50, "height": 480, "width": 640, "words": (8, 20), "check_images": 2}
+BAPPS = {"pairs": 10_000, "squeeze_pairs": 1_000, "batch": 100, "size": 64, "noise": 0.3, "check_pairs": 4}
+MODEL_CHECK_SENTENCES = 4
+MODEL_PROFILE_BATCH = 64  # sentences in the profiled BERTScore forward
+ENCODER_ATOL = 1e-3  # an encoder's outputs on the card against the port's CPU run, same weights and inputs
+BERTSCORE_ATOL = 1e-4  # BERTScore P/R/F1, card against CPU
+INFOLM_REL = 1e-4  # InfoLM values, card against CPU, relative to max(|value|, 1): the measures' terms are O(1)
+CLIPSCORE_ATOL = 1e-2  # CLIPScore on its 0-100 scale, card against CPU
+LPIPS_REL = 1e-4  # LPIPS, card against CPU, relative
+LPIPS_IDENTICAL = 1e-6  # LPIPS of a pair of identical images
+PREPROCESS_ATOL = 1e-4  # CLIP preprocess on the card against the CPU, normalised units
+INFOLM_MEASURES = (("kl_divergence", None, None), ("alpha_divergence", 0.5, None), ("beta_divergence", None, 0.5),
+                   ("ab_divergence", 0.5, 0.5), ("renyi_divergence", 0.5, None), ("l1_distance", None, None),
+                   ("l2_distance", None, None), ("l_infinity_distance", None, None),
+                   ("fisher_rao_distance", None, None))
+MODEL_GROUPS = (  # device time of a forward by kernel family, lower-case substrings, first match wins
+    ("matmul_conv", ("gemm", "cutlass", "xmma", "conv", "cudnn", "implicit", "sm90", "sm80", "ampere", "winograd")),
+    ("softmax", ("softmax",)),
+)
+
+
+class WordTokenizer:
+    """A seeded word-level tokenizer with a HF tokenizer's call: ``[first] words [last]``,
+    each word's id a seeded CRC-32 of it in ``[lo, vocab)``; pads to the longest row, or
+    to ``max_length`` with ``padding="max_length"``. Stands in for the HF tokenizers,
+    which the card's machine does not have."""
+
+    def __init__(self, first: int, last: int, pad: int, lo: int, vocab: int, seed: int, mask: int = -1):
+        self.cls_token_id, self.sep_token_id, self.pad_token_id, self.mask_token_id = first, last, pad, mask
+        self.lo, self.vocab, self.seed = lo, vocab, seed
+
+    def __call__(self, sentences, padding=True, truncation=True, max_length=512, return_tensors="np"):
+        import zlib
+
+        import numpy as np
+
+        rows = [[self.cls_token_id] + [self.lo + zlib.crc32(w.encode(), self.seed) % (self.vocab - self.lo)
+                                       for w in s.split()][: max_length - 2] + [self.sep_token_id] for s in sentences]
+        width = max_length if padding == "max_length" else max(len(r) for r in rows)
+        ids = np.full((len(rows), width), self.pad_token_id, np.int64)
+        mask = np.zeros((len(rows), width), np.int64)
+        for r, row in enumerate(rows):
+            ids[r, : len(row)] = row
+            mask[r, : len(row)] = 1
+        return {"input_ids": ids, "attention_mask": mask}
+
+    def tokenizer_fn(self, sentences, max_length):
+        batch = self(sentences, padding="max_length", max_length=max_length)
+        return batch["input_ids"], batch["attention_mask"]
+
+    def special_tokens(self) -> dict:
+        return {"pad_token_id": self.pad_token_id, "sep_token_id": self.sep_token_id,
+                "cls_token_id": self.cls_token_id, "mask_token_id": self.mask_token_id}
+
+
+def seeded_transformer_(torch, model, g) -> None:
+    """BERT-style initialisation on the model's device: linear, embedding, conv and
+    class-token weights N(0, 0.02), biases 0, LayerNorm weights 1 and biases 0."""
+    with torch.no_grad():
+        for module in model.modules():
+            if isinstance(module, torch.nn.LayerNorm):
+                module.weight.fill_(1.0)
+                module.bias.zero_()
+            elif isinstance(module, (torch.nn.Linear, torch.nn.Embedding, torch.nn.Conv2d)):
+                module.weight.normal_(0.0, 0.02, generator=g)
+                if getattr(module, "bias", None) is not None:
+                    module.bias.zero_()
+        for name, param in model.named_parameters():
+            if name.endswith("cls_emb"):
+                param.normal_(0.0, 0.02, generator=g)
+
+
+def cpu_copy(torch, model_cls, model, **kwargs):
+    """``model``'s weights on the CPU, in a model of the same class."""
+    return model_cls.from_state({k: v.cpu() for k, v in model.state_dict().items()}, **kwargs, device="cpu")
+
+
+def forward_split(torch, fn, reps: int = 2) -> dict:
+    """Device ms of one ``fn()`` call by MODEL_GROUPS (the rest as ``other``), its busy
+    total and its five longest kernels, from a profiler trace."""
+    kernels = device_ms(torch, fn, reps=reps)
+    split = {group: 0.0 for group, _ in MODEL_GROUPS}
+    split["other"] = 0.0
+    for name, ms in kernels.items():
+        low = name.lower()
+        split[next((g for g, keys in MODEL_GROUPS if any(k in low for k in keys)), "other")] += ms
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:5]
+    return {"busy_ms": sum(kernels.values()), "split_ms": split, "top": top}
+
+
+def host_ms(torch, fn):
+    """``fn()`` and its host ms up to a synchronised device."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def rel_err(np, got, want, floor: float = 1e-12) -> float:
+    """The largest |got - want| / max(|want|, floor)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.max(np.abs(got - want) / np.maximum(np.abs(want), floor)))
+
+
+def to_np(x):
+    return x.detach().cpu().numpy() if hasattr(x, "detach") else x
+
+
+def mm_bertscore(torch, seed: int, wmt14) -> dict:
+    """BERTScore over WMT14 newstest2014's 3,003 pairs on roberta-large's shape."""
+    from metrics_tpu_torch.functional.text import bert_score
+    from metrics_tpu_torch.models.bert import BertEncoder, bert_encoder_from_model
+    from metrics_tpu_torch.text import BERTScore
+
+    cfg = ROBERTA_LARGE
+    preds, target = wmt14
+    tok = WordTokenizer(0, 2, 1, 3, cfg["vocab"], seed + 71)
+    g = torch.Generator(device="cuda").manual_seed(seed + 72)
+    model = BertEncoder(cfg["vocab"], cfg["width"], cfg["layers"], cfg["ffn"], cfg["positions"], cfg["type_vocab"],
+                        cfg["heads"], cfg["eps"], device="cuda")
+    seeded_transformer_(torch, model, g)
+    encoder = bert_encoder_from_model(model, tok, "roberta")
+    record = {"model": "roberta-large shape, seeded N(0, 0.02)", "pairs": len(preds), "config": cfg}
+    for idf in (False, True):
+        metric = BERTScore(encoder=encoder, idf=idf)
+        for i in range(0, len(preds), 64):
+            metric.update(preds[i:i + 64], target[i:i + 64])
+        out, ms = host_ms(torch, metric.compute)
+        f1 = out["f1"]
+        if f1.shape != (len(preds),) or not bool(torch.isfinite(f1).all()) or f1.device.type != "cuda":
+            raise AssertionError(f"BERTScore(idf={idf}): f1 {f1.shape} on {f1.device}, finite {torch.isfinite(f1).all()}")
+        record[f"idf_{idf}"] = {"compute_ms": ms, "sentences_per_s": 2 * len(preds) / ms * 1e3,
+                                "f1_mean": float(f1.mean()), "precision_mean": float(out["precision"].mean()),
+                                "recall_mean": float(out["recall"].mean())}
+    batch = target[:MODEL_PROFILE_BATCH]
+    ms = event_ms(torch, lambda: encoder(batch), reps=5, warmup=2)
+    record["forward_64"] = {"event_ms": ms, "sentences_per_s": len(batch) / ms * 1e3,
+                            **forward_split(torch, lambda: encoder(batch))}
+
+    # the card against the port's CPU run on the same weights
+    cpu_model = cpu_copy(torch, BertEncoder, model, num_heads=cfg["heads"], eps=cfg["eps"])
+    cpu_encoder = bert_encoder_from_model(cpu_model, tok, "roberta")
+    sub_p, sub_t = preds[:MODEL_CHECK_SENTENCES], target[:MODEL_CHECK_SENTENCES]
+    hidden_err = float((encoder(sub_t)[0].cpu() - cpu_encoder(sub_t)[0]).abs().max())
+    if not hidden_err <= ENCODER_ATOL:
+        raise AssertionError(f"roberta-large hidden states: card vs CPU {hidden_err} > {ENCODER_ATOL}")
+    score_err = 0.0
+    for idf in (False, True):
+        card = bert_score(sub_p, sub_t, encoder, idf=idf)
+        cpu = bert_score(sub_p, sub_t, cpu_encoder, idf=idf, device="cpu")
+        score_err = max(score_err, *(float((card[k].cpu() - cpu[k]).abs().max()) for k in ("precision", "recall", "f1")))
+    if not score_err <= BERTSCORE_ATOL:
+        raise AssertionError(f"BERTScore card vs CPU {score_err} > {BERTSCORE_ATOL}")
+    record.update({"hidden_max_abs_err_vs_cpu": hidden_err, "score_max_abs_err_vs_cpu": score_err})
+    del model, cpu_model
+    return record
+
+
+def mm_infolm(torch, seed: int, wmt14) -> dict:
+    """InfoLM's nine measures over 64 WMT14 pairs at max_length 64 on bert-base-uncased's
+    shape with its MLM head."""
+    import numpy as np
+
+    from metrics_tpu_torch.functional.text import infolm
+    from metrics_tpu_torch.functional.text.helper import _input_ids_idf, _tokens_idf
+    from metrics_tpu_torch.functional.text.infolm import _InformationMeasure, masked_lm_distribution
+    from metrics_tpu_torch.models.bert import BertEncoder, mlm_logits_fn_from_model
+    from metrics_tpu_torch.text import InfoLM
+
+    cfg, run = BERT_BASE, INFOLM_RUN
+    preds, target = wmt14
+    tok = WordTokenizer(101, 102, 0, 1_000, cfg["vocab"], seed + 73, mask=103)
+    g = torch.Generator(device="cuda").manual_seed(seed + 74)
+    model = BertEncoder(cfg["vocab"], cfg["width"], cfg["layers"], cfg["ffn"], cfg["positions"], cfg["type_vocab"],
+                        cfg["heads"], cfg["eps"], mlm_head=True, device="cuda")
+    seeded_transformer_(torch, model, g)
+    logits_fn = mlm_logits_fn_from_model(model, "bert")
+    kwargs = {"max_length": run["max_length"], "logits_fn": logits_fn, "tokenizer_fn": tok.tokenizer_fn,
+              "special_tokens_map": tok.special_tokens()}
+    record = {"model": "bert-base-uncased shape with MLM head, seeded N(0, 0.02)", "pairs": run["pairs"],
+              "max_length": run["max_length"], "forwards_per_compute": 2 * run["max_length"], "measures": {}}
+    for measure, alpha, beta in INFOLM_MEASURES:
+        metric = InfoLM(information_measure=measure, alpha=alpha, beta=beta, **kwargs)
+        metric.update(preds[: run["pairs"]], target[: run["pairs"]])
+        value, ms = host_ms(torch, metric.compute)
+        if value.device.type != "cuda" or not bool(torch.isfinite(value)):
+            raise AssertionError(f"InfoLM {measure}: {value} on {value.device}")
+        record["measures"][measure] = {"value": float(value), "compute_ms": ms}
+    ids, mask = tok.tokenizer_fn(target[: run["pairs"]], run["max_length"])
+    forward = lambda: logits_fn(ids, mask)  # noqa: E731
+    ms = event_ms(torch, forward, reps=5, warmup=2)
+    record["forward_64x64"] = {"event_ms": ms, "sentences_per_s": len(ids) / ms * 1e3,
+                               **forward_split(torch, forward)}
+
+    # the card against the port's CPU run: short pairs, the distributions, the nine
+    # measures on them and one functional call
+    cpu_fn = mlm_logits_fn_from_model(cpu_copy(torch, BertEncoder, model, num_heads=cfg["heads"], eps=cfg["eps"]), "bert")
+    short = [i for i in range(len(preds)) if max(len(preds[i].split()), len(target[i].split())) <= run["check_words"]]
+    sub_p, sub_t = [preds[i] for i in short[: run["check_pairs"]]], [target[i] for i in short[: run["check_pairs"]]]
+    special, length = tok.special_tokens(), run["check_max_length"]
+    t_ids, t_mask = tok.tokenizer_fn(sub_t, length)
+    p_ids, p_mask = tok.tokenizer_fn(sub_p, length)
+    idf_map = _tokens_idf(t_ids)
+    dists = {}
+    for side, fn, device in (("card", logits_fn, "cuda"), ("cpu", cpu_fn, "cpu")):
+        dists[side] = [masked_lm_distribution(i, m, fn, special, 0.25, _input_ids_idf(i, idf_map), device).cpu()
+                       for i, m in ((p_ids, p_mask), (t_ids, t_mask))]
+    dist_err = max(float((a - b).abs().max()) for a, b in zip(dists["card"], dists["cpu"]))
+    measure_err = {}
+    for measure, alpha, beta in INFOLM_MEASURES:
+        card = _InformationMeasure(measure, alpha, beta)(*dists["card"])
+        cpu = _InformationMeasure(measure, alpha, beta)(*dists["cpu"])
+        if measure == "fisher_rao_distance":  # compared as cos(d / 2): arccos is ill-conditioned at d = 0
+            card, cpu = torch.cos(card / 2), torch.cos(cpu / 2)
+        measure_err[measure] = rel_err(np, card, cpu, 1.0)
+    functional = [infolm(sub_p, sub_t, max_length=length, logits_fn=fn, tokenizer_fn=tok.tokenizer_fn,
+                         special_tokens_map=special, device=device, return_sentence_level_score=True)
+                  for fn, device in ((logits_fn, "cuda"), (cpu_fn, "cpu"))]
+    functional_err = max(rel_err(np, to_np(a), to_np(b), 1.0) for a, b in zip(*functional))
+    worst = max(max(measure_err.values()), functional_err)
+    if not (dist_err <= 1e-5 and worst <= INFOLM_REL):
+        raise AssertionError(f"InfoLM card vs CPU: distributions {dist_err}, measures {measure_err}, "
+                             f"functional {functional_err}")
+    record.update({"distribution_max_abs_err_vs_cpu": dist_err, "measure_max_rel_err_vs_cpu": measure_err,
+                   "functional_max_rel_err_vs_cpu": functional_err})
+    del model
+    return record
+
+
+def coco_captions(seed: int, n: int) -> list:
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 75)
+    vocab = text_vocab(rng, LIBRISPEECH["vocab"])
+    lo, hi = COCO_CLIP["words"]
+    return [" ".join(vocab[i] for i in rng.integers(0, len(vocab), rng.integers(lo, hi + 1))) for _ in range(n)]
+
+
+def mm_clipscore(torch, seed: int) -> dict:
+    """CLIPScore over 1,000 uint8 480x640 images with one caption each, in updates of 50,
+    on openai/clip-vit-large-patch14's shape."""
+    from metrics_tpu_torch.functional.multimodal import clip_score
+    from metrics_tpu_torch.models.clip import CLIPModel, clip_encoders_from_model, preprocess
+    from metrics_tpu_torch.multimodal import CLIPScore
+
+    run = COCO_CLIP
+    g = torch.Generator(device="cuda").manual_seed(seed + 76)
+    model = CLIPModel(**CLIP_L14, device="cuda")
+    seeded_transformer_(torch, model, g)
+    tok = WordTokenizer(49406, 49407, 49407, 1, 49406, seed + 77)
+    image_encoder, text_encoder = clip_encoders_from_model(model, tok)
+    captions = coco_captions(seed, run["images"])
+    shape = (run["batch"], 3, run["height"], run["width"])
+    metric = CLIPScore(image_encoder=image_encoder, text_encoder=text_encoder)
+    update_ms = []
+    for i in range(0, run["images"], run["batch"]):
+        images = torch.randint(0, 256, shape, generator=g, device="cuda", dtype=torch.uint8)
+        if i == 0:
+            check = images[: run["check_images"]].clone()
+            first = images
+        _, ms = host_ms(torch, lambda: metric.update(images, captions[i:i + run["batch"]]))
+        update_ms.append(ms)
+    value, compute_ms = host_ms(torch, metric.compute)
+    if int(metric.n_samples) != run["images"] or metric.n_samples.dtype != torch.int64:
+        raise AssertionError(f"CLIPScore n_samples {metric.n_samples}")
+    if not (0.0 <= float(value) <= 100.0) or value.device.type != "cuda":
+        raise AssertionError(f"CLIPScore {value} on {value.device}")
+    batch_captions = captions[: run["batch"]]
+    record = {"model": "openai/clip-vit-large-patch14 shape, seeded N(0, 0.02)", "images": run["images"],
+              "image_shape": list(shape[1:]), "batch": run["batch"], "value": float(value),
+              "update_ms_median": statistics.median(update_ms), "update_ms_total": sum(update_ms),
+              "compute_ms": compute_ms,
+              "preprocess_ms": event_ms(torch, lambda: preprocess(first), reps=5, warmup=1)}
+    image_ms = event_ms(torch, lambda: image_encoder(first), reps=3, warmup=1)
+    text_ms = event_ms(torch, lambda: text_encoder(batch_captions), reps=5, warmup=1)
+    record["image_forward_50"] = {"event_ms": image_ms, "images_per_s": run["batch"] / image_ms * 1e3,
+                                  **forward_split(torch, lambda: image_encoder(first))}
+    record["text_forward_50"] = {"event_ms": text_ms, "captions_per_s": run["batch"] / text_ms * 1e3,
+                                 **forward_split(torch, lambda: text_encoder(batch_captions))}
+
+    cpu_model = cpu_copy(torch, CLIPModel, model)
+    cpu_image, cpu_text = clip_encoders_from_model(cpu_model, tok)
+    check_cpu, sub = check.cpu(), captions[: run["check_images"]]
+    pre_err = float((preprocess(check).cpu() - preprocess(check_cpu)).abs().max())
+    image_err = float((image_encoder(check).cpu() - cpu_image(check_cpu)).abs().max())
+    text_err = float((text_encoder(sub).cpu() - cpu_text(sub)).abs().max())
+    score_err = abs(float(clip_score(check, sub, image_encoder=image_encoder, text_encoder=text_encoder))
+                    - float(clip_score(check_cpu, sub, image_encoder=cpu_image, text_encoder=cpu_text)))
+    if not (pre_err <= PREPROCESS_ATOL and max(image_err, text_err) <= ENCODER_ATOL and score_err <= CLIPSCORE_ATOL):
+        raise AssertionError(f"CLIP card vs CPU: preprocess {pre_err}, image {image_err}, text {text_err}, "
+                             f"score {score_err}")
+    record.update({"preprocess_max_abs_err_vs_cpu": pre_err, "image_features_max_abs_err_vs_cpu": image_err,
+                   "text_features_max_abs_err_vs_cpu": text_err, "score_abs_err_vs_cpu": score_err})
+    del model, cpu_model
+    return record
+
+
+def lpips_files(torch, net_type: str, g, root: str) -> dict:
+    """Seeded weights of one LPIPS network drawn on the card and written where the
+    metric's entry point reads them: He-scaled convs (activations stay O(1) through
+    VGG16's 13 convs), zero biases, lin heads |N(0, 1)| / C."""
+    import numpy as np
+
+    from metrics_tpu_torch.models.lpips import LPIPS_CHANNELS, backbone_shapes
+
+    backbone = {}
+    for key, shape in backbone_shapes(net_type).items():
+        if key.endswith("weight"):
+            fan_in = shape[1] * shape[2] * shape[3]
+            w = torch.empty(shape, device="cuda").normal_(0.0, math.sqrt(2.0 / fan_in), generator=g)
+        else:
+            w = torch.zeros(shape, device="cuda")
+        backbone[key] = w.cpu().numpy()
+    lins = {f"lin{i}.model.1.weight": (torch.empty((1, c, 1, 1), device="cuda").normal_(generator=g).abs() / c)
+            .cpu().numpy() for i, c in enumerate(LPIPS_CHANNELS[net_type])}
+    paths = {"backbone_weights": os.path.join(root, f"lpips_{net_type}.npz"),
+             "linear_weights": os.path.join(root, f"lpips_{net_type}_lin.npz")}
+    np.savez(paths["backbone_weights"], **backbone)
+    np.savez(paths["linear_weights"], **lins)
+    return paths
+
+
+def mm_lpips(torch, seed: int) -> dict:
+    """LPIPS on BAPPS-sized 64x64 patch pairs: AlexNet and VGG16 on 10,000, SqueezeNet
+    on 1,000, in updates of 100. The seeded weights go through files in a temporary
+    directory under ``build/``, as the metric reads them."""
+    import tempfile
+
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="lpips_", dir=build) as root:
+        return lpips_runs(torch, seed, root)
+
+
+def lpips_runs(torch, seed: int, root: str) -> dict:
+    from metrics_tpu_torch.image import LearnedPerceptualImagePatchSimilarity as LPIPS
+    from metrics_tpu_torch.models.lpips import load_lpips
+
+    run = BAPPS
+    g = torch.Generator(device="cuda").manual_seed(seed + 78)
+    shape = (run["batch"], 3, run["size"], run["size"])
+    record = {}
+    for net_type in ("alex", "vgg", "squeeze"):
+        files = lpips_files(torch, net_type, g, root)
+        metric = LPIPS(net_type=net_type, **files)
+        pairs = run["squeeze_pairs"] if net_type == "squeeze" else run["pairs"]
+        update_ms = []
+        for i in range(pairs // run["batch"]):
+            img1 = torch.rand(shape, generator=g, device="cuda") * 2 - 1
+            img2 = torch.clamp(img1 + run["noise"] * torch.randn(shape, generator=g, device="cuda"), -1, 1)
+            if i == 0:
+                first = (img1, img2)
+            _, ms = host_ms(torch, lambda: metric.update(img1, img2))
+            update_ms.append(ms)
+        value, compute_ms = host_ms(torch, metric.compute)
+        if int(metric.total) != pairs or metric.total.dtype != torch.int64 or not bool(torch.isfinite(value)):
+            raise AssertionError(f"LPIPS {net_type}: total {metric.total}, value {value}")
+        network = load_lpips(net_type, **files, device="cuda")
+        identical = float(network(first[0], first[0]).abs().max())
+        if not identical < LPIPS_IDENTICAL:
+            raise AssertionError(f"LPIPS {net_type} of identical images: {identical}")
+        k = min(run["check_pairs"], run["batch"])
+        card = LPIPS(net_type=net_type, **files)
+        cpu = LPIPS(net_type=net_type, **files, device="cpu")
+        card.update(first[0][:k], first[1][:k])
+        cpu.update(first[0][:k].cpu(), first[1][:k].cpu())
+        err = abs(float(card.compute()) - float(cpu.compute())) / abs(float(cpu.compute()))
+        if not err <= LPIPS_REL or int(card.total) != k or int(cpu.total) != k:
+            raise AssertionError(f"LPIPS {net_type} card vs CPU: {err}")
+        pair_ms = event_ms(torch, lambda: network(*first), reps=5, warmup=1)
+        record[net_type] = {"pairs": pairs, "value": float(value), "update_ms_median": statistics.median(update_ms),
+                            "update_ms_total": sum(update_ms), "compute_ms": compute_ms,
+                            "forward_100_pairs": {"event_ms": pair_ms, "pairs_per_s": run["batch"] / pair_ms * 1e3,
+                                                  **forward_split(torch, lambda: network(*first))},
+                            "identical_pair": identical, "rel_err_vs_cpu": err}
+    return record
+
+
+def phase_model_metrics(torch, seed: int, smi: str) -> dict:
+    """BERTScore, InfoLM, CLIPScore and LPIPS at published widths with seeded weights, no
+    hand kernel (every launch count 0), each held against the port's CPU run."""
+    t0 = time.perf_counter()
+    preds, refs = text_corpora(seed)["wmt14"]
+    wmt14 = (preds, [r[0] for r in refs])
+    record = {}
+    for name, fn in (("bertscore", lambda: mm_bertscore(torch, seed, wmt14)),
+                     ("infolm", lambda: mm_infolm(torch, seed, wmt14)), ("clipscore", lambda: mm_clipscore(torch, seed)),
+                     ("lpips", lambda: mm_lpips(torch, seed))):
+        torch.cuda.reset_peak_memory_stats()
+        out, counted, seconds = run_counted(torch, fn)
+        expect_launches(f"model metrics {name}", counted)
+        out.update({"seconds": seconds, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+        emit({"phase": f"model_metrics_{name}", "card": smi, **out})
+        record[name] = out
+        torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    emit({"phase": "model_metrics", "card": smi, "seconds": seconds,
+          "parts_s": {name: r["seconds"] for name, r in record.items()}})
+    return record
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -6087,6 +6518,8 @@ def main() -> int:
     scan["launches"] += sketches["segment_scan"]
     torch.cuda.empty_cache()
     phase_text(torch, args.seed, smi)
+    torch.cuda.empty_cache()
+    phase_model_metrics(torch, args.seed, smi)
 
     idle = [k["name"] for k in kernels if k["launches"] < 1]
     if idle:

@@ -13,7 +13,7 @@ classes as the JAX root does (the panoptic two through warning shims); the regre
 classes, the audio classes as the JAX root does (PESQ and STOI directly, the other
 five through warning shims), the nominal classes, the wrappers, the four sketches, and
 the text classes as the JAX root does (ROUGEScore directly, the other twelve through
-warning shims). Families not ported yet, BERTScore, InfoLM and LPIPS are absent.
+warning shims), BERTScore, InfoLM, CLIPScore and LPIPS directly, as the JAX root does.
 """
 from metrics_tpu_torch import functional
 from metrics_tpu_torch.audio import PerceptualEvaluationSpeechQuality, ShortTimeObjectiveIntelligibility
@@ -95,8 +95,10 @@ from metrics_tpu_torch.image import (
     FrechetInceptionDistance,
     InceptionScore,
     KernelInceptionDistance,
+    LearnedPerceptualImagePatchSimilarity,
     PeakSignalNoiseRatioWithBlockedEffect,
 )
+from metrics_tpu_torch.multimodal import CLIPScore
 from metrics_tpu_torch.nominal import CramersV, PearsonsContingencyCoefficient, TheilsU, TschuprowsT
 from metrics_tpu_torch.image._deprecated import (
     _ErrorRelativeGlobalDimensionlessSynthesis as ErrorRelativeGlobalDimensionlessSynthesis,
@@ -142,7 +144,7 @@ from metrics_tpu_torch.retrieval._deprecated import (
     _RetrievalRPrecision as RetrievalRPrecision,
 )
 from metrics_tpu_torch.sketches import DistinctCount, HistogramDrift, QuantileSketch, StreamingAUROCBound
-from metrics_tpu_torch.text import ROUGEScore
+from metrics_tpu_torch.text import BERTScore, InfoLM, ROUGEScore
 from metrics_tpu_torch.text._deprecated import (
     _BLEUScore as BLEUScore,
     _CharErrorRate as CharErrorRate,
@@ -196,4 +198,6 @@ __all__ = [
     # text
     "BLEUScore", "CHRFScore", "CharErrorRate", "ExtendedEditDistance", "MatchErrorRate", "Perplexity", "ROUGEScore",
     "SQuAD", "SacreBLEUScore", "TranslationEditRate", "WordErrorRate", "WordInfoLost", "WordInfoPreserved",
+    # the model metrics
+    "BERTScore", "CLIPScore", "InfoLM", "LearnedPerceptualImagePatchSimilarity",
 ]

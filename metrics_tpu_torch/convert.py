@@ -45,7 +45,13 @@ come with.
 
 :func:`inception_state_from_jax` carries weights across: the JAX InceptionV3's
 parameter pytree becomes the state dict of
-:class:`~metrics_tpu_torch.models.inception.FeatureExtractorInceptionV3`.
+:class:`~metrics_tpu_torch.models.inception.FeatureExtractorInceptionV3`;
+:func:`bert_state_from_jax`, :func:`clip_state_from_jax` and
+:func:`lpips_state_from_jax` do the same for ``BertEncoder``, ``CLIPModel`` and
+``LPIPS`` (the JAX linears are ``x @ W`` with ``W`` transposed at load, the port's
+``nn.Linear`` keeps ``(out, in)``). The model metrics' states load as the others:
+``CLIPScore``'s int32 ``n_samples`` and LPIPS's float32 ``total`` become int64,
+BERTScore's and InfoLM's corpora stay lists of strings.
 """
 from typing import Any, Dict, Union
 
@@ -109,6 +115,9 @@ def load_jax_state(metric: Union[Metric, MetricCollection], state: Dict[str, Any
             items = []
             for item in value:
                 item = np.asarray(item)
+                if item.dtype.kind == "U":  # a host-side corpus (BERTScore, InfoLM)
+                    items.append(str(item))
+                    continue
                 dtype = torch.int64 if np.issubdtype(item.dtype, np.integer) else torch.from_numpy(item).dtype
                 items.append(_as_state_tensor(name, item, dtype, metric.device))
             setattr(metric, name, items)
@@ -148,6 +157,82 @@ def inception_state_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         else:
             for branch, branch_leaves in leaves.items():
                 conv_bn(f"{block}.{branch}", branch_leaves)
+    return state
+
+
+def _pair(state: Dict[str, torch.Tensor], name: str, pair: Any) -> None:
+    """A JAX ``(W, b)`` leaf pair as ``name.weight``/``name.bias``; a 2-d ``W`` is a
+    linear's ``x @ W`` and is transposed to ``nn.Linear``'s ``(out, in)``."""
+    weight = np.asarray(pair[0])
+    state[f"{name}.weight"] = torch.tensor(np.ascontiguousarray(weight.T if weight.ndim == 2 else weight))
+    state[f"{name}.bias"] = torch.tensor(np.asarray(pair[1]))
+
+
+def _layers(state: Dict[str, torch.Tensor], prefix: str, layers: Any) -> None:
+    for i, layer in enumerate(layers):
+        for name, pair in layer.items():
+            _pair(state, f"{prefix}layers.{i}.{name}", pair)
+
+
+def bert_state_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The state dict of ``BertEncoder`` from the JAX package's BERT parameter pytree
+    (``params_from_state_dict`` or ``mlm_params_from_state_dict``): embeddings, the
+    ``emb_ln`` pair, the ``layers`` list of ``{name: (W, b)}`` and, with a head,
+    ``mlm_head``."""
+    state = {f"{name}.weight": torch.tensor(np.asarray(params[name])) for name in ("word_emb", "pos_emb", "type_emb")}
+    _pair(state, "emb_ln", params["emb_ln"])
+    _layers(state, "", params["layers"])
+    for name, pair in params.get("mlm_head", {}).items():
+        _pair(state, f"mlm_head.{name}", pair)
+    return state
+
+
+def clip_state_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The state dict of ``CLIPModel`` from the JAX package's CLIP parameter pytree
+    (``{"text": ..., "vision": ...}``)."""
+    state: Dict[str, torch.Tensor] = {}
+    for tower in ("text", "vision"):
+        leaves = params[tower]
+        _layers(state, f"{tower}.", leaves["layers"])
+        for name, value in leaves.items():
+            if name == "layers":
+                continue
+            if isinstance(value, (tuple, list)):
+                _pair(state, f"{tower}.{name}", value)
+            elif name == "proj":
+                state[f"{tower}.proj.weight"] = torch.tensor(np.ascontiguousarray(np.asarray(value).T))
+            elif name == "cls_emb":
+                state[f"{tower}.cls_emb"] = torch.tensor(np.asarray(value))
+            else:
+                state[f"{tower}.{name}.weight"] = torch.tensor(np.asarray(value))
+    return state
+
+
+_VGG_FEATURES = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
+_ALEX_FEATURES = (0, 3, 6, 8, 10)
+_FIRE_FEATURES = (3, 4, 6, 7, 9, 10, 11, 12)
+
+
+def lpips_state_from_jax(backbone: Any, linear_weights: Any, net_type: str) -> Dict[str, torch.Tensor]:
+    """The state dict of ``LPIPS`` from the JAX package's ``load_lpips`` pair: the
+    backbone parameters (a list of ``{"weight", "bias"}`` for vgg/alex, a dict of
+    ``conv1`` and ``fire1``..``fire8`` for squeeze) and the (1, C) lin heads."""
+    state: Dict[str, torch.Tensor] = {}
+
+    def conv(name: str, leaves: Dict[str, Any]) -> None:
+        state[f"{name}.weight"] = torch.tensor(np.asarray(leaves["weight"]))
+        state[f"{name}.bias"] = torch.tensor(np.asarray(leaves["bias"]))
+
+    if net_type == "squeeze":
+        conv("features.0", backbone["conv1"])
+        for n, i in enumerate(_FIRE_FEATURES, start=1):
+            for part in ("squeeze", "expand1x1", "expand3x3"):
+                conv(f"features.{i}.{part}", backbone[f"fire{n}"][part])
+    else:
+        for i, leaves in zip(_VGG_FEATURES if net_type == "vgg" else _ALEX_FEATURES, backbone):
+            conv(f"features.{i}", leaves)
+    for i, w in enumerate(linear_weights):
+        state[f"lins.{i}"] = torch.tensor(np.asarray(w)).reshape(1, -1)
     return state
 
 

@@ -1,7 +1,8 @@
 """Functional entry points of metrics_tpu_torch: every classification, regression and
-nominal functional, the pairwise functions, PSNRB, the four box-IoU functionals, PESQ and STOI,
-and the retrieval, the other image, the two panoptic, the other six audio and the text
-functionals through root shims that warn (as in ``metrics_tpu.functional``);
+nominal functional, the pairwise functions, PSNRB, LPIPS, CLIPScore, the four box-IoU
+functionals, PESQ and STOI, and the retrieval, the other image, the two panoptic, the
+other six audio and the text functionals (``bert_score`` and ``infolm`` among them)
+through root shims that warn (as in ``metrics_tpu.functional``);
 ``metrics_tpu_torch.functional.retrieval``, ``.image``, ``.detection``, ``.audio`` and
 ``.text`` give them silently.
 """
@@ -29,7 +30,11 @@ from metrics_tpu_torch.functional.detection._deprecated import (
     _modified_panoptic_quality as modified_panoptic_quality,
     _panoptic_quality as panoptic_quality,
 )
-from metrics_tpu_torch.functional.image import peak_signal_noise_ratio_with_blocked_effect
+from metrics_tpu_torch.functional.image import (
+    learned_perceptual_image_patch_similarity,
+    peak_signal_noise_ratio_with_blocked_effect,
+)
+from metrics_tpu_torch.functional.multimodal import clip_score
 from metrics_tpu_torch.functional.image._deprecated import (
     _error_relative_global_dimensionless_synthesis as error_relative_global_dimensionless_synthesis,
     _image_gradients as image_gradients,
@@ -63,10 +68,12 @@ from metrics_tpu_torch.functional.pairwise import (
 from metrics_tpu_torch.functional.regression import *  # noqa: F401,F403
 from metrics_tpu_torch.functional.regression import __all__ as _regression_all
 from metrics_tpu_torch.functional.text._deprecated import (
+    _bert_score as bert_score,
     _bleu_score as bleu_score,
     _char_error_rate as char_error_rate,
     _chrf_score as chrf_score,
     _extended_edit_distance as extended_edit_distance,
+    _infolm as infolm,
     _match_error_rate as match_error_rate,
     _perplexity as perplexity,
     _rouge_score as rouge_score,
@@ -151,4 +158,8 @@ __all__ = _classification_all + _regression_all + [
     "word_error_rate",
     "word_information_lost",
     "word_information_preserved",
+    "bert_score",
+    "clip_score",
+    "infolm",
+    "learned_perceptual_image_patch_similarity",
 ]

@@ -1,11 +1,8 @@
-"""Image functionals of metrics_tpu_torch (counterpart of ``metrics_tpu.functional.image``).
-
-Every name of the JAX package but ``learned_perceptual_image_patch_similarity``,
-whose backbones need local weight files that are not ported yet.
-"""
+"""Image functionals of metrics_tpu_torch (counterpart of ``metrics_tpu.functional.image``)."""
 from metrics_tpu_torch.functional.image.d_lambda import spectral_distortion_index
 from metrics_tpu_torch.functional.image.ergas import error_relative_global_dimensionless_synthesis
 from metrics_tpu_torch.functional.image.gradients import image_gradients
+from metrics_tpu_torch.functional.image.lpips import learned_perceptual_image_patch_similarity
 from metrics_tpu_torch.functional.image.psnr import peak_signal_noise_ratio
 from metrics_tpu_torch.functional.image.psnrb import peak_signal_noise_ratio_with_blocked_effect
 from metrics_tpu_torch.functional.image.rase import relative_average_spectral_error
@@ -21,6 +18,7 @@ from metrics_tpu_torch.functional.image.uqi import universal_image_quality_index
 __all__ = [
     "error_relative_global_dimensionless_synthesis",
     "image_gradients",
+    "learned_perceptual_image_patch_similarity",
     "multiscale_structural_similarity_index_measure",
     "peak_signal_noise_ratio",
     "peak_signal_noise_ratio_with_blocked_effect",

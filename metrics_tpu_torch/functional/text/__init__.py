@@ -1,9 +1,10 @@
-"""Text functionals (counterpart of ``metrics_tpu/functional/text/__init__.py``), without
-``bert_score`` and ``infolm``, which are not ported yet."""
+"""Text functionals (counterpart of ``metrics_tpu/functional/text/__init__.py``)."""
+from metrics_tpu_torch.functional.text.bert import bert_score
 from metrics_tpu_torch.functional.text.bleu import bleu_score
 from metrics_tpu_torch.functional.text.cer import char_error_rate
 from metrics_tpu_torch.functional.text.chrf import chrf_score
 from metrics_tpu_torch.functional.text.eed import extended_edit_distance
+from metrics_tpu_torch.functional.text.infolm import infolm
 from metrics_tpu_torch.functional.text.mer import match_error_rate
 from metrics_tpu_torch.functional.text.perplexity import perplexity
 from metrics_tpu_torch.functional.text.rouge import rouge_score
@@ -15,10 +16,12 @@ from metrics_tpu_torch.functional.text.wil import word_information_lost
 from metrics_tpu_torch.functional.text.wip import word_information_preserved
 
 __all__ = [
+    "bert_score",
     "bleu_score",
     "char_error_rate",
     "chrf_score",
     "extended_edit_distance",
+    "infolm",
     "match_error_rate",
     "perplexity",
     "rouge_score",

@@ -4,10 +4,12 @@
 ``metrics_tpu_torch.functional.text`` they stay silent.
 """
 from metrics_tpu_torch.functional.text import (
+    bert_score,
     bleu_score,
     char_error_rate,
     chrf_score,
     extended_edit_distance,
+    infolm,
     match_error_rate,
     perplexity,
     rouge_score,
@@ -33,6 +35,8 @@ _translation_edit_rate = _root_func_shim(translation_edit_rate, "translation_edi
 _word_error_rate = _root_func_shim(word_error_rate, "word_error_rate", "text")
 _word_information_lost = _root_func_shim(word_information_lost, "word_information_lost", "text")
 _word_information_preserved = _root_func_shim(word_information_preserved, "word_information_preserved", "text")
+_bert_score = _root_func_shim(bert_score, "bert_score", "text")
+_infolm = _root_func_shim(infolm, "infolm", "text")
 
 __all__ = [
     "_bleu_score",
@@ -48,4 +52,6 @@ __all__ = [
     "_word_error_rate",
     "_word_information_lost",
     "_word_information_preserved",
+    "_bert_score",
+    "_infolm",
 ]

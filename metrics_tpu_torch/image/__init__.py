@@ -1,13 +1,10 @@
-"""Image metrics of metrics_tpu_torch (counterpart of ``metrics_tpu.image``).
-
-Every class of the JAX package but ``LearnedPerceptualImagePatchSimilarity``, whose
-backbones need local weight files that are not ported yet.
-"""
+"""Image metrics of metrics_tpu_torch (counterpart of ``metrics_tpu.image``)."""
 from metrics_tpu_torch.image.d_lambda import SpectralDistortionIndex
 from metrics_tpu_torch.image.ergas import ErrorRelativeGlobalDimensionlessSynthesis
 from metrics_tpu_torch.image.fid import FrechetInceptionDistance
 from metrics_tpu_torch.image.inception import InceptionScore
 from metrics_tpu_torch.image.kid import KernelInceptionDistance
+from metrics_tpu_torch.image.lpip import LearnedPerceptualImagePatchSimilarity
 from metrics_tpu_torch.image.psnr import PeakSignalNoiseRatio
 from metrics_tpu_torch.image.psnrb import PeakSignalNoiseRatioWithBlockedEffect
 from metrics_tpu_torch.image.rase import RelativeAverageSpectralError
@@ -25,6 +22,7 @@ __all__ = [
     "FrechetInceptionDistance",
     "InceptionScore",
     "KernelInceptionDistance",
+    "LearnedPerceptualImagePatchSimilarity",
     "MultiScaleStructuralSimilarityIndexMeasure",
     "PeakSignalNoiseRatio",
     "PeakSignalNoiseRatioWithBlockedEffect",

@@ -1,9 +1,10 @@
-"""Text metrics (counterpart of ``metrics_tpu/text/__init__.py``), without ``BERTScore`` and
-``InfoLM``, which are not ported yet."""
+"""Text metrics (counterpart of ``metrics_tpu/text/__init__.py``)."""
+from metrics_tpu_torch.text.bert import BERTScore
 from metrics_tpu_torch.text.bleu import BLEUScore
 from metrics_tpu_torch.text.cer import CharErrorRate
 from metrics_tpu_torch.text.chrf import CHRFScore
 from metrics_tpu_torch.text.eed import ExtendedEditDistance
+from metrics_tpu_torch.text.infolm import InfoLM
 from metrics_tpu_torch.text.mer import MatchErrorRate
 from metrics_tpu_torch.text.perplexity import Perplexity
 from metrics_tpu_torch.text.rouge import ROUGEScore
@@ -15,10 +16,12 @@ from metrics_tpu_torch.text.wil import WordInfoLost
 from metrics_tpu_torch.text.wip import WordInfoPreserved
 
 __all__ = [
+    "BERTScore",
     "BLEUScore",
     "CharErrorRate",
     "CHRFScore",
     "ExtendedEditDistance",
+    "InfoLM",
     "MatchErrorRate",
     "Perplexity",
     "ROUGEScore",

@@ -15,3 +15,4 @@ _PESQ_AVAILABLE = _module_available("pesq")
 _PYSTOI_AVAILABLE = _module_available("pystoi")
 _NLTK_AVAILABLE = _module_available("nltk")
 _REGEX_AVAILABLE = _module_available("regex")
+_TRANSFORMERS_AVAILABLE = _module_available("transformers")

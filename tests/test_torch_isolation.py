@@ -32,7 +32,12 @@
 - the text slice (``text/``, ``functional/text/``) is in both scans; a fresh import of
   every module loads neither ``nltk`` nor ``transformers``, ``tokenizers`` or
   ``sacrebleu``; its classes, and its functionals given strings (Perplexity's given
-  numpy logits), raise without a card unless given ``device=``.
+  numpy logits), raise without a card unless given ``device=``;
+- the model metrics (BERTScore, InfoLM, CLIPScore, LPIPS, ``models/bert.py``,
+  ``models/clip.py``, ``models/lpips.py``, ``multimodal/``) are in both scans, and the
+  fresh import loads no ``transformers`` for them either; BERTScore and InfoLM are in
+  the text sweep above (their default encoders raise for the device before they load
+  anything), LPIPS in the image sweep.
 """
 import ast
 import os
@@ -100,6 +105,12 @@ REQUIRED_MODULES = (
       for m in ("bleu", "cer", "chrf", "eed", "mer", "perplexity", "rouge", "sacre_bleu", "squad", "ter", "wer",
                 "wil", "wip", "_deprecated")),
     "metrics_tpu_torch.text", "metrics_tpu_torch.functional.text", "metrics_tpu_torch.functional.text.helper",
+    # the model metrics, their networks and the multimodal packages
+    "metrics_tpu_torch.text.bert", "metrics_tpu_torch.text.infolm", "metrics_tpu_torch.functional.text.bert",
+    "metrics_tpu_torch.functional.text.infolm", "metrics_tpu_torch.image.lpip", "metrics_tpu_torch.functional.image.lpips",
+    "metrics_tpu_torch.multimodal", "metrics_tpu_torch.multimodal.clip_score", "metrics_tpu_torch.functional.multimodal",
+    "metrics_tpu_torch.functional.multimodal.clip_score", "metrics_tpu_torch.models._transformer",
+    "metrics_tpu_torch.models.bert", "metrics_tpu_torch.models.clip", "metrics_tpu_torch.models.lpips",
 )
 
 
