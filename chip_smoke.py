@@ -142,7 +142,7 @@ Phases, each printing one JSON line:
 
 13. image: the image and pairwise slice, data drawn on the card, no hand kernel (both
     launch counts 0):
-    - CIFAR-10 FID protocol, cut to 25,000 real and 25,000 generated 3x32x32 uint8 images
+    - CIFAR-10 FID protocol, cut to 10,000 real and 10,000 generated 3x32x32 uint8 images
       (the protocol's 50,000 each) in updates of 500, resized to 299x299 inside a full-width InceptionV3 on
       ``random_inception_state(seed)``: FrechetInceptionDistance (tap 2048),
       KernelInceptionDistance (100 subsets of 1,000) and InceptionScore (10 splits,
@@ -351,6 +351,29 @@ Phases, each printing one JSON line:
     counts exact (int64), an identical LPIPS pair under 1e-6. Printed: compute and update
     ms, sentences/images/pairs per second of each forward, its device ms split into GEMMs
     and convolutions, softmax and the rest, peak memory and each part's seconds.
+21. ckpt_ingest: durable and coalesced state, one JSON line per check:
+    - DLRM: the day-23 stream (89,137,319 rows in updates of 65,536) into one
+      ``MetricCollection`` of BinaryAUROC, BinaryAUROC(max_fpr=0.1) and
+      BinaryAveragePrecision at ``cat_capacity=2**27`` (one compute group, 1.07 GB of
+      buffers); ``save_checkpoint(blocking=False)`` after update 680 while the updates go
+      on, restored into a fresh collection that takes the rest: the three computes
+      bit-equal to the uninterrupted run's, one scan launch each. Printed: the save call's
+      host ms, the bytes, the writer's ms to commit, the median update ms (wall, synced)
+      before and during the write, restore ms, peak memory;
+    - the five-group canonical collection fused over 200 steps of 65,536 rows, a blocking
+      save at step 100 (the leaders' step buffers), restored into a fused collection that
+      had already stepped (its replays copy the restored states in once) and run for the
+      last 100 steps: bit-equal to the uninterrupted run, one histogram launch a replay;
+    - the same collection behind an ``IngestQueue`` fed by a producer thread (200
+      enqueues of the same batches): after ``flush`` bit-equal to the synchronous fused
+      run, ``degrades == 0``, every chained step a captured graph, one replay a tick.
+      Printed: enqueue us (median, p99), ticks, replays a tick, rows/s, histogram launches
+      against the replays' and the captures' warm-ups'; beside it the same enqueues into a
+      queue without a tick thread (their median us; one flush, bit-equal too);
+    - faults: ``fused.launch`` at rate 0.25 (seed 7) over 50 steps bit-equal to eager with
+      ``degrades > 0``; one ``ingest.tick`` fault: no row lost, bit-equal; ``ckpt.fsync``
+      at occurrence 0: the retry commits; a Cityscapes batch poisoned by ``input.poison``
+      under ``nan_policy="raise"``: ``PoisonedInputError``, the state untouched.
     The sync_ranks phase (11) also runs the pure tier on each of its four ranks:
     ``evaluate_sharded`` of the Cityscapes collection and of a ``cat_capacity``
     BinaryAUROC over DLRM-style rows (through ``cat_sync``) against one process on the
@@ -364,6 +387,7 @@ import contextlib
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2357,9 +2381,10 @@ def phase_classification_rest(torch, seed: int, smi: str):
 
 # CIFAR-10 FID protocol (Heusel et al. 2017, as torch-fidelity and pytorch-fid run it):
 # 50,000 real against 50,000 generated 3x32x32 uint8 images, resized to 299x299 inside
-# the network, in updates of 500; cut to 25,000 each so that the whole run stays within
-# its earlier time with the wrappers and nominal phase added
-CIFAR10 = {"real": 25_000, "fake": 25_000, "batch": 500, "size": 32}
+# the network, in updates of 500; cut to 25,000 each when the wrappers and nominal phase
+# came, and to 10,000 each when the checkpoint and ingest phase came, so that the whole
+# run stays near half its time limit
+CIFAR10 = {"real": 10_000, "fake": 10_000, "batch": 500, "size": 32}
 KID_ARGS = {"subsets": 100, "subset_size": 1000}
 IS_SPLITS = 10
 FID_768_IMAGES = 10_000  # per set: the 768-tap FID of the scipy.linalg.sqrtm cross-check
@@ -6447,6 +6472,312 @@ def phase_model_metrics(torch, seed: int, smi: str) -> dict:
     return record
 
 
+# ------------------------------------------------------------------ ckpt_ingest
+
+CKPT_INGEST = {"dlrm_capacity": 1 << 27, "save_after": 680, "stall_window": 40, "fused_steps": 200,
+               "fused_rows": 65_536, "fused_save_at": 100, "enqueues": 200, "fault_steps": 50,
+               "fault_rate": 0.25, "fault_seed": 7, "tick_fault_batches": 20}
+
+
+def ck_dir(name: str) -> str:
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "ckpt_ingest", name)
+    shutil.rmtree(root, ignore_errors=True)
+    return root
+
+
+def dlrm_collection(capacity: int):
+    from metrics_tpu_torch.classification import BinaryAUROC, BinaryAveragePrecision
+    from metrics_tpu_torch.core import MetricCollection
+
+    return MetricCollection({"auroc": BinaryAUROC(cat_capacity=capacity),
+                             "auroc_max_fpr": BinaryAUROC(max_fpr=0.1, cat_capacity=capacity),
+                             "ap": BinaryAveragePrecision(cat_capacity=capacity)})
+
+
+def same_values(a: dict, b: dict) -> bool:
+    return set(a) == set(b) and all(a[k].dtype == b[k].dtype and bool((a[k] == b[k]).all()) for k in a)
+
+
+def synced_ms(torch, fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def ci_dlrm(torch, seed: int, smi: str) -> dict:
+    """The DLRM collection saved asynchronously mid-stream, restored and finished."""
+    cfg = CKPT_INGEST
+    torch.cuda.reset_peak_memory_stats()
+    scores, target = dlrm_data(torch, seed)
+    batches = dlrm_batches(scores, target, DLRM["samples"])
+    half = cfg["save_after"]
+    directory = ck_dir("dlrm")
+    whole = dlrm_collection(cfg["dlrm_capacity"])
+    before, during = [], []
+    for i, (p, t) in enumerate(batches[:half]):
+        if i < half - cfg["stall_window"]:
+            whole.update(p, t)
+        else:  # the updates just before the save, each timed alone
+            before.append(synced_ms(torch, lambda: whole.update(p, t)))
+    t_call = time.perf_counter()
+    handle = whole.save_checkpoint(directory, blocking=False)
+    call_ms = (time.perf_counter() - t_call) * 1e3
+    commit_seen_s = None
+    for p, t in batches[half:]:
+        if not handle.done():
+            during.append(synced_ms(torch, lambda: whole.update(p, t)))
+            if handle.done():
+                commit_seen_s = time.perf_counter() - t_call
+        else:
+            whole.update(p, t)
+    handle.result()
+    if commit_seen_s is None:
+        commit_seen_s = time.perf_counter() - t_call
+    if not handle.committed:
+        raise AssertionError("the DLRM checkpoint did not commit")
+    stats = dict(whole._ckpt_stats)
+    resumed = dlrm_collection(cfg["dlrm_capacity"])
+    restore_ms = synced_ms(torch, lambda: resumed.restore_checkpoint(directory))
+    for p, t in batches[half:]:
+        resumed.update(p, t)
+    want, l_whole, _ = run_counted(torch, whole.compute)
+    got, l_resumed, _ = run_counted(torch, resumed.compute)
+    expect_launches("DLRM computes, uninterrupted", l_whole, scan=3)
+    expect_launches("DLRM computes, restored", l_resumed, scan=3)
+    if not same_values(got, want):
+        raise AssertionError(f"restored DLRM computes {got} != uninterrupted {want}")
+    record = {"rows": DLRM["samples"], "updates": len(batches), "saved_after_update": half,
+              "capacity": cfg["dlrm_capacity"], "bit_equal": True, "values": {k: float(v) for k, v in got.items()},
+              "save_call_host_ms": call_ms, "bytes": stats["last_save_bytes"],
+              "writer_ms_to_commit": stats["last_save_ms"], "commit_seen_s": commit_seen_s,
+              "update_ms_before_median": statistics.median(before),
+              "update_ms_during_median": statistics.median(during) if during else None,
+              "updates_during_write": len(during), "restore_ms": restore_ms,
+              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "launches": {"segment_scan": l_whole["segment_scan"] + l_resumed["segment_scan"]}}
+    emit({"phase": "ckpt_ingest_dlrm", "card": smi, **record})
+    shutil.rmtree(os.path.dirname(directory), ignore_errors=True)
+    return record
+
+
+def canonical_batches(torch, seed: int):
+    cfg = CKPT_INGEST
+    g = torch.Generator(device="cuda").manual_seed(seed + 21)
+    n, steps = cfg["fused_rows"], cfg["fused_steps"]
+    preds = torch.rand((steps, n), generator=g, device="cuda")
+    target = torch.randint(0, 2, (steps, n), generator=g, device="cuda", dtype=torch.int32)
+    return preds, target
+
+
+def ci_fused(torch, preds, target, smi: str) -> dict:
+    """Blocking save of a fused collection at step 100, restored into a stepped one."""
+    from metrics_tpu_torch.core.fused import canonical_collection, engine_for
+
+    cfg = CKPT_INGEST
+    steps, at = cfg["fused_steps"], cfg["fused_save_at"]
+    directory = ck_dir("fused")
+    eager = canonical_collection(False)
+    _, eager_launches, _ = run_counted(torch, lambda: [eager.update(preds[i], target[i]) for i in range(4)])
+    per_step = eager_launches["histogram"] // 4
+    whole = canonical_collection(True)
+    _, l_first, _ = run_counted(torch, lambda: [whole.update(preds[i], target[i]) for i in range(at)])
+    t0 = time.perf_counter()
+    whole.save_checkpoint(directory)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    _, l_rest, _ = run_counted(torch, lambda: [whole.update(preds[i], target[i]) for i in range(at, steps)])
+    resumed = canonical_collection(True)
+    _, l_warm, _ = run_counted(torch, lambda: resumed.update(preds[steps - 1], target[steps - 1]))
+    restore_ms = synced_ms(torch, lambda: resumed.restore_checkpoint(directory))
+    _, l_resumed, _ = run_counted(torch, lambda: [resumed.update(preds[i], target[i]) for i in range(at, steps)])
+    got, want = resumed.compute(), whole.compute()
+    if not same_values(got, want):
+        raise AssertionError("the restored fused collection differs from the uninterrupted run")
+    stats = dict(engine_for(resumed).stats)
+    if stats["degrades"] or stats["launches"] != steps - at + 1 or stats["cache_misses"] != 1:
+        raise AssertionError(f"restored fused collection stats {stats}")
+    expect_launches("fused steps after the restore", l_resumed, histogram=per_step * (steps - at))
+    expect_launches("fused steps before the save", l_first, histogram=per_step * (at + 1))
+    record = {"steps": steps, "saved_at": at, "rows": cfg["fused_rows"], "bit_equal": True,
+              "histogram_per_replay": per_step, "save_ms": save_ms, "restore_ms": restore_ms,
+              "bytes": whole._ckpt_stats["last_save_bytes"], "stats": stats}
+    emit({"phase": "ckpt_ingest_fused", "card": smi, **record})
+    launches = {k: l_first[k] + l_rest[k] + l_warm[k] + l_resumed[k] + eager_launches[k] for k in l_first}
+    return {"record": record, "want": want, "launches": launches, "per_step": per_step}
+
+
+def ci_ingest(torch, preds, target, want: dict, per_step: int, smi: str) -> dict:
+    """A producer thread enqueueing the 200 batches against the tick thread."""
+    import threading
+
+    from metrics_tpu_torch.core.fused import CapturedStep, canonical_collection
+    from metrics_tpu_torch.serve import IngestQueue
+
+    cfg = CKPT_INGEST
+    n = cfg["enqueues"]
+    # the enqueues alone, with no tick thread beside them (a manual queue, flushed after)
+    manual_coll = canonical_collection(True)
+    idle_us = []
+    with IngestQueue(manual_coll, capacity=256, start=False) as manual:
+        for i in range(n):
+            s = time.perf_counter()
+            manual.enqueue(preds[i], target[i])
+            idle_us.append((time.perf_counter() - s) * 1e6)
+        _, manual_launches, manual_s = run_counted(torch, manual.flush)
+        manual_stats = dict(manual.stats)
+    if not same_values(manual_coll.compute(), want) or manual_stats["degrades"]:
+        raise AssertionError(f"the manually flushed queue differs from the synchronous run: {manual_stats}")
+    target_coll = canonical_collection(True)
+    enqueue_us, errors = [], []
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    with IngestQueue(target_coll, capacity=256) as queue:
+
+        def produce():
+            try:
+                for i in range(n):
+                    s = time.perf_counter()
+                    queue.enqueue(preds[i], target[i])
+                    enqueue_us.append((time.perf_counter() - s) * 1e6)
+            except BaseException as err:  # noqa: BLE001
+                errors.append(err)
+
+        producer = threading.Thread(target=produce, name="smoke-producer")
+        producer.start()
+        producer.join(timeout=300)
+        if producer.is_alive() or errors:
+            raise AssertionError(f"the producer failed: {errors}")
+        queue.flush()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        stats, step_stats = dict(queue.stats), dict(queue.step_stats)
+        captured = all(isinstance(s, CapturedStep) for s in queue._steps.steps.values())
+    launches = all_launches()
+    got = target_coll.compute()
+    if not same_values(got, want):
+        raise AssertionError("the ticked collection differs from the synchronous fused run")
+    if stats["degrades"] or step_stats["degrades"] or stats["eager_entries"] or not captured:
+        raise AssertionError(f"ingest fell back: stats {stats}, step stats {step_stats}, captured {captured}")
+    expected = per_step * (n + stats["capture_entries"])
+    if launches["histogram"] != expected or stats["launches"] != stats["ticks"]:
+        raise AssertionError(f"ingest launches {launches}, expected {expected} histogram; stats {stats}")
+    ordered = sorted(enqueue_us)
+    record = {"enqueues": n, "rows": n * cfg["fused_rows"], "bit_equal": True, "stats": stats,
+              "step_stats": step_stats, "replays_per_tick": stats["launches"] / stats["ticks"],
+              "enqueue_us_median": statistics.median(ordered),
+              "enqueue_us_p99": ordered[min(len(ordered) - 1, int(0.99 * len(ordered)))],
+              "rows_per_s": n * cfg["fused_rows"] / seconds, "seconds": seconds,
+              "histogram_launches": launches["histogram"], "histogram_expected": expected,
+              "no_ticker": {"enqueue_us_median": statistics.median(idle_us), "flush_s": manual_s,
+                            "ticks": manual_stats["ticks"], "capture_entries": manual_stats["capture_entries"]}}
+    emit({"phase": "ckpt_ingest_queue", "card": smi, **record})
+    return {"record": record, "launches": {k: launches[k] + manual_launches[k] for k in launches}}
+
+
+def ci_faults(torch, preds, target, seed: int, smi: str) -> dict:
+    import warnings
+
+    from metrics_tpu_torch import fault
+    from metrics_tpu_torch.classification import MulticlassJaccardIndex
+    from metrics_tpu_torch.core.fused import canonical_collection, engine_for
+    from metrics_tpu_torch.regression import MeanSquaredError
+    from metrics_tpu_torch.serve import IngestQueue
+
+    cfg = CKPT_INGEST
+    totals = {}
+
+    def counted(fn):
+        out, launches, _ = run_counted(torch, fn)
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        return out
+
+    # fused.launch at rate 0.25 over 50 steps
+    fused, eager = canonical_collection(True), canonical_collection(False)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        with fault.FaultSchedule(seed=cfg["fault_seed"], sites=("fused.launch",), rate=cfg["fault_rate"]) as sched:
+            counted(lambda: [(fused.update(preds[i], target[i]), eager.update(preds[i], target[i]))
+                             for i in range(cfg["fault_steps"])])
+    degrades = engine_for(fused).stats["degrades"]
+    if not same_values(fused.compute(), eager.compute()) or degrades < 1 or not sched.fired:
+        raise AssertionError(f"fused.launch schedule: degrades {degrades}, fired {sched.fired}")
+    # one ingest.tick fault: the tick's batches go through the public update
+    k = cfg["tick_fault_batches"]
+    sync = canonical_collection(True)
+    counted(lambda: [sync.update(preds[i], target[i]) for i in range(k)])
+    ticked = canonical_collection(True)
+    with IngestQueue(ticked, capacity=64, start=False) as queue:
+        for i in range(k):
+            queue.enqueue(preds[i], target[i])
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            with fault.FaultSchedule(fire_at={"ingest.tick": 0}):
+                counted(queue.flush)
+        tick_stats = dict(queue.stats)
+    if (tick_stats["degrades"], tick_stats["coalesced_rows"], ticked["BinaryAccuracy"]._update_count) != (
+            1, k * cfg["fused_rows"], k) or not same_values(ticked.compute(), sync.compute()):
+        raise AssertionError(f"ingest.tick fault: stats {tick_stats}")
+    # ckpt.fsync at occurrence 0: the retry commits
+    directory = ck_dir("fsync")
+    m = MeanSquaredError()
+    m.update(preds[0], target[0].float())
+    with fault.FaultSchedule(fire_at={"ckpt.fsync": 0}) as fsync_sched:
+        handle = m.save_checkpoint(directory, retry_backoff_s=0.001)
+    back = MeanSquaredError()
+    back.restore_checkpoint(directory)
+    if not handle.committed or [e["site"] for e in fsync_sched.fired] != ["ckpt.fsync"] or not bool(
+            back.compute() == m.compute()):
+        raise AssertionError("ckpt.fsync fault: the retry did not commit the same state")
+    # a poisoned Cityscapes batch under nan_policy="raise"
+    g = torch.Generator(device="cuda").manual_seed(seed + 22)
+    jaccard = MulticlassJaccardIndex(num_classes=CITYSCAPES["classes"], ignore_index=CITYSCAPES["ignore_index"],
+                                     nan_policy="raise")
+    logits, labels = cityscapes_batch(torch, g)
+    counted(lambda: jaccard.update(logits, labels))
+    before = {name: v.clone() for name, v in jaccard.metric_state.items()}
+    logits, labels = cityscapes_batch(torch, g)
+    rejected = None
+    with fault.FaultSchedule(seed=seed, fire_at={"input.poison": 0}) as poison_sched:
+        try:
+            counted(lambda: jaccard.update(logits, labels))
+        except fault.PoisonedInputError as err:
+            rejected = err.rows
+    del logits, labels
+    untouched = all(torch.equal(v, before[name]) for name, v in jaccard.metric_state.items())
+    if rejected is None or not untouched or jaccard._update_count != 1:
+        raise AssertionError(f"poisoned batch: rejected rows {rejected}, state untouched {untouched}")
+    shutil.rmtree(os.path.dirname(directory), ignore_errors=True)
+    record = {"fused_launch": {"steps": cfg["fault_steps"], "rate": cfg["fault_rate"], "seed": cfg["fault_seed"],
+                               "fired": len(sched.fired), "degrades": degrades, "bit_equal": True},
+              "ingest_tick": {"batches": k, "degrades": tick_stats["degrades"], "rows": tick_stats["coalesced_rows"],
+                              "bit_equal": True},
+              "ckpt_fsync": {"fired": len(fsync_sched.fired), "committed": True},
+              "input_poison": {"poisoned_rows": poison_sched.fired[0]["rows"], "rejected_rows": rejected,
+                               "state_untouched": True}}
+    emit({"phase": "ckpt_ingest_faults", "card": smi, **record})
+    return {"record": record, "launches": totals}
+
+
+def phase_ckpt_ingest(torch, seed: int, smi: str) -> dict:
+    """Checkpoints, the ingest queue and fault injection; returns the phase's launches
+    of each kernel."""
+    t0 = time.perf_counter()
+    dlrm = ci_dlrm(torch, seed, smi)
+    torch.cuda.empty_cache()
+    preds, target = canonical_batches(torch, seed)
+    fused = ci_fused(torch, preds, target, smi)
+    ingest = ci_ingest(torch, preds, target, fused["want"], fused["per_step"], smi)
+    faults = ci_faults(torch, preds, target, seed, smi)
+    launches = {name: sum(part["launches"].get(name, 0) for part in (fused, ingest, faults))
+                for name in KERNEL_WRAPPERS}
+    launches["segment_scan"] += dlrm["launches"]["segment_scan"]
+    emit({"phase": "ckpt_ingest", "card": smi, "seconds": time.perf_counter() - t0, "launches": launches})
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -6463,12 +6794,20 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    marks = [("start", time.perf_counter())]
+
+    def mark(name: str) -> None:
+        marks.append((name, time.perf_counter()))
+
     smi = phase_device(torch)
     phase_build()
+    mark("build")
     phase_kernel_vs_plain(torch, args.seed)
     phase_segscan_kernel_vs_plain(torch, args.seed)
+    mark("kernel_checks")
     gpu, batch, launches = phase_main_path(torch, args.seed)
     curve = phase_curve_path(torch, args.seed)
+    mark("main_and_curve_paths")
     kernels = phase_timing(torch, gpu, batch, launches, smi, args.seed)
     del gpu, batch
     scan = phase_curve_timing(torch, *curve, smi)
@@ -6479,51 +6818,70 @@ def main() -> int:
     del runs, batch, calls
     scan["launches"] += retrieval_launches
     kernels.append(scan)
+    mark("timing_and_retrieval")
 
     batches, collection_values, collection_launches = phase_collection(torch, args.seed, smi)
     nccl = phase_sync_nccl(torch, args.seed, batches, collection_values, map_value, smi)
     del batches
     ranks = phase_sync_ranks(torch, args.seed, smi)
+    mark("collection_and_syncs")
     kernels[0]["launches"] += collection_launches + nccl["histogram"] + ranks["histogram"]
     scan["launches"] += nccl["segment_scan"] + ranks["segment_scan"]
     rest = phase_classification_rest(torch, args.seed, smi)
+    mark("classification_rest")
     kernels[0]["launches"] += rest["histogram"]
     scan["launches"] += rest["segment_scan"]
     phase_image(torch, args.seed, smi)
+    mark("image")
     torch.cuda.empty_cache()
     match, detection_histogram = phase_detection(torch, args.seed, smi)
+    mark("detection")
     kernels[0]["launches"] += detection_histogram
     kernels.append(match)
     torch.cuda.empty_cache()
     regression_audio, kendall = phase_regression_audio(torch, args.seed, smi)
+    mark("regression_audio")
     scan["launches"] += regression_audio["segment_scan"]
     kernels.append(kendall)
     torch.cuda.empty_cache()
     wrappers_nominal = phase_wrappers_nominal(torch, args.seed, smi)
+    mark("wrappers_nominal")
     kernels[0]["launches"] += wrappers_nominal["histogram"]
     scan["launches"] += wrappers_nominal["segment_scan"]
     torch.cuda.empty_cache()
     batched, fused_histogram = phase_engines(torch, args.seed, smi)
+    mark("engines")
     kernels[0]["launches"] += fused_histogram
     kernels.insert(1, batched)
     torch.cuda.empty_cache()
     stacked = phase_wrappers_stacked(torch, args.seed, smi)
+    mark("wrappers_stacked")
     kernels[0]["launches"] += stacked["histogram"]
     batched["launches"] += stacked["histogram_batched"]
     scan["launches"] += stacked["segment_scan"]
     torch.cuda.empty_cache()
     sketches = phase_sketches(torch, args.seed, smi)
+    mark("sketches")
     kernels[0]["launches"] += sketches["histogram"]
     batched["launches"] += sketches["histogram_batched"]
     scan["launches"] += sketches["segment_scan"]
     torch.cuda.empty_cache()
     phase_text(torch, args.seed, smi)
+    mark("text")
     torch.cuda.empty_cache()
     phase_model_metrics(torch, args.seed, smi)
+    mark("model_metrics")
+    torch.cuda.empty_cache()
+    ckpt_ingest = phase_ckpt_ingest(torch, args.seed, smi)
+    mark("ckpt_ingest")
+    kernels[0]["launches"] += ckpt_ingest["histogram"]
+    scan["launches"] += ckpt_ingest["segment_scan"]
 
     idle = [k["name"] for k in kernels if k["launches"] < 1]
     if idle:
         raise AssertionError(f"kernels never launched on the main path: {idle}")
+    emit({"phase": "seconds_per_phase", "card": smi, "total_s": marks[-1][1] - marks[0][1],
+          "seconds": {name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])}})
     print(smi)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,8 +22,11 @@ was rebound elsewhere (a direct update or ``reset``) leaves its group. ``items``
 group that can fuse. The pure tier (``init_state``, ``local_update``,
 ``sync_state``, ``compute_from``) carries one state dict per metric, keyed by name.
 
-Not ported: ``save_checkpoint`` / ``restore_checkpoint`` and ``plot`` raise
-``NotImplementedError``.
+``save_checkpoint`` / ``restore_checkpoint`` go through
+:mod:`~metrics_tpu_torch.ckpt`: each compute group's state is saved once, from its
+leader (a fused leader's captured step buffers), and restore aliases the members to
+their leader again; a fused collection's next replay copies the restored states into
+its buffers. Not ported: ``plot`` raises ``NotImplementedError``.
 """
 import os
 from collections import OrderedDict
@@ -476,11 +479,19 @@ class MetricCollection(nn.ModuleDict):
             self._state_is_copy = False
             self._compute_groups_create_state_ref()
 
-    def save_checkpoint(self, directory: str, step: Optional[int] = None, **kwargs: Any) -> None:
-        raise NotImplementedError("MetricCollection.save_checkpoint: checkpointing is not ported yet")
+    def save_checkpoint(self, directory: str, step: Optional[int] = None, **kwargs: Any) -> Any:
+        """Durable, atomic checkpoint of every member's state, each compute group's once
+        (see :func:`metrics_tpu_torch.ckpt.save_checkpoint`)."""
+        from metrics_tpu_torch.ckpt import save_checkpoint
+
+        return save_checkpoint(self, directory, step=step, **kwargs)
 
     def restore_checkpoint(self, directory: str, step: Optional[int] = None, **kwargs: Any) -> int:
-        raise NotImplementedError("MetricCollection.restore_checkpoint: checkpointing is not ported yet")
+        """Restore a checkpoint of :meth:`save_checkpoint`, members re-aliased to their
+        leaders (see :func:`metrics_tpu_torch.ckpt.restore_checkpoint`)."""
+        from metrics_tpu_torch.ckpt import restore_checkpoint
+
+        return restore_checkpoint(self, directory, step=step, **kwargs)
 
     def plot(self, val: Any = None, ax: Any = None, together: bool = False) -> Any:
         raise NotImplementedError("MetricCollection.plot is not ported")

@@ -37,10 +37,17 @@ replayed:
   a step on either device (:func:`~metrics_tpu_torch.utils.checks.tracing`), as
   under ``jit``.
 
+- **Faults.** The ``fused.compile`` and ``fused.launch`` sites of
+  :mod:`~metrics_tpu_torch.fault` (``fleet.compile`` for the fleet) sit before a
+  capture and before a replay: a fired fault breaks the key like a real failure,
+  and the step runs eagerly, bit-equal, from then on.
+- **Threads.** A capture is thread-local (``capture_error_mode="thread_local"``):
+  another thread may use the card meanwhile (the ingest queue's producers, while its
+  tick thread captures).
+
 ``stats`` keeps the JAX package's keys: ``launches`` (fused steps run: replays on
 the card), ``cache_hits``, ``cache_misses``, ``fallback_groups`` and ``degrades``.
-The observability, fault-injection and warm-manifest hooks of the JAX file are not
-ported.
+The observability and warm-manifest hooks of the JAX file are not ported.
 """
 import inspect
 import warnings
@@ -55,6 +62,7 @@ from torch.utils import _pytree as pytree
 from metrics_tpu_torch import _build
 from metrics_tpu_torch.core.metric import Metric, _class_update_signature, _squeeze_if_scalar
 from metrics_tpu_torch.core.state import CatBuffer
+from metrics_tpu_torch.fault import inject as _fault
 from metrics_tpu_torch.utils.checks import tracing
 from metrics_tpu_torch.utils.exceptions import MetricsUserError
 
@@ -110,6 +118,8 @@ def fusion_fallback_reason(leader: Metric, members: Sequence[Metric] = (), forwa
         return "list ('cat') state without cat_capacity is host-ragged"
     if any(isinstance(v, CatBuffer) for v in values):
         return "CatBuffer state: its append offset is a host count, fixed in a captured graph"
+    if any(getattr(m, "nan_policy", None) for m in members or (leader,)):
+        return "nan_policy quarantine is a host-side input check in the update wrapper"
     if leader._child_metrics():
         return "holds child metrics (wrapper updates are not pure over registered state)"
     if forward:
@@ -240,7 +250,7 @@ class CapturedStep:
             self.graph = torch.cuda.CUDAGraph()
             before = [w.launches for w in _build.LAUNCH_COUNTERS]
             try:
-                with torch.cuda.graph(self.graph), tracing():
+                with torch.cuda.graph(self.graph, capture_error_mode="thread_local"), tracing():
                     new_states, outputs = step(static_states, *static_extras)
                     new_leaves, new_spec = pytree.tree_flatten(new_states)
                     if new_spec != self._state_spec:
@@ -312,6 +322,10 @@ class StepCache:
     ``RuntimeWarning`` (one per site and error class), and :meth:`call` returns None
     for the key from then on, so that the caller runs its eager path. ``stats`` also
     counts ``launches`` (steps run compiled), ``cache_hits`` and ``cache_misses``.
+
+    An armed fault schedule fires ``<site>.compile`` before a key's first compile and
+    (for the fused site) ``fused.launch`` before each run; a fired fault breaks the
+    key as a real failure does, even where ``raise_first`` would raise.
     """
 
     def __init__(self, site: str, stats: Optional[Dict[str, int]] = None) -> None:
@@ -339,6 +353,17 @@ class StepCache:
         compiled = self.steps.get(key)
         first = compiled is None
         self.stats["cache_misses" if first else "cache_hits"] += 1
+        if _fault._SCHEDULE is not None:
+            try:
+                if first and f"{self.site}.compile" in _fault.SITES:
+                    _fault.fire(f"{self.site}.compile", key=str(key[0]))
+                if self.site == "fused":
+                    _fault.fire("fused.launch", key=str(key[0]))
+            except _fault.InjectedFaultError as err:
+                self.broken.add(key)
+                self.stats["degrades"] += 1
+                _warn_degrade_once(f"{self.site}.{'compile' if first else 'launch'}", err, detail)
+                return None
         try:
             if first:
                 compiled = compile_step(make_step(), states, extras)

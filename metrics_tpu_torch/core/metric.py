@@ -38,7 +38,19 @@ Device: states live on ``device`` (``cuda`` unless the caller names another, and
 constructing on ``cuda`` without a card raises). An update input on another device
 raises; array-likes that are not tensors are copied to the metric's device.
 
-Not ported: observability, fault injection, ``nan_policy`` and checkpointing.
+- ``nan_policy`` (``None``, ``"warn"``, ``"raise"``, ``"count"``): the update
+  wrapper counts the input rows holding NaN/Inf (one reduction on the device and one
+  host read, only when a policy is set; skipped inside a captured or transformed
+  step) and warns, raises :class:`~metrics_tpu_torch.fault.PoisonedInputError`
+  before any state or count changes, or only counts (``nonfinite_rows`` in the
+  registry of :mod:`~metrics_tpu_torch.obs`). An armed
+  :class:`~metrics_tpu_torch.fault.FaultSchedule` poisons inputs there first
+  (the ``input.poison`` site).
+- ``save_checkpoint`` / ``restore_checkpoint``: durable, atomic checkpoints of every
+  state (:mod:`~metrics_tpu_torch.ckpt`, the JAX package's format).
+
+Not ported: the observability hooks beyond those counters (the flight recorder,
+flow tracing, retrace detection).
 """
 import functools
 import inspect
@@ -53,6 +65,9 @@ import torch
 from torch import Tensor, nn
 
 from metrics_tpu_torch.core.state import CatBuffer, cat_merge
+from metrics_tpu_torch.fault import inject as _fault
+from metrics_tpu_torch.fault.inject import PoisonedInputError
+from metrics_tpu_torch.obs import registry as _obs
 from metrics_tpu_torch.parallel.collective import distributed_available
 from metrics_tpu_torch.utils.data import (
     _flatten,
@@ -66,6 +81,7 @@ from metrics_tpu_torch.utils.data import (
     dim_zero_sum,
     to_tensor,
 )
+from metrics_tpu_torch.utils.checks import _is_concrete
 from metrics_tpu_torch.utils.distributed import gather_all_tensors
 from metrics_tpu_torch.utils.exceptions import MetricsUserError, MetricsUserWarning
 from metrics_tpu_torch.utils.prints import rank_zero_warn
@@ -117,6 +133,8 @@ class Metric(nn.Module, ABC):
             instead of a list.
         fleet_size: give every state a leading axis of this many streams
             (:mod:`~metrics_tpu_torch.core.fleet`); exclusive with ``cat_capacity``.
+        nan_policy: what ``update`` does with input rows holding NaN/Inf: None (let
+            them through), ``"count"``, ``"warn"`` or ``"raise"``.
     """
 
     is_differentiable: Optional[bool] = None
@@ -169,6 +187,14 @@ class Metric(nn.Module, ABC):
         if self.cat_capacity is not None and (not isinstance(self.cat_capacity, int) or self.cat_capacity < 1):
             raise ValueError(
                 f"Expected keyword argument `cat_capacity` to be a positive int or None but got {self.cat_capacity}"
+            )
+        # what to do when NaN/Inf rows reach update(): None lets them through
+        # untouched; "count", "warn" and "raise" tally them and escalate accordingly
+        self.nan_policy = kwargs.pop("nan_policy", None)
+        if self.nan_policy not in (None, "warn", "raise", "count"):
+            raise ValueError(
+                "Expected keyword argument `nan_policy` to be one of None,"
+                f" 'warn', 'raise', 'count' but got {self.nan_policy!r}"
             )
         from metrics_tpu_torch.core import fleet as _fleet
 
@@ -453,12 +479,53 @@ class Metric(nn.Module, ABC):
             return to_tensor(value, self._device)
         return value
 
+    def _quarantine_inputs(self, args: Tuple[Any, ...], kwargs: Dict[str, Any]) -> None:
+        """The ``nan_policy`` gate: count the input rows that hold NaN/Inf.
+
+        Every float tensor's bad rows are summed on its device and read on the host
+        once. Inside a captured or transformed step (the engines' chained steps,
+        ``vmap``) the check is skipped, as the JAX package skips tracers.
+        """
+        counts = []
+        for value in tuple(args) + tuple(kwargs.values()):
+            if isinstance(value, np.ndarray) and np.issubdtype(value.dtype, np.floating):
+                value = torch.from_numpy(value)
+            if not isinstance(value, Tensor) or not value.is_floating_point() or value.numel() == 0:
+                continue
+            if not _is_concrete(value):
+                return
+            bad = ~torch.isfinite(value)
+            counts.append(bad.sum() if value.dim() == 0 else bad.reshape(value.shape[0], -1).any(-1).sum())
+        if not counts:
+            return
+        rows = int(sum(c.to(counts[0].device) for c in counts))  # the one host read
+        if not rows:
+            return
+        name = type(self).__name__
+        if _obs._ENABLED:
+            _obs.REGISTRY.inc(name, "nonfinite_rows", rows)
+        if self.nan_policy == "raise":
+            raise PoisonedInputError(name, rows)
+        if self.nan_policy == "warn":
+            rank_zero_warn(
+                f"Metric {name}: {rows} update input row(s) contain NaN/Inf"
+                " (nan_policy='warn'); they were accumulated anyway. Use"
+                " nan_policy='raise' to reject poisoned batches.",
+                MetricsUserWarning,
+            )
+
     def _wrap_update(self, update: Callable) -> Callable:
         @functools.wraps(update)
         def wrapped_func(*args: Any, **kwargs: Any) -> None:
             if not self._host_side_update:
                 args = tuple(self._check_device(a) for a in args)
                 kwargs = {k: self._check_device(v) for k, v in kwargs.items()}
+            # fault injection and the quarantine run before any bookkeeping: a rejected
+            # batch leaves the states, the update count and the caches as they were
+            if _fault._SCHEDULE is not None:
+                args, kwargs = _fault.poison_inputs(args, kwargs, metric=type(self).__name__)
+            if self.nan_policy is not None:
+                self._quarantine_inputs(args, kwargs)
             self._computed = None
             self._update_count += 1
             if self.fleet_size is not None:
@@ -874,6 +941,26 @@ class Metric(nn.Module, ABC):
 
     def extra_repr(self) -> str:
         return f"device={self._device}"
+
+    def save_checkpoint(self, directory: str, step: Optional[int] = None, **kwargs: Any) -> Any:
+        """Write a durable, atomic checkpoint of the whole state: every registered state
+        (``persistent_only=True`` for ``state_dict``'s subset), ``CatBuffer`` counts
+        and overflow flags, child metrics and the update count. See
+        :func:`metrics_tpu_torch.ckpt.save_checkpoint` for ``blocking``, ``retain`` and
+        the options for many hosts; returns its
+        :class:`~metrics_tpu_torch.ckpt.CheckpointWrite`."""
+        from metrics_tpu_torch.ckpt import save_checkpoint
+
+        return save_checkpoint(self, directory, step=step, **kwargs)
+
+    def restore_checkpoint(self, directory: str, step: Optional[int] = None, **kwargs: Any) -> int:
+        """Load a checkpoint of :meth:`save_checkpoint` (or of the JAX package's) into
+        this metric, after validating it against this metric (typed
+        :mod:`~metrics_tpu_torch.ckpt` errors on drift, corruption or partial writes;
+        never half-loaded). Returns the restored step."""
+        from metrics_tpu_torch.ckpt import restore_checkpoint
+
+        return restore_checkpoint(self, directory, step=step, **kwargs)
 
     def _filter_kwargs(self, **kwargs: Any) -> Dict[str, Any]:
         """The keyword arguments that ``update`` takes (all of them if it takes ``**kwargs``)."""

@@ -17,8 +17,9 @@ card. ``count`` and ``overflow`` also read as 0-d tensors on the buffer's device
 the form of the JAX package's state dict.
 
 :func:`cat_sync` gathers a buffer from every rank of a process group into one of
-``world * capacity`` rows, the valid rows first. The checkpoint helpers are not
-ported.
+``world * capacity`` rows, the valid rows first. :meth:`CatBuffer.from_rows` packs
+restored rows into a fresh buffer when a checkpoint restores onto another capacity or
+host count (:mod:`~metrics_tpu_torch.ckpt.restore`).
 """
 from typing import Any, Sequence, Union
 

@@ -8,7 +8,8 @@ values with compute groups, without them, and of the JAX collection must agree
 (counts by value, floats within rtol 1e-6, atol 1e-6). Also covered: prefix and
 postfix, nesting, ``forward``, ``items(copy_state=True)``, a member's ``reset``,
 ``state_dict``/``load_state_dict``, ``load_jax_state`` of a collection, the device
-rule of the groups, ``fused=True`` against eager, and what is not ported (checkpoints, ``plot``).
+rule of the groups, ``fused=True`` against eager, a checkpoint round trip, and what
+is not ported (``plot``).
 """
 import warnings
 
@@ -284,17 +285,19 @@ def test_load_jax_state_of_a_collection_continues_a_jax_run():
     assert_same_results(tmc.compute(), jmc.compute())
 
 
-def test_not_ported_parts_raise():
+def test_not_ported_parts_raise(tmp_path):
     fused = MetricCollection([MeanMetric(device="cpu")], fused=True)  # the fused engine is ported
     eager = MetricCollection([MeanMetric(device="cpu")])
     for values in (torch.arange(4.0), torch.ones(3)):
         fused.update(values)
         eager.update(values)
     assert fused.fused and torch.equal(fused.compute()["MeanMetric"], eager.compute()["MeanMetric"])
+    # checkpoints are ported (tests/test_torch_ckpt.py): a round trip; plot is not
     mc = MetricCollection([MeanMetric(device="cpu")])
-    with pytest.raises(NotImplementedError):
-        mc.save_checkpoint("unused")
-    with pytest.raises(NotImplementedError):
-        mc.restore_checkpoint("unused")
+    mc.update(torch.arange(4.0))
+    assert mc.save_checkpoint(str(tmp_path)).committed
+    back = MetricCollection([MeanMetric(device="cpu")])
+    assert back.restore_checkpoint(str(tmp_path)) == 0
+    assert torch.equal(back.compute()["MeanMetric"], mc.compute()["MeanMetric"])
     with pytest.raises(NotImplementedError):
         mc.plot()

@@ -33,6 +33,9 @@
   every module loads neither ``nltk`` nor ``transformers``, ``tokenizers`` or
   ``sacrebleu``; its classes, and its functionals given strings (Perplexity's given
   numpy logits), raise without a card unless given ``device=``;
+- checkpoints, fault injection and the ingest queue (``ckpt/``, ``fault/``, ``serve/``,
+  ``obs/``, ``utils/concurrency.py``) are in both scans, and an ``IngestQueue`` over a
+  metric built without ``device=`` raises where CUDA is absent;
 - the model metrics (BERTScore, InfoLM, CLIPScore, LPIPS, ``models/bert.py``,
   ``models/clip.py``, ``models/lpips.py``, ``multimodal/``) are in both scans, and the
   fresh import loads no ``transformers`` for them either; BERTScore and InfoLM are in
@@ -111,6 +114,11 @@ REQUIRED_MODULES = (
     "metrics_tpu_torch.multimodal", "metrics_tpu_torch.multimodal.clip_score", "metrics_tpu_torch.functional.multimodal",
     "metrics_tpu_torch.functional.multimodal.clip_score", "metrics_tpu_torch.models._transformer",
     "metrics_tpu_torch.models.bert", "metrics_tpu_torch.models.clip", "metrics_tpu_torch.models.lpips",
+    # durable and coalesced state: checkpoints, faults, the ingest queue and what they need
+    *(f"metrics_tpu_torch.ckpt.{m}" for m in ("errors", "manifest", "serializer", "restore", "manager")),
+    "metrics_tpu_torch.ckpt", "metrics_tpu_torch.fault", "metrics_tpu_torch.fault.inject", "metrics_tpu_torch.serve",
+    "metrics_tpu_torch.serve.ingest", "metrics_tpu_torch.obs", "metrics_tpu_torch.obs.ring",
+    "metrics_tpu_torch.obs.registry", "metrics_tpu_torch.utils.concurrency",
 )
 
 
@@ -423,3 +431,15 @@ def test_text_without_device_raises_when_cuda_is_absent(monkeypatch):
     for name in tft.__all__:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             getattr(tft, name)(*inputs.get(name, (["a b"], [["a b"]])))
+
+
+def test_ingest_queue_over_a_metric_without_device_raises_when_cuda_is_absent(monkeypatch):
+    from metrics_tpu_torch.core.fused import canonical_collection
+    from metrics_tpu_torch.regression import MeanSquaredError
+    from metrics_tpu_torch.serve import IngestQueue, active_queues
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (MeanSquaredError, canonical_collection):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            IngestQueue(make(), start=False)
+    assert active_queues() == []

@@ -818,3 +818,58 @@ def test_distinct_count_uint8_scatter_max_on_card(cuda):
             apart[s].update(rows[sid == s])
     assert fleet.step_stats(streams)["degrades"] == 0
     assert all(torch.equal(streams.registers[s], apart[s].registers) for s in range(4))
+
+
+@pytest.mark.cuda
+def test_ingest_tick_thread_replays_while_the_main_thread_enqueues_on_card(cuda):
+    """The tick thread captures and replays the chained step (thread-local capture)
+    while this thread keeps enqueueing batches it draws on the card; after ``flush``
+    the state is bit-equal to synchronous fused updates, with no degrade."""
+    import threading
+
+    from metrics_tpu_torch.core.fused import CapturedStep, canonical_collection
+    from metrics_tpu_torch.serve import IngestQueue
+
+    g = torch.Generator(device=cuda).manual_seed(11)
+    batches = [(torch.rand(8192, generator=g, device=cuda),
+                torch.randint(0, 2, (8192,), generator=g, device=cuda, dtype=torch.int32)) for _ in range(64)]
+    sync = canonical_collection(True)
+    for p, t in batches:
+        sync.update(p, t)
+    target = canonical_collection(True)
+    side = torch.cuda.Stream()
+    with IngestQueue(target, capacity=16, tick_interval_s=0.0005, max_coalesce=8) as q:
+        for i, (p, t) in enumerate(batches):
+            with torch.cuda.stream(side):  # the producer's own stream: the tick waits on its event
+                p2, t2 = p * 1.0, t + 0
+                q.enqueue(p2, t2)
+            if i % 16 == 15:
+                threading.Event().wait(0.002)
+        q.flush()
+        assert q.stats["degrades"] == 0 and q.stats["launches"] >= 8 and q.stats["eager_entries"] == 0
+        assert all(isinstance(s, CapturedStep) for s in q._steps.steps.values())
+    got, want = target.compute(), sync.compute()
+    assert all(torch.equal(got[k], want[k]) for k in want)
+
+
+@pytest.mark.cuda
+def test_fleet_compile_fault_runs_the_key_eagerly_on_card(cuda):
+    import warnings
+
+    from metrics_tpu_torch import fault
+    from metrics_tpu_torch.core import fleet
+    from metrics_tpu_torch.regression import MeanSquaredError
+
+    # whole numbers: the fold's float atomics add exactly in any order
+    p, t = torch.randint(0, 8, (64,), device=cuda).float(), torch.randint(0, 8, (64,), device=cuda).float()
+    ids = torch.arange(64, device=cuda, dtype=torch.int32) % 4
+    base, m = MeanSquaredError(fleet_size=4), MeanSquaredError(fleet_size=4)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        with fault.FaultSchedule(fire_at={"fleet.compile": 0}) as sched:
+            m.update(p, t, stream_ids=ids)
+        m.update(p, t, stream_ids=ids)
+    base.update(p, t, stream_ids=ids)
+    base.update(p, t, stream_ids=ids)
+    assert sched.fired[0]["site"] == "fleet.compile" and fleet.step_stats(m)["degrades"] == 1
+    assert torch.equal(m.compute(), base.compute())
