@@ -379,6 +379,38 @@ Phases, each printing one JSON line:
     BinaryAUROC over DLRM-style rows (through ``cat_sync``) against one process on the
     union, and once more with a capacity that rank 1 overflows: NaN on every rank.
 
+22. serve: the metrics server (``metrics_tpu_torch.serve``), one JSON line per check:
+    - (a) one ``MetricsServer`` on the card with three collections: the canonical
+      five-group collection (65,536 rows a batch), a DLRM click stream (65,536 rows, 3%
+      clicks, bf16-rounded scores) into BinaryAUROC and BinaryAveragePrecision at
+      ``tolerance=1e-3``, ``tolerance_bits=14`` with a 64-bin drift canary and a 50 ms
+      p99 ingest budget, and a 10-class MulticlassAccuracy with ``fleet_size=16``
+      (10,000 rows); Prometheus on port 0, obs, the flight recorder, the health monitor
+      and the series sampler on. One first request a collection, then a producer thread
+      a collection makes 200 enqueues while ``/metrics`` is scraped over HTTP (each page
+      through ``validate_exposition``). After ``drain`` every collection is bit-equal to
+      the same collection updated synchronously, ``degrades == 0``, the canary silent,
+      and the histogram launches equal the count predicted from their parts (a replay's
+      launches for each batch applied and each batch a capture's warm-up ran, the first
+      requests' computes, the health flushes, the drift samples). Printed: enqueue us
+      (median, p99), ticks, replays, captures, DRR rounds, rows/s, the tick interval at
+      the start and the end;
+    - (b) a second server from the same directories: the committed update counts
+      restored, a prewarm that skips nothing, zero captures at each collection's first
+      request (the step caches' miss counters), 100 more enqueues bit-equal to the
+      uninterrupted synchronous run. Printed: ``startup_s`` and the first request's ms,
+      cold against prewarmed;
+    - (c) the canary quiet on 50 stationary batches and alerting within 2 batches of
+      the stream drawn with ``positive_shift=6``; a ``server.request`` fault rejects one
+      request and loses no committed row; a ``server.drain`` fault salvages the queue;
+      an ``excache.prewarm`` fault skips one entry with a warning, captured lazily,
+      bit-equal;
+    - (d) two cycles of ``python -m metrics_tpu_torch.serve --drive --wait-stdin`` with
+      SIGTERM between them: ``/healthz`` 503 starting, 200 ready, 503 draining; one
+      chained replay a tick; the second cycle restores what the first committed with
+      ``first_request_compiles == 0``.
+    It writes under ``build/serve/`` and removes it.
+
 The last three lines are the ``nvidia-smi`` name and power limit, the kernels JSON
 line and ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
 """
@@ -6778,6 +6810,548 @@ def phase_ckpt_ingest(torch, seed: int, smi: str) -> dict:
     return launches
 
 
+# ------------------------------------------------------------------ phase 22: serve
+
+SERVE = {"enqueues": 200, "restart_enqueues": 100, "rows": 65_536, "fleet_rows": 10_000, "fleet_size": 16,
+         "classes": 10, "tolerance": 1e-3, "tolerance_bits": 14, "drift_bins": 64, "drift_max_psi": 0.05,
+         "reference_batches": 4, "stationary_batches": 50, "shifted_positive_shift": 6.0, "alert_within": 2,
+         "slo_p99_ingest_ms": 50.0, "scrape_every_s": 0.05, "cli_rows": 4_096, "cli_drive_s": 1.0,
+         "cli_deadline_s": 150}
+SERVE_DEVICE = "cuda"  # every collection, sketch and batch of the phase
+
+
+def serve_root() -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "serve")
+
+
+def serve_spec(root: str) -> dict:
+    """The three served collections: the canonical five-group collection, a DLRM
+    click stream into the sketch-tier AUROC and AP with a drift canary, a fleet."""
+    return {
+        "name": "smoke",
+        "device": SERVE_DEVICE,
+        "collections": [
+            {"name": "canon", "ckpt_dir": os.path.join(root, "ck_canon"),
+             "metrics": {"BinaryAccuracy": "BinaryAccuracy", "BinaryConfusionMatrix": "BinaryConfusionMatrix",
+                         "BinaryAUROC": {"class": "BinaryAUROC", "kwargs": {"thresholds": 11}},
+                         "MeanSquaredError": "MeanSquaredError", "MeanAbsoluteError": "MeanAbsoluteError"}},
+            {"name": "ctr", "ckpt_dir": os.path.join(root, "ck_ctr"),
+             "metrics": {"auroc": "BinaryAUROC", "ap": "BinaryAveragePrecision"},
+             "tolerance": SERVE["tolerance"], "tolerance_bits": SERVE["tolerance_bits"],
+             "slo_p99_ingest_ms": SERVE["slo_p99_ingest_ms"],
+             "drift": {"num_bins": SERVE["drift_bins"], "max_psi": SERVE["drift_max_psi"],
+                       "reference_rows": SERVE["reference_batches"] * SERVE["rows"], "min_live_rows": SERVE["rows"]}},
+            {"name": "fleet", "ckpt_dir": os.path.join(root, "ck_fleet"), "fleet_size": SERVE["fleet_size"],
+             "metrics": {"acc": {"class": "MulticlassAccuracy",
+                                 "kwargs": {"num_classes": SERVE["classes"], "average": "micro"}}}},
+        ],
+        "prom": {"port": 0},
+        "excache": {"persistent_dir": os.path.join(os.path.dirname(serve_root()), "kernels"), "record": True},
+    }
+
+
+def serve_batches(torch, seed: int, n: int) -> dict:
+    """``n`` batches a collection, drawn on the card: (preds, target) for canon, DLRM
+    scores and clicks for ctr, class ids and stream ids for the fleet."""
+    g = torch.Generator(device=SERVE_DEVICE).manual_seed(seed + 31)
+    rows, frows = SERVE["rows"], SERVE["fleet_rows"]
+    out = {"canon": [], "ctr": [], "fleet": []}
+    for _ in range(n):
+        out["canon"].append(((torch.rand(rows, generator=g, device=SERVE_DEVICE),
+                              torch.randint(0, 2, (rows,), generator=g, device=SERVE_DEVICE, dtype=torch.int32)), {}))
+        out["ctr"].append((ctr_batch(torch, g, DLRM["positive_shift"]), {}))
+        target = torch.randint(0, SERVE["classes"], (frows,), generator=g, device=SERVE_DEVICE)
+        noise = torch.randint(0, SERVE["classes"], (frows,), generator=g, device=SERVE_DEVICE)
+        preds = torch.where(torch.rand(frows, generator=g, device=SERVE_DEVICE) < 0.7, target, noise)
+        ids = torch.randint(0, SERVE["fleet_size"], (frows,), generator=g, device=SERVE_DEVICE, dtype=torch.int32)
+        out["fleet"].append(((preds, target), {"stream_ids": ids}))
+    return out
+
+
+def ctr_batch(torch, g, positive_shift: float):
+    """One DLRM evaluation batch (3% clicks) with its scores rounded through bfloat16."""
+    target = (torch.rand(SERVE["rows"], generator=g, device=SERVE_DEVICE) < DLRM["positive_rate"]).to(torch.int32)
+    z = torch.randn(SERVE["rows"], generator=g, device=SERVE_DEVICE) + positive_shift * target
+    return torch.sigmoid(z).to(torch.bfloat16).to(torch.float32), target
+
+
+def sync_references(torch, config, batches: dict, upto: int) -> tuple:
+    """Each collection updated synchronously (fused, on the card) over its first
+    ``upto`` batches; the launches of one replayed update of each, and of a compute."""
+    refs, per_step, per_compute = {}, {}, {}
+    for spec in config.collections:
+        ref = spec.build()
+        for i, (args, kwargs) in enumerate(batches[spec.name][:upto]):
+            if i == 1:
+                _, per_step[spec.name], _ = run_counted(torch, lambda: ref.update(*args, **kwargs))
+            else:
+                ref.update(*args, **kwargs)
+        _, per_compute[spec.name], _ = run_counted(torch, ref.compute)
+        refs[spec.name] = ref
+    return refs, per_step, per_compute
+
+
+def http_get(url: str) -> tuple:
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=10) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as err:
+        return err.code, err.read().decode()
+
+
+def pct(values: list, q: float) -> float:
+    ordered = sorted(values)
+    return ordered[min(len(ordered) - 1, int(q * len(ordered)))]
+
+
+def serve_at_load(torch, config, batches: dict, refs: dict, per_step: dict, per_compute: dict, smi: str) -> dict:
+    """(a) One server, three collections, a producer thread each, scrapes meanwhile.
+    Each producer computes its batches on the card, on a stream of its own, just
+    before it enqueues them (``torch.add(x, 0)``, bit-equal to the drawn batch): work
+    other threads launch while the ticker captures, replays and flushes."""
+    import threading
+
+    from metrics_tpu_torch.obs import health, prom, series
+    from metrics_tpu_torch.serve import MetricsServer, excache
+    from metrics_tpu_torch.sketches import HistogramDrift, QuantileSketch
+
+    names = [spec.name for spec in config.collections]
+    n = SERVE["enqueues"]
+    monitor = health.monitor()
+    # launches of one health flush and of one drift sample, measured apart
+    sk = QuantileSketch(relative_error=monitor.relative_error, quantiles=monitor.quantiles, min_value=1e-3,
+                        device=SERVE_DEVICE)
+    _, per_flush, _ = run_counted(torch, lambda: sk.local_update(
+        sk.init_state(), torch.zeros(monitor.flush_every, device=SERVE_DEVICE)))
+    drift = HistogramDrift(num_bins=SERVE["drift_bins"], device=SERVE_DEVICE)
+    _, per_absorb, _ = run_counted(torch, lambda: drift.update(batches["ctr"][0][0][0], reference=True))
+    slo_seen = []
+    config.slo_action = slo_seen.extend
+    server = MetricsServer(config)
+    done = threading.Event()
+    try:
+        interval_start = server.tick_interval_s
+        host, port = server._prom_address
+        flushes0 = monitor.flushes
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        cold_ms = {}
+        for name in names:  # the deterministic first request: its one-batch step is captured here
+            args, kwargs = batches[name][0]
+            s = time.perf_counter()
+            server.enqueue(name, *args, **kwargs)
+            server.compute(name)
+            torch.cuda.synchronize()
+            cold_ms[name] = (time.perf_counter() - s) * 1e3
+        enqueue_us = {name: [] for name in names}
+        errors, pages = [], []
+
+        def produce(name):
+            try:
+                own = torch.cuda.Stream()
+                for args, kwargs in batches[name][1:n + 1]:
+                    with torch.cuda.stream(own):
+                        args = tuple(torch.add(a, 0) for a in args)
+                        kwargs = {k: torch.add(v, 0) for k, v in kwargs.items()}
+                        s = time.perf_counter()
+                        server.enqueue(name, *args, **kwargs)
+                        enqueue_us[name].append((time.perf_counter() - s) * 1e6)
+            except BaseException as err:  # noqa: BLE001
+                errors.append(err)
+
+        def scrape():
+            while not done.is_set():
+                status, body = http_get(f"http://{host}:{port}/metrics")
+                pages.append((status, prom.validate_exposition(body), body))
+                done.wait(SERVE["scrape_every_s"])
+
+        scraper = threading.Thread(target=scrape, name="smoke-scraper", daemon=True)
+        scraper.start()
+        t_traffic = time.perf_counter()
+        producers = [threading.Thread(target=produce, args=(name,), name=f"smoke-producer-{name}", daemon=True)
+                     for name in names]
+        for p in producers:
+            p.start()
+        for p in producers:
+            p.join(timeout=300)
+        if errors or any(p.is_alive() for p in producers):
+            raise AssertionError(f"serve producers failed: {errors}")
+        rows = {"canon": SERVE["rows"], "ctr": SERVE["rows"], "fleet": SERVE["fleet_rows"]}
+        deadline = time.monotonic() + 120
+        while any(server._collections[name].queue.stats["coalesced_rows"] < rows[name] * (n + 1) for name in names):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"the ticker did not apply the traffic: {server.status()}")
+            time.sleep(0.005)
+        torch.cuda.synchronize()
+        traffic_s = time.perf_counter() - t_traffic
+        done.set()
+        scraper.join(timeout=30)
+        series.disable()  # no more report() flushes from the sampler past this point
+        interval_end = server.tick_interval_s
+        report = server.drain()
+        torch.cuda.synchronize()
+        launches = all_launches()
+        flushes = monitor.flushes - flushes0
+        status = server.status()
+        queues = {name: dict(server._collections[name].queue.stats) for name in names}
+        steps = {name: dict(server._collections[name].queue.step_stats) for name in names}
+        absorbed = server._collections["ctr"].drift.absorbed
+        # a replay's launches for each batch applied and each batch a capture's warm-up ran,
+        # the first requests' computes, the health flushes and the drift samples
+        expected = {kind: sum(per_step[name][kind] * (queues[name]["enqueued"] + queues[name]["capture_entries"])
+                              + per_compute[name][kind] for name in names)
+                    + flushes * per_flush[kind] + absorbed * per_absorb[kind]
+                    for kind in ("histogram", "histogram_batched")}
+        got = {name: server.compute(name) for name in names}
+        bad = [name for name in names if not same_values(got[name], refs[name].compute())]
+        if bad:
+            raise AssertionError(f"served collections differ from their synchronous runs: {bad}")
+        degraded = {name: (queues[name]["degrades"], steps[name]["degrades"], queues[name]["eager_entries"])
+                    for name in names}
+        if any(any(v) for v in degraded.values()):
+            raise AssertionError(f"the server degraded or ran eagerly: {degraded}")
+        if {k: launches[k] for k in expected} != expected or launches["segment_scan"]:
+            raise AssertionError(f"serve launches {launches}, expected {expected}")
+        if not pages or any(status_ != 200 for status_, _, _ in pages):
+            raise AssertionError(f"scrapes failed: {[p[:2] for p in pages]}")
+        families = ("tm_server_state", "tm_server_requests_total", "tm_server_rounds_total", "tm_ingest_queue_depth",
+                    "tm_latency_microseconds", "tm_excache_manifest_entries", "tm_series_ticks_total")
+        missing = [f for f in families if f not in pages[-1][2]]
+        if missing or status["stats"]["drift_alerts"]:
+            raise AssertionError(f"families missing {missing}; drift alerts {status['stats']['drift_alerts']}")
+        record = {
+            "collections": names, "enqueues_per_collection": n, "first_requests": 1, "bit_equal": True,
+            "producers_compute_on_card": True,
+            "degrades": 0, "enqueue_us": {name: {"median": statistics.median(v), "p99": pct(v, 0.99)}
+                                          for name, v in enqueue_us.items()},
+            "ticks": {name: queues[name]["ticks"] for name in names},
+            "replays": {name: queues[name]["launches"] for name in names},
+            "captures": {name: steps[name]["cache_misses"] for name in names},
+            "capture_entries": {name: queues[name]["capture_entries"] for name in names},
+            "drr_rounds": status["stats"]["rounds"], "applied_entries": status["stats"]["applied_entries"],
+            "rows_per_s": sum(rows[name] * n for name in names) / traffic_s, "traffic_s": traffic_s,
+            "tick_interval_s": {"start": interval_start, "end": interval_end},
+            "slo_breaches": status["stats"]["slo_breaches"], "slo_violations_seen": len(slo_seen),
+            "scrapes": len(pages), "samples_last_scrape": pages[-1][1],
+            "health_flushes": flushes, "drift_samples_absorbed": absorbed,
+            "first_request_ms_cold": cold_ms, "launches": launches, "launches_expected": expected,
+            "committed": {name: report[name]["update_count"] for name in names},
+            "excache": excache.stats(), "seconds": time.perf_counter() - t0,
+        }
+        emit({"phase": "serve_load", "card": smi, **record})
+    finally:
+        done.set()
+        server.stop()
+    return {"record": record, "launches": launches}
+
+
+def serve_restart(torch, spec: dict, batches: dict, refs: dict, committed: dict, cold_ms: dict, smi: str) -> dict:
+    """(b) A second server from the same directories: restore, prewarm, no capture at
+    the first request, 100 more enqueues bit-equal to the uninterrupted run."""
+    from metrics_tpu_torch.serve import MetricsServer, ServerConfig
+
+    config = ServerConfig.from_dict(spec)
+    names = [s.name for s in config.collections]
+    n0, n = SERVE["enqueues"] + 1, SERVE["restart_enqueues"]
+    torch.cuda.synchronize()
+    zero_launches()
+    server = MetricsServer(config)
+    try:
+        restored = {name: server._collections[name].update_count() for name in names}
+        prewarm = {name: server._collections[name].prewarm for name in names}
+        if restored != committed:
+            raise AssertionError(f"restored update counts {restored} != committed {committed}")
+        if any(r["skipped"] or r["failed"] for reports in prewarm.values() for r in reports) or not all(prewarm.values()):
+            raise AssertionError(f"prewarm skipped or failed entries: {prewarm}")
+        warm_ms, first_misses = {}, {}
+        for name in names:
+            queue = server._collections[name].queue
+            misses = queue.step_stats.get("cache_misses", 0)
+            args, kwargs = batches[name][n0]
+            s = time.perf_counter()
+            server.enqueue(name, *args, **kwargs)
+            server.compute(name)
+            torch.cuda.synchronize()
+            warm_ms[name] = (time.perf_counter() - s) * 1e3
+            first_misses[name] = queue.step_stats.get("cache_misses", 0) - misses
+        if any(first_misses.values()):
+            raise AssertionError(f"the first request after a prewarmed restart captured: {first_misses}")
+        for name in names:
+            for args, kwargs in batches[name][n0 + 1:n0 + n]:
+                server.enqueue(name, *args, **kwargs)
+        got = {name: server.compute(name) for name in names}
+        server.drain()
+        torch.cuda.synchronize()
+        launches = all_launches()
+        stats = {name: dict(server._collections[name].queue.stats) for name in names}
+    finally:
+        server.stop()
+    for name in names:
+        for args, kwargs in batches[name][n0:n0 + n]:
+            refs[name].update(*args, **kwargs)
+    bad = [name for name in names if not same_values(got[name], refs[name].compute())]
+    if bad or any(stats[name]["degrades"] for name in names):
+        raise AssertionError(f"the restarted collections differ from the uninterrupted run: {bad} {stats}")
+    record = {"restored_update_counts": restored, "startup_s": server.startup_s,
+              "prewarm": {name: [{k: r[k] for k in ("entries", "compiled", "skipped", "failed", "seconds")}
+                                 for r in reports] for name, reports in prewarm.items()},
+              "first_request_captures": first_misses, "first_request_ms": {"cold": cold_ms, "prewarmed": warm_ms},
+              "more_enqueues": n, "bit_equal": True, "launches": launches}
+    emit({"phase": "serve_restart", "card": smi, **record})
+    return {"record": record, "launches": launches}
+
+
+def serve_drift_faults(torch, seed: int, batches: dict, smi: str) -> dict:
+    """(c) The canary quiet and then alerting; the three serving fault sites."""
+    import warnings
+
+    from metrics_tpu_torch import fault
+    from metrics_tpu_torch.ckpt import latest_step
+    from metrics_tpu_torch.core.fused import canonical_collection
+    from metrics_tpu_torch.serve import IngestQueue, MetricsServer, ServerConfig, excache
+
+    root = serve_root()
+    spec = serve_spec(root)
+    ctr = {k: v for k, v in spec["collections"][1].items() if k not in ("ckpt_dir", "slo_p99_ingest_ms")}
+    alerts = []
+    ctr["drift"] = dict(ctr["drift"], action=alerts.append)
+    g = torch.Generator(device=SERVE_DEVICE).manual_seed(seed + 32)
+    totals = {}
+
+    def counted(fn):
+        out, launches, _ = run_counted(torch, fn)
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        return out
+
+    with MetricsServer(ServerConfig([ctr], device=SERVE_DEVICE, adaptive=False), ticker=False) as server:
+        def feed(shift):
+            server.enqueue("ctr", *ctr_batch(torch, g, shift))
+            counted(server._tick_round)
+            counted(server._run_control)
+
+        for _ in range(SERVE["reference_batches"]):
+            feed(DLRM["positive_shift"])
+        quiet = []
+        for _ in range(SERVE["stationary_batches"]):
+            feed(DLRM["positive_shift"])
+            quiet.append(server._collections["ctr"].drift.last["psi"])
+        if alerts:
+            raise AssertionError(f"the canary alerted on stationary batches: {alerts}")
+        shifted = 0
+        while not alerts:
+            shifted += 1
+            if shifted > SERVE["alert_within"]:
+                raise AssertionError(f"no drift alert within {SERVE['alert_within']} shifted batches")
+            feed(SERVE["shifted_positive_shift"])
+    canon = dict(spec["collections"][0], ckpt_dir=os.path.join(root, "ck_fault_request"))
+    three = [b for b in batches["canon"][:3]]
+    with MetricsServer(ServerConfig([canon], device=SERVE_DEVICE), ticker=False) as server:
+        server.enqueue("canon", *three[0][0])
+        with fault.FaultSchedule(fire_at={"server.request": 0}) as sched:
+            try:
+                server.enqueue("canon", *three[1][0])
+                raise AssertionError("server.request did not fire")
+            except fault.InjectedFaultError:
+                pass
+            server.enqueue("canon", *three[2][0])
+        report = counted(server.drain)
+        got = server.compute("canon")
+    ref = ServerConfig([dict(canon, ckpt_dir=None)], device=SERVE_DEVICE).collections[0].build()
+    for args, _ in (three[0], three[2]):
+        ref.update(*args)
+    if report["canon"]["update_count"] != 2 or len(sched.fired) != 1 or not same_values(got, ref.compute()):
+        raise AssertionError(f"server.request fault: {report}, fired {sched.fired}")
+    drain_dir = os.path.join(root, "ck_fault_drain")
+    server = MetricsServer(ServerConfig([dict(canon, ckpt_dir=drain_dir)], device=SERVE_DEVICE), ticker=False)
+    try:
+        for args, _ in three:
+            server.enqueue("canon", *args)
+        with fault.FaultSchedule(fire_at={"server.drain": 0}):
+            try:
+                server.drain()
+                raise AssertionError("server.drain did not fire")
+            except fault.InjectedFaultError:
+                pass
+        queue = server._collections["canon"].queue
+        salvaged = {"closed": queue._closed, "dropped": int(queue.stats["dropped"]),
+                    "committed_step": latest_step(drain_dir)}
+    finally:
+        server.stop()
+    if salvaged != {"closed": True, "dropped": 3, "committed_step": None}:
+        raise AssertionError(f"server.drain fault: {salvaged}")
+    # excache.prewarm fault: one entry skipped with a warning, captured lazily, bit-equal
+    recording_was = excache.recording()
+    excache.enable_recording(clear=True)
+    cold = canonical_collection(True, device=SERVE_DEVICE)
+    groups = (3, 1)
+
+    def ticks(queue):
+        it = iter(batches["canon"])
+        for size in groups:
+            for _ in range(size):
+                queue.enqueue(*next(it)[0])
+            queue.flush()
+
+    with IngestQueue(cold, start=False) as q:
+        counted(lambda: ticks(q))
+    manifest = excache.manifest_payload()
+    if not recording_was:
+        excache.disable_recording()
+    warm = canonical_collection(True, device=SERVE_DEVICE)
+    with IngestQueue(warm, start=False) as q:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            with fault.FaultSchedule(fire_at={"excache.prewarm": 0}):
+                pre = counted(lambda: excache.prewarm(q, manifest))
+        counted(lambda: ticks(q))
+        lazy = q.step_stats["cache_misses"]
+    warned = [str(w.message) for w in seen if "excache.prewarm" in str(w.message)]
+    if (pre["failed"], pre["compiled"], lazy, len(warned)) != (1, 1, 1, 1) or not same_values(warm.compute(),
+                                                                                              cold.compute()):
+        raise AssertionError(f"excache.prewarm fault: {pre}, lazy captures {lazy}, warnings {warned}")
+    record = {"drift": {"reference_batches": SERVE["reference_batches"],
+                        "stationary_batches": SERVE["stationary_batches"], "stationary_psi_max": max(quiet),
+                        "max_psi": SERVE["drift_max_psi"], "shifted_positive_shift": SERVE["shifted_positive_shift"],
+                        "alert_after_shifted_batches": shifted, "alert_within": SERVE["alert_within"],
+                        "alert_psi": alerts[0]["psi"]},
+              "server_request": {"rejected": 1, "committed_update_count": 2, "bit_equal": True},
+              "server_drain": salvaged,
+              "excache_prewarm": {"failed": 1, "compiled": 1, "lazy_captures": lazy, "warnings": 1,
+                                  "bit_equal": True}}
+    emit({"phase": "serve_drift_faults", "card": smi, **record})
+    return {"record": record, "launches": totals}
+
+
+def serve_cli(torch, smi: str) -> dict:
+    """(d) ``python -m metrics_tpu_torch.serve --drive --wait-stdin`` on the card, two
+    cycles with SIGTERM between them."""
+    import signal
+    import threading
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(serve_root(), "cli")
+    os.makedirs(root, exist_ok=True)
+    cfg = {
+        "name": "cli",
+        "collections": [
+            {"name": "a", "metrics": {"mse": "MeanSquaredError"}, "ckpt_dir": os.path.join(root, "ck_a")},
+            {"name": "b", "metrics": {"mae": "MeanAbsoluteError"}, "ckpt_dir": os.path.join(root, "ck_b")},
+            {"name": "c", "metrics": {"mse": "MeanSquaredError"}, "fleet_size": 2,
+             "ckpt_dir": os.path.join(root, "ck_c")},
+        ],
+        "prom": {"port": 0},
+        "excache": {"persistent_dir": os.path.join(os.path.dirname(serve_root()), "kernels"), "record": True},
+    }
+    path = os.path.join(root, "config.json")
+    with open(path, "w") as fh:
+        json.dump(cfg, fh)
+    env = dict(os.environ, PYTHONPATH=here)
+    cycles, prev = [], None
+    for cycle in range(2):
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "metrics_tpu_torch.serve", "--config", path, "--drive", "--wait-stdin",
+             "--rows", str(SERVE["cli_rows"])],
+            stdout=subprocess.PIPE, stdin=subprocess.PIPE, text=True, env=env, cwd=here)
+        watchdog = threading.Timer(SERVE["cli_deadline_s"], proc.kill)
+        watchdog.start()
+        events, probes = {}, {}
+        try:
+            def until(name):
+                for line in proc.stdout:
+                    if not line.startswith("{"):
+                        continue
+                    ev = json.loads(line)
+                    events[ev["event"]] = ev
+                    if ev["event"] == name:
+                        return ev
+                raise AssertionError(f"serve cycle {cycle} exited before {name!r}: rc {proc.poll()}")
+
+            host, port = until("serving")["prom"]
+            probes["starting"] = http_get(f"http://{host}:{port}/healthz")
+            proc.stdin.write("\n")
+            proc.stdin.flush()
+            ready = until("ready")
+            probes["ready"] = http_get(f"http://{host}:{port}/healthz")
+            time.sleep(SERVE["cli_drive_s"])
+            proc.send_signal(signal.SIGTERM)
+            until("draining")
+            probes["draining"] = http_get(f"http://{host}:{port}/healthz")
+            proc.stdin.write("\n")
+            proc.stdin.flush()
+            stopped = until("stopped")
+            rc = proc.wait(timeout=60)
+        finally:
+            watchdog.cancel()
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+        if rc != 0 or probes != {"starting": (503, "starting\n"), "ready": (200, "ready\n"),
+                                 "draining": (503, "draining\n")}:
+            raise AssertionError(f"serve cycle {cycle}: rc {rc}, healthz {probes}")
+        if not all(stopped["launches_eq_ticks"].values()):
+            raise AssertionError(f"serve cycle {cycle}: launches != ticks {stopped['queue_stats']}")
+        committed = {k: v["update_count"] for k, v in stopped["committed"].items()}
+        if cycle == 1 and (ready["restored_update_counts"] != prev or ready["first_request_compiles"] != 0
+                           or ready["prewarm"]["skipped"]):
+            raise AssertionError(f"serve cycle 1 did not restore cold-start-free: {ready}, committed before {prev}")
+        cycles.append({"cycle": cycle, "seconds": time.perf_counter() - t0, "device": ready["device"],
+                       "startup_s": ready["startup_s"], "first_request_compiles": ready["first_request_compiles"],
+                       "prewarm": ready["prewarm"], "restored_update_counts": ready["restored_update_counts"],
+                       "committed": committed, "enqueues_per_s": stopped["enqueues_per_s"],
+                       "launches_eq_ticks": stopped["launches_eq_ticks"], "excache": stopped["excache"],
+                       "healthz": probes})
+        prev = committed
+    emit({"phase": "serve_cli", "card": smi, "cycles": cycles})
+    return {"cycles": cycles}
+
+
+def phase_serve(torch, seed: int, smi: str) -> dict:
+    """The metrics server on the card: (a) at load, (b) a warm restart, (c) drift and
+    faults, (d) the command line. Returns the phase's launches of each kernel."""
+    from metrics_tpu_torch import obs
+    from metrics_tpu_torch.obs import flight, health, series
+    from metrics_tpu_torch.serve import ServerConfig
+
+    t0 = time.perf_counter()
+    root = serve_root()
+    shutil.rmtree(root, ignore_errors=True)
+    spec = serve_spec(root)
+    config = ServerConfig.from_dict(spec)
+    n = SERVE["enqueues"] + 1
+    batches = serve_batches(torch, seed, n + SERVE["restart_enqueues"])
+    refs, per_step, per_compute = sync_references(torch, config, batches, n)
+    obs.enable()
+    flight.enable(capacity=4096)
+    health.enable(device=SERVE_DEVICE)
+    series.enable(interval_s=0.25)
+    try:
+        load = serve_at_load(torch, config, batches, refs, per_step, per_compute, smi)
+        restart = serve_restart(torch, spec, batches, refs, load["record"]["committed"],
+                                load["record"]["first_request_ms_cold"], smi)
+        faults = serve_drift_faults(torch, seed, batches, smi)
+        events = len(flight.events())
+    finally:
+        series.disable()
+        health.disable()
+        flight.disable()
+        obs.disable()
+    del batches, refs
+    torch.cuda.empty_cache()
+    cli = serve_cli(torch, smi)
+    shutil.rmtree(root, ignore_errors=True)
+    launches = {kind: sum(part["launches"].get(kind, 0) for part in (load, restart, faults))
+                for kind in set(load["launches"]) | set(restart["launches"]) | set(faults["launches"])}
+    emit({"phase": "serve", "card": smi, "seconds": time.perf_counter() - t0, "flight_events": events,
+          "launches": launches, "cli_cycles": len(cli["cycles"])})
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -6876,6 +7450,12 @@ def main() -> int:
     mark("ckpt_ingest")
     kernels[0]["launches"] += ckpt_ingest["histogram"]
     scan["launches"] += ckpt_ingest["segment_scan"]
+    torch.cuda.empty_cache()
+    serve = phase_serve(torch, args.seed, smi)
+    mark("serve")
+    kernels[0]["launches"] += serve["histogram"]
+    batched["launches"] += serve["histogram_batched"]
+    scan["launches"] += serve.get("segment_scan", 0)
 
     idle = [k["name"] for k in kernels if k["launches"] < 1]
     if idle:

@@ -2,8 +2,9 @@
 
 Each source under ``csrc/`` compiles with ``nvcc`` into its own shared library with
 a plain C interface (no PyTorch headers, so a build takes seconds), loaded with
-``ctypes``. Libraries go to ``build/kernels/`` at the root of the checkout and are
-named by a hash of their source, so an edited source builds anew. Nothing here runs
+``ctypes``. Libraries go to ``build/kernels/`` at the root of the checkout (or to the
+directory of ``serve.excache.enable_persistent_cache``) and are named by a hash of
+their source, so an edited source builds anew. Nothing here runs
 when a module is imported: the CPU tests import every module on machines without
 ``nvcc``.
 """
@@ -14,12 +15,15 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from contextlib import contextmanager
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, Iterator, List
 
 PACKAGE_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
+#: libraries :func:`build` found built and built with ``nvcc``, since the process began
+BUILD_COUNTS = {"found": 0, "built": 0}
 # one entry per kernel source; later kernels add theirs here
 KERNEL_SOURCES = {
     "histogram": CSRC_DIR / "histogram.cu",
@@ -54,16 +58,37 @@ SIGNATURES = {
     },
 }
 
-#: every kernel wrapper, registered where it is made (:func:`counted`). Each keeps a
-#: ``launches`` count; a replayed CUDA graph adds to it the launches that its capture
-#: recorded (``core/fused.py:CapturedStep``), since a replay bypasses the wrapper
-LAUNCH_COUNTERS: List[object] = []
+# Each kernel wrapper keeps a ``launches`` count; a replayed CUDA graph adds to it the
+# launches that its capture recorded (``core/fused.py:CapturedStep``), since a replay
+# bypasses the wrapper.
+_LAUNCH_LOCK = threading.Lock()
+#: per thread: the tally of the CUDA-graph capture this thread is running, if any
+_CAPTURE = threading.local()
 
 
-def counted(wrapper):
-    """Register ``wrapper``, a kernel wrapper with a ``launches`` count; returns it."""
-    LAUNCH_COUNTERS.append(wrapper)
-    return wrapper
+def note_launch(wrapper, n: int = 1) -> None:
+    """Count ``n`` launches of ``wrapper``'s kernel, where a wrapper launches and where a
+    replay runs what a capture recorded. On a thread inside :func:`capture_tally` they go
+    to the capture's tally instead (a captured launch has not run); elsewhere to
+    ``wrapper.launches``, under a lock, since several threads launch (a tick thread, the
+    health monitor's flushes on request threads)."""
+    tally = getattr(_CAPTURE, "tally", None)
+    if tally is not None:
+        tally[wrapper] = tally.get(wrapper, 0) + n
+        return
+    with _LAUNCH_LOCK:
+        wrapper.launches += n
+
+
+@contextmanager
+def capture_tally() -> Iterator[Dict[object, int]]:
+    """The launches this thread records while a CUDA graph is captured, by wrapper."""
+    prev = getattr(_CAPTURE, "tally", None)
+    _CAPTURE.tally = tally = {}
+    try:
+        yield tally
+    finally:
+        _CAPTURE.tally = prev
 
 
 _LOCK = threading.Lock()
@@ -103,7 +128,10 @@ def build(names: List[str] = None) -> List[Path]:
     output if any build fails. Returns the libraries' paths.
     """
     names = list(KERNEL_SOURCES) if names is None else names
-    jobs = [_start(n) for n in names if not library_path(n).exists()]
+    missing = [n for n in names if not library_path(n).exists()]
+    BUILD_COUNTS["found"] += len(names) - len(missing)
+    BUILD_COUNTS["built"] += len(missing)
+    jobs = [_start(n) for n in missing]
     errors = []
     for proc, tmp, target in jobs:
         out, _ = proc.communicate()

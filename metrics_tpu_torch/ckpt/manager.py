@@ -29,6 +29,12 @@ the current stream before it returns (a clone on the card, a CUDA event marking 
 end); a daemon thread waits for the event, moves the copies to the host, writes and
 commits. The returned :class:`CheckpointWrite` has ``result()``/``done()``;
 :func:`wait_for_all_saves` joins every write in flight.
+
+Riders: while ``serve.excache`` records, a save writes ``warm_manifest.json`` into
+the series directory; while the flight recorder runs, a save records
+``ckpt_save_begin``/``ckpt_save_retry``/``ckpt_save_commit`` events and, with its
+``ckpt_integration``, writes ``flight-h<rank>.json`` into the step directory before
+the commit.
 """
 import json
 import os
@@ -55,6 +61,7 @@ from metrics_tpu_torch.ckpt.errors import (
     SchemaDriftError,
 )
 from metrics_tpu_torch.fault import inject as _fault
+from metrics_tpu_torch.obs import flight as _obs_flight
 from metrics_tpu_torch.obs import registry as _obs
 
 _STEP_RE = re.compile(r"^step_(\d{10})$")
@@ -468,7 +475,24 @@ def save_checkpoint(
     if _ingest is not None:
         _ingest.flush_for(obj)
 
+    # while the executable cache records, every save refreshes the warm manifest in
+    # the series directory, so that a restarting replica finds it beside the state;
+    # best effort: a lost manifest costs warm-up, never the save
+    _excache = sys.modules.get("metrics_tpu_torch.serve.excache")
+    if _excache is not None and _excache.recording() and rank == 0:
+        try:
+            _excache.save_manifest(os.path.join(directory, _excache.MANIFEST_NAME))
+        except Exception as err:  # noqa: BLE001 - the checkpoint must not fail
+            warnings.warn(
+                f"warm-manifest write failed ({type(err).__name__}: {err}); the checkpoint proceeds without it.",
+                RuntimeWarning,
+            )
+
     tree, entries = _snapshot(obj, persistent_only, copy=not blocking)
+    if _obs._ENABLED and _obs_flight._RING is not None:
+        # a post-mortem wants the state layout of what was being saved
+        _obs_flight.note_state_source(obj)
+        _obs_flight.record("ckpt_save_begin", step=step, host=rank, blocking=blocking)
     ready = None if blocking else _ready_event(entries)
     handle = CheckpointWrite(directory, step)
 
@@ -501,6 +525,10 @@ def save_checkpoint(
             if not _is_committed(final_dir):
                 raise
             payload_meta = {"nbytes": 0}
+        if _obs_flight.ckpt_integration_active():
+            # the flight window rides the step directory through the atomic commit
+            # (best effort: a vanished tmp_dir gives no dump, not a failed save)
+            _obs_flight.dump(os.path.join(tmp_dir, f"flight-h{rank:04d}.json"), state_objs=[obj])
         committed = _try_commit(directory, tmp_dir, step, world, generation)
         if committed and retain is not None:
             _prune(directory, retain)
@@ -517,21 +545,29 @@ def save_checkpoint(
                 try:
                     payload_meta, committed = attempt_io()
                     break
-                except OSError:
+                except OSError as err:
                     if attempt + 1 >= attempts:
                         raise
                     if _obs._ENABLED:
                         _obs.REGISTRY.inc("ckpt", "save_retries")
+                        if _obs_flight._RING is not None:
+                            _obs_flight.record("ckpt_save_retry", step=step, host=rank, attempt=attempt + 1,
+                                               error=f"{type(err).__name__}: {str(err)[:120]}")
                     time.sleep(retry_backoff_s * (2**attempt) * (0.5 + random.random()))
             elapsed_ms = (time.perf_counter() - t0) * 1000
             if _obs._ENABLED:
                 _obs.REGISTRY.inc("ckpt", "saves")
                 _obs.REGISTRY.inc("ckpt", "bytes", payload_meta["nbytes"])
                 _obs.REGISTRY.inc("ckpt", "save_ms", elapsed_ms)
-            # the flight recorder's save events belong to the observability slice
+                if _obs_flight._RING is not None:
+                    _obs_flight.record("ckpt_save_commit", step=step, host=rank, committed=committed,
+                                       nbytes=payload_meta["nbytes"], elapsed_ms=round(elapsed_ms, 3))
             _stamp(obj, last_save_ms=round(elapsed_ms, 3), last_save_step=step, last_save_bytes=payload_meta["nbytes"])
             handle._finish(final_dir, None, committed=committed)
         except BaseException as err:  # noqa: BLE001 - surfaced through handle.result()
+            if _obs._ENABLED and _obs_flight._RING is not None:
+                _obs_flight.record("ckpt_save_failed", step=step, host=rank,
+                                   error=f"{type(err).__name__}: {str(err)[:120]}")
             handle._finish(None, err)
         finally:
             with _INFLIGHT_LOCK:
@@ -608,6 +644,9 @@ def restore_checkpoint(
             fallbacks_left -= 1
             if _obs._ENABLED:
                 _obs.REGISTRY.inc("ckpt", "restore_fallbacks")
+                if _obs_flight._RING is not None:
+                    _obs_flight.record("ckpt_restore_fallback", failed_step=failed, fallback_step=attempt_step,
+                                       error=f"{type(err).__name__}: {str(err)[:120]}")
             warnings.warn(
                 f"checkpoint step {failed} in {directory!r} is unusable"
                 f" ({type(err).__name__}); falling back to committed step"
@@ -690,6 +729,8 @@ def _restore_checkpoint_once(
         _obs.REGISTRY.inc("ckpt", "restores")
         _obs.REGISTRY.inc("ckpt", "bytes", bytes_read)
         _obs.REGISTRY.inc("ckpt", "restore_ms", elapsed_ms)
+        if _obs_flight._RING is not None:
+            _obs_flight.record("ckpt_restore", step=step, nbytes=bytes_read, elapsed_ms=round(elapsed_ms, 3))
     _stamp(obj, last_restore_ms=round(elapsed_ms, 3), last_restore_step=step, last_restore_bytes=bytes_read)
     return step
 

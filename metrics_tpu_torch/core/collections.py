@@ -404,6 +404,10 @@ class MetricCollection(nn.ModuleDict):
                     for state in m0._defaults:
                         m0_state = getattr(m0, state)
                         setattr(mi, state, deepcopy(m0_state) if copy else m0_state)
+                    if mi._update_count != m0._update_count:
+                        # the leader's state moved on: a value the member cached is stale
+                        # (the JAX package keeps serving it; a listed deviation)
+                        mi._computed = None
                     mi._update_count = m0._update_count
         self._state_is_copy = copy
 
@@ -414,6 +418,14 @@ class MetricCollection(nn.ModuleDict):
         return {self._set_name(k): v for k, v in res.items()}
 
     # ------------------------------------------------------- pure-functional tier
+
+    def summary(self) -> Dict[str, Any]:
+        """Each member's :meth:`Metric.state_report`, the compute groups and the bytes
+        the grouping saves (render with
+        :func:`~metrics_tpu_torch.utils.prints.render_collection_summary`)."""
+        from metrics_tpu_torch.obs.report import collection_summary
+
+        return collection_summary(self)
 
     def init_state(self) -> Dict[str, Dict[str, Any]]:
         """Each metric's fresh state dict, keyed by its name in the collection. Each

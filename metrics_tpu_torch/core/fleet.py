@@ -25,6 +25,10 @@ engine's :class:`~metrics_tpu_torch.core.fused.StepCache`; on the CPU it runs
 eagerly. A capture that fails leaves that key on the eager step, with a
 ``RuntimeWarning`` and a count in the metric's :func:`step_stats` (``degrades``).
 
+With the obs gate on, each update records a ``fleet_route`` flight event; a step
+captured for a new key records a warm-manifest entry while
+:mod:`~metrics_tpu_torch.serve.excache` records.
+
 Eligibility: fleet states are fixed-shape tensors with a ``sum``/``max``/``min``
 reduction; list, ``cat`` and ``CatBuffer`` states and other reductions raise
 :class:`MetricsUserError` at ``add_state``. The routing is exact for integer counts
@@ -38,6 +42,8 @@ from torch import Tensor
 from torch.utils import _pytree as pytree
 
 from metrics_tpu_torch.core.metric import _squeeze_if_scalar
+from metrics_tpu_torch.obs import flight as _obs_flight
+from metrics_tpu_torch.obs import registry as _obs
 from metrics_tpu_torch.utils.checks import _is_concrete, tracing
 from metrics_tpu_torch.utils.exceptions import MetricsUserError
 
@@ -317,6 +323,7 @@ def run_step(
     *extras: Any,
     static_key: Tuple = (),
     eager: bool = False,
+    record_inputs: Optional[Tuple[Tuple, Dict, Any]] = None,
 ):
     """Run a pure ``step(state, *extras) -> new_state``.
 
@@ -339,7 +346,12 @@ def run_step(
         with tracing():
             return step(state, *extras)
     key = (tag, _fused._tensor_key(state), _fused._tensor_key(list(extras)), static_key)
-    out = _steps_for(metric).call(
+    steps = _steps_for(metric)
+    if record_inputs is not None and key not in steps.steps and key not in steps.broken:
+        _excache = _fused._excache_module()
+        if _excache is not None and _excache.recording():
+            _excache.record_fleet_compile(metric, tag, *record_inputs, digest=_fused.stable_key_digest(key))
+    out = steps.call(
         key,
         lambda: lambda st, *ex: (step(st, *ex), None),
         state,
@@ -379,7 +391,9 @@ def apply_update(metric: Any, raw_update: Callable, args: Tuple, kwargs: Dict) -
             a, k = _fused._merge_inputs(dl, spec)
             return broadcast_new_state(metric, raw_update, st, a, k)
 
-        new = run_step(metric, "fleet.bcast", bcast, state, dyn, static_key=_fused._static_key(spec), eager=eager)
+        new = run_step(metric, "fleet.bcast", bcast, state, dyn, static_key=_fused._static_key(spec), eager=eager,
+                       record_inputs=(args, kwargs, None))
+        rows, mode = _batch_rows(dyn), "broadcast"
     else:
         ids = stream_ids if isinstance(stream_ids, Tensor) else torch.as_tensor(stream_ids, device=metric.device)
         _check_stream_ids(ids, _batch_rows(dyn))
@@ -393,5 +407,12 @@ def apply_update(metric: Any, raw_update: Callable, args: Tuple, kwargs: Dict) -
             a, k = _fused._merge_inputs(dl, spec)
             return routed_new_state(metric, raw_update, st, a, k, i_)
 
-        new = run_step(metric, "fleet.route", route, state, dyn, ids, static_key=_fused._static_key(spec), eager=eager)
+        new = run_step(metric, "fleet.route", route, state, dyn, ids, static_key=_fused._static_key(spec), eager=eager,
+                       record_inputs=(args, kwargs, ids))
+        rows, mode = int(ids.shape[0]), "routed"
+    if _obs._ENABLED:
+        _obs.REGISTRY.inc("fleet", "routed", rows)
+        if _obs_flight._RING is not None:
+            _obs_flight.record("fleet_route", metric=type(metric).__name__, mode=mode, rows=rows,
+                               streams=metric.fleet_size)
     metric._load_state(new)

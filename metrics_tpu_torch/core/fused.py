@@ -43,13 +43,25 @@ replayed:
   and the step runs eagerly, bit-equal, from then on.
 - **Threads.** A capture is thread-local (``capture_error_mode="thread_local"``):
   another thread may use the card meanwhile (the ingest queue's producers, while its
-  tick thread captures).
+  tick thread captures). Captures are serialized by a lock and run on a stream of
+  PyTorch's high-priority pool, which no producer stream can be (:func:`_capture_stream`).
+  A capture that fails leaves the caller's stream current and the allocator out of
+  the capture's pool (:func:`_end_failed_capture`).
 
 ``stats`` keeps the JAX package's keys: ``launches`` (fused steps run: replays on
 the card), ``cache_hits``, ``cache_misses``, ``fallback_groups`` and ``degrades``.
-The observability and warm-manifest hooks of the JAX file are not ported.
+
+- **Hooks.** With the obs gate on, the flight recorder gets ``fused_cache_miss``,
+  ``fused_launch`` and ``degrade`` events. :func:`steps_compiled` counts the steps
+  every step cache built (``excache.stats()`` reads it as compiles). While
+  :mod:`~metrics_tpu_torch.serve.excache` records, a miss adds a warm-manifest entry
+  named by :func:`stable_key_digest` (the module is looked up in ``sys.modules`` on
+  the miss only, so the steady state pays nothing).
 """
+import hashlib
 import inspect
+import sys
+import threading
 import warnings
 import weakref
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -63,6 +75,8 @@ from metrics_tpu_torch import _build
 from metrics_tpu_torch.core.metric import Metric, _class_update_signature, _squeeze_if_scalar
 from metrics_tpu_torch.core.state import CatBuffer
 from metrics_tpu_torch.fault import inject as _fault
+from metrics_tpu_torch.obs import flight as _obs_flight
+from metrics_tpu_torch.obs import registry as _obs
 from metrics_tpu_torch.utils.checks import tracing
 from metrics_tpu_torch.utils.exceptions import MetricsUserError
 
@@ -73,6 +87,7 @@ __all__ = [
     "engine_for",
     "fusion_fallback_reason",
     "canonical_collection",
+    "stable_key_digest",
 ]
 
 #: placeholder of a dynamic (tensor) leaf in a flattened input
@@ -205,6 +220,48 @@ def _tensor_key(tree: Any) -> Tuple:
     return tuple(_tensor_key(v) for v in tree)
 
 
+# ------------------------------------------------------ stable key digests
+
+
+def _stable_repr(x: Any) -> str:
+    """A rendering of an engine cache key that is the same in every process:
+    ``hash()`` is salted by ``PYTHONHASHSEED`` and ``id()`` is per process, so tree
+    specs, dtypes and devices render by their structure and name, and the
+    ``("id", ...)`` leaves that :func:`_static_key` gives an exotic static object are
+    masked."""
+    if x is _DYN:
+        return "dyn"
+    if isinstance(x, tuple):
+        if len(x) == 2 and isinstance(x[0], str) and x[0] == "id":
+            return "id:*"
+        return "(" + ",".join(_stable_repr(e) for e in x) + ")"
+    if isinstance(x, list):
+        return "[" + ",".join(_stable_repr(e) for e in x) + "]"
+    if isinstance(x, pytree.TreeSpec):
+        return f"td:{x}"
+    if x is None or isinstance(x, (bool, int, float, str, bytes)):
+        return f"{type(x).__name__}:{x!r}"
+    return f"{type(x).__name__}:{x}"
+
+
+def stable_key_digest(key: Any) -> str:
+    """12 hex digits of the sha1 of :func:`_stable_repr`: the name of a cache key
+    shared by flight events and the warm manifest, equal across processes."""
+    return hashlib.sha1(_stable_repr(key).encode("utf-8")).hexdigest()[:12]
+
+
+def fused_key_digest(key: Tuple) -> str:
+    """:func:`stable_key_digest` of a fused-engine key without the topology's
+    ``id(leader)`` parts."""
+    mode, topo, state_key, dyn_key, static_key = key
+    return stable_key_digest((mode, tuple((name, members) for name, members, _ in topo), state_key, dyn_key, static_key))
+
+
+def _excache_module() -> Any:
+    """The executable-cache module when the application imported it, else None."""
+    return sys.modules.get("metrics_tpu_torch.serve.excache")
+
+
 def _step_device(*trees: Any) -> Optional[torch.device]:
     for leaf in pytree.tree_leaves(trees):
         if isinstance(leaf, Tensor):
@@ -213,6 +270,40 @@ def _step_device(*trees: Any) -> Optional[torch.device]:
 
 
 # ----------------------------------------------------------- graph capture
+
+
+#: one capture at a time in the process, each on its device's capture stream
+_CAPTURE_LOCK = threading.Lock()
+_CAPTURE_STREAMS: Dict[int, Any] = {}
+
+
+def _capture_stream(device: torch.device) -> Any:
+    """The stream every capture on ``device`` runs on. PyTorch hands out its streams
+    round-robin from a pool of 32 a priority, so a producer's ``torch.cuda.Stream()`` (or
+    the health monitor's) can be the very stream that ``torch.cuda.graph`` captures on by
+    default: work another thread queues there lands in the graph. This one comes from the
+    high-priority pool, which nothing else in the package draws from."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    stream = _CAPTURE_STREAMS.get(index)
+    if stream is None:
+        stream = _CAPTURE_STREAMS[index] = torch.cuda.Stream(device=index, priority=-1)
+    return stream
+
+
+def _end_failed_capture(device: torch.device, pool: Any, caller: Any) -> None:
+    """Undo what a capture that raised leaves behind. ``torch.cuda.graph`` ends the
+    capture first and restores the caller's stream after: when ending raises (the
+    capture was invalidated), the thread keeps the capture stream as its current
+    stream, and its later work is ordered after nothing the other threads wait on
+    (a reader on the caller's stream saw a state before the last replay), and the
+    allocator keeps routing to the capture's pool, which defers every cross-stream
+    free for good."""
+    torch.cuda.set_stream(caller)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    try:
+        torch._C._cuda_endAllocateToPool(index, pool)
+    except (AttributeError, RuntimeError):  # ended already: the capture itself ended cleanly
+        pass
 
 
 class CapturedStep:
@@ -226,12 +317,18 @@ class CapturedStep:
     captured: a host read of device values, a new state of another shape or dtype
     than the old one.
 
-    The kernel wrappers' ``launches`` (``_build.LAUNCH_COUNTERS``) count the warm-up's
-    launches, which run; the capture's calls only record theirs, so what they added
-    is taken back and added again at each replay.
+    The kernel wrappers' ``launches`` count the warm-up's launches, which run; the
+    capture's calls go to this thread's capture tally (``_build.capture_tally``), and
+    each replay adds them, so that another thread's launches meanwhile count as theirs.
     """
 
     def __init__(self, step: Callable, states: Any, extras: Sequence[Any], device: torch.device) -> None:
+        # captures are serialized: two threads capturing at once (a tick thread and a
+        # request that flushes another queue) would share the capture stream
+        with _CAPTURE_LOCK:
+            self._capture(step, states, extras, device)
+
+    def _capture(self, step: Callable, states: Any, extras: Sequence[Any], device: torch.device) -> None:
         state_leaves, self._state_spec = pytree.tree_flatten(states)
         extra_leaves, self._extra_spec = pytree.tree_flatten(list(extras))
         self._states = [t.clone() for t in state_leaves]
@@ -246,11 +343,13 @@ class CapturedStep:
             side.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(side), tracing():
                 step(static_states, *static_extras)
-            torch.cuda.current_stream().wait_stream(side)
+            caller = torch.cuda.current_stream()
+            caller.wait_stream(side)
             self.graph = torch.cuda.CUDAGraph()
-            before = [w.launches for w in _build.LAUNCH_COUNTERS]
+            pool = torch.cuda.graph_pool_handle()
             try:
-                with torch.cuda.graph(self.graph, capture_error_mode="thread_local"), tracing():
+                with _build.capture_tally() as recorded, tracing(), torch.cuda.graph(
+                        self.graph, pool=pool, stream=_capture_stream(device), capture_error_mode="thread_local"):
                     new_states, outputs = step(static_states, *static_extras)
                     new_leaves, new_spec = pytree.tree_flatten(new_states)
                     if new_spec != self._state_spec:
@@ -263,13 +362,11 @@ class CapturedStep:
                             )
                         if new is not old:
                             old.copy_(new)
-            finally:
-                # (wrapper, launches recorded in the graph): none of them ran yet
-                self._recorded = [
-                    (w, w.launches - n) for w, n in zip(_build.LAUNCH_COUNTERS, before) if w.launches != n
-                ]
-                for wrapper, n in self._recorded:
-                    wrapper.launches -= n
+            except BaseException:
+                _end_failed_capture(device, pool, caller)
+                raise
+        # (wrapper, launches recorded in the graph): each replay runs them
+        self._recorded = list(recorded.items())
         self._outputs = outputs
 
     def __call__(self, states: Any, extras: Sequence[Any]) -> Tuple[Any, Any]:
@@ -280,7 +377,7 @@ class CapturedStep:
             buf.copy_(live)
         self.graph.replay()
         for wrapper, n in self._recorded:
-            wrapper.launches += n
+            _build.note_launch(wrapper, n)
         outputs = pytree.tree_map(lambda t: t.clone() if isinstance(t, Tensor) else t, self._outputs)
         return pytree.tree_unflatten(self._states, self._state_spec), outputs
 
@@ -310,6 +407,21 @@ def compile_step(step: Callable, states: Any, extras: Sequence[Any]) -> Any:
     if device is not None and device.type == "cuda":
         return CapturedStep(step, states, extras, device)
     return _EagerStep(step)
+
+
+_COMPILED = [0]
+_COMPILED_LOCK = threading.Lock()
+
+
+def _count_compiled() -> None:
+    with _COMPILED_LOCK:
+        _COMPILED[0] += 1
+
+
+def steps_compiled() -> int:
+    """Steps every :class:`StepCache` of the process has built (captures on the card,
+    eager steps on the CPU)."""
+    return _COMPILED[0]
 
 
 class StepCache:
@@ -360,24 +472,40 @@ class StepCache:
                 if self.site == "fused":
                     _fault.fire("fused.launch", key=str(key[0]))
             except _fault.InjectedFaultError as err:
-                self.broken.add(key)
-                self.stats["degrades"] += 1
-                _warn_degrade_once(f"{self.site}.{'compile' if first else 'launch'}", err, detail)
+                self._degrade(key, f"{self.site}.{'compile' if first else 'launch'}", err, detail)
                 return None
         try:
             if first:
                 compiled = compile_step(make_step(), states, extras)
+                _count_compiled()
             out = compiled(states, extras)
         except Exception as err:  # noqa: BLE001 - the caller's eager path is always correct
             if first and raise_first:
                 raise
-            self.broken.add(key)
-            self.stats["degrades"] += 1
-            _warn_degrade_once(f"{self.site}.{'capture' if first else 'replay'}", err, detail)
+            self._degrade(key, f"{self.site}.{'capture' if first else 'replay'}", err, detail)
             return None
         self.steps[key] = compiled
         self.stats["launches"] += 1
         return out
+
+    def _degrade(self, key: Tuple, site: str, err: Exception, detail: str) -> None:
+        self.broken.add(key)
+        self.stats["degrades"] += 1
+        if _obs._ENABLED:
+            _obs.REGISTRY.inc(self.site, "degrades")
+            if _obs_flight._RING is not None:
+                _obs_flight.record("degrade", site=site, error=f"{type(err).__name__}: {str(err).splitlines()[0][:120] if str(err) else ''}")
+        _warn_degrade_once(site, err, detail)
+
+    def insert(self, key: Tuple, make_step: Callable[[], Callable], states: Any, extras: Sequence[Any]) -> bool:
+        """Compile ``make_step()`` for ``key`` ahead of its first call, without running
+        it (a capture's warm-up runs on the capture's own copies of ``states``): the
+        warm-manifest prewarm. False when the key is compiled or broken already."""
+        if key in self.steps or key in self.broken:
+            return False
+        self.steps[key] = compile_step(make_step(), states, extras)
+        _count_compiled()
+        return True
 
 
 # ------------------------------------------------------------------ engine
@@ -513,14 +641,19 @@ class FusedCollectionUpdate:
             return (mode, topo, _tensor_key(states), dyn_key, _static_key(split_spec))
 
         def run(groups, states, raise_first=False):
-            return self._steps.call(
-                key_of(groups, states),
+            key = key_of(groups, states)
+            first = key not in self._steps.steps and key not in self._steps.broken
+            out = self._steps.call(
+                key,
                 lambda: self._build(collection, groups, split_spec, forward),
                 states,
                 [dyn],
                 "the group(s) run eagerly for this input signature from now on.",
                 raise_first=raise_first,
             )
+            if out is not None:
+                self._note_launch(key, groups, mode, first, args, kwargs)
+            return out
 
         states = self._gather_states(collection, fused)
         demoted: List[List[str]] = []
@@ -543,6 +676,23 @@ class FusedCollectionUpdate:
             m._update_count += 1
             m._computed = None
         return fused, demoted, results
+
+    @staticmethod
+    def _note_launch(key: Tuple, groups: List[Tuple[str, Tuple[str, ...]]], mode: str, first: bool, args: Tuple,
+                     kwargs: Dict) -> None:
+        """The flight events of one fused step and, at a miss, its warm-manifest entry."""
+        if first:
+            _excache = _excache_module()
+            if _excache is not None and _excache.recording():
+                _excache.record_fused_compile(mode=mode, groups=groups, args=args, kwargs=kwargs,
+                                              digest=fused_key_digest(key))
+        if _obs._ENABLED:
+            _obs.REGISTRY.inc("fused", "launches")
+            if _obs_flight._RING is not None:
+                names = [name for name, _ in groups]
+                if first:
+                    _obs_flight.record("fused_cache_miss", groups=names, mode=mode)
+                _obs_flight.record("fused_launch", groups=names, mode=mode, cache_key=f"{mode}:{fused_key_digest(key)}")
 
     def update(self, collection: Any, *args: Any, **kwargs: Any) -> None:
         """One fused accumulation step, plus the eager groups."""

@@ -49,8 +49,11 @@ raises; array-likes that are not tensors are copied to the metric's device.
 - ``save_checkpoint`` / ``restore_checkpoint``: durable, atomic checkpoints of every
   state (:mod:`~metrics_tpu_torch.ckpt`, the JAX package's format).
 
-Not ported: the observability hooks beyond those counters (the flight recorder,
-flow tracing, retrace detection).
+Observability: with the obs gate on, the flight recorder (:mod:`~metrics_tpu_torch.obs.flight`)
+gets a ``dispatch`` event a wrapped update, a ``merge`` event a ``merge_state`` and a
+``nonfinite_inputs`` event a quarantine that counted rows; ``state_report()`` gives the
+states' dtypes, shapes, bytes and devices. Not ported: flow tracing and retrace
+detection.
 """
 import functools
 import inspect
@@ -67,6 +70,7 @@ from torch import Tensor, nn
 from metrics_tpu_torch.core.state import CatBuffer, cat_merge
 from metrics_tpu_torch.fault import inject as _fault
 from metrics_tpu_torch.fault.inject import PoisonedInputError
+from metrics_tpu_torch.obs import flight as _obs_flight
 from metrics_tpu_torch.obs import registry as _obs
 from metrics_tpu_torch.parallel.collective import distributed_available
 from metrics_tpu_torch.utils.data import (
@@ -455,6 +459,8 @@ class Metric(nn.Module, ABC):
             setattr(self, name, value)
         self._update_count += incoming_count
         self._computed = None
+        if _obs._ENABLED and _obs_flight._RING is not None:
+            _obs_flight.record("merge", metric=type(self).__name__, incoming_updates=incoming_count)
 
     # ------------------------------------------------------------- OO shell
 
@@ -504,6 +510,8 @@ class Metric(nn.Module, ABC):
         name = type(self).__name__
         if _obs._ENABLED:
             _obs.REGISTRY.inc(name, "nonfinite_rows", rows)
+            if _obs_flight._RING is not None:
+                _obs_flight.record("nonfinite_inputs", metric=name, rows=rows, policy=self.nan_policy)
         if self.nan_policy == "raise":
             raise PoisonedInputError(name, rows)
         if self.nan_policy == "warn":
@@ -528,6 +536,8 @@ class Metric(nn.Module, ABC):
                 self._quarantine_inputs(args, kwargs)
             self._computed = None
             self._update_count += 1
+            if _obs._ENABLED and _obs_flight._RING is not None and not self._pure_call_depth:
+                _obs_flight.record_dispatch(type(self).__name__, args, kwargs)
             if self.fleet_size is not None:
                 from metrics_tpu_torch.core import fleet as _fleet
 
@@ -941,6 +951,14 @@ class Metric(nn.Module, ABC):
 
     def extra_repr(self) -> str:
         return f"device={self._device}"
+
+    def state_report(self) -> Dict[str, Any]:
+        """One row a registered state: dtype, shape, nbytes, device, and for a
+        ``CatBuffer`` its fill against its capacity (:mod:`~metrics_tpu_torch.obs.report`;
+        render with :func:`~metrics_tpu_torch.utils.prints.render_state_report`)."""
+        from metrics_tpu_torch.obs.report import metric_state_report
+
+        return metric_state_report(self)
 
     def save_checkpoint(self, directory: str, step: Optional[int] = None, **kwargs: Any) -> Any:
         """Write a durable, atomic checkpoint of the whole state: every registered state

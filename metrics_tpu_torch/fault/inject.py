@@ -20,9 +20,9 @@ Injection sites (the name is the contract: tests address faults by it):
     ``ingest.enqueue``  admission of a batch into an ``IngestQueue``'s ring
     ``ingest.tick``     the coalescing tick of an ``IngestQueue``: a fired tick
                         applies its batches synchronously instead
-    ``excache.prewarm`` warm-manifest replay of the serving slice (not wired yet)
-    ``server.request``  request admission of the serving slice (not wired yet)
-    ``server.drain``    the server's drain transition (not wired yet)
+    ``excache.prewarm`` one warm-manifest entry's capture in ``serve.excache.prewarm``
+    ``server.request``  request admission of ``serve.server.MetricsServer.enqueue``
+    ``server.drain``    the server's drain transition, before anything is flushed
     ``input.poison``    NaN-poisoning of update inputs (``Metric``'s update wrapper)
 
 Every site but ``input.poison`` raises :class:`InjectedFaultError` (an ``OSError``,
@@ -35,7 +35,8 @@ seed and occurrence.
 Determinism: each site draws from its own ``random.Random`` seeded by ``(seed,
 site)``, so whether the n-th call at a site fires depends only on the seed and that
 site's count, never on the interleaving of sites or threads. ``fire_at`` plans
-bypass randomness. Every fired fault is appended to ``schedule.fired``.
+bypass randomness. Every fired fault is appended to ``schedule.fired`` and, while
+the flight recorder runs, recorded as a ``"fault"`` event.
 """
 import random
 import threading
@@ -43,6 +44,8 @@ from typing import Any, Dict, Iterable, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+
+from metrics_tpu_torch.obs import flight as _obs_flight
 
 __all__ = [
     "SITES",
@@ -174,7 +177,8 @@ class FaultSchedule:
                 return None
             event = {"site": site, "occurrence": occurrence, **context}
             self.fired.append(event)
-        # the flight recorder's "fault" event belongs to the observability slice
+        # recorded outside the schedule lock (record() takes no lock)
+        _obs_flight.record("fault", **event)
         return event
 
     def __enter__(self) -> "FaultSchedule":

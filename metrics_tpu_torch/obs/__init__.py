@@ -1,5 +1,5 @@
-"""metrics_tpu_torch.obs: the counters that the checkpoint, ingest and
-``nan_policy`` paths write (counterpart of part of ``metrics_tpu/obs``).
+"""metrics_tpu_torch.obs: counters, the flight recorder, health sketches, series and
+the Prometheus export (counterpart of ``metrics_tpu/obs``).
 
     from metrics_tpu_torch import obs
 
@@ -7,12 +7,21 @@
         metric.save_checkpoint("ckpts")
     reg.get("ckpt", "saves")   # 1
 
+    obs.flight.enable(dump_path="/tmp/flight.json", install_handlers=True)
+    obs.health.enable()                  # latency sketches on the card
+    obs.health.set_slo(p99_ingest_latency_ms=5.0)
+    obs.series.enable(interval_s=1.0)    # counter deltas and quantiles, 1 Hz
+    obs.prom.start_server(port=9464)     # GET /metrics, GET /healthz
+    metric.state_report()                # dtype, shape, bytes, device a state
+
 Off by default: each instrumented path checks one module attribute
-(``registry._ENABLED``). Ported so far: the registry and the bounded :class:`Ring`
-the ingest queue stages into. The flight recorder, flow tracing, health monitor,
-series, Prometheus export and the hooks that feed them are a later slice of the
-port.
+(``registry._ENABLED``, then ``flight._RING`` or ``health._MONITOR``), and nothing
+is allocated before the surface's own ``enable()``. Not ported yet: flow tracing,
+cross-host aggregation, retrace detection, timed scopes, the trace and snapshot
+exports and the cost cross-check.
 """
+from metrics_tpu_torch.obs import flight, health, prom, registry, ring, series
+from metrics_tpu_torch.obs.health import SLOBudget, SLOBudgetExceeded, SLOViolationWarning
 from metrics_tpu_torch.obs.registry import (
     REGISTRY,
     ObsRegistry,
@@ -23,6 +32,35 @@ from metrics_tpu_torch.obs.registry import (
     snapshot,
     snapshot_json,
 )
+from metrics_tpu_torch.obs.report import collection_summary, metric_state_report
 from metrics_tpu_torch.obs.ring import Ring
 
-__all__ = ["REGISTRY", "ObsRegistry", "Ring", "disable", "enable", "enabled", "observe", "snapshot", "snapshot_json"]
+
+def stopwatch(scope: str, name: str = "elapsed"):
+    """Shortcut for ``REGISTRY.stopwatch``."""
+    return REGISTRY.stopwatch(scope, name)
+
+
+__all__ = [
+    "REGISTRY",
+    "ObsRegistry",
+    "Ring",
+    "SLOBudget",
+    "SLOBudgetExceeded",
+    "SLOViolationWarning",
+    "collection_summary",
+    "disable",
+    "enable",
+    "enabled",
+    "flight",
+    "health",
+    "metric_state_report",
+    "observe",
+    "prom",
+    "registry",
+    "ring",
+    "series",
+    "snapshot",
+    "snapshot_json",
+    "stopwatch",
+]

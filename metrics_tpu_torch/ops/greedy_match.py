@@ -131,11 +131,11 @@ class GreedyMatchKernel:
         )
         if err != 0:
             raise RuntimeError(f"greedy match kernel launch failed with CUDA error {err}")
-        self.launches += 1
+        _build.note_launch(self)
         return matched, ignored, npig
 
 
-greedy_match_cuda = _build.counted(GreedyMatchKernel())
+greedy_match_cuda = GreedyMatchKernel()
 
 
 def greedy_match(iou, d_area, g_area, det_valid, gt_valid, thresholds, area_ranges):

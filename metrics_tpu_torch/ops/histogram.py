@@ -125,11 +125,11 @@ class HistogramKernel:
         )
         if err != 0:
             raise RuntimeError(f"histogram kernel launch failed with CUDA error {err}")
-        self.launches += 1
+        _build.note_launch(self)
         return out
 
 
-histogram_cuda = _build.counted(HistogramKernel())
+histogram_cuda = HistogramKernel()
 
 
 def _plain_batched_bincount(x: Tensor, weights: Optional[Tensor], num_bins: int) -> Tensor:
@@ -208,11 +208,11 @@ class BatchedHistogramKernel:
         )
         if err != 0:
             raise RuntimeError(f"batched histogram kernel launch failed with CUDA error {err}")
-        self.launches += 1
+        _build.note_launch(self)
         return out
 
 
-histogram_batched_cuda = _build.counted(BatchedHistogramKernel())
+histogram_batched_cuda = BatchedHistogramKernel()
 
 
 def _batched_dispatch(x: Tensor, weights: Optional[Tensor], num_bins: int) -> Tensor:

@@ -269,7 +269,7 @@ class KendallPairsKernel:
             return out
         self._merge(x, y, out)
         self.kernel_launches += 4 + self.merge_passes(n) if n > 0 else 1
-        self.launches += 1
+        _build.note_launch(self)
         return out
 
     def _merge(self, x: Tensor, y: Tensor, out: Tensor) -> None:
@@ -293,7 +293,7 @@ class KendallPairsKernel:
             raise RuntimeError(f"kendall merge-count kernels launch failed with CUDA error {err}")
 
 
-kendall_pairs_cuda = _build.counted(KendallPairsKernel())
+kendall_pairs_cuda = KendallPairsKernel()
 
 
 def pair_counts(x: Tensor, y: Tensor) -> Tensor:

@@ -180,11 +180,11 @@ class SegmentScanKernel:
         )
         if err != 0:
             raise RuntimeError(f"segment scan kernel launch failed with CUDA error {err}")
-        self.launches += 1
+        _build.note_launch(self)
         return outs
 
 
-segment_scan_cuda = _build.counted(SegmentScanKernel())
+segment_scan_cuda = SegmentScanKernel()
 
 
 def _kernel_dtype(dtypes: Sequence[torch.dtype]) -> torch.dtype:

@@ -22,6 +22,11 @@ Contract:
 
 - **Bit-equal**: after ``flush()`` the target's state is bitwise the state of
   synchronous ``target.update`` calls on the same batches in the same order.
+- **Stream order**: a tick may run on the tick thread or on the thread that calls
+  ``flush``/``tick``/``close``, each on its own current stream. Each tick ends by
+  recording an event on the target device's current stream; the next tick, and the
+  caller's current stream on return from ``flush``, ``compute`` and ``close``, wait
+  for it, so a reader on any stream sees every applied batch.
 - **Aliasing**: the queue keeps the caller's tensors, not copies. A tensor handed
   to ``enqueue`` must not be written in place before its batch is applied (after
   ``flush()``, or when ``depth`` shows it drained).
@@ -41,9 +46,15 @@ A target (or compute-group leader) whose update cannot be chained (host-side
 updates, list or ``CatBuffer`` states, ``nan_policy``, wrappers: the fused engine's
 :func:`~metrics_tpu_torch.core.fused.fusion_fallback_reason`) is still served: its
 batches are applied eagerly inside the tick, one update each. On the CPU the chain
-runs eagerly (the engines' plain version). The flow-tracing, flight and health hooks
-belong to the observability slice; the executable-cache recording to the serving
-slice.
+runs eagerly (the engines' plain version).
+
+Hooks: with the obs gate on, each tick records an ``ingest_tick`` flight event and a
+degraded tick a ``degrade`` event; an enabled health monitor sketches each batch's
+enqueue-to-applied latency (``ingest/<queue>``) and each dropped batch's wait. A chain
+captured for a new key adds a warm-manifest entry while
+:mod:`~metrics_tpu_torch.serve.excache` records, and :func:`excache.prewarm
+<metrics_tpu_torch.serve.excache.prewarm>` can capture a recorded key before the
+first batch arrives. Flow tracing is not ported yet.
 """
 import itertools
 import threading
@@ -56,6 +67,7 @@ import torch
 
 from metrics_tpu_torch.core.fused import (
     StepCache,
+    _excache_module,
     _merge_inputs,
     _split_inputs,
     _static_key,
@@ -64,6 +76,8 @@ from metrics_tpu_torch.core.fused import (
     fusion_fallback_reason,
 )
 from metrics_tpu_torch.fault import inject as _fault
+from metrics_tpu_torch.obs import flight as _obs_flight
+from metrics_tpu_torch.obs import health as _health
 from metrics_tpu_torch.obs import registry as _obs
 from metrics_tpu_torch.obs.ring import Ring
 from metrics_tpu_torch.utils.concurrency import locked_by, thread_role
@@ -108,6 +122,18 @@ def _count_rows(args: Tuple, kwargs: Dict) -> int:
 
 def _cuda_tensors(entry: _Entry) -> List[torch.Tensor]:
     return [v for v in itertools.chain(entry.args, entry.kwargs.values()) if isinstance(v, torch.Tensor) and v.is_cuda]
+
+
+def _state_device(target: Any) -> Optional[torch.device]:
+    """The CUDA device of the target's (or its first member's) states; None off the card."""
+    from metrics_tpu_torch.core.collections import MetricCollection
+
+    metrics = target.values(copy_state=False) if isinstance(target, MetricCollection) else [target]
+    for m in metrics:
+        device = getattr(m, "device", None)
+        if isinstance(device, torch.device) and device.type == "cuda":
+            return device
+    return None
 
 
 def _ready_event(args: Tuple, kwargs: Dict) -> Any:
@@ -197,6 +223,8 @@ class IngestQueue:
         self.step_stats: Dict[str, int] = {}
         self._steps = StepCache("ingest", self.step_stats)
         self._last_apply_t = time.monotonic()
+        #: the event the last tick recorded on the target device's stream (on the card)
+        self._applied: Any = None
 
         self._thread: Optional[threading.Thread] = None
         _ACTIVE.add(self)
@@ -235,9 +263,10 @@ class IngestQueue:
                         " backpressure='raise'; flush(), widen capacity, or pick 'block'/'drop_oldest'"
                     )
                 if self.backpressure == "drop_oldest":
-                    if self._ring.pop_oldest() is not None:
+                    evicted = self._ring.pop_oldest()
+                    if evicted is not None:
                         self.stats["dropped"] += 1
-                        self._note_dropped(1)
+                        self._note_dropped([evicted], "backpressure")
                 else:  # block
                     deadline = time.monotonic() + self.block_timeout_s
                     while self._ring.full:
@@ -265,6 +294,7 @@ class IngestQueue:
         """Apply everything pending; on return the target's state is exact."""
         with self._tick_lock:
             self._run_ticks()
+        self._wait_applied()
         self._reraise()
 
     def tick(self, limit: Optional[int] = None) -> int:
@@ -290,14 +320,17 @@ class IngestQueue:
 
     def compute(self, **kwargs: Any) -> Any:
         """``target.compute()`` within the staleness bound: pending batches are applied
-        first, unless ``max_staleness_s`` is set and the last tick is recent enough."""
+        first, unless ``max_staleness_s`` is set and the last tick is recent enough. The
+        flush takes the tick lock even with an empty ring: a tick thread may have drained
+        batches it has not applied yet."""
         self._reraise()
-        if len(self._ring):
-            stale_ok = (
-                self.max_staleness_s is not None and (time.monotonic() - self._last_apply_t) <= self.max_staleness_s
-            )
-            if not stale_ok:
-                self.flush()
+        stale_ok = (
+            self.max_staleness_s is not None and (time.monotonic() - self._last_apply_t) <= self.max_staleness_s
+        )
+        if not stale_ok:
+            self.flush()
+        else:
+            self._wait_applied()
         return self.target.compute(**kwargs)
 
     # ------------------------------------------------------------ lifecycle
@@ -319,7 +352,8 @@ class IngestQueue:
                 discarded = self._ring.drain()
                 if discarded:
                     self.stats["dropped"] += len(discarded)
-                    self._note_dropped(len(discarded))
+                    self._note_dropped(discarded, "close")
+        self._wait_applied()
         self._closed = True
         _ACTIVE.discard(self)
         self._reraise()
@@ -336,9 +370,20 @@ class IngestQueue:
             self._error = None
             raise err
 
-    def _note_dropped(self, n: int) -> None:
+    def _note_dropped(self, entries: List[_Entry], site: str) -> None:
+        """Count dropped batches; each one's wait goes to the health sketch
+        ``ingest.dropped_latency/<queue>``."""
+        now = time.monotonic()
         if _obs._ENABLED:
-            _obs.REGISTRY.inc("ingest", "dropped", n)
+            _obs.REGISTRY.inc("ingest", "dropped", len(entries))
+            if _obs_flight._RING is not None:
+                for e in entries:
+                    _obs_flight.record("flow_dropped", queue=self.name, site=site, rows=e.rows,
+                                       waited_us=round((now - e.t_enq) * 1e6, 1))
+        mon = _health._MONITOR
+        if mon is not None:
+            for e in entries:
+                mon.observe_latency("ingest.dropped_latency", self.name, now - e.t_enq)
 
     # ------------------------------------------------------------- ticking
 
@@ -373,8 +418,26 @@ class IngestQueue:
                     self._error = err
                 return
 
+    def _wait_applied(self) -> None:
+        """Order this thread's current stream after the last tick's work."""
+        applied = self._applied
+        if applied is not None:
+            torch.cuda.current_stream(applied[1]).wait_event(applied[0])
+
     def _apply(self, entries: List[_Entry]) -> None:
-        """One tick: order after the producers' work, then chain the batches."""
+        """One tick: order after the last tick and the producers' work, chain the
+        batches, and record where the tick's work ends."""
+        self._wait_applied()
+        try:
+            self._apply_ordered(entries)
+        finally:
+            device = _state_device(self.target)
+            if device is not None:
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(device))
+                self._applied = (event, device)
+
+    def _apply_ordered(self, entries: List[_Entry]) -> None:
         for e in entries:
             if e.ready is not None:
                 tensors = _cuda_tensors(e)
@@ -388,7 +451,7 @@ class IngestQueue:
                 _fault.fire("ingest.tick", queue=self.name, entries=len(entries))
             except _fault.InjectedFaultError as err:
                 self._degrade(entries, err)
-                self._finish_tick(entries)
+                self._finish_tick(entries, 0)
                 return
         try:
             self._apply_coalesced(entries)
@@ -398,16 +461,23 @@ class IngestQueue:
             if self.stats["launches"] != launches_before:
                 raise
             self._degrade(entries, err)
-        self._finish_tick(entries)
+        self._finish_tick(entries, self.stats["launches"] - launches_before)
 
-    def _finish_tick(self, entries: List[_Entry]) -> None:
+    def _finish_tick(self, entries: List[_Entry], launched: int) -> None:
+        now = time.monotonic()
         rows = sum(e.rows for e in entries)
         self.stats["ticks"] += 1
         self.stats["coalesced_rows"] += rows
-        self._last_apply_t = time.monotonic()
+        self._last_apply_t = now
         if _obs._ENABLED:
             _obs.REGISTRY.inc("ingest", "ticks")
             _obs.REGISTRY.inc("ingest", "coalesced_rows", rows)
+            if _obs_flight._RING is not None:
+                _obs_flight.record("ingest_tick", queue=self.name, entries=len(entries), rows=rows, launches=launched)
+        mon = _health._MONITOR
+        if mon is not None:
+            for e in entries:
+                mon.observe_latency("ingest", self.name, now - e.t_enq)
 
     # ----------------------------------------------------- degradation path
 
@@ -416,6 +486,9 @@ class IngestQueue:
         self.stats["degrades"] += 1
         if _obs._ENABLED:
             _obs.REGISTRY.inc("ingest", "degrades")
+            if _obs_flight._RING is not None:
+                _obs_flight.record("degrade", site="ingest.tick", queue=self.name, entries=len(entries),
+                                   error=type(err).__name__)
         _warn_degrade_once("ingest.tick", err, "the pending batches were applied synchronously (no rows lost).")
         for e in entries:
             try:
@@ -497,16 +570,21 @@ class IngestQueue:
         except Exception:  # noqa: BLE001 - an exotic static __eq__: key each entry
             return False
 
-    def _launch_chain(self, chain: List[Tuple[str, Any]], entries: List[_Entry], filter_kwargs: bool) -> None:
+    def _chain_step(
+        self, chain: List[Tuple[str, Any]], inputs: List[Tuple[Tuple, Dict]], filter_kwargs: bool
+    ) -> Tuple[Tuple, Dict[str, Any], List[List[torch.Tensor]], Callable[[], Callable], bool]:
+        """``(key, states, dyn_lists, make_step, uniform)`` of a chain over the batches'
+        ``(args, kwargs)``: what a tick runs, and what a warm-manifest prewarm captures."""
         device = chain[0][1].device
         dyn_lists: List[List[torch.Tensor]] = []
         specs: List[Tuple[Any, tuple]] = []
-        for e in entries:
-            dyn, spec = _split_inputs(e.args, e.kwargs, device)
+        for args, kwargs in inputs:
+            dyn, spec = _split_inputs(args, kwargs, device)
             dyn_lists.append(dyn)
             specs.append(spec)
-        n = len(entries)
-        if n > 1 and self._uniform_signature(dyn_lists, specs):
+        n = len(inputs)
+        uniform = n > 1 and self._uniform_signature(dyn_lists, specs)
+        if uniform:
             sig: Tuple = ("chain", n, _tensor_key(dyn_lists[0]), _static_key(specs[0]))
             step_specs = [specs[0]] * n
         else:
@@ -514,14 +592,27 @@ class IngestQueue:
             step_specs = specs
         states = {label: m.state_pytree() for label, m in chain}
         key = (tuple((label, id(m)) for label, m in chain), _tensor_key(states), sig)
+        return key, states, dyn_lists, lambda: self._build_step(chain, step_specs, filter_kwargs), uniform
+
+    def _launch_chain(self, chain: List[Tuple[str, Any]], entries: List[_Entry], filter_kwargs: bool) -> None:
+        device = chain[0][1].device
+        n = len(entries)
+        key, states, dyn_lists, make_step, uniform = self._chain_step(
+            chain, [(e.args, e.kwargs) for e in entries], filter_kwargs
+        )
         misses = self.step_stats.get("cache_misses", 0)
+        first = key not in self._steps.steps and key not in self._steps.broken
         out = self._steps.call(
             key,
-            lambda: self._build_step(chain, step_specs, filter_kwargs),
+            make_step,
             states,
             [dyn_lists],
             "this signature's batches are applied synchronously from now on.",
         )
+        if first and out is not None:
+            _excache = _excache_module()
+            if _excache is not None and _excache.recording():
+                _excache.record_ingest_compile(self, chain, uniform, entries, key)
         if out is None:
             raise RuntimeError(f"IngestQueue {self.name!r}: the chained step of this signature failed")
         if device.type == "cuda" and self.step_stats["cache_misses"] != misses:

@@ -37,6 +37,55 @@ def rank_zero_info(*args: Any, **kwargs: Any) -> None:
     print(*args, **kwargs)
 
 
+def _human_bytes(n: int) -> str:
+    size = float(n)
+    for unit in ("B", "KiB", "MiB", "GiB"):
+        if size < 1024 or unit == "GiB":
+            return f"{size:.1f} {unit}" if unit != "B" else f"{int(size)} B"
+        size /= 1024
+    return f"{int(n)} B"
+
+
+def render_state_report(report: dict) -> str:
+    """A table of ``Metric.state_report()``: a row a state with its dtype, shape,
+    bytes, device and, for a ``CatBuffer``, fill/capacity (and an overflow marker)."""
+    rows = [("state", "dtype", "shape", "nbytes", "device", "fill")]
+    for s in report["states"]:
+        if s["kind"] == "cat_buffer":
+            fill = "?" if s["fill"] is None else f"{s['fill']}/{s['capacity']}"
+            if s.get("overflowed"):
+                fill += " OVERFLOWED"
+        elif s["kind"] == "list":
+            fill = f"len={s['length']}"
+        else:
+            fill = "-"
+        rows.append(
+            (s["name"], str(s["dtype"]), str(s["shape"]), _human_bytes(s["nbytes"]), str(s.get("device") or "-"), fill)
+        )
+    widths = [max(len(r[i]) for r in rows) for i in range(len(rows[0]))]
+    lines = [f"{report['metric']} (updates={report['update_count']}, total={_human_bytes(report['total_nbytes'])})"]
+    for i, r in enumerate(rows):
+        lines.append("  " + "  ".join(c.ljust(w) for c, w in zip(r, widths)).rstrip())
+        if i == 0:
+            lines.append("  " + "-" * (sum(widths) + 2 * (len(widths) - 1)))
+    return "\n".join(lines)
+
+
+def render_collection_summary(summary: dict) -> str:
+    """``MetricCollection.summary()`` as text: each member's table, the compute groups
+    and the bytes the grouping saves."""
+    lines = [render_state_report(report) for report in summary["metrics"].values()]
+    if summary["compute_groups"]:
+        lines.append("compute groups:")
+        for g in summary["compute_groups"]:
+            members = ", ".join(g["members"])
+            lines.append(f"  [{members}] <- leader {g['leader']} ({_human_bytes(g['shared_nbytes'])} shared)")
+    lines.append(
+        f"total: {_human_bytes(summary['total_nbytes'])} (groups save {_human_bytes(summary['nbytes_saved_by_groups'])})"
+    )
+    return "\n".join(lines)
+
+
 def _root_class_shim(cls: type, name: str, domain: str, module: str) -> type:
     """A subclass of ``cls`` whose ``__init__`` warns (``FutureWarning``) that a domain
     metric built from the package root moved to its subpackage.

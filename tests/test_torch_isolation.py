@@ -36,6 +36,12 @@
 - checkpoints, fault injection and the ingest queue (``ckpt/``, ``fault/``, ``serve/``,
   ``obs/``, ``utils/concurrency.py``) are in both scans, and an ``IngestQueue`` over a
   metric built without ``device=`` raises where CUDA is absent;
+- the metrics server (``serve/server.py``, ``serve/excache.py``, ``serve/__main__.py``)
+  and the obs surfaces it runs on (``obs/flight.py``, ``report.py``, ``health.py``,
+  ``series.py``, ``prom.py``) are in both scans, no source names a ``metrics_tpu.``
+  module in a string (a ``sys.modules`` lookup would read the JAX package's live
+  objects), and a ``MetricsServer`` whose config names no device raises where CUDA is
+  absent, as does a health monitor;
 - the model metrics (BERTScore, InfoLM, CLIPScore, LPIPS, ``models/bert.py``,
   ``models/clip.py``, ``models/lpips.py``, ``multimodal/``) are in both scans, and the
   fresh import loads no ``transformers`` for them either; BERTScore and InfoLM are in
@@ -119,6 +125,9 @@ REQUIRED_MODULES = (
     "metrics_tpu_torch.ckpt", "metrics_tpu_torch.fault", "metrics_tpu_torch.fault.inject", "metrics_tpu_torch.serve",
     "metrics_tpu_torch.serve.ingest", "metrics_tpu_torch.obs", "metrics_tpu_torch.obs.ring",
     "metrics_tpu_torch.obs.registry", "metrics_tpu_torch.utils.concurrency",
+    # the metrics server, its command line and warm restarts, and the obs surfaces they run on
+    *(f"metrics_tpu_torch.obs.{m}" for m in ("flight", "report", "health", "series", "prom")),
+    *(f"metrics_tpu_torch.serve.{m}" for m in ("excache", "server", "__main__")),
 )
 
 
@@ -443,3 +452,45 @@ def test_ingest_queue_over_a_metric_without_device_raises_when_cuda_is_absent(mo
         with pytest.raises(RuntimeError, match="no CUDA device"):
             IngestQueue(make(), start=False)
     assert active_queues() == []
+
+
+def _looked_up_names(tree):
+    """The string arguments of ``sys.modules.get(...)``, ``sys.modules[...]`` and
+    ``import_module(...)``."""
+    for node in ast.walk(tree):
+        target = None
+        if isinstance(node, ast.Call) and node.args:
+            func = node.func
+            if isinstance(func, ast.Attribute) and func.attr == "get" and isinstance(func.value, ast.Attribute) \
+                    and func.value.attr == "modules":
+                target = node.args[0]
+            elif isinstance(func, (ast.Attribute, ast.Name)) and getattr(func, "attr", getattr(func, "id", "")) \
+                    == "import_module":
+                target = node.args[0]
+        elif isinstance(node, ast.Subscript) and isinstance(node.value, ast.Attribute) and node.value.attr == "modules":
+            target = node.slice
+        if isinstance(target, ast.Constant) and isinstance(target.value, str):
+            yield node.lineno, target.value
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))
+def test_source_looks_up_no_metrics_tpu_module_by_name(path):
+    for lineno, name in _looked_up_names(ast.parse(path.read_text(), filename=str(path))):
+        root = name.split(".")[0]
+        assert root not in ("jax", "jaxlib", "metrics_tpu"), f"{path.name}:{lineno} looks up {name!r}"
+
+
+def test_metrics_server_without_device_raises_when_cuda_is_absent(monkeypatch):
+    from metrics_tpu_torch.obs import health
+    from metrics_tpu_torch.serve import MetricsServer, ServerConfig, active_queues
+    from metrics_tpu_torch.serve.server import active_servers
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    config = {"collections": [{"name": "a", "metrics": {"mse": "MeanSquaredError"}}]}
+    assert ServerConfig.from_dict(config).device == "cuda"
+    for start in (False, True):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            MetricsServer(config, start=start, ticker=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        health.enable()
+    assert active_servers() == [] and active_queues() == [] and not health.active()

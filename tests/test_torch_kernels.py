@@ -848,8 +848,10 @@ def test_ingest_tick_thread_replays_while_the_main_thread_enqueues_on_card(cuda)
         q.flush()
         assert q.stats["degrades"] == 0 and q.stats["launches"] >= 8 and q.stats["eager_entries"] == 0
         assert all(isinstance(s, CapturedStep) for s in q._steps.steps.values())
+        stats = dict(q.stats)
     got, want = target.compute(), sync.compute()
-    assert all(torch.equal(got[k], want[k]) for k in want)
+    diff = {k: (got[k].tolist(), want[k].tolist()) for k in want if not torch.equal(got[k], want[k])}
+    assert not diff, f"ticked values differ from the synchronous run: {diff}; queue stats {stats}"
 
 
 @pytest.mark.cuda
@@ -873,3 +875,136 @@ def test_fleet_compile_fault_runs_the_key_eagerly_on_card(cuda):
     base.update(p, t, stream_ids=ids)
     assert sched.fired[0]["site"] == "fleet.compile" and fleet.step_stats(m)["degrades"] == 1
     assert torch.equal(m.compute(), base.compute())
+
+
+@pytest.mark.cuda
+def test_prewarmed_chain_replays_with_no_capture_on_another_thread_on_card(cuda):
+    """A warm manifest recorded on the card, captured by ``excache.prewarm`` on this
+    thread, is replayed by ticks run on another thread with no capture at all; the
+    state is bit-equal to a cold run of the same batches. A fleet's routed step is
+    prewarmed the same way."""
+    import threading
+
+    from metrics_tpu_torch.core import fleet
+    from metrics_tpu_torch.core.fused import CapturedStep, canonical_collection
+    from metrics_tpu_torch.regression import MeanSquaredError
+    from metrics_tpu_torch.serve import IngestQueue, excache
+
+    g = torch.Generator(device=cuda).manual_seed(13)
+    batches = [(torch.rand(4096, generator=g, device=cuda),
+                torch.randint(0, 2, (4096,), generator=g, device=cuda, dtype=torch.int32)) for _ in range(8)]
+    groups = (3, 1, 3, 1)
+
+    def run(queue, on_thread):
+        it = iter(batches)
+        for size in groups:
+            for _ in range(size):
+                queue.enqueue(*next(it))
+            worker = threading.Thread(target=queue.flush) if on_thread else None
+            if worker is None:
+                queue.flush()
+            else:
+                worker.start()
+                worker.join(timeout=120)
+        torch.cuda.synchronize()
+
+    excache.enable_recording(clear=True)
+    try:
+        cold = canonical_collection(True)
+        with IngestQueue(cold, start=False) as q:
+            run(q, on_thread=False)
+            assert q.step_stats["cache_misses"] == 2
+        manifest = excache.manifest_payload()
+        ids = torch.arange(4096, device=cuda, dtype=torch.int32) % 4
+        # whole numbers: the fold's float atomics add exactly in any order
+        whole = (torch.floor(batches[0][0] * 8), torch.floor(batches[1][0] * 8))
+        recorded = MeanSquaredError(fleet_size=4)
+        recorded.update(*whole, stream_ids=ids)
+        fleet_manifest = excache.manifest_payload()
+    finally:
+        excache.disable_recording()
+        excache.clear_manifest()
+    assert [e["engine"] for e in manifest["entries"]] == ["ingest", "ingest"]
+    warm = canonical_collection(True)
+    with IngestQueue(warm, start=False) as q:
+        report = excache.prewarm(q, manifest)
+        assert report == dict(report, entries=2, compiled=2, skipped=0, failed=0)
+        run(q, on_thread=True)
+        assert q.step_stats["cache_misses"] == 0 and q.step_stats["cache_hits"] == 4
+        assert q.stats["degrades"] == 0 and all(isinstance(s, CapturedStep) for s in q._steps.steps.values())
+    got, want = warm.compute(), cold.compute()
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    fresh = MeanSquaredError(fleet_size=4)
+    assert excache.prewarm(fresh, fleet_manifest)["compiled"] == 1
+    fresh.update(*whole, stream_ids=ids)
+    assert fleet.step_stats(fresh)["cache_misses"] == 0 and fleet.step_stats(fresh)["cache_hits"] == 1
+    assert torch.equal(fresh.compute(), recorded.compute())
+
+
+@pytest.mark.cuda
+def test_captures_run_on_a_stream_no_producer_can_draw(cuda):
+    """PyTorch hands out ``torch.cuda.Stream()`` round-robin from a pool of 32, and
+    ``torch.cuda.graph`` captures on one of them by default; the port's captures run on a
+    stream of the high-priority pool, which no default ``torch.cuda.Stream()`` can be."""
+    from metrics_tpu_torch.core.fused import _capture_stream
+
+    handle = _capture_stream(torch.device(cuda)).cuda_stream
+    assert _capture_stream(torch.device(cuda)).cuda_stream == handle  # one a device
+    assert handle not in {torch.cuda.Stream().cuda_stream for _ in range(96)}
+
+
+@pytest.mark.cuda
+def test_a_failed_capture_leaves_the_callers_stream_current_on_card(cuda):
+    """``torch.cuda.graph`` restores the caller's stream only when its capture ends
+    cleanly. A capture that a host read invalidated used to leave the capture stream
+    current on the capturing thread: its later work then ran unordered with the other
+    threads' default stream, and a reader there saw a state before the last replay."""
+    from metrics_tpu_torch.core.fused import CapturedStep, _capture_stream
+
+    def host_read(states, x):
+        if float(x.sum()) > -1:  # the warm-up runs it; a capture cannot
+            return {"s": states["s"] + x}, None
+        return states, None
+
+    device = torch.device(cuda)
+    for caller in (torch.cuda.current_stream(), torch.cuda.Stream()):
+        with torch.cuda.stream(caller):
+            with pytest.raises(Exception):
+                CapturedStep(host_read, {"s": torch.zeros(4, device=cuda)}, [torch.ones(4, device=cuda)], device)
+            assert torch.cuda.current_stream() == caller
+            assert torch.cuda.current_stream() != _capture_stream(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ticker", ["thread", "caller"])
+def test_ingest_reader_on_another_stream_sees_every_tick_on_card(cuda, ticker):
+    """The tick thread replays on its own current stream. A caller whose current
+    stream is another one (a side stream; or the capture stream a failed capture left
+    current) reads the target right after ``flush``: it sees every batch, because
+    ``flush`` orders the caller's stream after the last tick's event. With
+    ``ticker="caller"`` the ticks alternate between the tick thread and ``tick()``
+    calls on the caller's stream, and each tick waits for the one before."""
+    from metrics_tpu_torch.core.fused import canonical_collection
+    from metrics_tpu_torch.serve import IngestQueue
+
+    g = torch.Generator(device=cuda).manual_seed(23)
+    batches = [(torch.rand(8192, generator=g, device=cuda),
+                torch.randint(0, 2, (8192,), generator=g, device=cuda, dtype=torch.int32)) for _ in range(64)]
+    sync = canonical_collection(True)
+    for p, t in batches:
+        sync.update(p, t)
+    want = sync.compute()
+    reader = torch.cuda.Stream()
+    for trial in range(3):
+        target = canonical_collection(True)
+        with torch.cuda.stream(reader):
+            with IngestQueue(target, capacity=16, tick_interval_s=0.0005, max_coalesce=8) as q:
+                for i, (p, t) in enumerate(batches):
+                    q.enqueue(p * 1.0, t + 0)
+                    if ticker == "caller" and i % 5 == 4:
+                        q.tick(3)
+                q.flush()
+                got = target.compute()
+                assert q.stats["degrades"] == 0 and q.stats["enqueued"] == 64
+        diff = {k: (got[k].tolist(), want[k].tolist()) for k in want if not torch.equal(got[k], want[k])}
+        assert not diff, f"trial {trial}: the read missed applied batches: {diff}"
