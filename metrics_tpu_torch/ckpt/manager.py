@@ -32,8 +32,9 @@ commits. The returned :class:`CheckpointWrite` has ``result()``/``done()``;
 
 Riders: while ``serve.excache`` records, a save writes ``warm_manifest.json`` into
 the series directory; while the flight recorder runs, a save records
-``ckpt_save_begin``/``ckpt_save_retry``/``ckpt_save_commit`` events and, with its
-``ckpt_integration``, writes ``flight-h<rank>.json`` into the step directory before
+``ckpt_save_begin``/``ckpt_save_retry``/``ckpt_save_commit`` events (and, while
+``obs.flow`` traces, a ``ckpt_flows`` event naming the flows the save holds) and, with
+its ``ckpt_integration``, writes ``flight-h<rank>.json`` into the step directory before
 the commit.
 """
 import json
@@ -493,6 +494,13 @@ def save_checkpoint(
         # a post-mortem wants the state layout of what was being saved
         _obs_flight.note_state_source(obj)
         _obs_flight.record("ckpt_save_begin", step=step, host=rank, blocking=blocking)
+        # flow containment: the flight window names the traced flows whose rows this
+        # checkpoint holds, those closed against ``obj`` since the last save's drain
+        _flow = sys.modules.get("metrics_tpu_torch.obs.flow")
+        if _flow is not None and _flow.active():
+            flow_ids = _flow.drain_for_ckpt(obj)
+            if flow_ids:
+                _obs_flight.record("ckpt_flows", step=step, host=rank, count=len(flow_ids), flows=flow_ids[-64:])
     ready = None if blocking else _ready_event(entries)
     handle = CheckpointWrite(directory, step)
 
@@ -717,6 +725,7 @@ def _restore_checkpoint_once(
         # loads the saved subset, the other states keep their values
         live = _manifest.metric_schema(obj)
         _manifest.validate_schema(live, saved_schema, allow_subset=persistent_only)
+        _manifest.widen_counts(live, saved_schema, payloads)
         count = _restore.merged_update_count(
             [m["tree"]["schema"] for m in manifests], own["schema"] if own is not None else None
         )
@@ -777,9 +786,12 @@ def _restore_collection(
             f" missing live={sorted(saved_names - live_names)},"
             f" extra live={sorted(live_names - saved_names)}"
         )
+    lives = {}
     for name in tree["metrics"]:
-        live = _manifest.metric_schema(collection._modules[name])
-        _manifest.validate_schema(live, tree["metrics"][name], path=name, allow_subset=persistent_only)
+        lives[name] = _manifest.metric_schema(collection._modules[name])
+        _manifest.validate_schema(lives[name], tree["metrics"][name], path=name, allow_subset=persistent_only)
+    for group in tree["groups"]:  # the leaders' payloads load into every member
+        _manifest.widen_counts(lives[group[0]], tree["metrics"][group[0]], payloads, f"{group[0]}/", group[0])
     update_counts = _member_update_counts(tree, manifests, topo_changed=world != saved_world)
     for group in tree["groups"]:
         leader_name = group[0]

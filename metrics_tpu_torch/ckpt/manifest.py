@@ -10,7 +10,10 @@ half-loaded.
 
 Dtypes are written under numpy's names (``float32``, ``int64``, ``bool``,
 ``bfloat16``), as the JAX package writes them, so that a checkpoint of one package
-validates against the other wherever the states' dtypes agree.
+validates against the other wherever the states' dtypes agree. One difference
+crosses, from the JAX package into the port only: a count the JAX package keeps as
+int32 (or as an integral float32) restores into the port's int64 state
+(:func:`widen_counts`).
 
 Child metrics are found by value: a wrapper's ``Metric`` submodules, and lists
 (``nn.ModuleList``) of them, keyed by attribute name, serialized as nested trees.
@@ -133,6 +136,52 @@ def metric_schema(metric: Any, persistent_only: bool = False) -> Dict[str, Any]:
     return out
 
 
+#: the saved dtypes of a JAX package's count that restore widens into the port's int64
+#: state: int32 always, float32 where every value is integral and finite (the lossless
+#: widening of ``convert.load_jax_state``); nothing else crosses a dtype difference
+WIDENS_TO_INT64 = ("int32", "float32")
+
+
+def widens(saved_dtype: str, live_dtype: str) -> bool:
+    """May an array state saved as ``saved_dtype`` restore into ``live_dtype``?"""
+    return live_dtype == "int64" and saved_dtype in WIDENS_TO_INT64
+
+
+def widen_counts(live: Dict[str, Any], saved: Dict[str, Any], payloads: List[Dict[str, torch.Tensor]],
+                 prefix: str = "", path: str = "") -> None:
+    """Widen, in every host's payload, the array states that :func:`widens` lets
+    cross (a JAX checkpoint's int32 or float32 counts into the port's int64 states),
+    so that restore loads them as any other. Call after :func:`validate_schema` and
+    before any state is assigned: a float32 count that is not integral and finite
+    raises :class:`DtypeDriftError` here, with nothing loaded yet."""
+    for name, sd in saved["states"].items():
+        ld = live["states"].get(name)
+        if ld is None or sd["kind"] != KIND_ARRAY or not widens(sd["default"]["dtype"], ld["default"]["dtype"]):
+            continue
+        key, spath = f"{prefix}{name}", f"{path}.{name}" if path else name
+        for payload in payloads:
+            value = payload.get(key)
+            if value is None or value.dtype == torch.int64:
+                continue
+            if value.dtype.is_floating_point and not bool(
+                torch.isfinite(value).all() and torch.equal(value, torch.round(value))
+            ):
+                raise DtypeDriftError(_drift(
+                    spath, f"saved {sd['default']['dtype']} count holds non-integral or non-finite values,"
+                    " which an int64 state cannot take"))
+            payload[key] = value.to(torch.int64)
+    for attr, sc in saved["children"].items():
+        lc = live["children"].get(attr)
+        if lc is None:
+            continue
+        cpath = f"{path}.{attr}" if path else attr
+        if isinstance(sc, list):
+            for i, (l_i, s_i) in enumerate(zip(lc, sc)):
+                widen_counts(l_i, s_i, payloads, f"{prefix}{attr}[{i}]/", f"{cpath}[{i}]")
+        else:
+            widen_counts(lc, sc, payloads, f"{prefix}{attr}/", cpath)
+
+
 def _drift(path: str, what: str) -> str:
     return f"checkpoint schema drift at `{path or '<root>'}`: {what}"
 
@@ -173,7 +222,9 @@ def validate_schema(live: Dict[str, Any], saved: Dict[str, Any], path: str = "",
         ld, sd = ls["default"], ss["default"]
         if ld["kind"] != sd["kind"]:
             raise SchemaDriftError(_drift(spath, f"saved kind {sd['kind']!r} != live kind {ld['kind']!r}"))
-        if sd["kind"] in (KIND_ARRAY, KIND_CAT_BUFFER) and ld["dtype"] != sd["dtype"]:
+        if sd["kind"] in (KIND_ARRAY, KIND_CAT_BUFFER) and ld["dtype"] != sd["dtype"] and not (
+            sd["kind"] == KIND_ARRAY and widens(sd["dtype"], ld["dtype"])
+        ):
             raise DtypeDriftError(_drift(spath, f"saved dtype {sd['dtype']} != live dtype {ld['dtype']}"))
         if sd["kind"] == KIND_ARRAY and list(ld["shape"]) != list(sd["shape"]):
             raise ShapeDriftError(_drift(spath, f"saved shape {sd['shape']} != live shape {ld['shape']}"))

@@ -27,6 +27,10 @@ group that can fuse. The pure tier (``init_state``, ``local_update``,
 leader (a fused leader's captured step buffers), and restore aliases the members to
 their leader again; a fused collection's next replay copies the restored states into
 its buffers. Not ported: ``plot`` raises ``NotImplementedError``.
+
+With obs on, ``update``, ``forward`` and ``compute`` run in ``tm.collection.update``,
+``tm.collection.forward`` and ``tm.collection.compute`` ranges
+(:mod:`~metrics_tpu_torch.obs.scopes`).
 """
 import os
 from collections import OrderedDict
@@ -39,6 +43,8 @@ from torch import Tensor, nn
 
 from metrics_tpu_torch.core.metric import Metric, _squeeze_if_scalar
 from metrics_tpu_torch.core.state import CatBuffer
+from metrics_tpu_torch.obs import registry as _obs
+from metrics_tpu_torch.obs import scopes as _obs_scopes
 from metrics_tpu_torch.utils.data import _flatten_dict, _same_device, allclose
 from metrics_tpu_torch.utils.prints import rank_zero_warn
 
@@ -131,6 +137,12 @@ class MetricCollection(nn.ModuleDict):
         With compute groups only each leader accumulates; every member's batch
         value is its compute over the one batch-only state the leader made.
         """
+        if _obs._ENABLED:
+            with _obs_scopes.annotate("tm.collection.forward"):
+                return self._forward_impl(*args, **kwargs)
+        return self._forward_impl(*args, **kwargs)
+
+    def _forward_impl(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
         if self._groups_checked and not (self._validate_groups_runtime and not self._groups_validated):
             res = self._forward_grouped(*args, **kwargs)
         else:
@@ -169,6 +181,13 @@ class MetricCollection(nn.ModuleDict):
 
     def update(self, *args: Any, **kwargs: Any) -> None:
         """Update each metric; with compute groups, only each group's leader."""
+        if _obs._ENABLED:
+            with _obs_scopes.annotate("tm.collection.update"):
+                self._update_impl(*args, **kwargs)
+            return
+        self._update_impl(*args, **kwargs)
+
+    def _update_impl(self, *args: Any, **kwargs: Any) -> None:
         if self._groups_checked:
             if self._validate_groups_runtime and not self._groups_validated:
                 self._validate_groups_against_runtime(*args, **kwargs)
@@ -413,7 +432,11 @@ class MetricCollection(nn.ModuleDict):
 
     def compute(self) -> Dict[str, Any]:
         """Every metric's value (each syncs across processes first), renamed."""
-        res = {k: m.compute() for k, m in self.items(keep_base=True, copy_state=False)}
+        if _obs._ENABLED:
+            with _obs_scopes.annotate("tm.collection.compute"):
+                res = {k: m.compute() for k, m in self.items(keep_base=True, copy_state=False)}
+        else:
+            res = {k: m.compute() for k, m in self.items(keep_base=True, copy_state=False)}
         res = _flatten_dict(res)
         return {self._set_name(k): v for k, v in res.items()}
 

@@ -43,8 +43,9 @@ from torch.utils import _pytree as pytree
 
 from metrics_tpu_torch.core.metric import _squeeze_if_scalar
 from metrics_tpu_torch.obs import flight as _obs_flight
+from metrics_tpu_torch.obs import flow as _obs_flow
 from metrics_tpu_torch.obs import registry as _obs
-from metrics_tpu_torch.utils.checks import _is_concrete, tracing
+from metrics_tpu_torch.utils.checks import _is_concrete, in_step, tracing
 from metrics_tpu_torch.utils.exceptions import MetricsUserError
 
 # bookkeeping state: rows routed per stream, shape (fleet_size,), int32, "sum"
@@ -324,6 +325,7 @@ def run_step(
     static_key: Tuple = (),
     eager: bool = False,
     record_inputs: Optional[Tuple[Tuple, Dict, Any]] = None,
+    flow: Any = None,
 ):
     """Run a pure ``step(state, *extras) -> new_state``.
 
@@ -332,6 +334,7 @@ def run_step(
     capture or transform, inside ``local_update`` (whose caller owns the state it
     gets back, where a graph's buffers are overwritten by its next replay), and with
     ``eager`` (a step with effects outside its state, which a replay would not redo).
+    A capture's host time goes to the ``compile`` stage of ``flow`` (a traced flow).
     """
     from metrics_tpu_torch.core import fused as _fused
 
@@ -351,6 +354,7 @@ def run_step(
         _excache = _fused._excache_module()
         if _excache is not None and _excache.recording():
             _excache.record_fleet_compile(metric, tag, *record_inputs, digest=_fused.stable_key_digest(key))
+    first = key not in steps.steps and key not in steps.broken
     out = steps.call(
         key,
         lambda: lambda st, *ex: (step(st, *ex), None),
@@ -358,6 +362,12 @@ def run_step(
         extras,
         f"the {tag} step for this signature runs eagerly from now on.",
     )
+    trc = _obs_flow._TRACER
+    if flow is not None and trc is not None:
+        if out is None:
+            flow.degraded = True
+        elif first:
+            trc.add_compile([flow], steps.last_compile_us)
     if out is None:
         with tracing():
             return step(state, *extras)
@@ -369,8 +379,27 @@ def run_step(
 
 def apply_update(metric: Any, raw_update: Callable, args: Tuple, kwargs: Dict) -> None:
     """The fleet body of ``Metric``'s wrapped update: take ``stream_ids`` out, route
-    or broadcast the batch in one step, and point the live state at the result."""
+    or broadcast the batch in one step, and point the live state at the result.
+
+    While :mod:`~metrics_tpu_torch.obs.flow` traces, an update outside an engine's step is
+    one synchronous flow (``fleet/<Metric>``), or carries the ambient flow of an ingest
+    tick that re-enters it: the step's capture is its ``compile`` stage, and the
+    streams a routed update reaches are attributed to it."""
+    trc = _obs_flow._TRACER if _obs._ENABLED and not in_step() else None
+    fl = trc.open_sync(f"fleet/{type(metric).__name__}", id(metric), args, kwargs) if trc is not None else None
+    try:
+        _apply_update(metric, raw_update, args, kwargs, trc)
+    finally:
+        if fl is not None:
+            trc.close_sync(fl)
+
+
+def _apply_update(metric: Any, raw_update: Callable, args: Tuple, kwargs: Dict, trc: Any) -> None:
     from metrics_tpu_torch.core import fused as _fused
+
+    cur = _obs_flow.current() if trc is not None else None
+    if cur is not None and cur.t_launch is None:
+        trc.stamp_launch([cur])
 
     kwargs = dict(kwargs)
     stream_ids = kwargs.pop("stream_ids", None)
@@ -392,7 +421,7 @@ def apply_update(metric: Any, raw_update: Callable, args: Tuple, kwargs: Dict) -
             return broadcast_new_state(metric, raw_update, st, a, k)
 
         new = run_step(metric, "fleet.bcast", bcast, state, dyn, static_key=_fused._static_key(spec), eager=eager,
-                       record_inputs=(args, kwargs, None))
+                       record_inputs=(args, kwargs, None), flow=cur)
         rows, mode = _batch_rows(dyn), "broadcast"
     else:
         ids = stream_ids if isinstance(stream_ids, Tensor) else torch.as_tensor(stream_ids, device=metric.device)
@@ -408,11 +437,14 @@ def apply_update(metric: Any, raw_update: Callable, args: Tuple, kwargs: Dict) -
             return routed_new_state(metric, raw_update, st, a, k, i_)
 
         new = run_step(metric, "fleet.route", route, state, dyn, ids, static_key=_fused._static_key(spec), eager=eager,
-                       record_inputs=(args, kwargs, ids))
+                       record_inputs=(args, kwargs, ids), flow=cur)
         rows, mode = int(ids.shape[0]), "routed"
+        if cur is not None:
+            # per-tenant attribution: the streams this update routed to (host ids only)
+            trc.attribute_streams(cur, _obs_flow.host_stream_ids(ids))
     if _obs._ENABLED:
         _obs.REGISTRY.inc("fleet", "routed", rows)
         if _obs_flight._RING is not None:
             _obs_flight.record("fleet_route", metric=type(metric).__name__, mode=mode, rows=rows,
-                               streams=metric.fleet_size)
+                               streams=metric.fleet_size, **({} if cur is None else {"flow_id": cur.flow_id}))
     metric._load_state(new)

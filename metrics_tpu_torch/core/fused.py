@@ -51,7 +51,14 @@ replayed:
 ``stats`` keeps the JAX package's keys: ``launches`` (fused steps run: replays on
 the card), ``cache_hits``, ``cache_misses``, ``fallback_groups`` and ``degrades``.
 
-- **Hooks.** With the obs gate on, the flight recorder gets ``fused_cache_miss``,
+- **Hooks.** With the obs gate on, each step runs in a ``tm.fused/step`` range
+  (:mod:`~metrics_tpu_torch.obs.scopes`) and counts ``fused``: ``cache_hits``,
+  ``cache_misses`` and ``launches``; a miss (a new capture) also runs the retrace
+  detector over the step's inputs, as the JAX package does at a recompile. While
+  :mod:`~metrics_tpu_torch.obs.flow` traces, ``update``/``forward`` mint a synchronous
+  flow (or carry the ingest flow that re-enters from a degraded tick): the miss's
+  capture time is its ``compile`` stage, and one CUDA event after the replay ends its
+  ``device`` stage. The flight recorder gets ``fused_cache_miss``,
   ``fused_launch`` and ``degrade`` events. :func:`steps_compiled` counts the steps
   every step cache built (``excache.stats()`` reads it as compiles). While
   :mod:`~metrics_tpu_torch.serve.excache` records, a miss adds a warm-manifest entry
@@ -62,8 +69,10 @@ import hashlib
 import inspect
 import sys
 import threading
+import time
 import warnings
 import weakref
+from contextlib import nullcontext
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -76,7 +85,10 @@ from metrics_tpu_torch.core.metric import Metric, _class_update_signature, _sque
 from metrics_tpu_torch.core.state import CatBuffer
 from metrics_tpu_torch.fault import inject as _fault
 from metrics_tpu_torch.obs import flight as _obs_flight
+from metrics_tpu_torch.obs import flow as _obs_flow
+from metrics_tpu_torch.obs import recompile as _obs_recompile
 from metrics_tpu_torch.obs import registry as _obs
+from metrics_tpu_torch.obs import scopes as _obs_scopes
 from metrics_tpu_torch.utils.checks import tracing
 from metrics_tpu_torch.utils.exceptions import MetricsUserError
 
@@ -447,6 +459,8 @@ class StepCache:
         self.stats = {} if stats is None else stats
         for name in ("launches", "cache_hits", "cache_misses", "degrades"):
             self.stats.setdefault(name, 0)
+        #: host µs of the last compile (a capture and its warm-up): a flow's ``compile`` stage
+        self.last_compile_us = 0.0
 
     def call(
         self,
@@ -476,7 +490,9 @@ class StepCache:
                 return None
         try:
             if first:
+                t0 = time.perf_counter()
                 compiled = compile_step(make_step(), states, extras)
+                self.last_compile_us = (time.perf_counter() - t0) * 1e6
                 _count_compiled()
             out = compiled(states, extras)
         except Exception as err:  # noqa: BLE001 - the caller's eager path is always correct
@@ -640,19 +656,38 @@ class FusedCollectionUpdate:
             topo = tuple((name, members, id(collection._modules[name])) for name, members in groups)
             return (mode, topo, _tensor_key(states), dyn_key, _static_key(split_spec))
 
+        trc = _obs_flow._TRACER if _obs._ENABLED else None
+        fl = _obs_flow.current() if trc is not None else None
+        if fl is not None and fl.t_launch is None:
+            # a flow re-entering from an ingest degrade keeps its launch stamp; a
+            # synchronous flow starts its launch here
+            trc.stamp_launch([fl])
+
         def run(groups, states, raise_first=False):
             key = key_of(groups, states)
             first = key not in self._steps.steps and key not in self._steps.broken
-            out = self._steps.call(
-                key,
-                lambda: self._build(collection, groups, split_spec, forward),
-                states,
-                [dyn],
-                "the group(s) run eagerly for this input signature from now on.",
-                raise_first=raise_first,
-            )
+            if _obs._ENABLED:
+                if first:
+                    # the collection-level storm alarm: a new key is a new capture
+                    _obs_recompile.check_update(self, args, kwargs)
+                    _obs.REGISTRY.inc("fused", "cache_misses")
+                elif key in self._steps.steps:
+                    _obs.REGISTRY.inc("fused", "cache_hits")
+            with _obs_scopes.annotate("tm.fused/step") if _obs._ENABLED else nullcontext():
+                out = self._steps.call(
+                    key,
+                    lambda: self._build(collection, groups, split_spec, forward),
+                    states,
+                    [dyn],
+                    "the group(s) run eagerly for this input signature from now on.",
+                    raise_first=raise_first,
+                )
             if out is not None:
                 self._note_launch(key, groups, mode, first, args, kwargs)
+                if first and fl is not None:
+                    trc.add_compile([fl], self._steps.last_compile_us)
+            elif fl is not None:
+                fl.degraded = True
             return out
 
         states = self._gather_states(collection, fused)
@@ -668,6 +703,10 @@ class FusedCollectionUpdate:
         if out is None:
             return [], demoted + [list(m) for _, m in fused], {}
         new_states, results = out
+        if fl is not None and fl.sync and not fl.dispatched:
+            # a synchronous flow is dispatched here, with one event after the replay;
+            # an ingest flow is dispatched by its tick
+            trc.dispatch([fl], _obs_flow.device_done_event(collection._modules[fused[0][0]].device))
         for name, _ in fused:
             m = collection._modules[name]
             # the graph's state buffers; after the first replay of a key they are the
@@ -675,6 +714,8 @@ class FusedCollectionUpdate:
             m._load_state({k: v for k, v in new_states[name].items() if getattr(m, k) is not v})
             m._update_count += 1
             m._computed = None
+            if _obs._ENABLED:
+                _obs.REGISTRY.inc(type(m).__name__, "updates")
         return fused, demoted, results
 
     @staticmethod
@@ -688,14 +729,30 @@ class FusedCollectionUpdate:
                                               digest=fused_key_digest(key))
         if _obs._ENABLED:
             _obs.REGISTRY.inc("fused", "launches")
+            _obs.REGISTRY.inc("fused", "dispatches")
             if _obs_flight._RING is not None:
                 names = [name for name, _ in groups]
                 if first:
                     _obs_flight.record("fused_cache_miss", groups=names, mode=mode)
                 _obs_flight.record("fused_launch", groups=names, mode=mode, cache_key=f"{mode}:{fused_key_digest(key)}")
 
+    def _open_flow(self, collection: Any, args: Tuple, kwargs: Dict) -> Tuple[Any, Any]:
+        """``(tracer, flow)`` of a synchronous step while tracing, else ``(None, None)``."""
+        trc = _obs_flow._TRACER if _obs._ENABLED else None
+        if trc is None:
+            return None, None
+        return trc, trc.open_sync(f"fused/{type(collection).__name__}", id(collection), args, kwargs)
+
     def update(self, collection: Any, *args: Any, **kwargs: Any) -> None:
         """One fused accumulation step, plus the eager groups."""
+        trc, fl = self._open_flow(collection, args, kwargs)
+        try:
+            self._update(collection, args, kwargs)
+        finally:
+            if fl is not None:
+                trc.close_sync(fl)
+
+    def _update(self, collection: Any, args: Tuple, kwargs: Dict) -> None:
         fused, eager, _ = self._partition(collection, forward=False)
         for name, _members in fused:
             _check_update_arity(name, collection._modules[name], args)
@@ -704,6 +761,8 @@ class FusedCollectionUpdate:
             eager = eager + demoted
         if eager:
             self.stats["fallback_groups"] += len(eager)
+            if _obs._ENABLED:
+                _obs.REGISTRY.inc("fused", "fallbacks", len(eager))
             for cg in eager:
                 m0 = collection._modules[cg[0]]
                 m0.update(*args, **m0._filter_kwargs(**kwargs))
@@ -712,6 +771,14 @@ class FusedCollectionUpdate:
 
     def forward(self, collection: Any, *args: Any, **kwargs: Any) -> Dict[str, Any]:
         """One fused step that accumulates and returns every member's batch value."""
+        trc, fl = self._open_flow(collection, args, kwargs)
+        try:
+            return self._forward(collection, args, kwargs)
+        finally:
+            if fl is not None:
+                trc.close_sync(fl)
+
+    def _forward(self, collection: Any, args: Tuple, kwargs: Dict) -> Dict[str, Any]:
         res: Dict[str, Any] = {}
         fused, eager, _ = self._partition(collection, forward=True)
         for name, _members in fused:
@@ -728,6 +795,8 @@ class FusedCollectionUpdate:
                     res[member_name] = val
         if eager:
             self.stats["fallback_groups"] += len(eager)
+            if _obs._ENABLED:
+                _obs.REGISTRY.inc("fused", "fallbacks", len(eager))
             for cg in eager:
                 for name in cg:
                     m = collection._modules[name]

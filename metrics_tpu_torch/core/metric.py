@@ -49,11 +49,17 @@ raises; array-likes that are not tensors are copied to the metric's device.
 - ``save_checkpoint`` / ``restore_checkpoint``: durable, atomic checkpoints of every
   state (:mod:`~metrics_tpu_torch.ckpt`, the JAX package's format).
 
-Observability: with the obs gate on, the flight recorder (:mod:`~metrics_tpu_torch.obs.flight`)
-gets a ``dispatch`` event a wrapped update, a ``merge`` event a ``merge_state`` and a
+Observability: with the obs gate on, a wrapped update counts ``updates`` and
+``dispatches``, is fingerprinted by the retrace detector
+(:mod:`~metrics_tpu_torch.obs.recompile`) and runs in a ``tm.update/<Metric>`` range
+(:mod:`~metrics_tpu_torch.obs.scopes`), and a compute counts ``computes`` in a
+``tm.compute/<Metric>`` range; an update inside an engine's step (a capture, or its
+eager run on the CPU) records nothing. The flight recorder (:mod:`~metrics_tpu_torch.obs.flight`) gets a
+``dispatch`` event a wrapped update (with the covering flow's id while
+:mod:`~metrics_tpu_torch.obs.flow` traces), a ``merge`` event a ``merge_state`` and a
 ``nonfinite_inputs`` event a quarantine that counted rows; ``state_report()`` gives the
-states' dtypes, shapes, bytes and devices. Not ported: flow tracing and retrace
-detection.
+states' dtypes, shapes, bytes and devices. Not ported: the cost cross-check
+(``obs/costcheck.py``).
 """
 import functools
 import inspect
@@ -71,7 +77,10 @@ from metrics_tpu_torch.core.state import CatBuffer, cat_merge
 from metrics_tpu_torch.fault import inject as _fault
 from metrics_tpu_torch.fault.inject import PoisonedInputError
 from metrics_tpu_torch.obs import flight as _obs_flight
+from metrics_tpu_torch.obs import flow as _obs_flow
+from metrics_tpu_torch.obs import recompile as _obs_recompile
 from metrics_tpu_torch.obs import registry as _obs
+from metrics_tpu_torch.obs import scopes as _obs_scopes
 from metrics_tpu_torch.parallel.collective import distributed_available
 from metrics_tpu_torch.utils.data import (
     _flatten,
@@ -85,7 +94,7 @@ from metrics_tpu_torch.utils.data import (
     dim_zero_sum,
     to_tensor,
 )
-from metrics_tpu_torch.utils.checks import _is_concrete
+from metrics_tpu_torch.utils.checks import _is_concrete, in_step
 from metrics_tpu_torch.utils.distributed import gather_all_tensors
 from metrics_tpu_torch.utils.exceptions import MetricsUserError, MetricsUserWarning
 from metrics_tpu_torch.utils.prints import rank_zero_warn
@@ -536,15 +545,27 @@ class Metric(nn.Module, ABC):
                 self._quarantine_inputs(args, kwargs)
             self._computed = None
             self._update_count += 1
-            if _obs._ENABLED and _obs_flight._RING is not None and not self._pure_call_depth:
-                _obs_flight.record_dispatch(type(self).__name__, args, kwargs)
             if self.fleet_size is not None:
                 from metrics_tpu_torch.core import fleet as _fleet
 
                 # route or broadcast the batch to the streams through the raw update
-                _fleet.apply_update(self, update, args, kwargs)
+                run = functools.partial(_fleet.apply_update, self, update, args, kwargs)
             else:
-                update(*args, **kwargs)
+                run = functools.partial(update, *args, **kwargs)
+            # one boolean on the disabled path; an update inside an engine's step (which
+            # the JAX package traces with the gate off) records nothing either
+            if _obs._ENABLED and not in_step():
+                name = type(self).__name__
+                _obs.REGISTRY.inc(name, "updates")
+                _obs.REGISTRY.inc(name, "dispatches")
+                if _obs_flight._RING is not None:
+                    cur = _obs_flow.current() if _obs_flow._TRACER is not None else None
+                    _obs_flight.record_dispatch(name, args, kwargs, flow_id=None if cur is None else cur.flow_id)
+                _obs_recompile.check_update(self, args, kwargs)
+                with _obs_scopes.update_scope(name):
+                    run()
+            else:
+                run()
             if self.compute_on_cpu:
                 self._move_list_states_to_cpu()
 
@@ -575,6 +596,8 @@ class Metric(nn.Module, ABC):
                     MetricsUserWarning,
                 )
             if self._computed is not None:
+                if _obs._ENABLED:
+                    _obs.REGISTRY.inc(type(self).__name__, "compute_cache_hits")
                 return self._computed if stream is None else _stream_of(self._computed, stream)
             for attr in self._defaults:
                 val = getattr(self, attr)
@@ -592,9 +615,17 @@ class Metric(nn.Module, ABC):
             ):
                 if self.fleet_size is not None:
                     # (N, ...) leaves stay unsqueezed, so compute(stream=0) indexes
-                    self._computed = self._compute_raw()
+                    compute_fn = self._compute_raw
                 else:
-                    self._computed = _squeeze_if_scalar(compute(*args, **kwargs))
+                    compute_fn = functools.partial(compute, *args, **kwargs)
+                if _obs._ENABLED:
+                    name = type(self).__name__
+                    _obs.REGISTRY.inc(name, "computes")
+                    with _obs_scopes.compute_scope(name):
+                        value = compute_fn()
+                else:
+                    value = compute_fn()
+                self._computed = value if self.fleet_size is not None else _squeeze_if_scalar(value)
             return self._computed if stream is None else _stream_of(self._computed, stream)
 
         return wrapped_func
@@ -613,6 +644,8 @@ class Metric(nn.Module, ABC):
                 "The Metric shouldn't be synced when performing ``forward``. "
                 "HINT: Did you forget to call ``unsync``?"
             )
+        if _obs._ENABLED:
+            _obs.REGISTRY.inc(type(self).__name__, "forwards")
         if self.full_state_update or self.full_state_update is None or self.dist_sync_on_step:
             self._forward_cache = self._forward_full_state_update(*args, **kwargs)
         else:

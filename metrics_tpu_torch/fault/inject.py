@@ -15,8 +15,8 @@ Injection sites (the name is the contract: tests address faults by it):
     ``fused.compile``   capture of a fused step (``core/fused.py:StepCache``)
     ``fused.launch``    replay of a captured fused step
     ``fleet.compile``   capture of a fleet routed or broadcast step
-    ``agg.publish``     snapshot publish of the observability slice (not wired yet)
-    ``agg.read``        per-host snapshot read of that slice (not wired yet)
+    ``agg.publish``     host snapshot publish in ``obs.aggregate.publish``
+    ``agg.read``        each host file's read in ``obs.aggregate.aggregate_dir``
     ``ingest.enqueue``  admission of a batch into an ``IngestQueue``'s ring
     ``ingest.tick``     the coalescing tick of an ``IngestQueue``: a fired tick
                         applies its batches synchronously instead

@@ -28,6 +28,7 @@ evaluates them against the registry and the sketches, and reacts by the budget's
 Nothing is allocated before :func:`enable`: ``_MONITOR`` stays None, and the
 instrumented paths check ``_MONITOR is not None``.
 """
+import collections
 import sys
 import threading
 import time
@@ -56,6 +57,9 @@ __all__ = [
 ]
 
 _MONITOR: Optional["HealthMonitor"] = None
+
+#: the ``tm.<op>/...`` scopes whose timed windows feed a sketch (``obs/scopes.py``)
+_TRACKED_OPS = ("update", "compute", "forward", "fused")
 
 
 class SLOViolationWarning(RuntimeWarning):
@@ -153,6 +157,8 @@ class HealthMonitor:
         # key -> [sketch, state dict, observation count]
         self._sketches: Dict[Tuple[str, str], List[Any]] = {}
         self._buffers: Dict[Tuple[str, str], List[float]] = {}
+        #: timed scope windows not yet in a buffer (appended without the lock)
+        self._scoped: "collections.deque" = collections.deque()
         self._obs_count = 0
         self.flushes = 0  # sketch updates run (two histogram launches each on the card)
         self._stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
@@ -162,6 +168,36 @@ class HealthMonitor:
         self._mark_window()
 
     # ------------------------------------------------------------ recording
+
+    def observe_scope(self, label: str, seconds: float) -> None:
+        """One timed ``tm.*`` window (``obs/scopes.py``): ``tm.update/X`` lands in the
+        ``update/X`` sketch, ``tm.fused/step`` in ``fused/step``.
+
+        The window is on the hot path of every update, so it never waits for the
+        monitor's lock (a flush on another thread holds it while it launches): it
+        goes to a lock-free queue, which the next holder of the lock folds in."""
+        if not label.startswith("tm.") or _reg.suppressed():
+            return
+        op, _, owner = label[3:].partition("/")
+        if op not in _TRACKED_OPS:
+            return
+        self._scoped.append((op, owner or op, seconds * 1e6))
+        if len(self._scoped) >= self.flush_every and self._lock.acquire(blocking=False):
+            try:
+                for key in self._absorb_scoped_locked():
+                    if len(self._buffers[key]) >= self.flush_every:
+                        self._flush_locked(key)
+            finally:
+                self._lock.release()
+
+    def _absorb_scoped_locked(self) -> set:
+        """Move the queued scope windows into their buffers; returns their keys."""
+        keys = set()
+        while self._scoped:
+            op, name, us = self._scoped.popleft()
+            self._buffers.setdefault((op, name), []).append(us)
+            keys.add((op, name))
+        return keys
 
     def observe_latency(self, op: str, name: str, seconds: float) -> None:
         """One latency observation of ``op`` on ``name`` (a metric, a queue)."""
@@ -238,6 +274,7 @@ class HealthMonitor:
     # ------------------------------------------------------------ reporting
 
     def _flush_all_locked(self) -> None:
+        self._absorb_scoped_locked()
         for key in list(self._buffers):
             self._flush_locked(key)
 

@@ -10,8 +10,9 @@ so that its dashboards carry over:
 - the health quantiles as the ``tm_latency_microseconds`` summary, and the device
   memory watermark as ``tm_hbm_watermark_bytes`` (the name kept: it is the card's
   allocated bytes here);
-- the ingest queues, the executable cache, the metrics servers and the sampler's
-  newest tick, each only while that tier is live in this process.
+- the ingest queues, the executable cache, the flow tracer (``tm_flow_*``), the
+  metrics servers and the sampler's newest tick, each only while that tier is live in
+  this process.
 
 The serving tiers are found through ``sys.modules`` under this package's own names
 (``metrics_tpu_torch.serve.*``), so that the page never reads another package's
@@ -281,6 +282,58 @@ def render() -> str:
         )
         manifest_f.add("", "", len(_excache.manifest_entries()))
         families.append(manifest_f)
+
+    # the tracing tier, on demand: rendered only while obs.flow.enable() holds a live tracer
+    _flow = _sys.modules.get("metrics_tpu_torch.obs.flow")
+    if _flow is not None and _flow.active():
+        fstats = _flow.stats()
+        active_f = _Family(
+            "tm_flow_active", "gauge",
+            "Flows currently open (minted, not yet closed) in the tmflow tracer.",
+        )
+        active_f.add("", "", fstats.get("open", 0))
+        families.append(active_f)
+        flow_counters = {
+            "completed": _Family(
+                "tm_flow_completed", "counter",
+                "Flows closed by the tmflow tracer (includes degraded, excludes dropped).",
+            ),
+            "degraded": _Family(
+                "tm_flow_degraded", "counter",
+                "Completed flows that fell back to a degraded (synchronous) path.",
+            ),
+            "dropped": _Family(
+                "tm_flow_dropped", "counter",
+                "Traced batches evicted before launch (backpressure or queue close).",
+            ),
+            "sampled_out": _Family(
+                "tm_flow_sampled_out", "counter",
+                "Batches skipped by the 1-in-N sampling knob (no flow minted).",
+            ),
+        }
+        for stat, family in flow_counters.items():
+            family.add("_total", "", fstats.get(stat, 0))
+        families.extend(flow_counters.values())
+        if monitor is not None:
+            flow_lat = _Family(
+                "tm_flow_latency_microseconds", "summary",
+                "Per-stage flow latency quantiles (queue_wait/coalesce/compile/"
+                "launch/device/readback) from the tmflow health sketches.",
+            )
+            for key, row in sorted(report["latency_us"].items()):
+                op, _, stage = key.partition("/")
+                if op != "flow_stage":
+                    continue
+                for field, value in sorted(row.items()):
+                    if field == "count":
+                        flow_lat.add("_count", _labels(stage=stage), value)
+                    elif field.endswith("_us"):
+                        q = int(field[1:-3]) / 100.0
+                        flow_lat.add(
+                            "", _labels(stage=stage, quantile=f"{q:g}"), value
+                        )
+            if flow_lat.samples:
+                families.append(flow_lat)
 
     # the metrics servers, on demand: rendered only while one is live in this process
     _srv = _sys.modules.get("metrics_tpu_torch.serve.server")

@@ -35,8 +35,9 @@ rounding. Its AP bounds do not: the JAX package's ψ expansion has a sign error
 (:func:`average_precision_bounds_from_hists`), so its bracket can miss the exact value;
 the port does not copy either fault. Its 2-D ``hist_*_bounds`` vmap over lanes; the port's are batched tensor
 ops along the last dimension of ``(C, 2^bits)``. ``record_dispatch`` counts into a
-module-level counter under the JAX registry's names (the port has no ``obs`` yet):
-:func:`dispatch_counts` reads it, :func:`reset_dispatch_counts` clears it.
+module-level counter under the JAX registry's names: :func:`dispatch_counts` reads
+it, :func:`reset_dispatch_counts` clears it. ``rank_scope`` is a ``tm.rank/<tier>``
+range of ``obs/scopes.py`` while obs is on.
 """
 from collections import Counter
 from contextlib import contextmanager
@@ -196,8 +197,17 @@ def reset_dispatch_counts() -> None:
 
 
 def rank_scope(tier: str):
-    """A ``tm.rank/<tier>`` range in a ``torch.profiler`` trace."""
-    return torch.profiler.record_function(f"tm.rank/{tier}")
+    """A ``tm.rank/<tier>`` range of :mod:`~metrics_tpu_torch.obs.scopes` (built only
+    while obs is on)."""
+    from contextlib import nullcontext
+
+    from metrics_tpu_torch.obs import registry as _reg
+
+    if not _reg._ENABLED:
+        return nullcontext()
+    from metrics_tpu_torch.obs import scopes as _scopes
+
+    return _scopes.annotate(f"tm.rank/{tier}")
 
 
 def rank_run_end_counts(preds: Tensor, target: Tensor, valid: Tensor) -> Tuple[Tensor, Tensor, Tensor, Tensor]:

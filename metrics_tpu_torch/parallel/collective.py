@@ -15,12 +15,20 @@ which takes the place of the axis (``None``: no sync, the identity). Every rank 
 the group must call it with the same state names. ``mark_varying`` and
 ``replicate_gathered`` exist for ``shard_map``'s type checker and have no torch
 meaning, so they are not ported.
+
+With obs on, each collective is a ``tm.sync/<kind>`` range of
+:mod:`~metrics_tpu_torch.obs.scopes` and its bytes are counted under ``sync``, as in
+the JAX package.
 """
 from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 import torch.distributed as dist
 from torch import Tensor
+
+from metrics_tpu_torch.obs import recompile as _obs_recompile
+from metrics_tpu_torch.obs import registry as _obs
+from metrics_tpu_torch.obs import scopes as _obs_scopes
 
 ReduceFx = Union[str, Callable, None]
 _OPS = {"sum": dist.ReduceOp.SUM, "mean": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}
@@ -43,6 +51,24 @@ def process_topology(process_index: Optional[int] = None, process_count: Optiona
     return rank, world
 
 
+def wait_for_world(observed_fn: Any, expect: int, timeout_s: Optional[float] = None,
+                   poll_interval_s: float = 0.05) -> int:
+    """Poll ``observed_fn()`` every ``poll_interval_s`` until it reports ``expect``
+    participants or ``timeout_s`` passes; returns the last count and never raises on
+    a partial world (the caller decides: ``obs.aggregate.aggregate_dir`` annotates
+    it). ``timeout_s=None`` is a single observation, not an unbounded wait."""
+    import time
+
+    count = int(observed_fn())
+    if count >= expect or timeout_s is None:
+        return count
+    deadline = time.monotonic() + float(timeout_s)
+    while count < expect and time.monotonic() < deadline:
+        time.sleep(min(poll_interval_s, max(0.0, deadline - time.monotonic())))
+        count = int(observed_fn())
+    return count
+
+
 def distributed_available() -> bool:
     """Default ``distributed_available_fn``: an initialised process group of more
     than one process."""
@@ -63,7 +89,22 @@ def sync_array(x: Tensor, reduce_fx: ReduceFx, group: Any) -> Tensor:
     """One state reduced over ``group`` by its kind: ``all_reduce`` for sum, mean
     (the sum over the world, divided), max and min; a gather concatenated on axis 0
     for ``cat`` (rows may differ between ranks); the states stacked in rank order
-    for ``None``, and the callable applied to that stack."""
+    for ``None``, and the callable applied to that stack.
+
+    With obs on, the collective is a ``tm.sync/<reduce_fx>`` range and its bytes are
+    counted (``sync``: ``collectives/<kind>``, ``bytes_reduced`` or
+    ``bytes_gathered``; from the shape, no device read)."""
+    if _obs._ENABLED:
+        kind = reduce_fx if isinstance(reduce_fx, str) else "stack"
+        _obs.REGISTRY.inc("sync", f"collectives/{kind}")
+        _obs.REGISTRY.inc("sync", "bytes_reduced" if kind in _OPS else "bytes_gathered",
+                          _obs_recompile.nbytes_of(x))
+        with _obs_scopes.sync_scope(reduce_fx):
+            return _sync_array_impl(x, reduce_fx, group)
+    return _sync_array_impl(x, reduce_fx, group)
+
+
+def _sync_array_impl(x: Tensor, reduce_fx: ReduceFx, group: Any) -> Tensor:
     if reduce_fx in _OPS:
         flag = x.dtype == torch.bool
         y = x.to(torch.uint8) if flag else x.clone()
@@ -96,6 +137,15 @@ def sync_pytree(
     """
     if group is None:
         return state
+    if _obs._ENABLED:
+        _obs.REGISTRY.inc("sync", "pytree_syncs")
+        with _obs_scopes.annotate("tm.sync/pytree"):
+            return _sync_pytree_impl(state, reductions, group, cat_meta, device)
+    return _sync_pytree_impl(state, reductions, group, cat_meta, device)
+
+
+def _sync_pytree_impl(state: Dict[str, Any], reductions: Dict[str, ReduceFx], group: Any,
+                      cat_meta: Optional[Dict[str, tuple]], device: Optional[torch.device]) -> Dict[str, Any]:
     from metrics_tpu_torch.core.state import CatBuffer, cat_sync
 
     out: Dict[str, Any] = {}
@@ -124,6 +174,15 @@ def pad_gather(x: Tensor, valid: Tensor, group: Any) -> Tuple[Tensor, Tensor]:
     """A fixed-capacity buffer and its valid count from every rank: the buffers
     concatenated on axis 0 in rank order (``(world * capacity, ...)``) and the
     counts ``(world,)``. Every rank's buffer has the same shape."""
+    if _obs._ENABLED:
+        _obs.REGISTRY.inc("sync", "collectives/pad_gather")
+        _obs.REGISTRY.inc("sync", "bytes_gathered", _obs_recompile.nbytes_of(x))
+        with _obs_scopes.sync_scope("pad_gather"):
+            return _pad_gather_impl(x, valid, group)
+    return _pad_gather_impl(x, valid, group)
+
+
+def _pad_gather_impl(x: Tensor, valid: Tensor, group: Any) -> Tuple[Tensor, Tensor]:
     gathered = all_gather_equal(x, group)
     counts = all_gather_equal(torch.atleast_1d(valid), group)
     return gathered.reshape(-1, *x.shape[1:]), counts.reshape(-1)

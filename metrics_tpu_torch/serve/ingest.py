@@ -54,7 +54,10 @@ enqueue-to-applied latency (``ingest/<queue>``) and each dropped batch's wait. A
 captured for a new key adds a warm-manifest entry while
 :mod:`~metrics_tpu_torch.serve.excache` records, and :func:`excache.prewarm
 <metrics_tpu_torch.serve.excache.prewarm>` can capture a recorded key before the
-first batch arrives. Flow tracing is not ported yet.
+first batch arrives. While :mod:`~metrics_tpu_torch.obs.flow` traces, each batch is a
+flow minted at ``enqueue``, stamped at the tick's drain and launch (and with the
+capture's host time at a miss), dispatched with the tick's end event, read back at
+``compute``, and closed as degraded or dropped where the batch took those paths.
 """
 import itertools
 import threading
@@ -77,6 +80,7 @@ from metrics_tpu_torch.core.fused import (
 )
 from metrics_tpu_torch.fault import inject as _fault
 from metrics_tpu_torch.obs import flight as _obs_flight
+from metrics_tpu_torch.obs import flow as _obs_flow
 from metrics_tpu_torch.obs import health as _health
 from metrics_tpu_torch.obs import registry as _obs
 from metrics_tpu_torch.obs.ring import Ring
@@ -101,7 +105,7 @@ class _Entry:
     """One enqueued batch: the inputs as given, the event that orders the tick after
     the producer's work on them, and arrival bookkeeping."""
 
-    __slots__ = ("args", "kwargs", "rows", "t_enq", "ready")
+    __slots__ = ("args", "kwargs", "rows", "t_enq", "ready", "flow")
 
     def __init__(self, args: Tuple, kwargs: Dict, rows: int, t_enq: float, ready: Any) -> None:
         self.args = args
@@ -109,6 +113,8 @@ class _Entry:
         self.rows = rows
         self.t_enq = t_enq
         self.ready = ready
+        #: the trace flow minted at admission (``obs/flow.py``); None when not traced
+        self.flow: Any = None
 
 
 def _count_rows(args: Tuple, kwargs: Dict) -> int:
@@ -222,6 +228,8 @@ class IngestQueue:
         }
         self.step_stats: Dict[str, int] = {}
         self._steps = StepCache("ingest", self.step_stats)
+        #: the traced flows the current tick's chain launched (under the tick lock)
+        self._launched_flows: List[Any] = []
         self._last_apply_t = time.monotonic()
         #: the event the last tick recorded on the target device's stream (on the card)
         self._applied: Any = None
@@ -255,6 +263,11 @@ class IngestQueue:
         if _fault._SCHEDULE is not None:
             _fault.fire("ingest.enqueue", queue=self.name, depth=len(self._ring))
         entry = _Entry(args, kwargs, _count_rows(args, kwargs), time.monotonic(), _ready_event(args, kwargs))
+        if _obs._ENABLED and _obs_flow._TRACER is not None:
+            entry.flow = _obs_flow._TRACER.mint(
+                self.name, id(self.target), rows=entry.rows,
+                streams=_obs_flow.host_stream_ids(kwargs.get("stream_ids")),
+            )
         with self._admit:
             if self._ring.full:
                 if self.backpressure == "raise":
@@ -331,6 +344,15 @@ class IngestQueue:
             self.flush()
         else:
             self._wait_applied()
+        if _obs._ENABLED and _obs_flow._TRACER is not None:
+            # the readback stage: this read's host transfer, stamped onto the
+            # completed flows it serves
+            t0 = time.perf_counter()
+            value = self.target.compute(**kwargs)
+            trc = _obs_flow._TRACER
+            if trc is not None:
+                trc.note_readback(self.name, time.perf_counter() - t0)
+            return value
         return self.target.compute(**kwargs)
 
     # ------------------------------------------------------------ lifecycle
@@ -372,18 +394,24 @@ class IngestQueue:
 
     def _note_dropped(self, entries: List[_Entry], site: str) -> None:
         """Count dropped batches; each one's wait goes to the health sketch
-        ``ingest.dropped_latency/<queue>``."""
+        ``ingest.dropped_latency/<queue>``, and its traced flow closes as dropped."""
         now = time.monotonic()
         if _obs._ENABLED:
             _obs.REGISTRY.inc("ingest", "dropped", len(entries))
             if _obs_flight._RING is not None:
                 for e in entries:
                     _obs_flight.record("flow_dropped", queue=self.name, site=site, rows=e.rows,
-                                       waited_us=round((now - e.t_enq) * 1e6, 1))
+                                       waited_us=round((now - e.t_enq) * 1e6, 1),
+                                       flow_id=None if e.flow is None else e.flow.flow_id)
         mon = _health._MONITOR
         if mon is not None:
             for e in entries:
                 mon.observe_latency("ingest.dropped_latency", self.name, now - e.t_enq)
+        trc = _obs_flow._TRACER
+        if trc is not None:
+            for e in entries:
+                if e.flow is not None:
+                    trc.close_dropped(e.flow)
 
     # ------------------------------------------------------------- ticking
 
@@ -426,16 +454,43 @@ class IngestQueue:
 
     def _apply(self, entries: List[_Entry]) -> None:
         """One tick: order after the last tick and the producers' work, chain the
-        batches, and record where the tick's work ends."""
+        batches, and record where the tick's work ends. Traced flows are dispatched
+        with that event when the chain launched them; the rest close here."""
         self._wait_applied()
+        trc = _obs_flow._TRACER if _obs._ENABLED else None
+        flows = [e.flow for e in entries if e.flow is not None] if trc is not None else []
+        if flows:
+            trc.stamp_drain(flows)
+        self._launched_flows = []
+        ok = False
         try:
             self._apply_ordered(entries)
+            ok = True
         finally:
+            event = None
             device = _state_device(self.target)
             if device is not None:
                 event = torch.cuda.Event()
                 event.record(torch.cuda.current_stream(device))
                 self._applied = (event, device)
+            if flows:
+                self._end_flows(trc, flows, event, ok)
+
+    def _end_flows(self, trc: Any, flows: List[Any], event: Any, ok: bool) -> None:
+        """The tick's flows: those the chain launched go to the completion watcher
+        with the tick's event; the others (an eager-only plan) close now; after a
+        tick that raised, every open one closes as degraded (no orphaned flows)."""
+        if not ok:
+            for fl in flows:
+                if not fl.closed:
+                    trc.close_degraded(fl)
+            return
+        launched = [fl for fl in self._launched_flows if not fl.closed]
+        if launched:
+            trc.dispatch(launched, event)
+        leftovers = [fl for fl in flows if not fl.dispatched and not fl.closed]
+        if leftovers:
+            trc.close_now(leftovers)
 
     def _apply_ordered(self, entries: List[_Entry]) -> None:
         for e in entries:
@@ -490,13 +545,24 @@ class IngestQueue:
                 _obs_flight.record("degrade", site="ingest.tick", queue=self.name, entries=len(entries),
                                    error=type(err).__name__)
         _warn_degrade_once("ingest.tick", err, "the pending batches were applied synchronously (no rows lost).")
+        trc = _obs_flow._TRACER if _obs._ENABLED else None
         for e in entries:
+            # the batch's flow is the ambient one meanwhile: the fused engine charges
+            # the synchronous re-apply to it and mints none of its own
+            traced = trc is not None and e.flow is not None
+            if traced:
+                _obs_flow._push(e.flow)
             try:
                 self.target.update(*e.args, **e.kwargs)
             except BaseException as apply_err:  # noqa: BLE001 - keep the later batches flowing
                 # the outcome a synchronous caller would have seen: stash the first
                 if self._error is None:
                     self._error = apply_err
+            finally:
+                if traced:
+                    _obs_flow._pop()
+                    if not e.flow.closed:
+                        trc.close_degraded(e.flow)
 
     # ------------------------------------------------------- coalesced path
 
@@ -533,14 +599,21 @@ class IngestQueue:
             device = chain[0][1].device
             with torch.cuda.device(device) if device.type == "cuda" else nullcontext():
                 self._launch_chain(chain, entries, filter_kwargs=is_collection)
+        trc = _obs_flow._TRACER if _obs._ENABLED else None
         for _label, leader in eager:
             self.stats["eager_entries"] += len(entries)
             for e in entries:
+                traced = trc is not None and e.flow is not None
+                if traced:
+                    _obs_flow._push(e.flow)
                 try:
                     leader.update(*e.args, **(leader._filter_kwargs(**e.kwargs) if is_collection else e.kwargs))
                 except BaseException as err:  # noqa: BLE001 - a rejected batch (nan_policy): stash, go on
                     if self._error is None:
                         self._error = err
+                finally:
+                    if traced:
+                        _obs_flow._pop()
         if is_collection:
             self.target._state_is_copy = False
             self.target._compute_groups_create_state_ref()
@@ -597,6 +670,10 @@ class IngestQueue:
     def _launch_chain(self, chain: List[Tuple[str, Any]], entries: List[_Entry], filter_kwargs: bool) -> None:
         device = chain[0][1].device
         n = len(entries)
+        trc = _obs_flow._TRACER if _obs._ENABLED else None
+        flows = [e.flow for e in entries if e.flow is not None] if trc is not None else []
+        if flows:
+            trc.stamp_launch(flows)
         key, states, dyn_lists, make_step, uniform = self._chain_step(
             chain, [(e.args, e.kwargs) for e in entries], filter_kwargs
         )
@@ -615,16 +692,23 @@ class IngestQueue:
                 _excache.record_ingest_compile(self, chain, uniform, entries, key)
         if out is None:
             raise RuntimeError(f"IngestQueue {self.name!r}: the chained step of this signature failed")
-        if device.type == "cuda" and self.step_stats["cache_misses"] != misses:
-            self.stats["capture_entries"] += n
+        if self.step_stats["cache_misses"] != misses:
+            if device.type == "cuda":
+                self.stats["capture_entries"] += n
+            if flows:
+                trc.add_compile(flows, self._steps.last_compile_us)
+        self._launched_flows = flows
         new_states, _ = out
         self.stats["launches"] += 1
         for label, m in chain:
             m._load_state({k: v for k, v in new_states[label].items() if getattr(m, k) is not v})
             m._update_count += n
             m._computed = None
+            if _obs._ENABLED:
+                _obs.REGISTRY.inc(type(m).__name__, "updates", n)
         if _obs._ENABLED:
             _obs.REGISTRY.inc("ingest", "launches")
+            _obs.REGISTRY.inc("ingest", "dispatches")
 
 
 # --------------------------------------------------------------- module API

@@ -26,8 +26,9 @@ class ROUGEScore(Metric):
         rouge_keys: any of ``rouge1``..``rouge9``, ``rougeL``, ``rougeLsum``.
 
     The states are the per-sample scores, one list per key and statistic
-    (``dist_reduce_fx=None``, as in the JAX package); each update appends one float32
-    vector of its samples' scores. ``compute`` averages them on the host.
+    (``dist_reduce_fx=None``), in the JAX package's layout: one 0-d float32 entry a
+    sample, so that a checkpoint restores into either package. ``compute`` joins each
+    list once and averages on the host.
     """
 
     is_differentiable = False
@@ -92,16 +93,22 @@ class ROUGEScore(Metric):
             self.normalizer,
             self.tokenizer,
         )
+        # the JAX package's layout, one 0-d float32 entry a sentence (so that a
+        # checkpoint crosses): one host-to-device copy a statistic, split into views
         for rouge_key, metrics in output.items():
             for stat in ["fmeasure", "precision", "recall"]:
-                getattr(self, f"rouge{rouge_key}_{stat}").append(
-                    torch.tensor([m[stat] for m in metrics], dtype=torch.float32, device=self.device)
-                )
+                values = torch.tensor([m[stat] for m in metrics], dtype=torch.float32, device=self.device)
+                getattr(self, f"rouge{rouge_key}_{stat}").extend(values.unbind(0))
 
     def compute(self) -> Dict[str, Tensor]:
         update_output = {}
         for rouge_key in self.rouge_keys_values:
             for stat in ["fmeasure", "precision", "recall"]:
                 state = getattr(self, f"rouge{rouge_key}_{stat}")
-                update_output[f"rouge{rouge_key}_{stat}"] = dim_zero_cat(state).tolist() if len(state) else []
+                if not len(state):
+                    update_output[f"rouge{rouge_key}_{stat}"] = []
+                    continue
+                # one stack of the 0-d entries; a synced state is one gathered vector
+                joined = torch.stack(state) if all(v.dim() == 0 for v in state) else dim_zero_cat(state)
+                update_output[f"rouge{rouge_key}_{stat}"] = joined.tolist()
         return _rouge_score_compute(update_output, self.device)

@@ -29,6 +29,12 @@ def tracing() -> Iterator[None]:
         _TRACE.depth -= 1
 
 
+def in_step() -> bool:
+    """True on a thread running a :func:`tracing` step: obs records nothing there, as
+    the JAX package traces its steps with the gate off."""
+    return getattr(_TRACE, "depth", 0) > 0
+
+
 def _is_concrete(*tensors: Tensor) -> bool:
     """True iff the values of ``tensors`` may be read on the host now: no CUDA
     stream is capturing, no ``torch.func`` transform is active (and no argument is

@@ -9,8 +9,12 @@ Seeded numpy batches go through a JAX metric and its port (``device="cpu"``):
   states, QuantileSketch and DistinctCount, the five-group collection fused and
   eager, a fleet sliced with ``stream=i``, BootStrapper's children);
 - the on-disk format is shared: a checkpoint of either package restores into the
-  other where the states' dtypes agree (bfloat16 as raw bits included), and raises
-  ``DtypeDriftError`` where a listed deviation differs (the int64 counts);
+  other where the states' dtypes agree (bfloat16 as raw bits included); a JAX
+  checkpoint's int32 or integral float32 counts widen into the port's int64 ones (one
+  class of each family), a non-integral one raises ``DtypeDriftError``, and a port
+  checkpoint's int64 counts still raise in the JAX package;
+- ROUGEScore's list states have the JAX layout (a port checkpoint computes in the JAX
+  package), and so has every list state of the classes below;
 - N->M topology (2->1, 2->3) against one process on the union;
 - the JAX package's cases on kill-before-commit, bit rot, truncation, torn
   manifests, stale generations and rename races, typed drift, retention, async
@@ -308,14 +312,16 @@ def test_port_checkpoint_restores_into_jax(tmp_path, name):
 
 @pytest.mark.parametrize("name", DRIFTED)
 def test_listed_dtype_deviation_raises_dtype_drift_both_ways(tmp_path, name):
+    """The int64 counts: a port checkpoint still raises in the JAX package; a JAX
+    checkpoint's integral float32 counts now widen into the port's int64 states
+    (they raised before the widening)."""
     make_t, make_j, _, _ = CASES[name]
     batches = _batches(name, n=1)
     _feed_jax(make_j(), batches).save_checkpoint(str(tmp_path / "j"))
-    port = _feed_torch(make_t(), batches)
-    before = {k: v.clone() for k, v in port.metric_state.items()}
-    with pytest.raises(DtypeDriftError):
-        port.restore_checkpoint(str(tmp_path / "j"))
-    assert _bit_equal(port.metric_state, before)  # untouched
+    port = make_t()
+    port.restore_checkpoint(str(tmp_path / "j"))
+    want = _feed_torch(make_t(), batches)
+    assert _bit_equal(port.metric_state, want.metric_state)  # widened, exactly the port's own counts
     _feed_torch(make_t(), batches).save_checkpoint(str(tmp_path / "t"))
     with pytest.raises(jckpt.DtypeDriftError):
         make_j().restore_checkpoint(str(tmp_path / "t"))
@@ -854,3 +860,180 @@ def test_async_save_of_a_stepping_fused_collection_is_the_state_at_the_call(tmp_
     fresh = canonical_collection(True, device=CPU)
     fresh.restore_checkpoint(str(tmp_path))
     assert _bit_equal(fresh.compute(), want)
+
+
+# ------------------------------------------- list layouts (C 9) and count widening (C 10)
+
+
+def _texts(seed, n=4):
+    r = np.random.RandomState(seed)
+    words = ["the", "cat", "sat", "on", "a", "mat", "dog", "ran", "far", "home"]
+    preds = [" ".join(r.choice(words, r.randint(3, 8))) for _ in range(n)]
+    target = [" ".join(r.choice(words, r.randint(3, 8))) for _ in range(n)]
+    return preds, target
+
+
+def test_rouge_port_checkpoint_computes_in_the_jax_package(tmp_path):
+    keys = ("rouge1", "rougeL")
+    port = metrics_tpu_torch.text.ROUGEScore(rouge_keys=keys, device=CPU)
+    for seed in (0, 1):
+        port.update(*_texts(seed))
+    port.save_checkpoint(str(tmp_path))
+    ref = metrics_tpu.text.ROUGEScore(rouge_keys=keys)
+    ref.restore_checkpoint(str(tmp_path))
+    got, want = ref.compute(), port.compute()
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert abs(float(got[k]) - float(want[k])) <= 1e-6, k
+    # and back: the JAX checkpoint of the same updates restores into the port
+    jm = metrics_tpu.text.ROUGEScore(rouge_keys=keys)
+    for seed in (0, 1):
+        jm.update(*_texts(seed))
+    jm.save_checkpoint(str(tmp_path / "j"))
+    back = metrics_tpu_torch.text.ROUGEScore(rouge_keys=keys, device=CPU)
+    back.restore_checkpoint(str(tmp_path / "j"))
+    _close(back.compute(), want, 1e-6)
+
+
+def _img(r, n=2):
+    return r.rand(n, 3, 8, 8).astype(np.float32), r.rand(n, 3, 8, 8).astype(np.float32)
+
+
+# (name, kwargs of both constructors, inputs from a RandomState): classes with list states
+LIST_CASES = {
+    "ROUGEScore": ({}, lambda r: _texts(r.randint(100))),
+    "CHRFScore": ({"return_sentence_level_score": True}, lambda r: (_texts(r.randint(100))[0],
+                                                                     [[t] for t in _texts(r.randint(100))[1]])),
+    "TranslationEditRate": ({"return_sentence_level_score": True},
+                            lambda r: (_texts(r.randint(100))[0], [[t] for t in _texts(r.randint(100))[1]])),
+    "BinaryAUROC": ({}, lambda r: (r.rand(16).astype(np.float32), r.randint(0, 2, 16))),
+    "BinaryPrecisionRecallCurve": ({}, lambda r: (r.rand(16).astype(np.float32), r.randint(0, 2, 16))),
+    "BinaryCalibrationError": ({}, lambda r: (r.rand(16).astype(np.float32), r.randint(0, 2, 16))),
+    "BinaryStatScores": ({"multidim_average": "samplewise"},
+                         lambda r: (r.rand(4, 6).astype(np.float32), r.randint(0, 2, (4, 6)))),
+    "SpearmanCorrCoef": ({}, lambda r: (r.rand(16).astype(np.float32), r.rand(16).astype(np.float32))),
+    "KendallRankCorrCoef": ({}, lambda r: (r.rand(16).astype(np.float32), r.rand(16).astype(np.float32))),
+    "CosineSimilarity": ({}, lambda r: (r.rand(4, 5).astype(np.float32), r.rand(4, 5).astype(np.float32))),
+    "KLDivergence": ({"reduction": "none"}, lambda r: (r.rand(4, 5).astype(np.float32) + 0.1,
+                                                        r.rand(4, 5).astype(np.float32) + 0.1)),
+    "RetrievalMAP": ({}, lambda r: (r.rand(12).astype(np.float32), r.randint(0, 2, 12), r.randint(0, 3, 12))),
+    "TotalVariation": ({"reduction": "none"}, lambda r: (_img(r)[0],)),
+    "SpectralAngleMapper": ({}, _img),
+    "ErrorRelativeGlobalDimensionlessSynthesis": ({}, _img),
+}
+
+
+def _list_layout(m):
+    """Each list state's element shapes (dtypes differ where the port counts in int64)."""
+    out = {}
+    for name, default in m._defaults.items():
+        if isinstance(default, list):
+            out[name] = [tuple(v.shape) if hasattr(v, "shape") else type(v).__name__ for v in getattr(m, name)]
+    return out
+
+
+def _find(pkg, name):
+    for sub in ("text", "classification", "regression", "retrieval", "image"):
+        mod = getattr(pkg, sub)
+        if hasattr(mod, name):
+            return getattr(mod, name)
+    raise LookupError(name)
+
+
+@pytest.mark.parametrize("name", list(LIST_CASES))
+def test_list_state_element_shapes_agree_across_packages(name):
+    kwargs, inputs = LIST_CASES[name]
+    port = _find(metrics_tpu_torch, name)(device=CPU, **kwargs)
+    ref = _find(metrics_tpu, name)(**kwargs)
+    r = np.random.RandomState(7)
+    for _ in range(2):
+        args = inputs(r)
+        port.update(*(torch.from_numpy(a) if isinstance(a, np.ndarray) else a for a in args))
+        ref.update(*(jnp.asarray(a) if isinstance(a, np.ndarray) else a for a in args))
+    layout = _list_layout(port)
+    assert layout, f"{name} has no list state"
+    assert layout == _list_layout(ref)
+
+
+def _audio(r):
+    return r.randn(2, 64).astype(np.float32), r.randn(2, 64).astype(np.float32)
+
+
+def _squad(r):
+    i = str(r.randint(1000))
+    return ([{"prediction_text": "the cat sat", "id": i}],
+            [{"answers": {"answer_start": [0], "text": ["the cat sat on"]}, "id": i}])
+
+
+# one class of each family whose counts the JAX package keeps as int32 or float32
+WIDENED = {
+    "MeanSquaredError": ("regression", {}, lambda r: (r.rand(8).astype(np.float32), r.rand(8).astype(np.float32))),
+    "SignalNoiseRatio": ("audio", {}, _audio),
+    "PeakSignalNoiseRatio": ("image", {"data_range": 1.0}, _img),
+    "TweedieDevianceScore": ("regression", {}, lambda r: (r.rand(8).astype(np.float32) + 0.1,
+                                                          r.rand(8).astype(np.float32) + 0.1)),
+    "TotalVariation": ("image", {}, lambda r: (_img(r)[0],)),
+    "Dice": ("classification", {"num_classes": 3}, lambda r: (r.randint(0, 3, 16), r.randint(0, 3, 16))),
+    "MulticlassExactMatch": ("classification", {"num_classes": 3},
+                             lambda r: (r.randint(0, 3, (4, 5)), r.randint(0, 3, (4, 5)))),
+    "WordErrorRate": ("text", {}, lambda r: _texts(r.randint(100))),
+    "SQuAD": ("text", {}, _squad),
+    "Perplexity": ("text", {}, lambda r: (r.randn(2, 6, 7).astype(np.float32), r.randint(0, 7, (2, 6)))),
+}
+
+
+def _pkg_class(pkg, family, name):
+    return getattr(getattr(pkg, family), name)
+
+
+def _args(args, to):
+    return tuple(to(a) if isinstance(a, np.ndarray) else a for a in args)
+
+
+@pytest.mark.parametrize("name", list(WIDENED))
+def test_jax_counts_widen_into_the_ports_int64_states(tmp_path, name):
+    family, kwargs, inputs = WIDENED[name]
+    r = np.random.RandomState(11)
+    batches = [inputs(r) for _ in range(3)]
+    ref = _pkg_class(metrics_tpu, family, name)(**kwargs)
+    for b in batches[:2]:
+        ref.update(*_args(b, jnp.asarray))
+    ref.save_checkpoint(str(tmp_path))
+    port = _pkg_class(metrics_tpu_torch, family, name)(device=CPU, **kwargs)
+    port.restore_checkpoint(str(tmp_path))
+    counts = [k for k, v in port.metric_state.items() if isinstance(v, torch.Tensor) and v.dtype == torch.int64]
+    assert counts, f"{name} has no int64 count"
+    port.update(*_args(batches[2], torch.from_numpy))
+    whole = _pkg_class(metrics_tpu_torch, family, name)(device=CPU, **kwargs)
+    for b in batches:
+        whole.update(*_args(b, torch.from_numpy))
+    assert _bit_equal({k: port.metric_state[k] for k in counts}, {k: whole.metric_state[k] for k in counts})
+    for got, want in zip(_np_leaves(port.compute()), _np_leaves(whole.compute())):
+        np.testing.assert_allclose(got.astype(np.float64), want.astype(np.float64), rtol=1e-6, atol=1e-6)
+
+
+def test_a_non_integral_float32_count_still_raises(tmp_path):
+    ref = metrics_tpu.text.WordErrorRate()
+    ref.update(*_texts(0))
+    ref.errors = jnp.asarray(2.5, jnp.float32)
+    ref.save_checkpoint(str(tmp_path / "frac"))
+    port = metrics_tpu_torch.text.WordErrorRate(device=CPU)
+    port.update(*_texts(1))
+    before = {k: v.clone() for k, v in port.metric_state.items()}
+    with pytest.raises(DtypeDriftError, match="non-integral"):
+        port.restore_checkpoint(str(tmp_path / "frac"))
+    assert _bit_equal(port.metric_state, before)  # nothing was loaded
+    ref.errors = jnp.asarray(float("inf"), jnp.float32)
+    ref.save_checkpoint(str(tmp_path / "inf"))
+    with pytest.raises(DtypeDriftError):
+        port.restore_checkpoint(str(tmp_path / "inf"))
+    # a float64 count, or a float32 state saved for an int32 one, is no widening
+    assert not ckpt.manifest.widens("float64", "int64") and not ckpt.manifest.widens("float32", "int32")
+
+
+def test_port_counts_still_refuse_to_restore_into_the_jax_package(tmp_path):
+    port = metrics_tpu_torch.text.WordErrorRate(device=CPU)
+    port.update(*_texts(0))
+    port.save_checkpoint(str(tmp_path))
+    with pytest.raises(jckpt.DtypeDriftError):
+        metrics_tpu.text.WordErrorRate().restore_checkpoint(str(tmp_path))

@@ -59,7 +59,7 @@ def _leaves_nothing_behind():
     _reset()
     jexcache.disable_recording()
     jexcache.clear_manifest()
-    ckpt.wait_for_all_saves()
+    ckpt.wait_for_all_saves(timeout_s=60)
     assert {
         "server": tserver.active_servers(), "queue": active_queues(), "prom": prom.server_active(),
         "flight": flight.active(), "health": health.active(), "series": series.active(),
@@ -117,10 +117,10 @@ def test_manifest_round_trip_and_ckpt_rider(tmp_path):
     assert args[1].dtype == torch.int32 and args[1].shape == (2, 3) and args[2:] == (3, "x", None, [1.5, True])
     m = MeanSquaredError(device=CPU)
     m.update(torch.ones(3), torch.zeros(3))
-    step_dir = m.save_checkpoint(str(tmp_path / "plain")).result()
+    step_dir = m.save_checkpoint(str(tmp_path / "plain")).result(timeout=60)
     assert not os.path.exists(os.path.join(os.path.dirname(step_dir), excache.MANIFEST_NAME))
     excache.enable_recording()
-    step_dir = m.save_checkpoint(str(tmp_path / "rec")).result()
+    step_dir = m.save_checkpoint(str(tmp_path / "rec")).result(timeout=60)
     assert os.path.isfile(os.path.join(os.path.dirname(step_dir), excache.MANIFEST_NAME))
 
 

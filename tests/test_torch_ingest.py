@@ -44,7 +44,7 @@ def _leaves_nothing_behind():
     _fused._DEGRADE_WARNED.clear()
     yield
     _fused._DEGRADE_WARNED.clear()
-    ckpt.wait_for_all_saves()
+    ckpt.wait_for_all_saves(timeout_s=60)
     assert fault.current() is None
     assert registry._ENABLED is False
     assert active_queues() == []

@@ -42,6 +42,8 @@
   module in a string (a ``sys.modules`` lookup would read the JAX package's live
   objects), and a ``MetricsServer`` whose config names no device raises where CUDA is
   absent, as does a health monitor;
+- the rest of ``obs/`` (``scopes``, ``recompile``, ``flow``, ``trace``, ``export``,
+  ``aggregate``) is in both scans;
 - the model metrics (BERTScore, InfoLM, CLIPScore, LPIPS, ``models/bert.py``,
   ``models/clip.py``, ``models/lpips.py``, ``multimodal/``) are in both scans, and the
   fresh import loads no ``transformers`` for them either; BERTScore and InfoLM are in
@@ -127,6 +129,8 @@ REQUIRED_MODULES = (
     "metrics_tpu_torch.obs.registry", "metrics_tpu_torch.utils.concurrency",
     # the metrics server, its command line and warm restarts, and the obs surfaces they run on
     *(f"metrics_tpu_torch.obs.{m}" for m in ("flight", "report", "health", "series", "prom")),
+    # the rest of obs: scopes, retrace detection, flow tracing, the exports, aggregation
+    *(f"metrics_tpu_torch.obs.{m}" for m in ("scopes", "recompile", "flow", "trace", "export", "aggregate")),
     *(f"metrics_tpu_torch.serve.{m}" for m in ("excache", "server", "__main__")),
 )
 

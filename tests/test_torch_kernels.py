@@ -1006,5 +1006,45 @@ def test_ingest_reader_on_another_stream_sees_every_tick_on_card(cuda, ticker):
                 q.flush()
                 got = target.compute()
                 assert q.stats["degrades"] == 0 and q.stats["enqueued"] == 64
+        # the read ran on the reader stream: order this stream's comparison after it
+        torch.cuda.current_stream().wait_stream(reader)
         diff = {k: (got[k].tolist(), want[k].tolist()) for k in want if not torch.equal(got[k], want[k])}
         assert not diff, f"trial {trial}: the read missed applied batches: {diff}"
+
+
+@pytest.mark.cuda
+def test_a_capture_under_a_live_profiler_keeps_its_ranges_on_the_host_on_card(cuda, tmp_path):
+    """With obs on and ``obs.trace`` running, the fused engine's first step captures its
+    graph inside a ``tm.fused/step`` ``record_function`` range: the range stays on the
+    host (the capture succeeds, nothing demotes), and the replays compute what an eager
+    collection computes. The trace holds the ranges, and one histogram kernel for the
+    capture's warm-up and one for each replay."""
+    import json
+
+    from metrics_tpu_torch import obs
+    from metrics_tpu_torch.core.fused import CapturedStep, canonical_collection, engine_for
+
+    g = torch.Generator(device=cuda).manual_seed(29)
+    batches = [(torch.rand(4096, generator=g, device=cuda),
+                torch.randint(0, 2, (4096,), generator=g, device=cuda, dtype=torch.int32)) for _ in range(6)]
+    eager = canonical_collection(False)
+    fused = canonical_collection(True)
+    try:
+        with obs.trace(str(tmp_path)) as path:
+            for p, t in batches:
+                fused.update(p, t)
+            torch.cuda.synchronize()
+        steps = engine_for(fused)._steps
+        assert steps.stats["degrades"] == 0 and steps.stats["cache_misses"] == 1
+        assert all(isinstance(s, CapturedStep) for s in steps.steps.values())
+    finally:
+        obs.disable()
+    for p, t in batches:
+        eager.update(p, t)
+    got, want = fused.compute(), eager.compute()
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    assert sum(1 for e in events if e.get("name") == "tm.fused/step" and e.get("cat") != "gpu_user_annotation") == 6
+    # the capture's warm-up and the six replays (the first step's replay included)
+    assert sum(1 for e in events if e.get("cat") == "kernel" and "histogram_kernel" in str(e.get("name"))) == 7

@@ -84,7 +84,7 @@ def _leaves_nothing_behind():
     _reset_jax_obs()
     registry.REGISTRY.clear()
     yield
-    ckpt.wait_for_all_saves()
+    ckpt.wait_for_all_saves(timeout_s=60)
     _reset_jax_obs()
     assert _leaks() == _NONE_LEFT
     registry.REGISTRY.clear()
@@ -163,7 +163,7 @@ def test_flight_dump_schema_and_state_reports(tmp_path, surfaces):
     assert set(payload) == {"schema_version", "dumped_unix", "anchor_us", "capacity", "events", "state_reports"}
     assert payload["schema_version"] == jobs.flight.DUMP_SCHEMA_VERSION == flight.DUMP_SCHEMA_VERSION
     assert payload["capacity"] == 8
-    assert [e["kind"] for e in payload["events"]] == ["dispatch"]
+    assert [e["kind"] for e in payload["events"]] == ["dispatch", "scope"]  # the update's timed tm.update range
     assert payload["state_reports"][0]["metric"] == "MeanSquaredError"
     assert flight.dump(str(tmp_path / "no-such-dir" / "x.json")) is None
     flight.disable()
@@ -194,7 +194,7 @@ def test_ckpt_integration_dump_rides_the_committed_step(tmp_path, surfaces):
     m = MeanSquaredError(device=CPU)
     m.update(*_t(np.ones(3, np.float32), np.zeros(3, np.float32)))
     handle = m.save_checkpoint(str(tmp_path / "series"))
-    step_dir = handle.result()
+    step_dir = handle.result(timeout=60)
     payload = json.loads(open(os.path.join(step_dir, "flight-h0000.json")).read())
     kinds = [e["kind"] for e in payload["events"]]
     assert "dispatch" in kinds and "ckpt_save_begin" in kinds and "ckpt_save_commit" not in kinds
@@ -202,7 +202,7 @@ def test_ckpt_integration_dump_rides_the_committed_step(tmp_path, surfaces):
     assert any(e["kind"] == "ckpt_save_commit" and e["committed"] for e in flight.events())
     flight.disable()
     flight.enable(capacity=64)
-    step_dir = m.save_checkpoint(str(tmp_path / "series")).result()
+    step_dir = m.save_checkpoint(str(tmp_path / "series")).result(timeout=60)
     assert not [f for f in os.listdir(step_dir) if f.startswith("flight")]
 
 
@@ -442,6 +442,7 @@ def test_a_flush_on_one_thread_leaves_the_other_threads_recording(surfaces, monk
         flusher.join(30)
         ticker.join(30) if ticker.ident else None
         queue.close()
+    assert not flusher.is_alive() and not ticker.is_alive(), "a flush or a tick did not finish within 30 s"
     report = health.report()["latency_us"]
     assert report["update/F"]["count"] == 4 and report["ingest/during-flush"]["count"] == 1
     assert "QuantileSketch" not in registry.REGISTRY.snapshot()  # the flushes never count themselves

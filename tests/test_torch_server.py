@@ -75,7 +75,7 @@ def _reset():
 def _leaves_nothing_behind():
     _reset()
     yield
-    ckpt.wait_for_all_saves()
+    ckpt.wait_for_all_saves(timeout_s=60)
     jserve.excache.disable_recording()
     jserve.excache.clear_manifest()
     assert {
@@ -379,6 +379,7 @@ def test_compute_waits_for_a_tick_in_flight():
         threading.Timer(0.2, release.set).start()
         value = q.compute()
         ticker.join(10)
+        assert not ticker.is_alive(), "the tick did not finish within 10 s"
     assert float(value) == 1.0 and metric._update_count == 1
 
 
