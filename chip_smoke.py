@@ -433,6 +433,27 @@ Phases, each printing one JSON line:
     The histogram launches of every part equal their prediction from the parts. It
     writes under ``build/obs/`` and removes it.
 
+24. costcheck_plot: the cost cross-check and the plots on the card:
+    - the committed launch budget's stamp (torch, CUDA, card) printed beside this
+      process's; every budgeted class (the 107 ``.update[canon]`` entries, inputs from
+      ``metrics_tpu_torch/obs/canon.py``) updated 10 times eagerly with the obs gate on,
+      then 10 steps of the canonical fused collection: ``obs.crosscheck()`` reports no
+      drift and every budgeted class checked or amortized; the same counts with one
+      class at its budget of one launch or more raised by 20% give exactly one
+      ``CostDriftWarning``, naming it; the pass's launches equal the budget's by-kernel
+      figures times the updates, plus the fused step's launches for each replay and the
+      capture's warm-up; the CUDA kernels and copies of one update of MulticlassAccuracy,
+      BinaryAUROC and MulticlassConfusionMatrix in a profiler trace each, beside the
+      budget's;
+    - every plot surface (a scalar, a per-class value, a series, a collection as a grid
+      and together, BinaryROC, BinaryAUROC, MulticlassPrecisionRecallCurve,
+      MulticlassConfusionMatrix, BinaryCalibrationError's reliability diagram) of metrics
+      on the card fed 3 batches of 4,096 rows, its lines and images equal to the same
+      metrics' on the CPU (counts bit-equal, floats within 1e-6); 3 histogram launches a
+      batch and the exact AUROC's one scan. Where matplotlib is not installed the plots
+      draw through a recording stand-in of the pyplot calls the port makes
+      (``StandInAxes``).
+
 The last three lines are the ``nvidia-smi`` name and power limit, the kernels JSON
 line and ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
 """
@@ -7689,6 +7710,466 @@ def phase_obs(torch, seed: int, smi: str) -> dict:
     return launches
 
 
+# ------------------------------------------------------------ costcheck and plots
+
+COSTCHECK = {"updates": 10, "fused_steps": 10, "drift": 0.2, "prefer": "MulticlassAccuracy",
+             "profiled": ("MulticlassAccuracy", "BinaryAUROC", "MulticlassConfusionMatrix")}
+PLOT = {"rows": 4_096, "classes": 10, "labels": 4, "batches": 3, "n_bins": 15}
+PLOT_ATOL = 1e-6  # a float in a plotted line or image, card against the CPU
+
+
+class _Got:
+    """What a stand-in artist hands back: its data or text."""
+
+    def __init__(self, value):
+        self._value = value
+
+    def get_xydata(self):
+        return self._value
+
+    def get_array(self):
+        return self._value
+
+    def get_text(self):
+        return self._value
+
+
+class _StandInAxis:
+    visible = True
+
+    def set_visible(self, visible):
+        self.visible = bool(visible)
+
+    def get_visible(self):
+        return self.visible
+
+
+class StandInAxes:
+    """The part of matplotlib's ``Axes`` that ``metrics_tpu_torch.utils.plot`` calls,
+    recording what is drawn (the card's machine has no matplotlib)."""
+
+    def __init__(self, np, fig):
+        self._np, self._fig = np, fig
+        self.lines, self.images, self.texts, self.patches = [], [], [], []
+        self.line_labels, self.bar_labels = [], []  # a legend lists the lines first, as matplotlib's does
+        self.title, self.xlabel, self.ylabel, self.legend_texts = "", "", "", None
+        self.xticklabels, self.yticklabels, self._xlim, self._ylim = [], [], None, None
+        self._xaxis = _StandInAxis()
+
+    def plot(self, *args, label=None, **_):
+        np = self._np
+        args = [a for a in args if not isinstance(a, str)]
+        y = np.asarray(args[-1], dtype=np.float64).reshape(-1)
+        x = np.asarray(args[0], dtype=np.float64).reshape(-1) if len(args) == 2 else np.arange(y.size, dtype=np.float64)
+        self.lines.append(_Got(np.column_stack([x, y])))
+        if label and not str(label).startswith("_"):
+            self.line_labels.append(str(label))
+        return [self.lines[-1]]
+
+    def bar(self, x, height, width=0.8, bottom=0.0, label=None, **_):
+        np = self._np
+        x, height = np.asarray(x, np.float64), np.asarray(height, np.float64)
+        width, bottom = np.broadcast_to(width, x.shape), np.broadcast_to(bottom, x.shape)
+        self.patches.extend(zip(x - width / 2, bottom, width, height))
+        if label:
+            self.bar_labels.append(str(label))
+
+    def imshow(self, a, **_):
+        self.images.append(_Got(self._np.asarray(a)))
+
+    def text(self, x, y, s="", **_):
+        self.texts.append(_Got(str(s)))
+
+    def _data_lim(self, axis):
+        np = self._np
+        vals = [ln.get_xydata()[:, axis] for ln in self.lines]
+        vals += [np.asarray([p[axis] for p in self.patches] + [p[axis] + p[axis + 2] for p in self.patches])]
+        vals = np.concatenate(vals) if vals else np.zeros(0)
+        if not vals.size:
+            return 0.0, 1.0
+        lo, hi = float(vals.min()), float(vals.max())
+        pad = 0.05 * (hi - lo) if hi > lo else 0.5
+        return lo - pad, hi + pad
+
+    def get_xlim(self):
+        return self._xlim or self._data_lim(0)
+
+    def get_ylim(self):
+        return self._ylim or self._data_lim(1)
+
+    def set_xlim(self, left=None, right=None):
+        lo, hi = self.get_xlim()
+        self._xlim = (lo if left is None else left, hi if right is None else right)
+
+    def set_ylim(self, bottom=None, top=None):
+        lo, hi = self.get_ylim()
+        self._ylim = (lo if bottom is None else bottom, hi if top is None else top)
+
+    def get_xaxis(self):
+        return self._xaxis
+
+    def get_legend_handles_labels(self):
+        labels = self.line_labels + self.bar_labels
+        return list(labels), list(labels)
+
+    def legend(self, *_, **__):
+        self.legend_texts = self.line_labels + self.bar_labels
+
+    def get_legend(self):
+        return None if self.legend_texts is None else _StandInLegend(self.legend_texts)
+
+    def set_title(self, s, **_):
+        self.title = s
+
+    def set_xlabel(self, s, **_):
+        self.xlabel = s
+
+    def set_ylabel(self, s, **_):
+        self.ylabel = s or ""
+
+    def set_xticks(self, *_, **__):
+        pass
+
+    set_yticks = set_xticks
+
+    def set_xticklabels(self, labels, **_):
+        self.xticklabels = [str(v) for v in labels]
+
+    def set_yticklabels(self, labels, **_):
+        self.yticklabels = [str(v) for v in labels]
+
+    def grid(self, *_, **__):
+        pass
+
+    def remove(self):
+        self._fig.axes.remove(self)
+
+    def get_figure(self):
+        return self._fig
+
+    def get_lines(self):
+        return self.lines
+
+    def get_images(self):
+        return self.images
+
+    def get_title(self):
+        return self.title
+
+    def get_xlabel(self):
+        return self.xlabel
+
+    def get_ylabel(self):
+        return self.ylabel
+
+    def get_xticklabels(self):
+        return [_Got(s) for s in self.xticklabels]
+
+    def get_yticklabels(self):
+        return [_Got(s) for s in self.yticklabels]
+
+
+class _StandInLegend:
+    def __init__(self, texts):
+        self._texts = [_Got(t) for t in texts]
+
+    def get_texts(self):
+        return self._texts
+
+
+class _StandInFigure:
+    def __init__(self):
+        self.axes = []
+
+
+def stand_in_pyplot(np):
+    """A module with the ``subplots``/``close`` of ``matplotlib.pyplot`` over :class:`StandInAxes`."""
+    import types
+
+    def subplots(nrows: int = 1, ncols: int = 1, **_):
+        fig = _StandInFigure()
+        fig.axes = [StandInAxes(np, fig) for _ in range(nrows * ncols)]
+        if nrows * ncols == 1:
+            return fig, fig.axes[0]
+        grid = np.empty(nrows * ncols, dtype=object)
+        grid[:] = fig.axes
+        return fig, grid.reshape(nrows, ncols) if nrows > 1 and ncols > 1 else grid
+
+    pyplot = types.ModuleType("matplotlib.pyplot")
+    pyplot.subplots, pyplot.close = subplots, lambda *_: None
+    return pyplot
+
+
+@contextlib.contextmanager
+def plot_backend(np):
+    """matplotlib with the Agg backend where it is installed; else the recording stand-in,
+    with the port's matplotlib flag set for the block. Yields the backend's name."""
+    from metrics_tpu_torch.utils import imports
+
+    try:
+        import matplotlib
+    except ImportError:
+        matplotlib = None
+    if matplotlib is not None:
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        try:
+            yield "matplotlib " + matplotlib.__version__
+        finally:
+            plt.close("all")
+        return
+    import types
+
+    saved = {name: sys.modules.get(name) for name in ("matplotlib", "matplotlib.pyplot")}
+    package = types.ModuleType("matplotlib")
+    package.pyplot = stand_in_pyplot(np)
+    sys.modules["matplotlib"], sys.modules["matplotlib.pyplot"] = package, package.pyplot
+    flag, imports._MATPLOTLIB_AVAILABLE = imports._MATPLOTLIB_AVAILABLE, True
+    try:
+        yield "stand-in (no matplotlib on this machine)"
+    finally:
+        imports._MATPLOTLIB_AVAILABLE = flag
+        for name, module in saved.items():
+            if module is None:
+                sys.modules.pop(name, None)
+            else:
+                sys.modules[name] = module
+
+
+def plotted(np, out) -> list:
+    """Each axis of a plot's return value as ``{lines, images, texts, labels}``."""
+    if isinstance(out, list):
+        return [a for fa in out for a in plotted(np, fa)]
+    if isinstance(out, tuple):
+        return plotted(np, out[1])
+    axes = list(out.flat if hasattr(out, "flat") else out) if not hasattr(out, "plot") else [out]
+    rows = []
+    for ax in axes:
+        legend = ax.get_legend()
+        rows.append({"lines": [np.asarray(ln.get_xydata(), np.float64) for ln in ax.get_lines()],
+                     "images": [np.asarray(im.get_array()) for im in ax.get_images()],
+                     "texts": [t.get_text() for t in ax.texts],
+                     "labels": [ax.get_title(), ax.get_xlabel(), ax.get_ylabel(),
+                                [t.get_text() for t in ax.get_xticklabels()],
+                                None if legend is None else [t.get_text() for t in legend.get_texts()]]})
+    return rows
+
+
+def plot_err(np, label: str, card: list, cpu: list) -> float:
+    """The largest float difference between two plots' data; raises where counts,
+    texts or shapes differ."""
+    if len(card) != len(cpu):
+        raise AssertionError(f"{label}: {len(card)} axes on the card, {len(cpu)} on the CPU")
+    err = 0.0
+    for a, b in zip(card, cpu):
+        if a["texts"] != b["texts"] or a["labels"] != b["labels"]:
+            raise AssertionError(f"{label}: texts {a['texts'][:4]}/{a['labels']} against {b['texts'][:4]}/{b['labels']}")
+        if [x.shape for x in a["lines"] + a["images"]] != [x.shape for x in b["lines"] + b["images"]]:
+            raise AssertionError(f"{label}: plotted shapes differ between the card and the CPU")
+        for x, y in zip(a["images"], b["images"]):
+            if x.dtype.kind in "iu" and not np.array_equal(x, y):
+                raise AssertionError(f"{label}: counts plotted on the card differ from the CPU's")
+        for x, y in zip(a["lines"] + a["images"], b["lines"] + b["images"]):
+            if x.size:
+                err = max(err, float(np.abs(x.astype(np.float64) - y.astype(np.float64)).max()))
+    if err > PLOT_ATOL:
+        raise AssertionError(f"{label}: plotted data {err} from the CPU's (> {PLOT_ATOL})")
+    return err
+
+
+def cc_budget(torch, seed: int, smi: str) -> dict:
+    """Every budgeted class updated eagerly with the gate on, then the canonical fused
+    collection, held against the committed launch budget; one seeded drift."""
+    import copy
+    import warnings
+
+    from metrics_tpu_torch import obs
+    from metrics_tpu_torch.core.fused import canonical_collection
+    from metrics_tpu_torch.obs import costcheck
+    from metrics_tpu_torch.obs.canon import CANON, budget_cases
+
+    with open(costcheck.default_costs_path()) as fh:
+        payload = json.load(fh)
+    stamp, running = payload["stamp"], costcheck.running_stamp()
+    emit({"phase": "costcheck_stamp", "card": smi, "budget": stamp, "running": running,
+          "equal": stamp == running})
+    cases, _ = budget_cases("cuda", seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 61)
+    preds = torch.rand(CANON, generator=g, device="cuda")
+    target = torch.randint(0, 2, (CANON,), generator=g, device="cuda", dtype=torch.int32)
+    fused = canonical_collection(True, device="cuda")
+    obs.enable(clear=True)
+    try:
+        def drive():
+            for _, make, args, kwargs in cases:
+                metric = make()
+                for _ in range(COSTCHECK["updates"]):
+                    metric.update(*args, **kwargs)
+            for _ in range(COSTCHECK["fused_steps"]):
+                fused.update(preds, target)
+
+        _, launches, seconds = run_counted(torch, drive)
+        snap = obs.snapshot()
+    finally:
+        obs.disable()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        report = costcheck.crosscheck(snapshot=snap)
+    drifted = [w for w in caught if issubclass(w.category, costcheck.CostDriftWarning)]
+    budgeted = set(costcheck.budgeted_classes(payload))
+    seen = {r["scope"] for r in report["checked"] + report["amortized"]}
+    if report["drifts"] or drifted or not budgeted <= seen:
+        raise AssertionError(f"costcheck: drifts {report['drifts']}, warnings {len(drifted)},"
+                             f" budgeted classes not checked {sorted(budgeted - seen)}")
+    # the seeded drift: +20% launches on one class updated at its budget of >= 1 launch
+    at_budget = [r for r in report["checked"] if r["budget_launches_per_update"] >= 1
+                 and r["launches_per_update"] == r["budget_launches_per_update"]]
+    if not at_budget:
+        raise AssertionError("costcheck: no class at a budget of one launch or more to seed a drift into")
+    seeded = next((r for r in at_budget if r["scope"] == COSTCHECK["prefer"]), at_budget[0])["scope"]
+    bad = copy.deepcopy(snap)
+    bad[seeded]["kernel_launches"] = round(bad[seeded]["kernel_launches"] * (1 + COSTCHECK["drift"]))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        seeded_report = costcheck.crosscheck(snapshot=bad)
+    seeded_warnings = [str(w.message) for w in caught if issubclass(w.category, costcheck.CostDriftWarning)]
+    if [r["scope"] for r in seeded_report["drifts"]] != [seeded] or (
+            report["version_ok"] and (len(seeded_warnings) != 1 or f"{seeded}: " not in seeded_warnings[0])):
+        raise AssertionError(f"costcheck: the seeded drift of {seeded} gave {seeded_report['drifts']}"
+                             f" and warnings {seeded_warnings}")
+    # the parts' prediction: each class's budgeted launches x its updates; the fused
+    # collection's capture warm-up, then one replay a step
+    want = {k: 0 for k in KERNEL_WRAPPERS}
+    for key, _, _, _ in cases:
+        for kernel, n in payload["entries"][key]["launches_per_update"].items():
+            want[kernel] += n * COSTCHECK["updates"]
+    for kernel, n in payload["entries"][costcheck.FUSED_KEY]["launches_per_replay"].items():
+        want[kernel] += round(n * (COSTCHECK["fused_steps"] + 1))
+    if launches != want:
+        raise AssertionError(f"costcheck pass: launches {launches}, predicted from the budget {want}")
+    # CUDA kernels of one eager update of three classes, the most of three profiler
+    # traces each (late in a long process a trace lost every kernel of its window)
+    traced = {}
+
+    def profile_three():
+        for key, make, args, kwargs in cases:
+            name = key.split(".")[0]
+            if name in COSTCHECK["profiled"]:
+                metric = make()
+                metric.update(*args, **kwargs)
+                traced[name] = {"trace": costcheck.count_cuda_events(lambda: metric.update(*args, **kwargs), 1),
+                                "budget": {k: payload["entries"][key][k]
+                                           for k in ("cuda_kernels_per_update", "cuda_copies_per_update")}}
+
+    _, l_traced, _ = run_counted(torch, profile_three)
+    want = {k: 0 for k in KERNEL_WRAPPERS}
+    for name in COSTCHECK["profiled"]:
+        for kernel, n in payload["entries"][f"{name}.update[canon]"]["launches_per_update"].items():
+            want[kernel] += 7 * n  # the warm update; three traces of a warm-up step and a recorded one
+    if l_traced != want:
+        raise AssertionError(f"costcheck traces: launches {l_traced}, predicted from the budget {want}")
+    record = {"classes": len(budgeted), "entries": len(cases), "updates_each": COSTCHECK["updates"],
+              "fused_steps": COSTCHECK["fused_steps"], "checked": len(report["checked"]),
+              "amortized": sorted(r["scope"] for r in report["amortized"]),
+              "unbudgeted": report["unbudgeted"], "version_ok": report["version_ok"], "notes": report["notes"],
+              "seeded_drift": seeded, "seeded_warning": seeded_warnings[:1], "pass_seconds": seconds,
+              "launches": launches, "profiled": traced}
+    emit({"phase": "costcheck_budget", "card": smi, **record})
+    return {"launches": {k: launches[k] + l_traced[k] for k in launches}}
+
+
+def plot_metrics(torch, batches: list, device: str) -> dict:
+    """The plotted data of every plot surface, for metrics on ``device`` fed ``batches``."""
+    import numpy as np
+
+    from metrics_tpu_torch import classification as clf
+    from metrics_tpu_torch.core import MetricCollection
+
+    c = PLOT["classes"]
+    on = [{k: v.to(device) for k, v in b.items()} for b in batches]
+    acc = clf.MulticlassAccuracy(c, device=device)
+    per_class = clf.MulticlassAccuracy(c, average=None, device=device)
+    coll = MetricCollection([clf.BinaryAccuracy(device=device), clf.BinaryPrecision(device=device),
+                             clf.BinaryRecall(device=device)])
+    roc = clf.BinaryROC(device=device)
+    auroc = clf.BinaryAUROC(device=device)
+    prc = clf.MulticlassPrecisionRecallCurve(c, device=device)
+    confmat = clf.MulticlassConfusionMatrix(c, device=device)
+    calibration = clf.BinaryCalibrationError(n_bins=PLOT["n_bins"], device=device)
+    series = []
+    for b in on:
+        acc.update(b["probs"], b["labels"])
+        series.append(per_class(b["probs"], b["labels"]))
+        coll.update(b["scores"], b["binary"])
+        roc.update(b["scores"], b["binary"])
+        auroc.update(b["scores"], b["binary"])
+        prc.update(b["probs"], b["labels"])
+        confmat.update(b["probs"], b["labels"])
+        calibration.update(b["scores"], b["binary"])
+    return {
+        "scalar": plotted(np, acc.plot()),
+        "per_class": plotted(np, per_class.plot()),
+        "series": plotted(np, per_class.plot(series)),
+        "collection": plotted(np, coll.plot()),
+        "together": plotted(np, coll.plot(together=True)),
+        "binary_roc": plotted(np, roc.plot()),
+        "binary_auroc": plotted(np, auroc.plot()),
+        "multiclass_pr_curve": plotted(np, prc.plot()),
+        "confusion_matrix": plotted(np, confmat.plot()),
+        "reliability": plotted(np, calibration.plot_reliability_diagram()),
+    }
+
+
+def plot_batches(torch, seed: int) -> list:
+    g = torch.Generator(device="cuda").manual_seed(seed + 67)
+    rows, c = PLOT["rows"], PLOT["classes"]
+    out = []
+    for _ in range(PLOT["batches"]):
+        out.append({"probs": torch.randn(rows, c, generator=g, device="cuda").softmax(-1),
+                    "labels": torch.randint(0, c, (rows,), generator=g, device="cuda"),
+                    "scores": torch.rand(rows, generator=g, device="cuda"),
+                    "binary": torch.randint(0, 2, (rows,), generator=g, device="cuda")})
+    return out
+
+
+def cc_plots(torch, seed: int, smi: str) -> dict:
+    """Every plot surface on card metrics, its data equal to the same metrics' on the CPU."""
+    import numpy as np
+
+    batches = plot_batches(torch, seed)
+    with plot_backend(np) as backend:
+        card, launches, seconds = run_counted(torch, lambda: plot_metrics(torch, batches, "cuda"))
+        cpu = plot_metrics(torch, batches, "cpu")
+    errors = {name: plot_err(np, name, card[name], cpu[name]) for name in card}
+    # per batch: one histogram launch for each macro and per-class accuracy update (a
+    # forward updates once) and confusion-matrix update; at the plots' computes, the
+    # exact AUROC's one scan (the exact ROC and PR curves sum with torch.cumsum)
+    want = {k: 0 for k in KERNEL_WRAPPERS}
+    want["histogram"] = 3 * PLOT["batches"]
+    want["segment_scan"] = 1
+    if launches != want:
+        raise AssertionError(f"plots: launches {launches}, predicted {want}")
+    record = {"backend": backend, "rows": PLOT["rows"], "classes": PLOT["classes"], "batches": PLOT["batches"],
+              "max_abs_err": errors, "lines": {name: sum(len(a["lines"]) for a in card[name]) for name in card},
+              "seconds": seconds, "launches": launches}
+    emit({"phase": "costcheck_plots", "card": smi, **record})
+    return {"launches": launches}
+
+
+def phase_costcheck_plot(torch, seed: int, smi: str) -> dict:
+    """The launch budget held against every budgeted class's eager updates and the fused
+    canonical collection on the card, a seeded drift, and every plot surface on card
+    metrics against the CPU's. Returns the phase's launches of each kernel."""
+    t0 = time.perf_counter()
+    budget = cc_budget(torch, seed, smi)
+    plots = cc_plots(torch, seed, smi)
+    torch.cuda.empty_cache()
+    launches = {k: budget["launches"][k] + plots["launches"][k] for k in KERNEL_WRAPPERS}
+    emit({"phase": "costcheck_plot", "card": smi, "seconds": time.perf_counter() - t0, "launches": launches})
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -7799,6 +8280,14 @@ def main() -> int:
     kernels[0]["launches"] += obs_launches["histogram"]
     batched["launches"] += obs_launches["histogram_batched"]
     scan["launches"] += obs_launches["segment_scan"]
+    torch.cuda.empty_cache()
+    cc_launches = phase_costcheck_plot(torch, args.seed, smi)
+    mark("costcheck_plot")
+    kernels[0]["launches"] += cc_launches["histogram"]
+    batched["launches"] += cc_launches["histogram_batched"]
+    scan["launches"] += cc_launches["segment_scan"]
+    match["launches"] += cc_launches["greedy_match"]
+    kendall["launches"] += cc_launches["kendall_pairs"]
 
     idle = [k["name"] for k in kernels if k["launches"] < 1]
     if idle:

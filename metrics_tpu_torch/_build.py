@@ -19,6 +19,8 @@ from contextlib import contextmanager
 from pathlib import Path
 from typing import Dict, Iterator, List
 
+from metrics_tpu_torch.obs import registry as _obs
+
 PACKAGE_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
@@ -66,18 +68,41 @@ _LAUNCH_LOCK = threading.Lock()
 _CAPTURE = threading.local()
 
 
+#: per thread: the obs scope that this thread's launches are credited to, if any
+_CREDIT = threading.local()
+
+
 def note_launch(wrapper, n: int = 1) -> None:
     """Count ``n`` launches of ``wrapper``'s kernel, where a wrapper launches and where a
     replay runs what a capture recorded. On a thread inside :func:`capture_tally` they go
     to the capture's tally instead (a captured launch has not run); elsewhere to
     ``wrapper.launches``, under a lock, since several threads launch (a tick thread, the
-    health monitor's flushes on request threads)."""
+    health monitor's flushes on request threads). While the obs gate is on they are also
+    credited, as ``kernel_launches``, to the innermost :func:`crediting` scope of this
+    thread (a metric's eager update, an engine's compiled step), which
+    ``obs/costcheck.py`` holds against the launch budget."""
     tally = getattr(_CAPTURE, "tally", None)
     if tally is not None:
         tally[wrapper] = tally.get(wrapper, 0) + n
         return
     with _LAUNCH_LOCK:
         wrapper.launches += n
+    if _obs._ENABLED:
+        scope = getattr(_CREDIT, "scope", None)
+        if scope is not None:
+            _obs.REGISTRY.inc(scope, "kernel_launches", n)
+
+
+@contextmanager
+def crediting(scope: str) -> Iterator[None]:
+    """Credit this thread's kernel launches inside the block to the obs scope ``scope``
+    (the innermost block wins)."""
+    prev = getattr(_CREDIT, "scope", None)
+    _CREDIT.scope = scope
+    try:
+        yield
+    finally:
+        _CREDIT.scope = prev
 
 
 @contextmanager

@@ -59,6 +59,20 @@ class _CalibrationErrorBase(Metric):
         accuracies = dim_zero_cat(self.accuracies)
         return _ce_compute(confidences, accuracies, self.n_bins, norm=self.norm)
 
+    def plot_reliability_diagram(self, ax: Optional[Any] = None):
+        """Reliability diagram of the accumulated state: each bin's accuracy against its
+        confidence, with the |accuracy - confidence| gaps that the ECE sums. Returns
+        ``(figure, axis)``."""
+        from metrics_tpu_torch.utils.plot import plot_reliability_diagram
+
+        return plot_reliability_diagram(
+            dim_zero_cat(self.confidences),
+            dim_zero_cat(self.accuracies),
+            n_bins=self.n_bins,
+            ax=ax,
+            name=self.__class__.__name__,
+        )
+
 
 class BinaryCalibrationError(_CalibrationErrorBase):
     """Binary expected calibration error (``norm="l1"``), RMS (``"l2"``) or maximum (``"max"``)."""

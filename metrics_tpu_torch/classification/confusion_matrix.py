@@ -29,7 +29,19 @@ from metrics_tpu_torch.utils.data import _count_dtype
 from metrics_tpu_torch.utils.enums import ClassificationTask
 
 
-class BinaryConfusionMatrix(Metric):
+class _ConfusionMatrixPlotMixin:
+    """The heatmap plot of the three confusion-matrix tasks."""
+
+    def plot(self, val=None, ax=None, add_text=True, labels=None):
+        """Heatmap of the confusion matrix (``compute()`` by default). Returns
+        ``(figure, axes)``."""
+        from metrics_tpu_torch.utils.plot import plot_confusion_matrix
+
+        val = val if val is not None else self.compute()
+        return plot_confusion_matrix(val, ax=ax, add_text=add_text, labels=labels)
+
+
+class BinaryConfusionMatrix(_ConfusionMatrixPlotMixin, Metric):
     """2x2 confusion matrix."""
 
     # update-relevant constructor arguments (compute groups)
@@ -66,7 +78,7 @@ class BinaryConfusionMatrix(Metric):
         return _binary_confusion_matrix_compute(self.confmat, self.normalize)
 
 
-class MulticlassConfusionMatrix(Metric):
+class MulticlassConfusionMatrix(_ConfusionMatrixPlotMixin, Metric):
     """C x C confusion matrix; one histogram kernel launch per update on the card."""
 
     # update-relevant constructor arguments (compute groups)
@@ -103,7 +115,7 @@ class MulticlassConfusionMatrix(Metric):
         return _multiclass_confusion_matrix_compute(self.confmat, self.normalize)
 
 
-class MultilabelConfusionMatrix(Metric):
+class MultilabelConfusionMatrix(_ConfusionMatrixPlotMixin, Metric):
     """(L, 2, 2) confusion matrices."""
 
     # update-relevant constructor arguments (compute groups)

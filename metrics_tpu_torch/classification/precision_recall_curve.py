@@ -178,6 +178,24 @@ class _PrecisionRecallCurveBase(Metric):
             return _exact_cat_state(self.preds, self.target)
         return self.confmat
 
+    def plot(self, curve=None, score=None, ax=None):
+        """Plot the precision-recall curve (``compute()`` by default). Returns
+        ``(figure, axis)``.
+
+        A subclass whose value is not a curve (AUROC, AP: a tensor; a fixed point: its
+        ``(value, threshold)``) plots the value as :meth:`Metric.plot` does (the JAX
+        package hands it to the curve plot, which raises).
+        """
+        from metrics_tpu_torch.utils.plot import plot_curve
+
+        curve = curve if curve is not None else self.compute()
+        if isinstance(curve, Tensor) or len(curve) == 2:
+            return Metric.plot(self, curve if isinstance(curve, Tensor) else curve[0], ax)
+        return plot_curve(
+            (curve[1], curve[0], curve[2]), score=score, ax=ax,
+            label_names=("Recall", "Precision"), name=self.__class__.__name__,
+        )
+
 
 class BinaryPrecisionRecallCurve(_PrecisionRecallCurveBase):
     """Binary precision-recall curve: ``(precision, recall, thresholds)``."""

@@ -19,7 +19,22 @@ from metrics_tpu_torch.functional.classification.roc import (
 from metrics_tpu_torch.utils.enums import ClassificationTask
 
 
-class BinaryROC(BinaryPrecisionRecallCurve):
+class _ROCPlotMixin:
+    """The curve plot of the three ROC tasks (in place of the PR curve's)."""
+
+    def plot(self, curve=None, score=None, ax=None):
+        """Plot the ROC curve (``compute()`` by default). Returns ``(figure, axis)``."""
+        from metrics_tpu_torch.utils.plot import plot_curve
+
+        curve = curve if curve is not None else self.compute()
+        return plot_curve(
+            curve, score=score, ax=ax,
+            label_names=("False positive rate", "True positive rate"),
+            name=self.__class__.__name__,
+        )
+
+
+class BinaryROC(_ROCPlotMixin, BinaryPrecisionRecallCurve):
     """Binary ROC: ``(fpr, tpr, thresholds)``."""
 
     is_differentiable: bool = False
@@ -30,7 +45,7 @@ class BinaryROC(BinaryPrecisionRecallCurve):
         return _binary_roc_compute(self._curve_state(), self.thresholds)
 
 
-class MulticlassROC(MulticlassPrecisionRecallCurve):
+class MulticlassROC(_ROCPlotMixin, MulticlassPrecisionRecallCurve):
     """Multiclass ROC, one-vs-rest per class."""
 
     is_differentiable: bool = False
@@ -41,7 +56,7 @@ class MulticlassROC(MulticlassPrecisionRecallCurve):
         return _multiclass_roc_compute(self._curve_state(), self.num_classes, self.thresholds)
 
 
-class MultilabelROC(MultilabelPrecisionRecallCurve):
+class MultilabelROC(_ROCPlotMixin, MultilabelPrecisionRecallCurve):
     """Multilabel ROC, one per label."""
 
     is_differentiable: bool = False

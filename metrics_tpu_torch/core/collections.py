@@ -26,7 +26,7 @@ group that can fuse. The pure tier (``init_state``, ``local_update``,
 :mod:`~metrics_tpu_torch.ckpt`: each compute group's state is saved once, from its
 leader (a fused leader's captured step buffers), and restore aliases the members to
 their leader again; a fused collection's next replay copies the restored states into
-its buffers. Not ported: ``plot`` raises ``NotImplementedError``.
+its buffers. ``plot`` draws each member's value (:mod:`~metrics_tpu_torch.utils.plot`).
 
 With obs on, ``update``, ``forward`` and ``compute`` run in ``tm.collection.update``,
 ``tm.collection.forward`` and ``tm.collection.compute`` ranges
@@ -529,7 +529,38 @@ class MetricCollection(nn.ModuleDict):
         return restore_checkpoint(self, directory, step=step, **kwargs)
 
     def plot(self, val: Any = None, ax: Any = None, together: bool = False) -> Any:
-        raise NotImplementedError("MetricCollection.plot is not ported")
+        """Plot every metric of the collection: ``val`` is a dict of results (or a list
+        of them, a series over steps), ``compute()`` by default; ``ax`` one axis
+        (``together=True``) or one axis a metric. Returns a list of ``(figure, axis)``,
+        one a metric, or one ``(figure, axis)`` when ``together``."""
+        from metrics_tpu_torch.utils.plot import plot_single_or_multi_val
+
+        if not isinstance(together, bool):
+            raise ValueError(f"Expected argument `together` to be a boolean, but got {together}")
+        if ax is not None:
+            if together and not hasattr(ax, "plot"):
+                raise ValueError("Expected argument `ax` to be a matplotlib axis when `together=True`")
+            if not together and hasattr(ax, "flatten"):
+                ax = list(ax.flatten())  # the ndarray that plt.subplots returns
+            if not together and (not isinstance(ax, (list, tuple)) or len(ax) != len(self)):
+                raise ValueError(
+                    "Expected argument `ax` to be a sequence of matplotlib axis objects with the same length as the "
+                    f"number of metrics in the collection, but got {type(ax)} with len"
+                    f" {len(ax) if isinstance(ax, (list, tuple)) else 'n/a'}"
+                )
+        val = val if val is not None else self.compute()
+        if together:
+            return plot_single_or_multi_val(val, ax=ax)
+        fig_axs = []
+        for i, (k, m) in enumerate(self.items()):
+            if isinstance(val, dict) and k in val:
+                f_a = m.plot(val[k], ax=ax[i] if ax is not None else None)
+            elif isinstance(val, (list, tuple)):
+                f_a = m.plot([v[k] for v in val], ax=ax[i] if ax is not None else None)
+            else:
+                f_a = m.plot(None, ax=ax[i] if ax is not None else None)
+            fig_axs.append(f_a)
+        return fig_axs
 
     # ------------------------------------------------------------------ admin
 

@@ -494,7 +494,8 @@ class StepCache:
                 compiled = compile_step(make_step(), states, extras)
                 self.last_compile_us = (time.perf_counter() - t0) * 1e6
                 _count_compiled()
-            out = compiled(states, extras)
+            with _build.crediting(self.site) if _obs._ENABLED else nullcontext():
+                out = compiled(states, extras)
         except Exception as err:  # noqa: BLE001 - the caller's eager path is always correct
             if first and raise_first:
                 raise

@@ -52,14 +52,19 @@ raises; array-likes that are not tensors are copied to the metric's device.
 Observability: with the obs gate on, a wrapped update counts ``updates`` and
 ``dispatches``, is fingerprinted by the retrace detector
 (:mod:`~metrics_tpu_torch.obs.recompile`) and runs in a ``tm.update/<Metric>`` range
-(:mod:`~metrics_tpu_torch.obs.scopes`), and a compute counts ``computes`` in a
+(:mod:`~metrics_tpu_torch.obs.scopes`), where its hand-kernel launches count as its
+``kernel_launches`` (which :func:`~metrics_tpu_torch.obs.crosscheck` holds against the
+launch budget stamped on the card), and a compute counts ``computes`` in a
 ``tm.compute/<Metric>`` range; an update inside an engine's step (a capture, or its
 eager run on the CPU) records nothing. The flight recorder (:mod:`~metrics_tpu_torch.obs.flight`) gets a
 ``dispatch`` event a wrapped update (with the covering flow's id while
 :mod:`~metrics_tpu_torch.obs.flow` traces), a ``merge`` event a ``merge_state`` and a
 ``nonfinite_inputs`` event a quarantine that counted rows; ``state_report()`` gives the
-states' dtypes, shapes, bytes and devices. Not ported: the cost cross-check
-(``obs/costcheck.py``).
+states' dtypes, shapes, bytes and devices.
+
+Plots: ``plot()`` draws the computed value (or the given ones) with matplotlib
+(:mod:`~metrics_tpu_torch.utils.plot`), with the class's bounds, legend name and
+``higher_is_better``.
 """
 import functools
 import inspect
@@ -73,6 +78,7 @@ import numpy as np
 import torch
 from torch import Tensor, nn
 
+from metrics_tpu_torch import _build
 from metrics_tpu_torch.core.state import CatBuffer, cat_merge
 from metrics_tpu_torch.fault import inject as _fault
 from metrics_tpu_torch.fault.inject import PoisonedInputError
@@ -562,7 +568,7 @@ class Metric(nn.Module, ABC):
                     cur = _obs_flow.current() if _obs_flow._TRACER is not None else None
                     _obs_flight.record_dispatch(name, args, kwargs, flow_id=None if cur is None else cur.flow_id)
                 _obs_recompile.check_update(self, args, kwargs)
-                with _obs_scopes.update_scope(name):
+                with _obs_scopes.update_scope(name), _build.crediting(name):
                     run()
             else:
                 run()
@@ -984,6 +990,25 @@ class Metric(nn.Module, ABC):
 
     def extra_repr(self) -> str:
         return f"device={self._device}"
+
+    def plot(self, val: Any = None, ax: Any = None) -> Any:
+        """Plot a value of the metric, or a list of them (a series over steps);
+        ``compute()`` by default. Returns ``(figure, axis)``."""
+        return self._plot(val, ax)
+
+    def _plot(self, val: Any = None, ax: Any = None) -> Any:
+        from metrics_tpu_torch.utils.plot import plot_single_or_multi_val
+
+        val = val if val is not None else self.compute()
+        return plot_single_or_multi_val(
+            val,
+            ax=ax,
+            higher_is_better=self.higher_is_better,
+            name=self.__class__.__name__,
+            lower_bound=self.plot_lower_bound,
+            upper_bound=self.plot_upper_bound,
+            legend_name=self.plot_legend_name,
+        )
 
     def state_report(self) -> Dict[str, Any]:
         """One row a registered state: dtype, shape, nbytes, device, and for a

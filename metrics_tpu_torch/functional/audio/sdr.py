@@ -3,7 +3,8 @@
 SDR solves for the optimal length-``filter_length`` distortion filter that projects
 ``preds`` onto the shifted copies of ``target``: an FFT auto- and cross-correlation
 (``torch.fft.rfft``/``irfft``), the symmetric Toeplitz matrix built by an ``|i - j|``
-gather, and a batched ``torch.linalg.solve``. It computes in float64 on the inputs'
+gather, and a ``torch.linalg.solve`` (batched on the card, one matrix at a time on the
+CPU: see :func:`_solve`). It computes in float64 on the inputs'
 device whatever their dtype, as the reference torchmetrics does (the JAX package
 computes in float32 unless x64 is on), and returns the input dtype. The coherence is
 clamped below 1, so a perfect estimate reads 156.5 dB and not NaN.
@@ -24,6 +25,21 @@ def _symmetric_toeplitz(vector: Tensor) -> Tensor:
     n = vector.shape[-1]
     idx = torch.arange(n, device=vector.device)
     return vector[..., (idx[:, None] - idx[None, :]).abs()]
+
+
+def _solve(r: Tensor, b: Tensor) -> Tensor:
+    """``torch.linalg.solve(r, b[..., None])[..., 0]``, one matrix at a time on the CPU.
+
+    After any ``torch.set_num_threads(n)`` with ``n > 1`` in the process, the MKL build's
+    batched LU of float64 matrices of a few hundred rows spins forever in ``DLASWP``
+    ("Parameter 6 was incorrect"); factoring one matrix a call does not. The loop is
+    over the batch rows (mixtures times speakers), each an O(L^3) factorisation.
+    """
+    if r.device.type != "cpu":
+        return torch.linalg.solve(r, b[..., None])[..., 0]
+    n = r.shape[-1]
+    flat_r, flat_b = r.reshape(-1, n, n), b.reshape(-1, n)
+    return torch.stack([torch.linalg.solve(flat_r[i], flat_b[i]) for i in range(flat_r.shape[0])]).reshape(b.shape)
 
 
 def _compute_autocorr_crosscorr(target: Tensor, preds: Tensor, corr_len: int):
@@ -71,7 +87,7 @@ def signal_distortion_ratio(
         r_0[..., 0] += load_diag
 
     r = _symmetric_toeplitz(r_0)
-    sol = torch.linalg.solve(r, b[..., None])[..., 0]
+    sol = _solve(r, b)
 
     coh = torch.einsum("...l,...l->...", b, sol)
     # A perfect or scaled estimate has coh = 1, which rounding can leave at or just

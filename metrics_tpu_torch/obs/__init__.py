@@ -24,18 +24,19 @@ health sketches, flow tracing, series, the exports and cross-host aggregation
     obs.aggregate.fleet_snapshot()       # cross-host merge (sketch-exact p99s)
     metric.state_report()                # dtype, shape, bytes, device a state
 
+    obs.crosscheck()                     # measured kernel launches vs launch_budget.json
+
 Off by default: each instrumented path checks one module attribute
 (``registry._ENABLED``, then ``flight._RING``, ``health._MONITOR`` or
 ``flow._TRACER``), and nothing is allocated before the surface's own ``enable()``.
-Not ported yet: the cost cross-check (``obs/costcheck.py``: ``costcheck``,
-``crosscheck``, ``CostDriftWarning``).
 """
 # import order: the ``trace`` submodule binds into the package first; the
 # ``from ...scopes import trace`` below then rebinds ``obs.trace`` to the profiler
 # capture (the public name, as in the JAX package). The exporter stays reachable as
 # ``obs.export_chrome_trace`` and as ``metrics_tpu_torch.obs.trace`` by import.
-from metrics_tpu_torch.obs import aggregate, flight, flow, health, prom, recompile, registry, ring, series
+from metrics_tpu_torch.obs import aggregate, costcheck, flight, flow, health, prom, recompile, registry, ring, series
 from metrics_tpu_torch.obs import trace as _trace_export  # noqa: F401
+from metrics_tpu_torch.obs.costcheck import CostDriftWarning, crosscheck
 from metrics_tpu_torch.obs.export import SCHEMA_VERSION, dump_jsonl, validate_snapshot
 from metrics_tpu_torch.obs.export import snapshot as export_snapshot
 from metrics_tpu_torch.obs.flow import export_spans, validate_spans
@@ -63,6 +64,7 @@ def stopwatch(scope: str, name: str = "elapsed"):
 
 
 __all__ = [
+    "CostDriftWarning",
     "REGISTRY",
     "RETRACE_WARN_THRESHOLD",
     "SCHEMA_VERSION",
@@ -76,6 +78,8 @@ __all__ = [
     "chrome_trace_events",
     "collection_summary",
     "compute_scope",
+    "costcheck",
+    "crosscheck",
     "disable",
     "dump_jsonl",
     "enable",

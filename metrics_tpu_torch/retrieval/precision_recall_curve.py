@@ -156,6 +156,20 @@ class RetrievalPrecisionRecallCurve(Metric):
             precision_mean = recall_mean = torch.zeros(max_k, dtype=torch.float32, device=indexes.device)
         return precision_mean, recall_mean, torch.arange(1, max_k + 1, dtype=torch.int32, device=indexes.device)
 
+    def plot(self, curve: Optional[Tuple[Tensor, Tensor, Tensor]] = None, ax: Optional[Any] = None):
+        """Plot the mean precision against recall over the cutoffs k = 1..max_k
+        (``compute()`` by default). Returns ``(figure, axis)``."""
+        from metrics_tpu_torch.utils.plot import plot_curve
+
+        curve = curve if curve is not None else self.compute()
+        precisions, recalls = curve[0], curve[1]
+        return plot_curve(
+            (recalls, precisions, curve[2]),
+            ax=ax,
+            label_names=("Recall", "Precision"),
+            name=self.__class__.__name__,
+        )
+
 
 class RetrievalRecallAtFixedPrecision(RetrievalPrecisionRecallCurve):
     """Largest recall at a minimum precision over the k = 1..max_k curve, with its k.
@@ -202,3 +216,9 @@ class RetrievalRecallAtFixedPrecision(RetrievalPrecisionRecallCurve):
             t.to(precision.device)
             for t in _retrieval_recall_at_fixed_precision(precision, recall, top_k, self.min_precision)
         )
+
+    def plot(self, val: Optional[Any] = None, ax: Optional[Any] = None):
+        """Plot the best recall (the first element of ``compute()``) as
+        :meth:`Metric.plot` does. Returns ``(figure, axis)``."""
+        val = val if val is not None else self.compute()[0]
+        return Metric.plot(self, val, ax)

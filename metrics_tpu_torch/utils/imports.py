@@ -16,3 +16,4 @@ _PYSTOI_AVAILABLE = _module_available("pystoi")
 _NLTK_AVAILABLE = _module_available("nltk")
 _REGEX_AVAILABLE = _module_available("regex")
 _TRANSFORMERS_AVAILABLE = _module_available("transformers")
+_MATPLOTLIB_AVAILABLE = _module_available("matplotlib")

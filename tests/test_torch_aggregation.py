@@ -20,6 +20,7 @@ import metrics_tpu.core.aggregation as ja
 import metrics_tpu_torch.classification as tc
 import metrics_tpu_torch.core.aggregation as ta
 from metrics_tpu_torch.core import CompositionalMetric
+from tests.torch_deadline import deadline  # noqa: F401
 
 AGGREGATORS = ["MaxMetric", "MinMetric", "SumMetric", "CatMetric", "MeanMetric"]
 

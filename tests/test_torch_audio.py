@@ -32,6 +32,7 @@ import metrics_tpu_torch.audio as ta
 import metrics_tpu_torch.functional as tfr
 import metrics_tpu_torch.functional.audio as tf
 from metrics_tpu_torch.utils import imports
+from tests.torch_deadline import deadline  # noqa: F401
 
 
 def signals(seed: int, shape=(2, 400), noise: float = 0.3):

@@ -50,12 +50,14 @@ from metrics_tpu_torch.ckpt import (
 from metrics_tpu_torch.core.metric import Metric
 from metrics_tpu_torch.obs import registry
 from metrics_tpu_torch.serve import active_queues
+from tests.torch_deadline import deadline  # noqa: F401
+from tests.torch_globals import restores_globals  # noqa: F401
 
 CPU = "cpu"
 
 
 @pytest.fixture(autouse=True)
-def _leaves_nothing_behind():
+def _leaves_nothing_behind(restores_globals):
     yield
     ckpt.wait_for_all_saves()
     assert fault.current() is None

@@ -15,6 +15,7 @@ import metrics_tpu.classification as jc
 import metrics_tpu_torch.classification as tc
 from metrics_tpu_torch.convert import load_jax_state
 from metrics_tpu_torch.ops import histogram
+from tests.torch_deadline import deadline  # noqa: F401
 
 C, L = 4, 3
 

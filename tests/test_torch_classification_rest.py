@@ -34,6 +34,7 @@ from metrics_tpu_torch.functional.classification.calibration_error import (
     _ce_compute,
 )
 from metrics_tpu_torch.ops import histogram
+from tests.torch_deadline import deadline  # noqa: F401
 
 C, L, G = 5, 6, 4
 ATOL = 1e-6

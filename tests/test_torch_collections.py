@@ -23,6 +23,7 @@ import metrics_tpu.core.collections as jcol
 import metrics_tpu_torch.classification as tc
 from metrics_tpu_torch.convert import load_jax_state
 from metrics_tpu_torch.core import MeanMetric, MetricCollection
+from tests.torch_deadline import deadline  # noqa: F401
 
 _rng = np.random.RandomState(42)
 _logits = _rng.randn(10, 3, 2).astype(np.float32)
@@ -292,12 +293,19 @@ def test_not_ported_parts_raise(tmp_path):
         fused.update(values)
         eager.update(values)
     assert fused.fused and torch.equal(fused.compute()["MeanMetric"], eager.compute()["MeanMetric"])
-    # checkpoints are ported (tests/test_torch_ckpt.py): a round trip; plot is not
+    # checkpoints are ported (tests/test_torch_ckpt.py): a round trip; so is plot
+    # (tests/test_torch_plot.py): one (figure, axis) a member
     mc = MetricCollection([MeanMetric(device="cpu")])
     mc.update(torch.arange(4.0))
     assert mc.save_checkpoint(str(tmp_path)).committed
     back = MetricCollection([MeanMetric(device="cpu")])
     assert back.restore_checkpoint(str(tmp_path)) == 0
     assert torch.equal(back.compute()["MeanMetric"], mc.compute()["MeanMetric"])
-    with pytest.raises(NotImplementedError):
-        mc.plot()
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    figs = mc.plot()
+    assert len(figs) == 1 and figs[0][1].get_ylabel() == "MeanMetric"
+    plt.close("all")

@@ -24,6 +24,7 @@ from metrics_tpu_torch.convert import load_jax_state
 from metrics_tpu_torch.ops import clf_curve as tcc
 from metrics_tpu_torch.ops import rank as trank
 from metrics_tpu_torch.ops import segment
+from tests.torch_deadline import deadline  # noqa: F401
 
 C, L = 4, 3
 _TINY = np.finfo(np.float32).tiny

@@ -32,6 +32,7 @@ from metrics_tpu_torch.ops import clf_curve as cc
 from metrics_tpu_torch.ops import rank
 from metrics_tpu_torch.ops.segment import segment_multi_scan
 from metrics_tpu_torch.utils.checks import tracing
+from tests.torch_deadline import deadline  # noqa: F401
 
 # the modules, which the packages' functions of the same names hide
 jprc = importlib.import_module("metrics_tpu.functional.classification.precision_recall_curve")

@@ -37,6 +37,7 @@ from metrics_tpu.functional.detection._mean_ap_kernel import _match_groups, _mat
 from metrics_tpu_torch.detection import rle as trle
 from metrics_tpu_torch.functional.detection import _mean_ap_kernel as tk
 from metrics_tpu_torch.ops.greedy_match import _plain_greedy_match, greedy_match, greedy_match_cuda
+from tests.torch_deadline import deadline  # noqa: F401
 
 THRESHOLDS = np.linspace(0.5, 0.95, 10).astype(np.float32)
 AREAS = np.array([[0, 1e10], [0, 32**2], [32**2, 96**2], [96**2, 1e10]], np.float32)

@@ -21,6 +21,7 @@ from metrics_tpu_torch import detection as td
 from metrics_tpu_torch.functional import detection as tfd
 from metrics_tpu_torch.ops import histogram
 from metrics_tpu_torch.ops.greedy_match import KERNEL_MAX_G, _plain_greedy_match, greedy_match_cuda
+from tests.torch_deadline import deadline  # noqa: F401
 
 THRESHOLDS = np.linspace(0.5, 0.95, 10).astype(np.float32)
 AREAS = np.array([[0, 1e10], [0, 32**2], [32**2, 96**2], [96**2, 1e10]], np.float32)

@@ -36,6 +36,8 @@ from metrics_tpu_torch.regression import MeanAbsoluteError, MeanSquaredError
 from metrics_tpu_torch.serve import active_queues
 from metrics_tpu_torch.utils.checks import tracing
 from metrics_tpu_torch.utils.exceptions import MetricsUserWarning
+from tests.torch_deadline import deadline  # noqa: F401
+from tests.torch_globals import restores_globals  # noqa: F401
 
 CPU = "cpu"
 _CLEAN_P, _CLEAN_T = np.array([1.0, 2.0, 3.0], np.float32), np.array([1.0, 3.0, 5.0], np.float32)
@@ -43,7 +45,7 @@ _BAD_P, _BAD_T = np.array([1.0, np.nan, 3.0], np.float32), np.array([1.0, 3.0, n
 
 
 @pytest.fixture(autouse=True)
-def _leaves_nothing_behind():
+def _leaves_nothing_behind(restores_globals):
     _fused._DEGRADE_WARNED.clear()
     yield
     _fused._DEGRADE_WARNED.clear()

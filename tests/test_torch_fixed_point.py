@@ -27,6 +27,7 @@ from metrics_tpu_torch.functional.classification.recall_fixed_precision import _
 from metrics_tpu_torch.functional.classification.specificity_sensitivity import _specificity_at_sensitivity
 from metrics_tpu_torch.ops import segment
 from metrics_tpu_torch.utils.compute import _smallest_f32_at_least, auc
+from tests.torch_deadline import deadline  # noqa: F401
 
 C, L = 4, 3
 # (functional stem, class stem, keyword of the fixed value)

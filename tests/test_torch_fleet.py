@@ -27,6 +27,7 @@ from metrics_tpu_torch.convert import load_jax_state
 from metrics_tpu_torch.core import MaxMetric, MetricCollection
 from metrics_tpu_torch.core.fleet import ROWS_STATE
 from metrics_tpu_torch.utils.exceptions import MetricsUserError
+from tests.torch_deadline import deadline  # noqa: F401
 
 CPU = {"device": "cpu"}
 

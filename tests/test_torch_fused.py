@@ -37,6 +37,7 @@ from metrics_tpu_torch.utils.exceptions import MetricsUserError
 sys.path.insert(0, os.path.join(os.path.dirname(__file__)))
 from unittests.bases import test_contract_sweep as _sweep  # noqa: E402
 from unittests.bases.test_contract_sweep import _FULL, _case_for  # noqa: E402
+from tests.torch_deadline import deadline  # noqa: F401
 
 CPU = "cpu"
 

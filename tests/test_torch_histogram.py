@@ -15,6 +15,7 @@ import torch
 from metrics_tpu.ops import histogram as jax_histogram
 from metrics_tpu_torch.ops import histogram
 from metrics_tpu_torch.utils.data import _bincount, _bincount_weighted
+from tests.torch_deadline import deadline  # noqa: F401
 
 BINS = [1, 5, 25, 361, 2048]
 SIZES = [100, (1 << 15) + 17]

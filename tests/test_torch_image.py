@@ -19,6 +19,7 @@ import torch
 import metrics_tpu.functional.image as jfi
 import metrics_tpu_torch.functional.image as tfi
 from tests.torch_image_helpers import ABS, REL, assert_angles_close, assert_close, images
+from tests.torch_deadline import deadline  # noqa: F401
 
 # ---------------------------------------------------------------------- SSIM
 

@@ -18,6 +18,7 @@ from metrics_tpu_torch import image as ti
 from metrics_tpu_torch.functional import image as tfi
 from metrics_tpu_torch.functional import pairwise as tp
 from metrics_tpu_torch.models.inception import FeatureExtractorInceptionV3, random_inception_state
+from tests.torch_deadline import deadline  # noqa: F401
 
 TAPS = (64, 192, 768, 2048, "logits_unbiased")
 

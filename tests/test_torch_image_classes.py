@@ -24,6 +24,7 @@ import metrics_tpu_torch.functional.image as tfi
 import metrics_tpu_torch.image as ti
 from metrics_tpu_torch.convert import load_jax_state
 from tests.torch_image_helpers import ABS, REL, assert_angles_close, assert_close, images
+from tests.torch_deadline import deadline  # noqa: F401
 
 # classes whose constructor without arguments raises ModuleNotFoundError in both packages
 # (no weight files), which the shim-warning check does not catch; their root names are

@@ -40,6 +40,7 @@ from metrics_tpu_torch.models.inception import (
     load_inception_feature_extractor,
     random_inception_state,
 )
+from tests.torch_deadline import deadline  # noqa: F401
 
 TAPS = (64, 192, 768, 2048, "logits_unbiased")
 FEATURE_ATOL = 1e-3

@@ -35,12 +35,14 @@ from metrics_tpu_torch.obs import registry
 from metrics_tpu_torch.obs.ring import Ring
 from metrics_tpu_torch.regression import MeanAbsoluteError, MeanSquaredError, SpearmanCorrCoef
 from metrics_tpu_torch.serve import IngestBackpressureError, IngestQueue, active_queues, flush_for, max_queue_depth
+from tests.torch_deadline import deadline  # noqa: F401
+from tests.torch_globals import restores_globals  # noqa: F401
 
 CPU = "cpu"
 
 
 @pytest.fixture(autouse=True)
-def _leaves_nothing_behind():
+def _leaves_nothing_behind(restores_globals):
     _fused._DEGRADE_WARNED.clear()
     yield
     _fused._DEGRADE_WARNED.clear()

@@ -51,6 +51,7 @@
   anything), LPIPS in the image sweep.
 """
 import ast
+import json
 import os
 import pathlib
 import subprocess
@@ -59,6 +60,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from tests.torch_deadline import deadline  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "metrics_tpu_torch"
@@ -132,6 +134,8 @@ REQUIRED_MODULES = (
     # the rest of obs: scopes, retrace detection, flow tracing, the exports, aggregation
     *(f"metrics_tpu_torch.obs.{m}" for m in ("scopes", "recompile", "flow", "trace", "export", "aggregate")),
     *(f"metrics_tpu_torch.serve.{m}" for m in ("excache", "server", "__main__")),
+    # the cost cross-check on its launch budget, and the plots
+    "metrics_tpu_torch.obs.costcheck", "metrics_tpu_torch.obs.canon", "metrics_tpu_torch.utils.plot",
 )
 
 
@@ -498,3 +502,18 @@ def test_metrics_server_without_device_raises_when_cuda_is_absent(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         health.enable()
     assert active_servers() == [] and active_queues() == [] and not health.active()
+
+
+def test_launch_budget_is_the_ports_own_file():
+    from metrics_tpu_torch.obs import costcheck
+
+    path = pathlib.Path(costcheck.default_costs_path())
+    assert path == PACKAGE / "obs" / "launch_budget.json"
+    payload = json.loads(path.read_text())
+    # stamped on the card with torch, CUDA and the card's name, not with jax and a backend
+    assert set(payload["stamp"]) == {"torch", "cuda", "device"} and "jax" not in payload and "backend" not in payload
+    assert "H100" in payload["stamp"]["device"] and payload["stamp"]["cuda"]
+    entries = payload["entries"]
+    assert costcheck.FUSED_KEY in entries and entries[costcheck.FUSED_KEY]["replays_per_step"] == 1
+    assert all(set(e) == {"launches_per_update", "kernel_launches_per_update", "cuda_kernels_per_update",
+                          "cuda_copies_per_update"} for k, e in entries.items() if k != costcheck.FUSED_KEY)

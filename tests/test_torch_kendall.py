@@ -16,6 +16,7 @@ import torch
 
 from metrics_tpu_torch.ops import kendall as tk
 from tests.test_torch_regression import _count_cases, jax_pair_counts
+from tests.torch_deadline import deadline  # noqa: F401
 
 TILES = [4, tk.MERGE_TILE]
 #: rows of the length cases: tile - 1, tile, tile + 1, 2^k tile ± 1 at tile 4; the card's tile ± 1

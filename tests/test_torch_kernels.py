@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from metrics_tpu_torch.ops import histogram, segment
+from tests.torch_deadline import deadline  # noqa: F401
 
 
 @pytest.fixture

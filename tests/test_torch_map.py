@@ -36,6 +36,7 @@ from metrics_tpu_torch.ops.greedy_match import greedy_match_cuda
 from tests import torch_detection_ranks as ranks
 from tests.unittests.detection import test_consolidated_and_rle as jcr
 from tests.unittests.detection import test_detection as jtd
+from tests.torch_deadline import deadline  # noqa: F401
 
 ATOL = 1e-6
 DEADLINE_S = 120

@@ -42,6 +42,7 @@ import metrics_tpu_torch.models.clip as t_clip
 import metrics_tpu_torch.models.lpips as t_lpips
 import metrics_tpu_torch.multimodal as tm
 from metrics_tpu_torch.convert import clip_state_from_jax, load_jax_state, lpips_state_from_jax
+from tests.torch_deadline import deadline  # noqa: F401
 
 j_clip_fn = sys.modules["metrics_tpu.functional.multimodal.clip_score"]
 t_clip_fn = sys.modules["metrics_tpu_torch.functional.multimodal.clip_score"]

@@ -35,6 +35,7 @@ import metrics_tpu_torch.functional.text.bert as t_bert_fn
 import metrics_tpu_torch.functional.text.infolm  # noqa: F401
 import metrics_tpu_torch.models.bert as t_bert
 from metrics_tpu_torch.convert import bert_state_from_jax, load_jax_state
+from tests.torch_deadline import deadline  # noqa: F401
 
 j_infolm_fn = sys.modules["metrics_tpu.functional.text.infolm"]
 t_infolm_fn = sys.modules["metrics_tpu_torch.functional.text.infolm"]

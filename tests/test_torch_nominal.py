@@ -37,6 +37,7 @@ from metrics_tpu_torch.convert import load_jax_state
 from metrics_tpu_torch.functional.nominal.utils import _densify_columns
 from metrics_tpu_torch.ops import confmat as ops_confmat
 from metrics_tpu_torch.ops.confmat import pair_confusion_counts
+from tests.torch_deadline import deadline  # noqa: F401
 
 ATOL = 1e-6
 # UCI Adult's categorical columns with "?" counted as a category: workclass, education,

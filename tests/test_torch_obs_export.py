@@ -37,6 +37,8 @@ from metrics_tpu_torch.core import MetricCollection
 from metrics_tpu_torch.obs import aggregate, export, recompile, registry
 from metrics_tpu_torch.regression import MeanAbsoluteError, MeanSquaredError
 from metrics_tpu_torch.serve import IngestQueue
+from tests.torch_deadline import deadline  # noqa: F401
+from tests.torch_globals import restores_globals  # noqa: F401
 
 CPU = "cpu"
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -53,7 +55,7 @@ def _reset():
 
 
 @pytest.fixture(autouse=True)
-def _leaves_nothing_behind():
+def _leaves_nothing_behind(restores_globals):
     _reset()
     yield
     left = fault.current()

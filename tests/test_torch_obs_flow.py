@@ -35,6 +35,8 @@ from metrics_tpu_torch.core import MetricCollection
 from metrics_tpu_torch.obs import flight, flow, health, prom, recompile, registry, scopes
 from metrics_tpu_torch.regression import MeanSquaredError
 from metrics_tpu_torch.serve import IngestQueue, active_queues
+from tests.torch_deadline import deadline  # noqa: F401
+from tests.torch_globals import restores_globals  # noqa: F401
 
 CPU = "cpu"
 WAIT_S = 10.0
@@ -50,7 +52,7 @@ def _reset():
 
 
 @pytest.fixture(autouse=True)
-def _leaves_nothing_behind():
+def _leaves_nothing_behind(restores_globals):
     _reset()
     yield
     ckpt.wait_for_all_saves(timeout_s=60)

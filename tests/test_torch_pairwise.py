@@ -17,6 +17,7 @@ import metrics_tpu.functional.pairwise as jp
 import metrics_tpu_torch.functional.pairwise as tp
 from metrics_tpu_torch.functional.pairwise import helpers
 from metrics_tpu_torch.utils.exceptions import MetricsUserError
+from tests.torch_deadline import deadline  # noqa: F401
 
 REL = 1e-5
 ABS = 1e-6

@@ -22,6 +22,7 @@ import metrics_tpu_torch.detection as td
 import metrics_tpu_torch.functional.detection as tfd
 from metrics_tpu_torch.convert import load_jax_state
 from metrics_tpu_torch.ops import histogram
+from tests.torch_deadline import deadline  # noqa: F401
 
 THINGS, STUFFS = {0, 1, 3}, {6, 7}
 ATOL = 1e-6

@@ -21,6 +21,7 @@ import metrics_tpu_torch.text as tt
 from metrics_tpu_torch.convert import load_jax_state
 from metrics_tpu_torch.core.collections import MetricCollection
 from metrics_tpu_torch.core.fused import engine_for
+from tests.torch_deadline import deadline  # noqa: F401
 
 RTOL = 1e-5
 DTYPES = {"float32": (jnp.float32, torch.float32), "float16": (jnp.float16, torch.float16),

@@ -37,6 +37,7 @@ from metrics_tpu_torch.core.state import CatBuffer
 
 from tests import torch_pure_ranks as pure_ranks
 from tests import torch_sync_ranks as ranks
+from tests.torch_deadline import deadline  # noqa: F401
 
 SEED = 11
 DEADLINE_S = 120

@@ -38,6 +38,7 @@ from metrics_tpu_torch.ops import segment
 from metrics_tpu_torch.ops.rank import average_ranks
 from metrics_tpu_torch.regression.pearson import _final_aggregation
 from metrics_tpu_torch.utils.exceptions import MetricsUserError
+from tests.torch_deadline import deadline  # noqa: F401
 
 N = 40
 C = 3

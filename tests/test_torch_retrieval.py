@@ -32,6 +32,7 @@ from metrics_tpu_torch.functional import retrieval as tf
 from metrics_tpu_torch.ops import segment
 from metrics_tpu_torch.ops.rank import ranked_targets, stable_front_pack
 from metrics_tpu_torch.ops.segment import grouped_retrieval_scores
+from tests.torch_deadline import deadline  # noqa: F401
 
 _j_grouped = jax.jit(j_grouped, static_argnames=("metric", "top_k", "adaptive_k"))
 

@@ -18,6 +18,7 @@ from metrics_tpu.ops.segment import SEGSCAN_BLOCK, force_scan_impl
 from metrics_tpu.ops.segment import segment_multi_scan as jax_scan
 from metrics_tpu_torch.ops import segment
 from metrics_tpu_torch.ops.segment import _plain_multi_scan, segment_multi_scan
+from tests.torch_deadline import deadline  # noqa: F401
 
 _rng = np.random.RandomState(4321)
 _NP_OP = {"sum": np.add, "min": np.minimum, "max": np.maximum}

@@ -58,6 +58,8 @@ from metrics_tpu_torch.serve.server import (
     active_servers,
     load_config,
 )
+from tests.torch_deadline import deadline  # noqa: F401
+from tests.torch_globals import restores_globals  # noqa: F401
 
 CPU = "cpu"
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -72,7 +74,7 @@ def _reset():
 
 
 @pytest.fixture(autouse=True)
-def _leaves_nothing_behind():
+def _leaves_nothing_behind(restores_globals):
     _reset()
     yield
     ckpt.wait_for_all_saves(timeout_s=60)

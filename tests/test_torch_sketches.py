@@ -37,6 +37,7 @@ from metrics_tpu_torch.core.collections import MetricCollection
 from metrics_tpu_torch.ops import sketch as tops
 from metrics_tpu_torch.utils.exceptions import MetricsUserError
 from tests.torch_sketch_helpers import ap_bounds64
+from tests.torch_deadline import deadline  # noqa: F401
 
 CPU = "cpu"
 ATOL = 1e-6

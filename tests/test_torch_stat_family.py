@@ -16,6 +16,7 @@ import metrics_tpu.classification as jc
 import metrics_tpu.functional.classification as jf
 import metrics_tpu_torch.classification as tc
 import metrics_tpu_torch.functional.classification as tf
+from tests.torch_deadline import deadline  # noqa: F401
 
 C, L = 5, 3
 

@@ -13,6 +13,7 @@ import torch
 
 import metrics_tpu.functional.classification as jf
 import metrics_tpu_torch.functional.classification as tf
+from tests.torch_deadline import deadline  # noqa: F401
 # the modules, not the functions of the same name that the packages export
 jax_ss = importlib.import_module("metrics_tpu.functional.classification.stat_scores")
 torch_ss = importlib.import_module("metrics_tpu_torch.functional.classification.stat_scores")

@@ -23,6 +23,7 @@ from metrics_tpu_torch import retrieval as tr
 from metrics_tpu_torch.convert import load_jax_state
 from metrics_tpu_torch.core.state import CatBuffer, cat_merge, cat_values, is_cat_buffer
 from metrics_tpu_torch.utils.exceptions import MetricsUserError
+from tests.torch_deadline import deadline  # noqa: F401
 
 _rng = np.random.RandomState(29)
 

@@ -37,6 +37,7 @@ from metrics_tpu_torch.utils.distributed import _pad_to, _trim_to, gather_all_te
 from metrics_tpu_torch.utils.exceptions import MetricsUserError
 
 from tests import torch_sync_ranks as ranks
+from tests.torch_deadline import deadline  # noqa: F401
 
 SEED = 7
 DEADLINE_S = 150

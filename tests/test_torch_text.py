@@ -42,6 +42,7 @@ import metrics_tpu_torch.text.rouge as t_rouge_cls
 from metrics_tpu.functional.text.helper import _edit_distance as j_edit_distance
 from metrics_tpu_torch.convert import load_jax_state
 from metrics_tpu_torch.functional.text.helper import _edit_distance as t_edit_distance
+from tests.torch_deadline import deadline  # noqa: F401
 
 CPU = {"device": "cpu"}
 ATOL = 1e-6

@@ -34,6 +34,7 @@ from metrics_tpu_torch.ops import clf_curve as tcc
 from metrics_tpu_torch.ops import rank as trank
 from metrics_tpu_torch.utils.checks import tracing
 from tests.torch_sketch_helpers import ap_bounds64, ap_midpoint64, reduce64
+from tests.torch_deadline import deadline  # noqa: F401
 
 CPU = "cpu"
 ATOL = 1e-6

@@ -38,6 +38,7 @@ from metrics_tpu.core.collections import MetricCollection as JaxCollection
 from metrics_tpu.wrappers.bootstrapping import _bootstrap_sampler as jax_bootstrap_sampler
 from metrics_tpu_torch.convert import load_jax_state
 from metrics_tpu_torch.core.collections import MetricCollection
+from tests.torch_deadline import deadline  # noqa: F401
 
 ATOL = 1e-6
 N_BOOT = 4

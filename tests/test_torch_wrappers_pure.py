@@ -34,6 +34,7 @@ from metrics_tpu.utils.exceptions import MetricsUserError as JaxMetricsUserError
 from metrics_tpu_torch.parallel import evaluate_sharded
 from metrics_tpu_torch.utils.exceptions import MetricsUserError
 from metrics_tpu_torch.wrappers.bootstrapping import _indices_from_draws, poisson_cdf
+from tests.torch_deadline import deadline  # noqa: F401
 
 ATOL = 1e-6
 N_BOOT = 5
