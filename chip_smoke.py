@@ -454,6 +454,22 @@ Phases, each printing one JSON line:
       draw through a recording stand-in of the pyplot calls the port makes
       (``StandInAxes``).
 
+25. analysis: the port's static analyzer (``metrics_tpu_torch/analysis/``) over this
+    checkout's ``metrics_tpu_torch/``:
+    - tmlint with its introspection tier on the card (every root export built on
+      ``cuda``) and tmrace, both clean against ``analysis/tmlint_baseline.json`` (no new
+      finding, no stale waiver, a reason of its own on every waiver); printed: files,
+      functions, trace-reachable functions, findings, waivers and seconds;
+    - the card tier (``san/runner.py``) over every budgeted class: one warm eager update,
+      then one update inside ``tracing()`` under ``torch.cuda.set_sync_debug_mode``; no
+      TMS-LINTGAP (a line that synchronised without a TM-HOSTSYNC finding) and no
+      TMS-STALE-WAIVER (a waived line that ran traced without a sync);
+    - a seeded positive control: a BinaryAccuracy subclass, written under
+      ``build/analysis_seed/``, whose update reads ``.item()`` through ``getattr`` (a line
+      the AST tier cannot see) gives exactly one TMS-LINTGAP, at that line.
+    The histogram launches of the warm and traced updates equal twice the launch
+    budget's by-kernel figures of the budgeted classes. The seed directory is removed.
+
 The last three lines are the ``nvidia-smi`` name and power limit, the kernels JSON
 line and ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
 """
@@ -8170,6 +8186,120 @@ def phase_costcheck_plot(torch, seed: int, smi: str) -> dict:
     return launches
 
 
+ANALYSIS = {"seed_dir": os.path.join("build", "analysis_seed"), "seeded_module": "seeded_host_read"}
+SEEDED_HOST_READ = """\
+from metrics_tpu_torch.classification import BinaryAccuracy
+
+
+class SeededHostRead(BinaryAccuracy):
+    def update(self, preds, target):
+        super().update(preds, target)
+        getattr(preds.sum(), "it" + "em")()  # a host read the AST tier cannot see
+"""
+
+
+def an_static(smi: str, package: str) -> dict:
+    """tmlint (introspecting on the card) and tmrace over the checkout's package, clean
+    against the port's baseline."""
+    from metrics_tpu_torch.analysis import baseline as baseline_mod
+    from metrics_tpu_torch.analysis.race.runner import run_race
+    from metrics_tpu_torch.analysis.runner import analyze
+
+    baseline = os.path.join(package, "analysis", baseline_mod.BASELINE_FILENAME)
+    with open(baseline) as fh:
+        reasons = [w["reason"] for w in json.load(fh)["waivers"]]
+    if len(set(reasons)) != len(reasons) or not all(reasons):
+        raise AssertionError("analysis: every waiver needs a reason of its own")
+    lint = analyze(package, baseline_path=baseline, device="cuda")
+    race = run_race(package, baseline_path=baseline)
+    for name, report in (("tmlint", lint), ("tmrace", race)):
+        if report.exit_code or report.unused_waivers or report.parse_errors:
+            raise AssertionError(f"analysis {name}: new {[f.format() for f in report.new_findings]},"
+                                 f" stale waivers {report.unused_waivers}, parse errors {report.parse_errors}")
+    if lint.stats["trace_reachable"] <= 0:
+        raise AssertionError("analysis tmlint: no trace-reachable function")
+    emit({"phase": "analysis_static", "card": smi, "tmlint": lint.stats, "tmrace": race.stats,
+          "waivers": len(reasons), "not_introspected": len(lint.skipped_classes)})
+    return {"lint": lint, "baseline": baseline}
+
+
+def an_card(torch, seed: int, smi: str, package: str, static: dict) -> dict:
+    """The card tier over every budgeted class: no lint gap, no stale waiver; the
+    histogram launches of the warm and traced updates equal twice the budget's."""
+    from metrics_tpu_torch.analysis.san.runner import run_card
+    from metrics_tpu_torch.obs import costcheck
+
+    report, launches, seconds = run_counted(torch, lambda: run_card(
+        package, baseline_path=static["baseline"], device="cuda", seed=seed, lint=static["lint"]))
+    gaps = [f for f in report.findings if f.rule in ("TMS-LINTGAP", "TMS-STALE-WAIVER")]
+    if gaps or report.new_findings or report.evidence.skipped:
+        raise AssertionError(f"analysis card: {[f.format() for f in gaps or report.new_findings]},"
+                             f" skipped {report.evidence.skipped}")
+    with open(costcheck.default_costs_path()) as fh:
+        budget = json.load(fh)["entries"]
+    want = {k: 0 for k in KERNEL_WRAPPERS}
+    for key in report.evidence.by_case:
+        for kernel, n in budget[key]["launches_per_update"].items():
+            want[kernel] += 2 * n  # the warm eager update and the traced one
+    if launches != want:
+        raise AssertionError(f"analysis card: launches {launches}, predicted from the budget {want}")
+    statuses = [s.split(" ")[0] for s in report.waiver_status.values()]
+    emit({"phase": "analysis_card", "card": smi, **report.stats, "pass_seconds": seconds,
+          "synced": sorted({f"{p}:{ln}" for _, p, ln, _ in report.evidence.synced if p}),
+          "waivers_checked": {s: statuses.count(s) for s in sorted(set(statuses))}, "launches": launches})
+    return launches
+
+
+def an_seeded(torch, seed: int, smi: str) -> dict:
+    """A traced ``.item()`` the AST tier cannot see gives exactly one TMS-LINTGAP, at its line."""
+    import importlib.util
+
+    from metrics_tpu_torch.analysis.runner import analyze
+    from metrics_tpu_torch.analysis.san.runner import run_card
+
+    root = os.path.abspath(ANALYSIS["seed_dir"])
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        path = os.path.join(root, ANALYSIS["seeded_module"] + ".py")
+        with open(path, "w") as fh:
+            fh.write(SEEDED_HOST_READ)
+        line = 1 + SEEDED_HOST_READ.splitlines().index(next(
+            ln for ln in SEEDED_HOST_READ.splitlines() if "getattr(" in ln))
+        spec = importlib.util.spec_from_file_location(ANALYSIS["seeded_module"], path)
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        g = torch.Generator(device="cuda").manual_seed(seed + 71)
+        args = (torch.rand(64, generator=g, device="cuda"),
+                torch.randint(0, 2, (64,), generator=g, device="cuda", dtype=torch.int32))
+        case = ("SeededHostRead.update[canon]", lambda: module.SeededHostRead(device="cuda"), args, {})
+        lint = analyze(path, introspect=False, repo_root=root)
+        report, launches, _ = run_counted(torch, lambda: run_card(
+            path, repo_root=root, device="cuda", cases=[case], lint=lint, roots=[root]))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    got = [(f.rule, f.path, f.line) for f in report.findings]
+    want = [("TMS-LINTGAP", ANALYSIS["seeded_module"] + ".py", line)]
+    if lint.findings or got != want:
+        raise AssertionError(f"analysis seeded: lint {[f.format() for f in lint.findings]}, card {got}, want {want}")
+    emit({"phase": "analysis_seeded", "card": smi, "finding": report.findings[0].format(), "launches": launches})
+    return launches
+
+
+def phase_analysis(torch, seed: int, smi: str) -> dict:
+    """The static analyzer on the checkout, the card's crosscheck over every budgeted
+    class, and the seeded lint gap. Returns the phase's launches of each kernel."""
+    t0 = time.perf_counter()
+    package = os.path.join(os.path.dirname(os.path.abspath(__file__)), "metrics_tpu_torch")
+    static = an_static(smi, package)
+    card = an_card(torch, seed, smi, package, static)
+    seeded = an_seeded(torch, seed, smi)
+    torch.cuda.empty_cache()
+    launches = {k: card[k] + seeded[k] for k in KERNEL_WRAPPERS}
+    emit({"phase": "analysis", "card": smi, "seconds": time.perf_counter() - t0, "launches": launches})
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -8288,6 +8418,14 @@ def main() -> int:
     scan["launches"] += cc_launches["segment_scan"]
     match["launches"] += cc_launches["greedy_match"]
     kendall["launches"] += cc_launches["kendall_pairs"]
+    torch.cuda.empty_cache()
+    an_launches = phase_analysis(torch, args.seed, smi)
+    mark("analysis")
+    kernels[0]["launches"] += an_launches["histogram"]
+    batched["launches"] += an_launches["histogram_batched"]
+    scan["launches"] += an_launches["segment_scan"]
+    match["launches"] += an_launches["greedy_match"]
+    kendall["launches"] += an_launches["kendall_pairs"]
 
     idle = [k["name"] for k in kernels if k["launches"] < 1]
     if idle:

@@ -49,7 +49,12 @@ class BaseAggregator(Metric):
         become ``nan_identity``."""
         state = getattr(self, "value", None)
         dtype = state.dtype if isinstance(state, Tensor) and state.is_floating_point() else torch.float32
-        x = self._check_device(x) if isinstance(x, Tensor) else torch.as_tensor(x, device=self._device)
+        if isinstance(x, Tensor):
+            x = self._check_device(x)
+        elif isinstance(x, (bool, int, float)):
+            x = torch.full((), x, device=self._device)  # filled on the device: no host-to-device copy
+        else:
+            x = torch.as_tensor(x, device=self._device)
         x = x.to(dtype)
         if self.nan_strategy in ("error", "warn", "ignore"):
             nans = torch.isnan(x)

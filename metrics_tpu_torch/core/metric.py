@@ -175,6 +175,10 @@ class Metric(nn.Module, ABC):
     # update's inputs are host data (strings, dicts: the text metrics): the update
     # wrapper passes them on as they are, and the engines keep the class eager
     _host_side_update: bool = False
+    # only compute reads the host (a flag to warn on, host draws, ragged curves): a
+    # fused forward keeps the class eager, and tmlint (analysis/) does not take its
+    # compute for a trace entry; update stays traced
+    _host_side_compute: bool = False
 
     def __init__(self, **kwargs: Any) -> None:
         super().__init__()
@@ -811,6 +815,8 @@ class Metric(nn.Module, ABC):
             return
 
         self._cache = {attr: getattr(self, attr) for attr in self._defaults}
+        if _obs._ENABLED:
+            _obs.REGISTRY.inc(type(self).__name__, "syncs")
         self._sync_dist(dist_sync_fn or gather_all_tensors, process_group=process_group or self.process_group)
         self._is_synced = True
 

@@ -16,15 +16,23 @@ from metrics_tpu_torch.utils.data import to_tensor
 
 _EXHAUSTIVE_SPK_LIMIT = 8
 
-# permutation tables by speaker count, kept on the host
+# permutation tables by speaker count, kept on the host, and their copies by device
 _ps_cache: Dict[int, np.ndarray] = {}
+_ps_device_cache: Dict[Tuple[int, str], Tensor] = {}
 
 
 def _perm_table(spk_num: int, device: torch.device) -> Tensor:
-    """All permutations of ``spk_num`` speakers as an ``(spk!, spk)`` int64 tensor."""
-    if spk_num not in _ps_cache:
-        _ps_cache[spk_num] = np.asarray(list(permutations(range(spk_num))), np.int64)
-    return torch.as_tensor(_ps_cache[spk_num], device=device)
+    """All permutations of ``spk_num`` speakers as an ``(spk!, spk)`` int64 tensor.
+
+    Copied to ``device`` once, at its first use (an eager update): a host-to-device
+    copy synchronises, and a later captured step reuses the copy."""
+    key = (spk_num, str(torch.device(device)))
+    table = _ps_device_cache.get(key)
+    if table is None:
+        if spk_num not in _ps_cache:
+            _ps_cache[spk_num] = np.asarray(list(permutations(range(spk_num))), np.int64)
+        table = _ps_device_cache[key] = torch.as_tensor(_ps_cache[spk_num], device=device)
+    return table
 
 
 def _find_best_perm_by_exhaustive_method(metric_mtx: Tensor, larger_is_better: bool) -> Tuple[Tensor, Tensor]:

@@ -30,16 +30,21 @@ def _symmetric_toeplitz(vector: Tensor) -> Tensor:
 def _solve(r: Tensor, b: Tensor) -> Tensor:
     """``torch.linalg.solve(r, b[..., None])[..., 0]``, one matrix at a time on the CPU.
 
+    ``solve_ex`` leaves its singularity check to the caller: ``torch.linalg.solve``
+    reads it on the host, a sync that a captured step refuses (a singular system
+    gives non-finite values, as ``jnp.linalg.solve`` does).
+
     After any ``torch.set_num_threads(n)`` with ``n > 1`` in the process, the MKL build's
     batched LU of float64 matrices of a few hundred rows spins forever in ``DLASWP``
     ("Parameter 6 was incorrect"); factoring one matrix a call does not. The loop is
     over the batch rows (mixtures times speakers), each an O(L^3) factorisation.
     """
     if r.device.type != "cpu":
-        return torch.linalg.solve(r, b[..., None])[..., 0]
+        return torch.linalg.solve_ex(r, b[..., None])[0][..., 0]
     n = r.shape[-1]
     flat_r, flat_b = r.reshape(-1, n, n), b.reshape(-1, n)
-    return torch.stack([torch.linalg.solve(flat_r[i], flat_b[i]) for i in range(flat_r.shape[0])]).reshape(b.shape)
+    return torch.stack([torch.linalg.solve_ex(flat_r[i], flat_b[i])[0] for i in range(flat_r.shape[0])]).reshape(
+        b.shape)
 
 
 def _compute_autocorr_crosscorr(target: Tensor, preds: Tensor, corr_len: int):

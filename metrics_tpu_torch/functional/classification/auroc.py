@@ -105,7 +105,7 @@ def _binary_auroc_compute(
     fpr, tpr, _ = _binary_roc_compute(state, thresholds, pos_label)
     if max_fpr is None or max_fpr == 1:
         return _auc_compute_without_check(fpr, tpr, 1.0)
-    max_area = torch.tensor(max_fpr, dtype=torch.float32, device=fpr.device)
+    max_area = torch.full((), max_fpr, dtype=torch.float32, device=fpr.device)
     return mcclish_partial_auc(fpr, tpr, max_area)
 
 

@@ -31,7 +31,7 @@ def _multiclass_exact_match_update(
         preds = torch.where(target == ignore_index, ignore_index, preds)
     correct = (preds == target).sum(dim=1) == preds.shape[1]
     correct = correct if multidim_average == "samplewise" else correct.sum()
-    total = torch.tensor(preds.shape[0] if multidim_average == "global" else 1, device=preds.device)
+    total = torch.full((), preds.shape[0] if multidim_average == "global" else 1, device=preds.device)
     return correct, total
 
 
@@ -42,7 +42,7 @@ def _multilabel_exact_match_update(
         preds = torch.movedim(preds, 1, -1).reshape(-1, num_labels)
         target = torch.movedim(target, 1, -1).reshape(-1, num_labels)
     correct = ((preds == target).sum(dim=1) == num_labels).sum(dim=-1)
-    total = torch.tensor(preds.shape[0 if multidim_average == "global" else 2], device=preds.device)
+    total = torch.full((), preds.shape[0 if multidim_average == "global" else 2], device=preds.device)
     return correct, total
 
 

@@ -27,14 +27,14 @@ def _psnr_update(preds: Tensor, target: Tensor, dim=None) -> Tuple[Tensor, Tenso
     target = target.to(torch.float32)
     if dim is None:
         sum_squared_error = torch.sum((preds - target) ** 2)
-        return sum_squared_error, torch.tensor(target.numel(), device=target.device)
+        return sum_squared_error, torch.full((), target.numel(), device=target.device)
     diff = preds - target
     sum_squared_error = torch.sum(diff * diff, dim=dim)
     dim_list = [dim] if isinstance(dim, int) else list(dim)
     n_obs = 1
     for d in dim_list:
         n_obs *= target.shape[d]
-    return sum_squared_error, torch.tensor(n_obs, device=target.device)
+    return sum_squared_error, torch.full((), n_obs, device=target.device)
 
 
 def peak_signal_noise_ratio(

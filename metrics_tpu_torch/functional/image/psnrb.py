@@ -1,12 +1,12 @@
 """PSNR with the blocking effect factor (counterpart of ``metrics_tpu/functional/image/psnrb.py``).
 
 The block-boundary and interior column and row indices depend on the image shape
-and block size only, so they are built on the host with numpy.
+and block size only; they are made on the device with ``torch.arange`` (a copy from
+the host would synchronise, which a captured step refuses).
 """
 import math
 from typing import Tuple
 
-import numpy as np
 import torch
 from torch import Tensor
 
@@ -19,18 +19,24 @@ def _compute_bef(x: Tensor, block_size: int = 8) -> Tensor:
     if channels > 1:
         raise ValueError(f"`psnrb` metric expects grayscale images, but got images with {channels} channels.")
 
-    def index(values: np.ndarray) -> Tensor:
-        return torch.as_tensor(values, dtype=torch.int64, device=x.device)
+    def boundaries(size: int) -> Tuple[Tensor, Tensor]:
+        """The block-boundary positions ``[block_size - 1, size - 1)`` in steps of
+        ``block_size``, and the other positions of ``[0, size - 1)`` in order, made on
+        the device (a host-to-device copy would synchronise)."""
+        on = torch.arange(block_size - 1, max(size - 1, block_size - 1), block_size, device=x.device)
+        n_off = max(size - 1, 0) - on.numel()
+        j = torch.arange(n_off, device=x.device)
+        # skip every block_size-th position: the j-th other one is j + j // (block_size - 1)
+        off = j + j // (block_size - 1) if block_size > 1 else j
+        return on, off
 
-    h_b = np.arange(block_size - 1, width - 1, block_size)
-    h_bc = np.setdiff1d(np.arange(width - 1), h_b)
-    v_b = np.arange(block_size - 1, height - 1, block_size)
-    v_bc = np.setdiff1d(np.arange(height - 1), v_b)
+    h_b, h_bc = boundaries(width)
+    v_b, v_bc = boundaries(height)
 
-    d_b = torch.sum((x[:, :, :, index(h_b)] - x[:, :, :, index(h_b + 1)]) ** 2)
-    d_bc = torch.sum((x[:, :, :, index(h_bc)] - x[:, :, :, index(h_bc + 1)]) ** 2)
-    d_b = d_b + torch.sum((x[:, :, index(v_b), :] - x[:, :, index(v_b + 1), :]) ** 2)
-    d_bc = d_bc + torch.sum((x[:, :, index(v_bc), :] - x[:, :, index(v_bc + 1), :]) ** 2)
+    d_b = torch.sum((x[:, :, :, h_b] - x[:, :, :, h_b + 1]) ** 2)
+    d_bc = torch.sum((x[:, :, :, h_bc] - x[:, :, :, h_bc + 1]) ** 2)
+    d_b = d_b + torch.sum((x[:, :, v_b, :] - x[:, :, v_b + 1, :]) ** 2)
+    d_bc = d_bc + torch.sum((x[:, :, v_bc, :] - x[:, :, v_bc + 1, :]) ** 2)
 
     n_hb = height * (width / block_size) - 1
     n_hbc = (height * (width - 1)) - n_hb
@@ -44,7 +50,7 @@ def _compute_bef(x: Tensor, block_size: int = 8) -> Tensor:
 
 def _psnrb_update(preds: Tensor, target: Tensor, block_size: int = 8) -> Tuple[Tensor, Tensor, Tensor]:
     sum_squared_error = torch.sum((preds - target) ** 2)
-    n_obs = torch.tensor(target.numel(), device=target.device)
+    n_obs = torch.full((), target.numel(), device=target.device)
     bef = _compute_bef(preds, block_size=block_size)
     return sum_squared_error, bef, n_obs
 

@@ -233,7 +233,9 @@ def _multiscale_ssim_update(
     if normalize == "simple":
         mcs_stack = (mcs_stack + 1) / 2
 
-    betas_arr = torch.tensor(betas, dtype=mcs_stack.dtype, device=mcs_stack.device).reshape(-1, 1)
+    # filled on the device, not copied from the host: a captured step may run this
+    betas_arr = torch.stack([torch.full((), b, dtype=mcs_stack.dtype, device=mcs_stack.device) for b in betas])
+    betas_arr = betas_arr.reshape(-1, 1)
     mcs_weighted = mcs_stack**betas_arr
     return torch.prod(mcs_weighted, dim=0)
 

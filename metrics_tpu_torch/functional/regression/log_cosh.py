@@ -22,7 +22,7 @@ def _log_cosh_error_update(preds: Tensor, target: Tensor, num_outputs: int) -> T
     # numerically stable log cosh: |d| + log1p(exp(-2|d|)) - log 2
     abs_diff = torch.abs(diff)
     sum_log_cosh_error = torch.squeeze((abs_diff + torch.log1p(torch.exp(-2 * abs_diff)) - math.log(2.0)).sum(0))
-    return sum_log_cosh_error, torch.tensor(target.shape[0], device=target.device)
+    return sum_log_cosh_error, torch.full((), target.shape[0], device=target.device)
 
 
 def _log_cosh_error_compute(sum_log_cosh_error: Tensor, n_obs: Tensor) -> Tensor:

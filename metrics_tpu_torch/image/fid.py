@@ -48,7 +48,9 @@ def _extract(metric: Metric, imgs: Tensor) -> Tensor:
     """``metric.inception``'s features of ``imgs`` (scaled to uint8 first under ``normalize``)."""
     imgs = (imgs * 255).to(torch.uint8) if metric.normalize else imgs
     features = metric.inception(imgs)
-    return features if isinstance(features, Tensor) else torch.as_tensor(features, device=metric.device)
+    if not isinstance(features, Tensor):  # a user extractor's host array
+        features = torch.as_tensor(features, device=metric.device)
+    return features
 
 
 class FrechetInceptionDistance(Metric):
@@ -112,7 +114,7 @@ class FrechetInceptionDistance(Metric):
             self._init_states(features.shape[1])
 
         features = features.to(self.real_mean.dtype)
-        nb = torch.tensor(float(features.shape[0]), dtype=features.dtype, device=features.device)
+        nb = torch.full((), float(features.shape[0]), dtype=features.dtype, device=features.device)
         b_mean = features.mean(0)
         centered = features - b_mean
         with fp32_exact():

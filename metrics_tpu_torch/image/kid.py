@@ -76,6 +76,8 @@ class KernelInceptionDistance(Metric):
     higher_is_better: bool = False
     is_differentiable: bool = False
     full_state_update: bool = False
+    # compute subsamples with host draws, numpy permutations (the JAX class declares it too)
+    _host_side_compute = True
 
     def __init__(
         self,

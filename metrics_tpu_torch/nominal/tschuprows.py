@@ -17,6 +17,8 @@ class TschuprowsT(Metric):
     """
 
     full_state_update: bool = False
+    # compute reads one flag on the host to warn where bias correction fails (the JAX class declares it too)
+    _host_side_compute = True
     is_differentiable: bool = False
     higher_is_better: bool = True
     plot_lower_bound: float = 0.0

@@ -318,7 +318,7 @@ def binary_auroc_exact(
     with _rank.rank_scope(tier):
         if full:
             return _binary_auroc_kernel(preds, target, valid, None, tier)
-        bound = torch.tensor(max_fpr, dtype=torch.float32, device=preds.device)
+        bound = torch.full((), max_fpr, dtype=torch.float32, device=preds.device)
         return _binary_auroc_kernel(preds, target, valid, bound, tier)
 
 

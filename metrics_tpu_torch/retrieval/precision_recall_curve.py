@@ -64,6 +64,8 @@ class RetrievalPrecisionRecallCurve(Metric):
     is_differentiable: bool = False
     higher_is_better: bool = True
     full_state_update: bool = False
+    # curve-valued compute: per-query top-k curves are assembled with host reads (the JAX class declares it too)
+    _host_side_compute = True
 
     def __init__(
         self,

@@ -112,11 +112,13 @@ class QuantileSketch(SketchMetric):
             edge[_POS_UNDER:_POS_UNDER + 1], self.pos_buckets, edge[_POS_OVER:_POS_OVER + 1],
         ])
         half_min = 0.5 * self.min_value
-        values = torch.cat([
-            torch.tensor([-self.max_value], dtype=torch.float32, device=device), -torch.flip(est, [0]),
-            torch.tensor([-half_min, 0.0, half_min], dtype=torch.float32, device=device), est,
-            torch.tensor([self.max_value], dtype=torch.float32, device=device),
-        ])
+        # the constants are filled on the device (a copy from the host would synchronise),
+        # in float64 and then rounded to float32 as a float32 tensor of them would be
+        def const(*v: float) -> Tensor:
+            return torch.stack([torch.full((), x, dtype=torch.float64, device=device) for x in v]).to(torch.float32)
+
+        values = torch.cat([const(-self.max_value), -torch.flip(est, [0]), const(-half_min, 0.0, half_min), est,
+                            const(self.max_value)])
         one, zero = torch.ones(1, dtype=torch.bool, device=device), torch.zeros(1, dtype=torch.bool, device=device)
         regular = torch.ones(nb, dtype=torch.bool, device=device)
         certified = torch.cat([zero, regular, zero, one, zero, regular, zero])  # exact zeros: error 0
@@ -124,8 +126,8 @@ class QuantileSketch(SketchMetric):
         total = cumulative[-1]
         last = torch.clamp(total - 1, min=0)
         # up to 2^24 values the JAX package's float32 ranks, bit for bit; past it float64
-        q32 = torch.tensor(self.quantiles, dtype=torch.float32, device=device)
-        q64 = torch.tensor(self.quantiles, dtype=torch.float64, device=device)
+        q32 = torch.stack([torch.full((), q, dtype=torch.float32, device=device) for q in self.quantiles])
+        q64 = torch.stack([torch.full((), q, dtype=torch.float64, device=device) for q in self.quantiles])
         ranks = torch.where(
             total <= 1 << 24, torch.floor(q32 * last.to(torch.float32)).to(torch.float64),
             torch.floor(q64 * last.to(torch.float64)),
@@ -136,5 +138,5 @@ class QuantileSketch(SketchMetric):
         return {
             "quantiles": torch.where(nonempty, values[slot], float("nan")),
             "certified": certified[slot] & nonempty,
-            "relative_error": torch.tensor(self.relative_error, dtype=torch.float32, device=device),
+            "relative_error": torch.full((), self.relative_error, dtype=torch.float32, device=device),
         }

@@ -89,8 +89,10 @@ def _check_retrieval_inputs(
     ``CatBuffer`` state. ``ignore_index`` drops the rows whose target equals it.
 
     With ``validate_args`` the value checks read one flag from the device (one host
-    sync per call); ``ignore_index`` filtering has a data-dependent length and syncs
-    too. Without either, the call queues its work and returns.
+    sync per call); in a traced step (:func:`_is_concrete` False) they are skipped, as
+    the JAX package skips them for tracers. ``ignore_index`` filtering has a
+    data-dependent length and syncs too. Without either, the call queues its work and
+    returns.
     """
     if indexes.shape != preds.shape or preds.shape != target.shape:
         raise ValueError("`indexes`, `preds` and `target` must be of the same shape")
@@ -102,13 +104,14 @@ def _check_retrieval_inputs(
     if ignore_index is not None:
         keep = target != ignore_index
         indexes, preds, target = indexes[keep], preds[keep], target[keep]
-    if validate_args:
+    bad_target = False
+    if validate_args and _is_concrete(indexes, preds, target):
         bad_target = torch.zeros_like(bad_index) if allow_non_binary_target else _non_binary(target)
         bad_index, bad_target = torch.stack([bad_index, bad_target]).tolist()
         if bad_index:
             raise ValueError("`indexes` must be non-negative: negative ids are reserved for buffer padding")
     _check_target_dtype(target, allow_non_binary_target)
-    if validate_args and bad_target:
+    if bad_target:
         raise ValueError("`target` must contain `binary` values")
     return indexes.reshape(-1).to(torch.int32), preds.reshape(-1).to(torch.float32), _as_target(target).reshape(-1)
 
