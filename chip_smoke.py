@@ -8186,7 +8186,8 @@ def phase_costcheck_plot(torch, seed: int, smi: str) -> dict:
     return launches
 
 
-ANALYSIS = {"seed_dir": os.path.join("build", "analysis_seed"), "seeded_module": "seeded_host_read"}
+ANALYSIS = {"seed_dir": os.path.join("build", "analysis_seed"), "seeded_module": "seeded_host_read",
+            "seeded_compute": "seeded_compute_read", "stale_module": "stale_read"}
 SEEDED_HOST_READ = """\
 from metrics_tpu_torch.classification import BinaryAccuracy
 
@@ -8195,6 +8196,43 @@ class SeededHostRead(BinaryAccuracy):
     def update(self, preds, target):
         super().update(preds, target)
         getattr(preds.sum(), "it" + "em")()  # a host read the AST tier cannot see
+"""
+
+
+SEEDED_COMPUTE_READ = """\
+from metrics_tpu_torch.classification import BinaryAccuracy
+
+
+class SeededComputeRead(BinaryAccuracy):
+    def compute(self):
+        value = super().compute()
+        getattr(value.sum(), "it" + "em")()  # a host read the AST tier cannot see
+        return value
+"""
+# the TMO-USE-AFTER-DONATE twin: a step buffer read after the step's next replay
+STALE_READ = """\
+import torch
+from metrics_tpu_torch.core.fused import compile_step
+
+
+def secure_pending_snapshots(buffers):
+    return buffers
+
+
+def step(state, x):
+    return {"s": state["s"] + x}, None
+
+
+def launch(x):
+    state = {"s": torch.zeros_like(x)}
+    jitted = compile_step(step, state, [x])
+    secure_pending_snapshots([state])
+    state, _ = jitted(state, [x])
+    before = state
+    kept = state["s"].clone()
+    after, _ = jitted(before, [x])
+    stale = before["s"]
+    return kept, stale, after["s"]
 """
 
 
@@ -8224,8 +8262,11 @@ def an_static(smi: str, package: str) -> dict:
 
 
 def an_card(torch, seed: int, smi: str, package: str, static: dict) -> dict:
-    """The card tier over every budgeted class: no lint gap, no stale waiver; the
-    histogram launches of the warm and traced updates equal twice the budget's."""
+    """The card tier over every budgeted class, its update and (unless host-side) its
+    compute: no lint gap, no stale waiver; the launches of the warm and traced updates
+    equal twice the launch budget's, plus those the traced computes counted apart."""
+    import importlib
+
     from metrics_tpu_torch.analysis.san.runner import run_card
     from metrics_tpu_torch.obs import costcheck
 
@@ -8237,65 +8278,169 @@ def an_card(torch, seed: int, smi: str, package: str, static: dict) -> dict:
                              f" skipped {report.evidence.skipped}")
     with open(costcheck.default_costs_path()) as fh:
         budget = json.load(fh)["entries"]
+    names = {id(getattr(importlib.import_module(m), w)): k for k, (m, w) in KERNEL_WRAPPERS.items()}
     want = {k: 0 for k in KERNEL_WRAPPERS}
+    compute_launches = {k: 0 for k in KERNEL_WRAPPERS}
     for key in report.evidence.by_case:
         for kernel, n in budget[key]["launches_per_update"].items():
             want[kernel] += 2 * n  # the warm eager update and the traced one
-    if launches != want:
-        raise AssertionError(f"analysis card: launches {launches}, predicted from the budget {want}")
+        for wrapper, n in report.evidence.compute_launches.get(key, {}).items():
+            compute_launches[names[id(wrapper)]] += n
+    if launches != {k: want[k] + compute_launches[k] for k in want}:
+        raise AssertionError(f"analysis card: launches {launches}, predicted from the budget {want}"
+                             f" and the computes {compute_launches}")
     statuses = [s.split(" ")[0] for s in report.waiver_status.values()]
     emit({"phase": "analysis_card", "card": smi, **report.stats, "pass_seconds": seconds,
           "synced": sorted({f"{p}:{ln}" for _, p, ln, _ in report.evidence.synced if p}),
-          "waivers_checked": {s: statuses.count(s) for s in sorted(set(statuses))}, "launches": launches})
-    return launches
+          "waivers_checked": {s: statuses.count(s) for s in sorted(set(statuses))}, "launches": launches,
+          "compute_launches": compute_launches, "computes_raised": report.evidence.compute_skipped})
+    return {"launches": launches, "report": report}
+
+
+def an_abstract(torch, seed: int, smi: str, package: str, static: dict) -> dict:
+    """The abstract tier over every budgeted class, update and compute, on fake ``cuda``
+    tensors: clean against the baseline, each skip with its reason, the costs against
+    ``san_costs.json`` stamped on this card, and no hand kernel launched."""
+    from metrics_tpu_torch.analysis.san import costs as costs_mod
+    from metrics_tpu_torch.analysis.san.runner import run_san
+
+    report, launches, seconds = run_counted(torch, lambda: run_san(
+        package, baseline_path=static["baseline"], device="cuda", seed=seed, lint=static["lint"]))
+    if any(launches.values()):
+        raise AssertionError(f"analysis abstract: hand kernels launched on fake tensors: {launches}")
+    if report.new_findings or report.unused_waivers or not all(report.skipped.values()):
+        raise AssertionError(f"analysis abstract: new {[f.format() for f in report.new_findings]}, stale waivers"
+                             f" {report.unused_waivers}, skipped {report.skipped}")
+    if report.stats["canon_cases"] < 107 or not report.kernel_ops:
+        raise AssertionError(f"analysis abstract: {report.stats}, kernel ops {report.kernel_ops}")
+    budget = costs_mod.load_costs(costs_mod.default_costs_path(os.path.dirname(package)))
+    stamp = {k: budget.get(k) for k in ("torch", "cuda", "device")}
+    emit({"phase": "analysis_abstract", "card": smi, **report.stats, "pass_seconds": seconds,
+          "skipped": report.skipped, "waived_by_rule": {r: sum(f.rule == r for f in report.waived)
+                                                        for r in sorted({f.rule for f in report.waived})},
+          "kernel_ops": report.kernel_ops, "budget_stamp": stamp, "budget_stamp_matches": stamp == costs_mod.stamp(
+              "cuda"), "budget_entries": len(budget["entries"]), "budget_notes": report.budget_notes[:6],
+          "launches": launches})
+    return report
+
+
+def an_crosscheck(smi: str, abstract, card) -> None:
+    """The abstract tier's host reads against the card's synchronising lines."""
+    from metrics_tpu_torch.analysis.san.runner import crosscheck_tiers
+
+    tiers = crosscheck_tiers(abstract.host_work(onto_card=True),
+                             card.evidence.synced, card.evidence.footprint)
+    if not all(reason for _, _, reason in tiers["exceptions"]):
+        raise AssertionError(f"analysis crosscheck: an exception without its reason: {tiers['exceptions']}")
+    emit({"phase": "analysis_crosscheck", "card": smi, "agree": [f"{p}:{ln}" for p, ln in tiers["agree"]],
+          "exceptions": [f"{p}:{ln}: {why}" for p, ln, why in tiers["exceptions"]]})
+
+
+def an_own(smi: str, package: str, static: dict) -> None:
+    """tmown over the package: no new finding, the worksheet equal to the checked-in one."""
+    from metrics_tpu_torch.analysis.own import engine_contract
+    from metrics_tpu_torch.analysis.own.runner import run_own
+
+    report = run_own(package, baseline_path=static["baseline"])
+    sheet = engine_contract.load_worksheet(os.path.join(package, "analysis", engine_contract.DRIFT_FILENAME))
+    if report.new_findings or report.unused_waivers or sheet != json.loads(json.dumps(report.drift_worksheet())):
+        raise AssertionError(f"analysis tmown: new {[f.format() for f in report.new_findings]}, stale waivers"
+                             f" {report.unused_waivers}, worksheet in sync: {sheet == report.drift_worksheet()}")
+    emit({"phase": "analysis_own", "card": smi, **report.stats, "worksheet_in_sync": True,
+          "engines": {e: sorted(c for c, ev in f["components"].items() if ev) for e, f in report.contract.items()}})
+
+
+def _seed_module(root: str, name: str, source: str):
+    import importlib.util
+
+    path = os.path.join(root, name + ".py")
+    with open(path, "w") as fh:
+        fh.write(source)
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return path, module
+
+
+def _line_of(source: str, text: str) -> int:
+    return 1 + source.splitlines().index(next(ln for ln in source.splitlines() if text in ln))
 
 
 def an_seeded(torch, seed: int, smi: str) -> dict:
-    """A traced ``.item()`` the AST tier cannot see gives exactly one TMS-LINTGAP, at its line."""
-    import importlib.util
-
+    """The seeded controls. A traced ``.item()`` the AST tier cannot see, in an update and in
+    a compute: a TMS-CALLBACK of the abstract tier and one TMS-LINTGAP of the card tier, at
+    its line. The TMO-USE-AFTER-DONATE twin run
+    through ``compile_step``: tmown flags it, and the value read after the second replay
+    differs from a clone taken before it."""
+    from metrics_tpu_torch.analysis.own.runner import run_own
     from metrics_tpu_torch.analysis.runner import analyze
-    from metrics_tpu_torch.analysis.san.runner import run_card
+    from metrics_tpu_torch.analysis.san.abstract_inputs import TraceCase
+    from metrics_tpu_torch.analysis.san.runner import run_card, trace_metric
+    from metrics_tpu_torch.core.fused import is_step_buffer
 
     root = os.path.abspath(ANALYSIS["seed_dir"])
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
+    launches = {k: 0 for k in KERNEL_WRAPPERS}
     try:
-        path = os.path.join(root, ANALYSIS["seeded_module"] + ".py")
-        with open(path, "w") as fh:
-            fh.write(SEEDED_HOST_READ)
-        line = 1 + SEEDED_HOST_READ.splitlines().index(next(
-            ln for ln in SEEDED_HOST_READ.splitlines() if "getattr(" in ln))
-        spec = importlib.util.spec_from_file_location(ANALYSIS["seeded_module"], path)
-        module = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(module)
         g = torch.Generator(device="cuda").manual_seed(seed + 71)
         args = (torch.rand(64, generator=g, device="cuda"),
                 torch.randint(0, 2, (64,), generator=g, device="cuda", dtype=torch.int32))
-        case = ("SeededHostRead.update[canon]", lambda: module.SeededHostRead(device="cuda"), args, {})
-        lint = analyze(path, introspect=False, repo_root=root)
-        report, launches, _ = run_counted(torch, lambda: run_card(
-            path, repo_root=root, device="cuda", cases=[case], lint=lint, roots=[root]))
+        out = {}
+        for name, source, cls, want_rules in (
+                (ANALYSIS["seeded_module"], SEEDED_HOST_READ, "SeededHostRead", ["TMS-CALLBACK"]),
+                (ANALYSIS["seeded_compute"], SEEDED_COMPUTE_READ, "SeededComputeRead", ["TMS-CALLBACK"])):
+            path, module = _seed_module(root, name, source)
+            line = _line_of(source, "getattr(")
+            make = lambda module=module, cls=cls: getattr(module, cls)(device="cuda")  # noqa: E731
+            traced = trace_metric(make(), {"canon": [TraceCase("canon", args)]}, root, [root], torch.device("cuda"),
+                                  with_costs=False)
+            abstract = [(f.rule, f.path, f.line) for f in traced["findings"]]
+            lint = analyze(path, introspect=False, repo_root=root)
+            report, counted, _ = run_counted(torch, lambda: run_card(
+                path, repo_root=root, device="cuda", cases=[(f"{cls}.update[canon]", make, args, {})], lint=lint,
+                roots=[root]))
+            launches = {k: launches[k] + counted[k] for k in launches}
+            got = [(f.rule, f.path, f.line) for f in report.findings]
+            want = [("TMS-LINTGAP", name + ".py", line)]
+            want_abstract = [(r, name + ".py", line) for r in want_rules]
+            if lint.findings or got != want or abstract != want_abstract:
+                raise AssertionError(f"analysis seeded {cls}: lint {[f.format() for f in lint.findings]}, card {got}"
+                                     f" (want {want}), abstract {abstract} (want {want_abstract})")
+            out[cls] = {"card": report.findings[0].format(), "abstract": [f.format() for f in traced["findings"]]}
+        path, module = _seed_module(root, ANALYSIS["stale_module"], STALE_READ)
+        own = run_own(path, repo_root=root)
+        flagged = [(f.rule, f.line) for f in own.new_findings]
+        x = torch.arange(1, 9, dtype=torch.float32, device="cuda")
+        kept, stale, after = module.launch(x)
+        torch.cuda.synchronize()
+        shown = is_step_buffer(stale) and not torch.equal(stale, kept) and torch.equal(stale, after)
+        if flagged != [("TMO-USE-AFTER-DONATE", _line_of(STALE_READ, 'stale = before["s"]'))] or not shown:
+            raise AssertionError(f"analysis stale read: tmown {flagged}, kept {kept.tolist()}, read {stale.tolist()},"
+                                 f" after {after.tolist()}")
+        out["stale_read"] = {"tmown": own.new_findings[0].format(), "clone_before": kept.tolist(),
+                             "read_after_second_replay": stale.tolist()}
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    got = [(f.rule, f.path, f.line) for f in report.findings]
-    want = [("TMS-LINTGAP", ANALYSIS["seeded_module"] + ".py", line)]
-    if lint.findings or got != want:
-        raise AssertionError(f"analysis seeded: lint {[f.format() for f in lint.findings]}, card {got}, want {want}")
-    emit({"phase": "analysis_seeded", "card": smi, "finding": report.findings[0].format(), "launches": launches})
+    emit({"phase": "analysis_seeded", "card": smi, **out, "launches": launches})
     return launches
 
 
 def phase_analysis(torch, seed: int, smi: str) -> dict:
-    """The static analyzer on the checkout, the card's crosscheck over every budgeted
-    class, and the seeded lint gap. Returns the phase's launches of each kernel."""
+    """The static analyzer on the checkout: tmlint and tmrace, tmsan's abstract tier on fake
+    ``cuda`` tensors with its cost budget, the card tier over every budgeted class's update
+    and compute, the two tiers crosschecked, tmown with its worksheet, and the seeded
+    controls. Returns the phase's launches of each kernel."""
     t0 = time.perf_counter()
     package = os.path.join(os.path.dirname(os.path.abspath(__file__)), "metrics_tpu_torch")
     static = an_static(smi, package)
+    abstract = an_abstract(torch, seed, smi, package, static)
     card = an_card(torch, seed, smi, package, static)
+    an_crosscheck(smi, abstract, card["report"])
+    an_own(smi, package, static)
     seeded = an_seeded(torch, seed, smi)
     torch.cuda.empty_cache()
-    launches = {k: card[k] + seeded[k] for k in KERNEL_WRAPPERS}
+    launches = {k: card["launches"][k] + seeded[k] for k in KERNEL_WRAPPERS}
     emit({"phase": "analysis", "card": smi, "seconds": time.perf_counter() - t0, "launches": launches})
     return launches
 

@@ -170,6 +170,17 @@ def build(names: List[str] = None) -> List[Path]:
     return [library_path(n) for n in names]
 
 
+def faking(*tensors) -> bool:
+    """Is any of ``tensors`` a fake tensor (``torch._subclasses.fake_tensor``)? A
+    wrapper given one goes through its custom op, whose fake function gives the
+    kernel's output shapes and dtypes, and launches and counts nothing: the abstract
+    tier of the analyzer (``analysis/san``) traces updates under ``FakeTensorMode``,
+    where a pointer from ``data_ptr()`` would be bogus."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    return any(isinstance(t, FakeTensor) for t in tensors)
+
+
 def call_on_device(device, call):
     """``call(stream)`` with ``device`` current and ``stream`` the raw handle of its
     current CUDA stream, for a C launch; returns what ``call`` returns.

@@ -31,22 +31,28 @@ for the CPU.
 
 The other tiers of the port:
 
+- ``san/`` (**tmsan**): the abstract tier (``--san``) traces every budgeted class's update
+  and compute on fake tensors (TMS-CALLBACK, TMS-F64, TMS-UPCAST, TMS-BIGCONST,
+  TMS-COLLECTIVE, TMS-DYNSHAPE) and holds the traced costs against
+  ``analysis/san_costs.json`` (TMS-BUDGET, written on the card); the card tier (``--card``)
+  reads the lines that synchronise on the card inside traced updates and computes
+  (``torch.cuda.set_sync_debug_mode``); both are held against tmlint's TM-HOSTSYNC findings
+  and waivers (TMS-LINTGAP, TMS-STALE-WAIVER);
 - ``race/`` (**tmrace**), the JAX package's concurrency tier over the port's
   ``utils/concurrency.py`` vocabulary (``--race``);
-- ``san/``, the card's crosscheck (``--card``): the lines that synchronise on the
-  card inside traced updates (``torch.cuda.set_sync_debug_mode``) held against
-  tmlint's TM-HOSTSYNC findings and waivers (TMS-LINTGAP, TMS-STALE-WAIVER).
+- ``own/`` (**tmown**): buffer ownership over the captured steps' static buffers and
+  in-place accumulations, and the launch engines' contract drift (``--own``, the worksheet
+  ``analysis/tmown_engine_drift.json``).
 
-Not covered yet, each listed in ``ROADMAP.md``: tmsan's abstract traces (its
-TMS-CALLBACK, TMS-F64, TMS-UPCAST, TMS-BIGCONST, TMS-COLLECTIVE and TMS-DYNSHAPE
-rules) and its cost budget (the port's launch budget is ``obs/costcheck.py``'s),
-``own/`` (tmown, buffer ownership), ``shard/`` (tmshard, collectives and
+Not covered yet, each listed in ``ROADMAP.md``: ``shard/`` (tmshard, collectives and
 placement), the race stress tier, and ``bench_history.py``.
 
 CLI::
 
     python -m metrics_tpu_torch.analysis metrics_tpu_torch/ --device cpu
+    python -m metrics_tpu_torch.analysis --san --device cpu
     python -m metrics_tpu_torch.analysis --race
+    python -m metrics_tpu_torch.analysis --own
     python -m metrics_tpu_torch.analysis --card
     python -m metrics_tpu_torch.analysis --explain TM-HOSTSYNC
 

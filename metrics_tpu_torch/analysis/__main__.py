@@ -1,9 +1,13 @@
-"""``python -m metrics_tpu_torch.analysis`` — the port's tmlint/tmrace/card CLI.
+"""``python -m metrics_tpu_torch.analysis`` — the port's tmlint/tmsan/tmrace/tmown CLI.
 
 Usage:
     python -m metrics_tpu_torch.analysis metrics_tpu_torch/            # lint on the card
     python -m metrics_tpu_torch.analysis metrics_tpu_torch/ --device cpu
+    python -m metrics_tpu_torch.analysis --san --device cpu            # + abstract traces on fake tensors
+    python -m metrics_tpu_torch.analysis --san --write-costs           # on the card: refresh san_costs.json
     python -m metrics_tpu_torch.analysis --race                        # thread-safety tier
+    python -m metrics_tpu_torch.analysis --own                         # buffer-ownership tier
+    python -m metrics_tpu_torch.analysis --own --write-drift           # refresh tmown_engine_drift.json
     python -m metrics_tpu_torch.analysis --card                        # + the card's crosscheck
     python -m metrics_tpu_torch.analysis --explain TM-HOSTSYNC         # rule rationale
     python -m metrics_tpu_torch.analysis metrics_tpu_torch/ --json     # machine-readable
@@ -33,7 +37,8 @@ def main(argv=None) -> int:
             "tmlint for metrics_tpu_torch: static analysis for trace safety (TM-HOSTSYNC, "
             "TM-PYBRANCH, TM-DYNSHAPE), the Metric state contract (TM-STATE-UNREG, "
             "TM-REDUCE-MISMATCH, TM-PERSIST), and recapture hazards (TM-RETRACE); "
-            "tmrace (--race); the card's crosscheck (--card). Findings are "
+            "tmsan's abstract traces and cost budget (--san); tmrace (--race); tmown "
+            "(--own); the card's crosscheck (--card). Findings are "
             "cross-linked to metrics_tpu_torch.obs counter names."
         ),
     )
@@ -72,6 +77,38 @@ def main(argv=None) -> int:
         "torch.cuda.set_sync_debug_mode, its synchronising lines held against tmlint's "
         "TM-HOSTSYNC findings and waivers (TMS-LINTGAP, TMS-STALE-WAIVER); needs a card",
     )
+    parser.add_argument(
+        "--san",
+        action="store_true",
+        help="also run tmsan's abstract tier: trace every budgeted class's update and compute on fake "
+        "tensors of --device (FakeTensorMode: nothing executes), read the traces for host reads "
+        "(TMS-CALLBACK), float64 (TMS-F64), bf16 states widened (TMS-UPCAST), big host constants "
+        "(TMS-BIGCONST), collectives (TMS-COLLECTIVE) and data-dependent shapes (TMS-DYNSHAPE), hold the "
+        "traced costs against san_costs.json (TMS-BUDGET), and crosscheck tmlint (TMS-LINTGAP, "
+        "TMS-STALE-WAIVER)",
+    )
+    parser.add_argument(
+        "--own",
+        action="store_true",
+        help="run tmown, the buffer-ownership tier: model the lifetime of tensors written in place by "
+        "captured steps and in-place accumulations (TMO-DONATE-ALIAS, TMO-USE-AFTER-DONATE, "
+        "TMO-DOUBLE-DONATE), the snapshot guard (TMO-SNAPSHOT-GAP), step-cache keys (TMO-KEY-GAP), and "
+        "the launch engines' contract drift (TMO-ENGINE-DRIFT)",
+    )
+    parser.add_argument(
+        "--write-drift",
+        action="store_true",
+        help="with --own: write/refresh the engine worksheet tmown_engine_drift.json",
+    )
+    parser.add_argument(
+        "--write-costs",
+        action="store_true",
+        help="with --san: write/refresh san_costs.json from the traced costs (run it on the card, on "
+        "fake cuda tensors; commit the diff with its explanation)",
+    )
+    parser.add_argument("--costs", metavar="FILE",
+                        help="cost-budget file (default: metrics_tpu_torch/analysis/san_costs.json)")
+    parser.add_argument("--no-costs", action="store_true", help="with --san: skip the cost budget (trace rules only)")
     parser.add_argument("-v", "--verbose", action="store_true", help="also list waived findings and skipped classes")
     args = parser.parse_args(argv)
 
@@ -88,8 +125,14 @@ def main(argv=None) -> int:
         # one tree per run keeps repo-relative baseline keys unambiguous
         print("lint exactly one root per run (got: %s)" % ", ".join(paths), file=sys.stderr)
         return 2
-    if args.race and args.card:
-        print("--race and --card are separate runs", file=sys.stderr)
+    if sum(map(bool, (args.race, args.card, args.san, args.own))) > 1:
+        print("--race, --card, --san and --own are separate runs", file=sys.stderr)
+        return 2
+    if (args.write_costs or args.costs or args.no_costs) and not args.san:
+        print("--write-costs, --costs and --no-costs go with --san", file=sys.stderr)
+        return 2
+    if args.write_drift and not args.own:
+        print("--write-drift goes with --own", file=sys.stderr)
         return 2
 
     selected = None
@@ -107,6 +150,10 @@ def main(argv=None) -> int:
         return _main_race(args, paths[0], keep)
     if args.card:
         return _main_card(args, paths[0], keep)
+    if args.san:
+        return _main_san(args, paths[0], keep)
+    if args.own:
+        return _main_own(args, paths[0], keep)
 
     try:
         report = analyze(paths[0], baseline_path=args.baseline, introspect=not args.no_introspect,
@@ -264,6 +311,127 @@ def _main_card(args, target: str, keep) -> int:
         f"+ {ls.get('new', 0):.0f} lint new, in {s['seconds']}s (card {s['card_seconds']}s)"
     )
     return 1 if (lint_new or card_new) else 0
+
+
+
+def _main_san(args, target: str, keep) -> int:
+    """The --san path: tmlint, then the abstract tier on fake tensors of --device."""
+    from metrics_tpu_torch.analysis.san import costs as costs_mod
+    from metrics_tpu_torch.analysis.san.runner import run_san
+
+    try:
+        report = run_san(target, baseline_path=args.baseline, costs_path=args.costs, with_costs=not args.no_costs,
+                         device=args.device, introspect=not args.no_introspect)
+    except FileNotFoundError as err:
+        print(f"tmsan: {err}", file=sys.stderr)
+        return 2
+
+    if args.write_costs:
+        out = args.costs or os.path.join(_find_repo_root(target), PACKAGE, "analysis", costs_mod.COSTS_FILENAME)
+        n = costs_mod.write_costs(out, report.costs, device=args.device)
+        print(f"tmsan: wrote {n} cost-budget entries to {out}")
+    lint = report.lint
+    if args.write_baseline:
+        return _write_baseline("tmsan", args, target, [f for f in lint.findings + report.findings
+                                                        if keep(f) and f.rule != "TMS-BUDGET"])
+
+    lint_new = [f for f in lint.new_findings if keep(f)]
+    san_new = [f for f in report.new_findings if keep(f)]
+    unused = sorted(set(lint.unused_waivers) | set(report.unused_waivers))
+    if args.json:
+        print(
+            json.dumps(
+                {
+                    "stats": {**lint.stats, **{f"san_{k}": v for k, v in report.stats.items()}},
+                    "new": [vars(f) for f in lint_new + san_new],
+                    "waived": [vars(f) for f in lint.waived + report.waived if keep(f)],
+                    "unused_waivers": [list(k) for k in unused],
+                    "skipped": report.skipped,
+                    "costs": report.costs,
+                    "budget_notes": report.budget_notes,
+                    "waiver_status": report.waiver_status,
+                },
+                indent=2,
+            )
+        )
+        return 1 if (lint_new or san_new) else 0
+
+    for f in lint_new + san_new:
+        print(f.format())
+    if args.verbose:
+        for f in lint.waived + report.waived:
+            if keep(f):
+                print(f.format() + f"  # reason: {f.waive_reason}")
+        for name, reason in sorted(report.skipped.items()):
+            print(f"# not traced: {name}: {reason}")
+    for key_str, status in sorted(report.waiver_status.items()):
+        print(f"# waiver {key_str}: {status}")
+    for note in report.budget_notes:
+        print(f"# budget: {note}")
+    _print_tail(unused, lint.parse_errors)
+    s, ls = report.stats, lint.stats
+    print(
+        f"tmsan: {s['classes_traced']} classes traced ({s['entries_traced']} abstract traces, "
+        f"{s['canon_cases']} canonical update cases, {s['skipped']} skipped), {s['cost_entries']} cost entries, "
+        f"{s['findings']} san findings ({s['waived']} waived, {len(san_new)} new) "
+        f"+ {ls.get('new', 0):.0f} lint new, in {s['seconds']}s (traces {s['trace_seconds']}s)"
+    )
+    return 1 if (lint_new or san_new) else 0
+
+
+def _main_own(args, target: str, keep) -> int:
+    """The --own path: the tmown buffer-ownership tier on its own."""
+    from metrics_tpu_torch.analysis.own import engine_contract
+    from metrics_tpu_torch.analysis.own.runner import run_own
+
+    try:
+        report = run_own(target, baseline_path=args.baseline)
+    except FileNotFoundError as err:
+        print(f"tmown: {err}", file=sys.stderr)
+        return 2
+
+    if args.write_drift:
+        out = os.path.join(_find_repo_root(target), PACKAGE, "analysis", engine_contract.DRIFT_FILENAME)
+        engine_contract.write_worksheet(out, report.drift_worksheet())
+        print(f"tmown: wrote {len(report.contract)} engine contracts to {out}")
+    if args.write_baseline:
+        return _write_baseline("tmown", args, target, [f for f in report.findings if keep(f)])
+
+    new = [f for f in report.new_findings if keep(f)]
+    if args.json:
+        print(
+            json.dumps(
+                {
+                    "stats": report.stats,
+                    "contract": report.contract,
+                    "new": [vars(f) for f in new],
+                    "waived": [vars(f) for f in report.waived if keep(f)],
+                    "unused_waivers": [list(k) for k in report.unused_waivers],
+                    "parse_errors": report.parse_errors,
+                },
+                indent=2,
+            )
+        )
+        return 1 if new else 0
+
+    for f in new:
+        print(f.format())
+    if args.verbose:
+        for f in report.waived:
+            if keep(f):
+                print(f.format() + f"  # reason: {f.waive_reason}")
+        for engine, facts in sorted(report.contract.items()):
+            have = [c for c, ev in facts["components"].items() if ev]
+            print(f"# engine {engine}: {len(have)}/{len(facts['components'])} components")
+    _print_tail(report.unused_waivers, report.parse_errors)
+    s = report.stats
+    print(
+        f"tmown: {s['files']} files, {s['functions']} functions, "
+        f"{s['donating']} donating, {s['exec_sites']} exec sites, "
+        f"{s['engines']} engines, {s['findings']} findings "
+        f"({s['waived']} waived, {len(new)} new) in {s['seconds']}s"
+    )
+    return 1 if new else 0
 
 
 if __name__ == "__main__":

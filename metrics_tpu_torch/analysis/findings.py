@@ -2,9 +2,10 @@
 ``metrics_tpu/analysis/findings.py``).
 
 The port's rule table covers the families the port analyses: the AST and
-introspection rules (TM-*), the concurrency rules (TMR-*) and the two crosscheck
-rules (TMS-LINTGAP, TMS-STALE-WAIVER) whose ground truth is the card's record of
-synchronising calls. Rule IDs, the ``Finding`` fields and its waiver key are the
+introspection rules (TM-*), the concurrency rules (TMR-*), tmsan's rules (TMS-*: the
+abstract tier's, read from traces on fake tensors; its cost budget; and the two
+crosscheck rules, TMS-LINTGAP and TMS-STALE-WAIVER) and tmown's buffer-ownership
+rules (TMO-*). Rule IDs, the ``Finding`` fields and its waiver key are the
 JAX package's. Every rule names what would show at run time in the port: a CUDA
 graph capture that fails and demotes its group to eager (counted in the
 :class:`~metrics_tpu_torch.core.fused.StepCache` ``stats["degrades"]`` and the obs
@@ -181,6 +182,121 @@ RULES: Dict[str, Rule] = {
             ),
         ),
         Rule(
+            id="TMS-CALLBACK",
+            family="jaxpr-trace",
+            summary="host read in a traced update or compute",
+            counter="san.callbacks",
+            runtime_signal=(
+                _CAPTURE_FAILS
+                + "eagerly each step waits for the card and copies to the host: a gap between "
+                "`tm.update/<M>` ranges in a profiler trace (obs/scopes.py)"
+            ),
+            rationale=(
+                "tmlint's TM-HOSTSYNC works on source text; a host read can still reach a\n"
+                "traced step through a waiver, a modeling gap or a helper it cannot see. The\n"
+                "abstract tier looks at what runs: every budgeted class's `local_update` and\n"
+                "`compute_from` traced on fake tensors (`FakeTensorMode`, nothing executes)\n"
+                "inside `tracing()`. An `aten._local_scalar_dense` (`.item()`, `float()`,\n"
+                "`bool()`), a `DataDependentOutputException` or a copy from the card to the\n"
+                "host there means host code runs on every step of the hot path. Move the work\n"
+                "onto the card, or declare the class `_host_side_update`."
+            ),
+        ),
+        Rule(
+            id="TMS-F64",
+            family="jaxpr-trace",
+            summary="float64 value in a trace whose inputs and states hold none",
+            counter="san.f64",
+            runtime_signal=(
+                "on the card: 2x the bytes for the affected tensors and float64 arithmetic at "
+                "1/2 (FMA) to 1/30 (no tensor cores) of the float32 rate; state_report() shows "
+                "float64 buffers"
+            ),
+            rationale=(
+                "Torch has no x64 switch: a float64 tensor appears where code asks for one\n"
+                "(`dtype=torch.float64`, `.double()`, a numpy float64 array made into a\n"
+                "tensor). In a trace whose inputs and states are all float32 or narrower, a\n"
+                "float64 op is a silent widening that doubles bytes and falls off the fast\n"
+                "path. The port's deliberate float64 sites (ROADMAP, deliberate deviations)\n"
+                "are waived one by one with their reason."
+            ),
+        ),
+        Rule(
+            id="TMS-UPCAST",
+            family="jaxpr-trace",
+            summary="bf16/f16 state silently promoted to a wider dtype by update",
+            counter="san.upcasts",
+            runtime_signal=(
+                "state_report() shows float32 buffers where bfloat16 was declared (2x the "
+                "bytes); a checkpoint saved after the first update fails restore validation "
+                "against the declared default dtype (ckpt DtypeDriftError); a captured step "
+                "refuses the state (`CapturedStep`: a new state of another dtype)"
+            ),
+            rationale=(
+                "A metric whose states are bfloat16 (`set_dtype(torch.bfloat16)`) must keep\n"
+                "them bfloat16 through update: the state transition's output dtype is part of\n"
+                "the Metric contract (ckpt manifests validate it; a captured step's static\n"
+                "buffers hold it). A float32 tensor constant in the accumulation promotes the\n"
+                "whole state. Use Python scalars or `.to(state.dtype)` so the declared dtype\n"
+                "survives. (Deliberate float32 accumulation is fine: declare the STATE float32.)"
+            ),
+        ),
+        Rule(
+            id="TMS-BIGCONST",
+            family="jaxpr-trace",
+            summary="large tensor made from host data inside a traced update or compute",
+            counter="san.bigconsts",
+            runtime_signal=(
+                "a host-to-device copy of the table at every eager step; in a captured step "
+                "the table is baked into the graph's memory pool, per captured key "
+                "(`fused.cache_misses` keys each hold a copy)"
+            ),
+            rationale=(
+                "A tensor of 64 KiB or more made from host data inside the trace (a numpy\n"
+                "table through `torch.tensor`/`from_numpy`, which the trace sees as\n"
+                "`lift_fresh` or a host-to-device `_to_copy`/`copy_`) is copied to the card\n"
+                "on every eager step and baked into every captured graph. Build it once on\n"
+                "the card (cached per device), pass it as an input, or compute it on the card\n"
+                "from cheap ops (`arange`)."
+            ),
+        ),
+        Rule(
+            id="TMS-COLLECTIVE",
+            family="jaxpr-trace",
+            summary="collective reached from an update or compute outside Metric.sync",
+            counter="san.collectives",
+            runtime_signal=(
+                "a hang when one rank reaches a collective the others do not (an update "
+                "called on some ranks only), or a capture that fails on an NCCL call"
+            ),
+            rationale=(
+                "A `torch.distributed` collective (or a `c10d`/`_c10d_functional` op) reached\n"
+                "from `local_update` or `compute_from` runs on whichever ranks happen to call\n"
+                "the update: the classic SPMD deadlock. Collectives belong in `Metric.sync`\n"
+                "and `sync_state` (utils/distributed.py, parallel/collective.py), where every\n"
+                "rank enters them together."
+            ),
+        ),
+        Rule(
+            id="TMS-DYNSHAPE",
+            family="jaxpr-trace",
+            summary="metric body failed to trace (dynamic shape / data-dependent size)",
+            counter="san.trace_failures",
+            runtime_signal=(
+                _CAPTURE_FAILS
+                + "under `torch.func.vmap` the op has no batching rule for a dynamic shape"
+            ),
+            rationale=(
+                "The abstract tier traces every budgeted class's update and compute on fake\n"
+                "tensors: what a capture or a `torch.func` transform meets. An op whose output\n"
+                "size depends on values (`DynamicOutputShapeException`: `nonzero`, boolean\n"
+                "masks, `unique`) fails there: ground truth that the body is not trace-safe,\n"
+                "and a finding tmlint's AST tier should have predicted (TM-DYNSHAPE). Fix\n"
+                "the metric (static-shape ops, `torch.where`, `output_size=`) or declare it\n"
+                "`_host_side_update` if it is host code by contract."
+            ),
+        ),
+        Rule(
             id="TMS-LINTGAP",
             family="crosscheck",
             summary="synchronising call on the card in a tmlint-clean function",
@@ -219,6 +335,140 @@ RULES: Dict[str, Rule] = {
                 "show as a synchronising call (corroborated-by-presence). A waived line that\n"
                 "runs as ordinary traced code means the code moved under the waiver —\n"
                 "re-triage it."
+            ),
+        ),
+        Rule(
+            id="TMO-DONATE-ALIAS",
+            family="buffer-ownership",
+            summary="possibly-host-aliasing tensor written in place by a step or accumulation",
+            counter="own.donate_alias",
+            runtime_signal=(
+                "host memory that the program does not own written through: a checkpoint "
+                "payload (a `bytes` object, immutable to Python) changes under its reader, or "
+                "a numpy array the caller still holds changes at the next replay"
+            ),
+            rationale=(
+                "`torch.from_numpy`, `torch.as_tensor`/`asarray` of host data on the CPU,\n"
+                "`torch.frombuffer`, `np.frombuffer` and `memoryview` give a tensor that\n"
+                "ALIASES memory the program does not own (the PR 16 restore shape: a\n"
+                "checkpoint payload view). A captured step's replay (`CapturedStep`,\n"
+                "`compile_step`: its states become the static buffers that the next replay\n"
+                "overwrites) or an in-place accumulation (`add_`, `copy_`, `index_add_`,\n"
+                "`out=`) on such a tensor writes through the alias. Take an owning copy\n"
+                "first: `.clone()` (ckpt/restore.py's restore)."
+            ),
+        ),
+        Rule(
+            id="TMO-USE-AFTER-DONATE",
+            family="buffer-ownership",
+            summary="a step's state buffer read after a later replay, with no clone between",
+            counter="own.use_after_donate",
+            runtime_signal=(
+                "a stale or torn read: the tensor taken before the replay now holds the "
+                "replay's new state (`core/fused.py:is_step_buffer` says it is the step's "
+                "static buffer), so a value meant as 'before' reads as 'after'"
+            ),
+            rationale=(
+                "A captured step writes its new states into its static state buffers in place\n"
+                "at every replay, and the live state IS that buffer after a replay. A name\n"
+                "bound to the states before a replay reads the replay's result after it: the\n"
+                "torch twin of reading a donated array. Re-point the name at the replay's\n"
+                "returned states, or take a `.clone()` before the replay. Except handlers that\n"
+                "probe `is_step_buffer`/`is_deleted` are the sanctioned recovery idiom and\n"
+                "exempt."
+            ),
+        ),
+        Rule(
+            id="TMO-DOUBLE-DONATE",
+            family="buffer-ownership",
+            summary="one tensor in two in-place positions of one step",
+            counter="own.double_donate",
+            runtime_signal=(
+                "two state leaves sharing one static buffer: the replay writes it twice and "
+                "whichever accumulation lands last wins, so one metric's state is lost"
+            ),
+            rationale=(
+                "A captured step clones each state leaf into its own static buffer and copies\n"
+                "the new values back in place. The same tensor at two state positions (the same\n"
+                "name passed twice, or two leaves aliasing one tensor after state surgery) is\n"
+                "written twice. Dedup the leaves first (a dedup guard dominating the call)."
+            ),
+        ),
+        Rule(
+            id="TMO-SNAPSHOT-GAP",
+            family="buffer-ownership",
+            summary="replay with a pending async snapshot and no secure_pending_snapshots",
+            counter="own.snapshot_gap",
+            runtime_signal=(
+                "an async checkpoint that referenced the states before the replay serializes "
+                "the replay's new values: `ckpt.saves` commits a step whose payload is not "
+                "the state it names"
+            ),
+            rationale=(
+                "Async checkpointing keeps tensor REFERENCES and copies them to the host later\n"
+                "on its writer thread. A replay (or an in-place accumulation) overwrites those\n"
+                "tensors, so every such call must first secure the in-flight snapshots that\n"
+                "reference them: `ckpt.manager.secure_pending_snapshots`. A call with no\n"
+                "dominating snapshot guard races the writer. Where the port has no such guard,\n"
+                "the engine worksheet shows the component as absent."
+            ),
+        ),
+        Rule(
+            id="TMO-KEY-GAP",
+            family="buffer-ownership",
+            summary="step-cache key omits an input the captured step depends on",
+            counter="own.key_gap",
+            runtime_signal=(
+                "a stale-cache hit: the engine replays a graph captured for another closed-over "
+                "value or shape: wrong results with no error, or a capture's copy-in that "
+                "refuses the shape"
+            ),
+            rationale=(
+                "A `StepCache` (`self._steps.call(key, ...)`) is sound only when `key` covers\n"
+                "everything the captured graph was specialized on: every Python value the\n"
+                "capture bakes in (builder arguments, static specs, closed-over locals) and\n"
+                "each extra's shape and dtype. A tensor extra's VALUES are copied into the\n"
+                "static input buffers at each replay and are not a gap."
+            ),
+        ),
+        Rule(
+            id="TMO-ENGINE-DRIFT",
+            family="engine-contract",
+            summary="launch-engine contract diverges from the shared one",
+            counter="own.engine_drift",
+            runtime_signal=(
+                "a hazard fixed in one engine recurs in another: a snapshot-before-replay "
+                "guard added to fused but not ingest shows up as the same checkpoint fault in "
+                "another code path"
+            ),
+            rationale=(
+                "fused, fleet, ingest and the rank tiers each implement the same launch\n"
+                "contract: static-buffer accumulation, duplicate-state dedup,\n"
+                "snapshot-before-replay, the registered-default clone, the `StepCache`, its\n"
+                "`broken` keys, and the excache record. tmown extracts each engine's\n"
+                "implementation of every component and flags a component that two or more\n"
+                "engines have and one lacks. The matrix is the worksheet\n"
+                "`metrics_tpu_torch/analysis/tmown_engine_drift.json`."
+            ),
+        ),
+        Rule(
+            id="TMS-BUDGET",
+            family="hlo-cost",
+            summary="traced cost grew >15% over the checked-in budget",
+            counter="san.budget_breaches",
+            runtime_signal=(
+                "the next benchmark run regresses; tmsan catches it from the fake trace's "
+                "counted flops, bytes and peak memory before any benchmark runs"
+            ),
+            rationale=(
+                "`metrics_tpu_torch/analysis/san_costs.json` records flops\n"
+                "(`torch.utils.flop_counter`), bytes accessed (each dispatched op's inputs and\n"
+                "outputs) and peak bytes (the most fake storage alive at once) per (class,\n"
+                "canonical shape), written on the card. A >15% unexplained growth is a perf\n"
+                "regression (an accidental broadcast, a lost in-place op, a dtype widening).\n"
+                "If the growth is intended, refresh the budget on the card:\n"
+                "`python -m metrics_tpu_torch.analysis --san --write-costs`. This budget is\n"
+                "not obs/launch_budget.json, which counts real kernel launches on the card."
             ),
         ),
         Rule(
@@ -326,16 +576,30 @@ RULES: Dict[str, Rule] = {
 #: Rules that need the introspection pass (live instances built on a device).
 INTROSPECTION_RULES: Tuple[str, ...] = ("TM-STATE-UNREG", "TM-REDUCE-MISMATCH", "TM-PERSIST")
 
-#: the card tier's rules (``metrics_tpu_torch.analysis.san``): the crosscheck only
-SAN_RULES: Tuple[str, ...] = ("TMS-LINTGAP", "TMS-STALE-WAIVER")
+#: tmsan rules (``metrics_tpu_torch.analysis.san``: the abstract tier, its cost budget and
+#: the card's crosscheck). Baseline waivers are shared but scoped: each tier applies (and
+#: reports staleness for) only the waivers in its own namespace.
+SAN_RULES: Tuple[str, ...] = (
+    "TMS-CALLBACK", "TMS-F64", "TMS-UPCAST", "TMS-BIGCONST",
+    "TMS-COLLECTIVE", "TMS-DYNSHAPE", "TMS-LINTGAP", "TMS-STALE-WAIVER",
+    "TMS-BUDGET",
+)
 
 #: tmrace (concurrency tier) rules — produced by ``metrics_tpu_torch.analysis.race``.
 RACE_RULES: Tuple[str, ...] = (
     "TMR-UNLOCKED", "TMR-ORDER", "TMR-HOLD-HOST", "TMR-HANDLER", "TMR-LEAK",
 )
 
+#: tmown (buffer-ownership tier) rules — produced by ``metrics_tpu_torch.analysis.own``.
+OWN_RULES: Tuple[str, ...] = (
+    "TMO-DONATE-ALIAS", "TMO-USE-AFTER-DONATE", "TMO-DOUBLE-DONATE",
+    "TMO-SNAPSHOT-GAP", "TMO-KEY-GAP", "TMO-ENGINE-DRIFT",
+)
+
 #: AST/introspection (tmlint) rules — everything not owned by another tier.
-LINT_RULES: Tuple[str, ...] = tuple(r for r in RULES if r not in SAN_RULES and r not in RACE_RULES)
+LINT_RULES: Tuple[str, ...] = tuple(
+    r for r in RULES if r not in SAN_RULES and r not in RACE_RULES and r not in OWN_RULES
+)
 
 
 @dataclass

@@ -622,6 +622,8 @@ class _RuleVisitor(ast.NodeVisitor):
             return data.id in self.statics.host_names or data.id in self.host_values
         if isinstance(data, ast.Call):
             name = dotted_name(data.func)
+            if name in ("float", "int", "bool", "complex"):  # a Python number of constants: float("-inf")
+                return all(isinstance(a, ast.Constant) or self.statics.is_static(a) for a in data.args)
             return bool(name) and name.split(".")[0] in self.module.np_aliases
         if isinstance(data, ast.Subscript) and isinstance(data.value, ast.Name):
             # an entry of a module-level cache (``_CACHE[key]``)

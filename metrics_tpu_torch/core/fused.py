@@ -287,6 +287,9 @@ def _step_device(*trees: Any) -> Optional[torch.device]:
 #: one capture at a time in the process, each on its device's capture stream
 _CAPTURE_LOCK = threading.Lock()
 _CAPTURE_STREAMS: Dict[int, Any] = {}
+#: graphs of captured steps freed while a capture was open, kept until none is
+#: (:meth:`CapturedStep.__del__`)
+_DEFERRED_GRAPHS: List[Any] = []
 
 
 def _capture_stream(device: torch.device) -> Any:
@@ -339,6 +342,28 @@ class CapturedStep:
         # request that flushes another queue) would share the capture stream
         with _CAPTURE_LOCK:
             self._capture(step, states, extras, device)
+        _release_deferred_graphs()
+
+    def __del__(self) -> None:
+        # Freeing a graph while any thread captures invalidates that capture
+        # (``cudaGraphExecDestroy`` is refused while a stream captures: "operation not
+        # permitted when stream is capturing", and the open capture then ends with "a
+        # previous error during capture"). A step freed then, by the collector on either
+        # thread or by its last reference, keeps its graph until no capture is open.
+        graph = getattr(self, "graph", None)
+        if graph is None:
+            return
+        try:
+            if _CAPTURE_LOCK.acquire(blocking=False):
+                try:
+                    self.graph = None
+                    del graph  # the last reference: freed here, while no capture can open
+                finally:
+                    _CAPTURE_LOCK.release()
+            else:
+                _DEFERRED_GRAPHS.append(graph)
+        except (TypeError, AttributeError):  # interpreter shutdown: the module is gone
+            pass
 
     def _capture(self, step: Callable, states: Any, extras: Sequence[Any], device: torch.device) -> None:
         state_leaves, self._state_spec = pytree.tree_flatten(states)
@@ -392,6 +417,16 @@ class CapturedStep:
             _build.note_launch(wrapper, n)
         outputs = pytree.tree_map(lambda t: t.clone() if isinstance(t, Tensor) else t, self._outputs)
         return pytree.tree_unflatten(self._states, self._state_spec), outputs
+
+
+def _release_deferred_graphs() -> None:
+    """Free the graphs that :meth:`CapturedStep.__del__` kept while a capture was open,
+    under the capture lock so that no capture opens meanwhile."""
+    if _DEFERRED_GRAPHS and _CAPTURE_LOCK.acquire(blocking=False):
+        try:
+            del _DEFERRED_GRAPHS[:]
+        finally:
+            _CAPTURE_LOCK.release()
 
 
 def is_step_buffer(value: Any) -> bool:

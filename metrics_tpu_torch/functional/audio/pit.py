@@ -11,6 +11,7 @@ import numpy as np
 import torch
 from torch import Tensor
 
+from metrics_tpu_torch import _build
 from metrics_tpu_torch.utils import imports
 from metrics_tpu_torch.utils.data import to_tensor
 
@@ -31,7 +32,9 @@ def _perm_table(spk_num: int, device: torch.device) -> Tensor:
     if table is None:
         if spk_num not in _ps_cache:
             _ps_cache[spk_num] = np.asarray(list(permutations(range(spk_num))), np.int64)
-        table = _ps_device_cache[key] = torch.as_tensor(_ps_cache[spk_num], device=device)
+        table = torch.as_tensor(_ps_cache[spk_num], device=device)
+        if not _build.faking(table):  # a trace on fake tensors (analysis/san) leaves the cache as it was
+            _ps_device_cache[key] = table
     return table
 
 

@@ -82,7 +82,7 @@ def _lexicographic_best(
     ok = s >= float(_smallest_f32_at_least(min_secondary))
     if point is not None:
         ok = ok & point
-    neg = torch.tensor(float("-inf"), dtype=p.dtype, device=p.device)
+    neg = torch.full((), float("-inf"), dtype=p.dtype, device=p.device)
     numeric = ok & ~torch.isnan(p)
     best_p = torch.where(numeric, p, neg).amax(-1, keepdim=True)
     tie_p = numeric & (p == best_p)

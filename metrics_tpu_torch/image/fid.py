@@ -19,6 +19,7 @@ from torch import Tensor
 
 from metrics_tpu_torch.core.metric import Metric
 from metrics_tpu_torch.functional.image.fid_math import _compute_fid
+from metrics_tpu_torch.utils.checks import _is_concrete
 from metrics_tpu_torch.utils.compute import fp32_exact
 
 
@@ -134,7 +135,7 @@ class FrechetInceptionDistance(Metric):
             raise RuntimeError("More than one sample is required for both the real and fake distributed to compute FID")
         rm, rm2, rn = _fold_stacked(self.real_mean, self.real_m2, self.real_features_num_samples)
         fm, fm2, fn = _fold_stacked(self.fake_mean, self.fake_m2, self.fake_features_num_samples)
-        if float(rn) < 2 or float(fn) < 2:
+        if _is_concrete(rn, fn) and (float(rn) < 2 or float(fn) < 2):  # skipped in a traced step, as under jit
             raise RuntimeError("More than one sample is required for both the real and fake distributed to compute FID")
         s1 = rm2.to(torch.float64) / (rn.to(torch.float64) - 1)
         s2 = fm2.to(torch.float64) / (fn.to(torch.float64) - 1)

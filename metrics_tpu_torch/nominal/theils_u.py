@@ -17,6 +17,9 @@ class TheilsU(Metric):
     """
 
     full_state_update: bool = False
+    # compute forms the table's statistics in float64, as the JAX class does on the host in
+    # numpy (which declares it too); tmlint and tmsan treat compute as host code, update stays traced
+    _host_side_compute = True
     is_differentiable: bool = False
     higher_is_better: bool = True
     plot_lower_bound: float = 0.0

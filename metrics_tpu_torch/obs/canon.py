@@ -18,6 +18,8 @@ import torch
 
 #: the canonical batch size of the budget (the JAX package's ``SIZES["canon"]``)
 CANON = 64
+#: the batch sizes the abstract tier traces (``analysis/san``); the budgets use ``canon``
+SIZES: Dict[str, int] = {"small": 8, "canon": CANON}
 
 
 def _flat8_feature(x: torch.Tensor) -> torch.Tensor:
@@ -240,17 +242,18 @@ def _inputs_for(name: str) -> Optional[Callable]:
     return None
 
 
-def _tag(kwargs: Dict[str, Any]) -> str:
-    return "canon" + (":" + ",".join(f"{k}={v}" for k, v in sorted(kwargs.items())) if kwargs else "")
+def _tag(kwargs: Dict[str, Any], size: str = "canon") -> str:
+    return size + (":" + ",".join(f"{k}={v}" for k, v in sorted(kwargs.items())) if kwargs else "")
 
 
 Case = Tuple[str, Callable[[], Any], Tuple[torch.Tensor, ...], Dict[str, Any]]
 
 
-def budget_cases(device: Any, seed: int = 0) -> Tuple[List[Case], Dict[str, str]]:
+def budget_cases(device: Any, seed: int = 0, size: str = "canon") -> Tuple[List[Case], Dict[str, str]]:
     """``(cases, skipped)``: for each budgeted update, ``(key, make_metric, args,
-    kwargs)`` with the arguments on ``device``; for each root export without one, the
-    reason, keyed by its export name."""
+    kwargs)`` with the arguments on ``device`` at the batch size ``SIZES[size]`` (the
+    key's tag is ``size``); for each root export without one, the reason, keyed by its
+    export name."""
     import metrics_tpu_torch as tm
     from metrics_tpu_torch.core.metric import Metric
 
@@ -292,8 +295,8 @@ def budget_cases(device: Any, seed: int = 0) -> Tuple[List[Case], Dict[str, str]
         if inputs is None:
             skipped[name] = "no canonical input spec"
             continue
-        for args, kwargs in inputs(rng, CANON):
-            key = f"{type(instance).__name__}.update[{_tag(kwargs)}]"
+        for args, kwargs in inputs(rng, SIZES[size]):
+            key = f"{type(instance).__name__}.update[{_tag(kwargs, size)}]"
             tensors = tuple(torch.from_numpy(a).to(device) for a in args)
             cases.append((key, make, tensors, kwargs))
     return cases, skipped

@@ -144,7 +144,31 @@ def greedy_match(iou, d_area, g_area, det_valid, gt_valid, thresholds, area_rang
     The kernel for CUDA inputs, the plain version for CPU inputs (the device of
     ``iou`` decides). Returns ``(det_matched, det_ignored, npig)``.
     """
+    if _build.faking(iou):
+        return tuple(torch.ops.metrics_tpu_torch.greedy_match(iou, d_area, g_area, det_valid, gt_valid, thresholds,
+                                                              area_ranges))
+    return _greedy_match_direct(iou, d_area, g_area, det_valid, gt_valid, thresholds, area_ranges)
+
+
+def _greedy_match_direct(iou, d_area, g_area, det_valid, gt_valid, thresholds, area_ranges):
     if iou.device.type == "cuda":
         return greedy_match_cuda(iou, d_area, g_area, det_valid, gt_valid, thresholds, area_ranges)
     _check_inputs(iou, d_area, g_area, det_valid, gt_valid, thresholds, area_ranges)
     return _plain_greedy_match(iou, d_area, g_area, det_valid, gt_valid, thresholds, area_ranges)
+
+
+@torch.library.custom_op("metrics_tpu_torch::greedy_match", mutates_args=())
+def _greedy_match_op(iou: Tensor, d_area: Tensor, g_area: Tensor, det_valid: Tensor, gt_valid: Tensor,
+                     thresholds: Tensor, area_ranges: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """The greedy match as a custom op, so that a trace on fake tensors holds one node
+    with the kernel's shapes (:func:`greedy_match` on real tensors)."""
+    return _greedy_match_direct(iou, d_area, g_area, det_valid, gt_valid, thresholds, area_ranges)
+
+
+@_greedy_match_op.register_fake
+def _greedy_match_fake(iou, d_area, g_area, det_valid, gt_valid, thresholds, area_ranges):
+    _check_inputs(iou, d_area, g_area, det_valid, gt_valid, thresholds, area_ranges)
+    n, num_d, _ = iou.shape
+    num_t, num_a = thresholds.shape[0], area_ranges.shape[0]
+    matched = iou.new_empty((n, num_a, num_t, num_d), dtype=torch.bool)
+    return matched, torch.empty_like(matched), iou.new_empty((n, num_a), dtype=torch.int32)

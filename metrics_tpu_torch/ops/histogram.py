@@ -260,7 +260,7 @@ torch.library.register_vmap("metrics_tpu_torch::bincount", _bincount_vmap)
 
 
 def _dispatch(x: Tensor, weights: Optional[Tensor], num_bins: int) -> Tensor:
-    if torch._C._are_functorch_transforms_active():
+    if torch._C._are_functorch_transforms_active() or _build.faking(x):
         return torch.ops.metrics_tpu_torch.bincount(
             x.reshape(-1), None if weights is None else weights.reshape(-1), num_bins, 0
         )
@@ -300,7 +300,7 @@ def bincount_batched(x: Tensor, weights: Optional[Tensor], num_bins: int) -> Ten
     rows = x.shape[0]
     if x.numel() == 0:
         return torch.zeros((rows, num_bins), dtype=_out_dtype(weights), device=x.device)
-    if torch._C._are_functorch_transforms_active():
+    if torch._C._are_functorch_transforms_active() or _build.faking(x):
         flat_weights = None if weights is None else weights.reshape(-1)
         return torch.ops.metrics_tpu_torch.bincount(x.reshape(-1), flat_weights, num_bins, rows).reshape(rows, num_bins)
     return _batched_dispatch(x, weights, num_bins)

@@ -302,6 +302,26 @@ def pair_counts(x: Tensor, y: Tensor) -> Tensor:
     The chain on the card for CUDA inputs (one call whatever C), the plain merge count
     for CPU inputs (the device of ``x`` decides).
     """
+    if _build.faking(x, y):
+        return torch.ops.metrics_tpu_torch.pair_counts(x, y)
+    return _pair_counts_direct(x, y)
+
+
+def _pair_counts_direct(x: Tensor, y: Tensor) -> Tensor:
     if x.device.type == "cuda":
         return kendall_pairs_cuda(x, y)
     return _plain_merge_pair_counts(x, y)
+
+
+@torch.library.custom_op("metrics_tpu_torch::pair_counts", mutates_args=())
+def _pair_counts_op(x: Tensor, y: Tensor) -> Tensor:
+    """Kendall's pair counts as a custom op, so that a trace on fake tensors holds one
+    node with the chain's output shape (:func:`pair_counts` on real tensors)."""
+    return _pair_counts_direct(x, y)
+
+
+@_pair_counts_op.register_fake
+def _pair_counts_fake(x: Tensor, y: Tensor) -> Tensor:
+    if x.shape != y.shape or x.dim() not in (1, 2):
+        _as_columns(x, y)  # raises its error
+    return x.new_empty((1 if x.dim() == 1 else x.shape[1], 4), dtype=torch.int64)

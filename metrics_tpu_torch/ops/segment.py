@@ -234,7 +234,7 @@ def segment_multi_scan(
             raise ValueError("segment_multi_scan: lanes must be 1-D, of one length and on one device")
     if new_seg is not None and (new_seg.device != device or new_seg.shape != n):
         raise ValueError("segment_multi_scan: new_seg must have the lanes' length and device")
-    if torch._C._are_functorch_transforms_active():
+    if torch._C._are_functorch_transforms_active() or _build.faking(*values):
         codes = [_OP_CODES[op] for op in ops]
         return tuple(torch.ops.metrics_tpu_torch.segment_scan(list(values), new_seg, codes, reverse))
     return _scan_direct(values, new_seg, ops, reverse)

@@ -38,7 +38,6 @@ there: every copy appends exactly ``size`` rows, so one host count and one overf
 flag serve the ``(N, capacity, ...)`` stack, and ``compute_from`` of exact-curve
 copies is one batched sort and one scan launch.
 """
-import functools
 from copy import deepcopy
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -46,6 +45,7 @@ import numpy as np
 import torch
 from torch import Tensor, nn
 
+from metrics_tpu_torch import _build
 from metrics_tpu_torch.core.metric import Metric
 from metrics_tpu_torch.core.state import CatBuffer
 from metrics_tpu_torch.utils.data import apply_to_collection
@@ -78,12 +78,20 @@ def _bootstrap_sampler(
     raise ValueError("Unknown sampling strategy")
 
 
-@functools.lru_cache(maxsize=None)
+_POISSON_CDF: Dict[str, Tensor] = {}
+
+
 def poisson_cdf(device: Any = None) -> Tensor:
     """The 17-entry float32 Poisson(1) CDF of the JAX package's ``_device_sample``, one
-    tensor per device: a captured step reads it and copies nothing from the host."""
-    bits = torch.tensor(_POISSON_CDF_BITS, dtype=torch.int64).to(torch.int32)
-    return bits.view(torch.float32).to(device)
+    tensor per device: a captured step reads it and copies nothing from the host. A
+    trace on fake tensors (analysis/san) leaves the cache as it was."""
+    cdf = _POISSON_CDF.get(str(device))
+    if cdf is None:
+        bits = torch.tensor(_POISSON_CDF_BITS, dtype=torch.int64).to(torch.int32)
+        cdf = bits.view(torch.float32).to(device)
+        if not _build.faking(cdf):
+            _POISSON_CDF[str(device)] = cdf
+    return cdf
 
 
 def _indices_from_draws(u: Tensor, pad: Tensor, size: int) -> Tensor:

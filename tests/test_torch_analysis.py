@@ -42,7 +42,7 @@ from metrics_tpu.analysis.san import crosscheck as jax_crosscheck
 from metrics_tpu_torch.analysis import baseline as port_baseline
 from metrics_tpu_torch.analysis import explain
 from metrics_tpu_torch.analysis.contract import class_findings as port_class_findings
-from metrics_tpu_torch.analysis.findings import LINT_RULES, RACE_RULES, RULES, SAN_RULES
+from metrics_tpu_torch.analysis.findings import LINT_RULES, OWN_RULES, RACE_RULES, RULES, SAN_RULES
 from metrics_tpu_torch.analysis.findings import Finding as PortFinding
 from metrics_tpu_torch.analysis.registry import IntrospectedClass as PortIntrospected
 from metrics_tpu_torch.analysis.runner import analyze as port_analyze
@@ -367,16 +367,19 @@ def test_the_ports_baseline_gives_each_waiver_its_own_reason():
     reasons = [w["reason"] for w in waivers]
     assert waivers and all(reasons) and len(set(reasons)) == len(reasons)
     assert not any("bootstrap" in r for r in reasons)
-    assert {w["rule"] for w in waivers} <= set(LINT_RULES) | set(RACE_RULES)
+    assert {w["rule"] for w in waivers} <= set(LINT_RULES) | set(RACE_RULES) | set(SAN_RULES) | set(OWN_RULES)
     assert all(w["path"].startswith("metrics_tpu_torch/") for w in waivers)
 
 
 def test_rule_tables_partition_and_explain():
     assert set(LINT_RULES) == {"TM-HOSTSYNC", "TM-PYBRANCH", "TM-DYNSHAPE", "TM-RETRACE", "TM-STATE-UNREG",
                                "TM-REDUCE-MISMATCH", "TM-PERSIST"}
-    assert set(SAN_RULES) == {"TMS-LINTGAP", "TMS-STALE-WAIVER"}
+    assert set(SAN_RULES) == {"TMS-CALLBACK", "TMS-F64", "TMS-UPCAST", "TMS-BIGCONST", "TMS-COLLECTIVE",
+                              "TMS-DYNSHAPE", "TMS-LINTGAP", "TMS-STALE-WAIVER", "TMS-BUDGET"}
     assert set(RACE_RULES) == {"TMR-UNLOCKED", "TMR-ORDER", "TMR-HOLD-HOST", "TMR-HANDLER", "TMR-LEAK"}
-    assert set(RULES) == set(LINT_RULES) | set(SAN_RULES) | set(RACE_RULES)
+    assert set(OWN_RULES) == {"TMO-DONATE-ALIAS", "TMO-USE-AFTER-DONATE", "TMO-DOUBLE-DONATE", "TMO-SNAPSHOT-GAP",
+                              "TMO-KEY-GAP", "TMO-ENGINE-DRIFT"}
+    assert set(RULES) == set(LINT_RULES) | set(SAN_RULES) | set(RACE_RULES) | set(OWN_RULES)
     from metrics_tpu.analysis.findings import RULES as JAX_RULES
 
     for rule_id, rule in RULES.items():

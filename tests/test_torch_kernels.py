@@ -1014,6 +1014,46 @@ def test_ingest_reader_on_another_stream_sees_every_tick_on_card(cuda, ticker):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("freer", ["capturing_thread", "other_thread"])
+def test_a_step_freed_while_another_captures_leaves_that_capture_whole_on_card(cuda, freer):
+    """Freeing a captured step's CUDA graph while a capture is open invalidates that
+    capture: the graph's ``cudaGraphExecDestroy`` is refused ("operation not permitted when
+    stream is capturing") and the open capture ends with "a previous error during capture"
+    (the ingest queue's degraded ticks of ROADMAP C 13, where the collector freed an
+    earlier test's steps during a tick's capture). A step freed then keeps its graph until
+    no capture is open. Each trial frees a step in the middle of another step's capture, on
+    the capturing thread or on another one."""
+    import threading
+
+    from metrics_tpu_torch.core.fused import CapturedStep
+
+    device = torch.device(cuda)
+    x = torch.ones(16, device=cuda)
+    for _trial in range(20):
+        doomed = [CapturedStep(lambda s, e: ({"s": s["s"] + e}, None), {"s": torch.zeros(16, device=cuda)}, [x],
+                               device)]
+
+        def free():
+            doomed.clear()  # the last reference: the step and its graph go here
+
+        def step(states, extra):
+            if torch.cuda.is_current_stream_capturing() and doomed:
+                if freer == "capturing_thread":
+                    free()
+                else:
+                    t = threading.Thread(target=free)
+                    t.start()
+                    t.join(timeout=30)
+                    assert not t.is_alive()
+            return {"s": states["s"] * 2 + extra}, None
+
+        captured = CapturedStep(step, {"s": torch.zeros(16, device=cuda)}, [x], device)
+        assert doomed == []  # the capture ran the step's body
+        new, _ = captured({"s": torch.zeros(16, device=cuda)}, [x])
+        assert torch.equal(new["s"], x)
+
+
+@pytest.mark.cuda
 def test_a_capture_under_a_live_profiler_keeps_its_ranges_on_the_host_on_card(cuda, tmp_path):
     """With obs on and ``obs.trace`` running, the fused engine's first step captures its
     graph inside a ``tm.fused/step`` ``record_function`` range: the range stays on the
